@@ -1,0 +1,138 @@
+"""CLIP ViT visual tower at eval (demo2_tpu/models/clip_vit.py).
+
+Patch conv (no bias) -> CLS (+ the SIE camera embedding, on CLS only) ->
+positional embedding -> ln_pre -> residual blocks -> ln_post -> proj; all
+tokens are returned, projected.  Images are NHWC at the module boundary, as
+in the JAX package.
+
+With `fused=True` (cfg.TPU.USE_FLASH_ATTENTION) each block runs the two
+fused sub-blocks of ops/fused_block.py, i.e. the CUDA kernels on a CUDA
+tensor; otherwise the plain LayerNorm / MHA / MLP modules.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.activations import quick_gelu
+from ..ops.attention import MultiHeadAttention
+from ..ops.fused_block import fused_attention_block, fused_mlp_block
+from ..ops.linear import Linear, cached_cast, make_param, normal_init, truncated_normal_init
+from ..ops.norm import LayerNorm
+
+
+class PatchConv(nn.Module):
+    """The bias-free patch-embedding conv: (B, H, W, 3) -> (B, N, width), the
+    tokens row-major over the patch grid.  Weight in torch's OIHW layout."""
+
+    def __init__(self, width: int, patch_size: int, stride: int, *, dtype: torch.dtype,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        fan_in = 3 * patch_size * patch_size
+        # flax Conv's default lecun_normal: truncated normal of variance 1/fan_in.
+        self.weight = make_param(
+            (width, 3, patch_size, patch_size),
+            truncated_normal_init(math.sqrt(1.0 / fan_in) / 0.87962566103423978),
+            generator=generator, device=device,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), cached_cast(self, "weight", dt),
+                     stride=self.stride)
+        return y.flatten(2).transpose(1, 2)
+
+
+class CLIPMlp(nn.Module):
+    def __init__(self, width: int, *, dtype: torch.dtype, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.c_fc = Linear(width, 4 * width, dtype=dtype, device=device, generator=generator)
+        self.c_proj = Linear(4 * width, width, dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(quick_gelu(self.c_fc(x)))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x))."""
+
+    def __init__(self, width: int, heads: int, *, dtype: torch.dtype, fused: bool,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.heads = heads
+        self.dtype = dtype
+        self.fused = fused
+        self.ln_1 = LayerNorm(width, device=device)
+        self.attn = MultiHeadAttention(width, heads, dtype=dtype, device=device,
+                                       generator=generator)
+        self.ln_2 = LayerNorm(width, device=device)
+        self.mlp = CLIPMlp(width, dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fused:
+            x = x + self.attn(self.ln_1(x))
+            return x + self.mlp(self.ln_2(x))
+        dt = self.dtype
+        attn, mlp = self.attn, self.mlp
+        x = fused_attention_block(
+            x, self.ln_1.weight, self.ln_1.bias,
+            cached_cast(attn, "in_proj_weight", dt), attn.in_proj_bias,
+            cached_cast(attn.out_proj, "weight", dt), attn.out_proj.bias,
+            num_heads=self.heads, scale=(x.shape[-1] // self.heads) ** -0.5,
+        )
+        return fused_mlp_block(
+            x, self.ln_2.weight, self.ln_2.bias,
+            cached_cast(mlp.c_fc, "weight", dt), mlp.c_fc.bias,
+            cached_cast(mlp.c_proj, "weight", dt), mlp.c_proj.bias,
+        )
+
+
+class CLIPVisionTransformer(nn.Module):
+    def __init__(self, h_resolution: int, w_resolution: int, *, stride_size: int,
+                 width: int, layers: int, heads: int, dtype: torch.dtype, fused: bool,
+                 device: torch.device, generator: torch.Generator,
+                 patch_size: int = 16, output_dim: int = 512):
+        super().__init__()
+        self.width = width
+        self.dtype = dtype
+        scale = width ** -0.5
+        self.conv1 = PatchConv(width, patch_size, stride_size, dtype=dtype, device=device,
+                               generator=generator)
+        self.class_embedding = make_param((width,), normal_init(scale), generator=generator,
+                                          device=device)
+        self.positional_embedding = make_param(
+            (h_resolution * w_resolution + 1, width), normal_init(scale),
+            generator=generator, device=device,
+        )
+        self.ln_pre = LayerNorm(width, device=device)
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(width, heads, dtype=dtype, fused=fused, device=device,
+                                   generator=generator)
+            for _ in range(layers)
+        )
+        self.ln_post = LayerNorm(width, device=device)
+        self.proj = make_param((width, output_dim), normal_init(scale), generator=generator,
+                               device=device)
+
+    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, H, W, 3) images, cv_emb (B, width) or None -> (B, N+1, output_dim)."""
+        dt = self.dtype
+        b = x.shape[0]
+        x = self.conv1(x)
+        cls = cached_cast(self, "class_embedding", dt).expand(b, 1, self.width)
+        if cv_emb is not None:
+            cls = cls + cv_emb.to(dt)[:, None, :]
+        x = torch.cat([cls, x], dim=1) + cached_cast(self, "positional_embedding", dt)[None]
+        x = self.ln_pre(x)
+        for blk in self.resblocks:
+            x = blk(x)
+        x = self.ln_post(x)
+        return x @ cached_cast(self, "proj", dt)

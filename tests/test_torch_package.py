@@ -1,0 +1,108 @@
+"""The port as a package: it imports without JAX, its config is the JAX
+package's config, and configurations outside the ported slice raise."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import demo2_tpu.config as jcfg
+import demo2_tpu.config.presets as jpresets
+from demo2_tpu.engine.eval import MISS_MASKS as J_MISS_MASKS
+import demo2_tpu_torch.config as tcfg
+import demo2_tpu_torch.config.presets as tpresets
+from demo2_tpu_torch.engine.eval import MISS_MASKS, miss_mask
+from demo2_tpu_torch.models import make_model
+from torch_port_helpers import CPU, generator
+
+REPO = Path(__file__).resolve().parent.parent
+
+_BLOCKED_IMPORT = """
+import sys
+for name in ("jax", "flax", "demo2_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import importlib, pkgutil
+import demo2_tpu_torch
+for m in pkgutil.walk_packages(demo2_tpu_torch.__path__, "demo2_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _tree(cfg):
+    return {sec: (dict(vars(node)) if dataclasses.is_dataclass(node) else node)
+            for sec, node in vars(cfg).items() if not sec.startswith("_")}
+
+
+@pytest.mark.parametrize("preset", ["defaults", "flagship_tpu", "flagship_cpu", "tiny"])
+def test_config_is_the_jax_packages_config(preset):
+    trees = []
+    for cfg_mod, presets in ((jcfg, jpresets), (tcfg, tpresets)):
+        cfg = cfg_mod.get_cfg_defaults()
+        if preset.startswith("flagship"):
+            presets.apply_flagship(cfg, on_tpu=preset == "flagship_tpu")
+        elif preset == "tiny":
+            presets.apply_tiny(cfg)
+        trees.append(_tree(cfg))
+    assert trees[0] == trees[1]
+
+
+def test_miss_masks_are_the_jax_packages():
+    assert MISS_MASKS == J_MISS_MASKS
+    assert miss_mask("nt", device=CPU).tolist() == [1.0, 0.0, 0.0]
+    with pytest.raises(ValueError, match="TEST.MISS"):
+        miss_mask("rnt", device=CPU)
+
+
+def _flagship_tiny():
+    cfg = tcfg.get_cfg_defaults()
+    tpresets.apply_flagship(cfg, on_tpu=False)
+    tpresets.apply_tiny(cfg)
+    return cfg
+
+
+@pytest.mark.parametrize("section,key,value", [
+    ("MODEL", "ARCH", "DeMo_Parallel"),
+    ("MODEL", "ARCH", "DeMoBeiyong"),
+    ("MODEL", "USE_DGAF", False),
+    ("MODEL", "USE_FRCA", True),
+    ("MODEL", "DGAF_VERSION", "v1"),
+    ("MODEL", "HDM", True),
+    ("MODEL", "GLOBAL_LOCAL", True),
+    ("MODEL", "FROZEN", True),
+    ("MODEL", "ADAPTER", True),
+    ("MODEL", "PROMPT", True),
+    ("MODEL", "TRANSFORMER_TYPE", "vit_base_patch16_224"),
+    ("TPU", "INT8_MLP", "dynamic"),
+])
+def test_configs_outside_the_slice_raise(section, key, value):
+    cfg = _flagship_tiny()
+    setattr(getattr(cfg, section), key, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_model(cfg, 6, 4, device=CPU, generator=generator())
+
+
+def test_training_forward_is_not_ported():
+    model = make_model(_flagship_tiny(), 6, 4, device=CPU, generator=generator())
+    with pytest.raises(NotImplementedError, match="training"):
+        model(torch.zeros(1, 3, 64, 32, 3), torch.zeros(1, dtype=torch.long), train=True)
+
+
+def test_seeded_init_is_deterministic():
+    cfg = _flagship_tiny()
+    a = make_model(cfg, 6, 4, device=CPU, generator=generator(7)).state_dict()
+    b = make_model(cfg, 6, 4, device=CPU, generator=generator(7)).state_dict()
+    c = make_model(cfg, 6, 4, device=CPU, generator=generator(8)).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["backbone.base.proj"], c["backbone.base.proj"])
