@@ -1,13 +1,19 @@
-// Attention sub-block of the CLIP ViT at eval: out = x + out_proj(MHA(LN1(x))).
+// Attention sub-block of the CLIP ViT: out = x + out_proj(MHA(LN1(x))), at
+// eval and, with its training residuals, in training.
 //
-// Replaces the Pallas kernel demo2_tpu/ops/fused_block.py::_fwd_kernel_infer
-// (reached through _fused_infer_impl), with its numerics:
+// Replaces the Pallas kernels demo2_tpu/ops/fused_block.py::_fwd_kernel_infer
+// (eval, reached through _fused_infer_impl) and ::_fwd_kernel (training,
+// reached through _fused_fwd_impl), with their numerics:
 //   * LN1 statistics in f32 (centered two-pass variance), t rounded to bf16;
 //   * qkv = bf16(t @ Wqkv^T + bqkv) with f32 accumulation and f32 bias;
 //   * scores in f32, keys >= S masked (here: never visited), softmax in f32
 //     with +1e-30 in the denominator, p normalised then rounded to bf16;
 //   * attn = bf16(p @ v) with f32 accumulation;
 //   * y = bf16(attn @ Wout^T + bout); out = bf16(x + y)  (residual in bf16).
+// The training entry also keeps qkv and attn (which the eval entry writes as
+// scratch) and stores the bf16 p of every (sample, head) in the probs layout
+// of demo2_tpu_torch/ops/packed_attention.py: (B, H, S, S16), S16 = S rounded
+// up to 16, columns >= S zero.  That is the layout attention_bwd.cu reads.
 //
 // Design: four launches on the caller's stream.
 //   1. layernorm_kernel: t = LN1(x) in bf16, once per row;
@@ -45,10 +51,11 @@ constexpr int kLdP = kMaxSeq + 8;
 constexpr int kAttnThreads = 128;
 
 // qkv: (B*S, 3C) rows, q | k | v, each head-major (H, 64) inside its C slice.
-// out: (B*S, C).
+// out: (B*S, C).  With kSaveProbs, probs: (B, H, S, S16) bf16.
+template <bool kSaveProbs>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int C,
-                 float scale) {
+attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                 bf16* __restrict__ probs, int S, int C, float scale) {
   using namespace nvcuda;
   __shared__ __align__(128) bf16 q_s[kQTile * kLdQK];
   __shared__ __align__(128) bf16 kv_s[kMaxSeq * kLdQK];
@@ -128,6 +135,19 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, in
   }
   __syncthreads();
 
+  if (kSaveProbs) {  // the tile's rows < S, all S16 columns, 16-byte vectors
+    const int vecs = s_pad / 8;
+    bf16* dst = probs + ((static_cast<size_t>(b) * gridDim.y + h) * S + q0) * s_pad;
+    for (int i = tid; i < kQTile * vecs; i += kAttnThreads) {
+      const int r = i / vecs;
+      const int c = (i - r * vecs) * 8;
+      if (q0 + r < S) {
+        *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * s_pad + c) =
+            *reinterpret_cast<const uint4*>(&p_s[r * kLdP + c]);
+      }
+    }
+  }
+
   // O = P V: warp w owns output columns 16w .. 16w+15; staged through s_s.
   {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -156,14 +176,42 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, in
   }
 }
 
+// The four launches; probs == nullptr is the eval path (no probs store).
+cudaError_t attention_block(const bf16* x, const float* ln_scale, const float* ln_bias,
+                            const bf16* wqkv, const float* bqkv, const bf16* wout,
+                            const float* bout, bf16* out, bf16* t, bf16* qkv, bf16* attn,
+                            bf16* probs, int batch, int seq, int width, int heads, float scale,
+                            cudaStream_t st) {
+  const int rows = batch * seq;
+  cudaError_t err = launch_layernorm(x, ln_scale, ln_bias, t, rows, width, st);
+  if (err != cudaSuccess) return err;
+
+  err = launch_gemm(t, wqkv, rows, 3 * width, width, BiasEpilogue{qkv, bqkv, 3 * width}, st);
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
+  if (probs != nullptr) {
+    attention_kernel<true><<<grid, kAttnThreads, 0, st>>>(qkv, attn, probs, seq, width, scale);
+  } else {
+    attention_kernel<false><<<grid, kAttnThreads, 0, st>>>(qkv, attn, nullptr, seq, width, scale);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  return launch_gemm(attn, wout, rows, width, width,
+                     BiasResidualBf16Epilogue{out, bout, x, width}, st);
+}
+
 }  // namespace
 }  // namespace demo2
 
-// Plain C entry, loaded with ctypes.  Pointers are device pointers; x, out,
+// Plain C entries, loaded with ctypes.  Pointers are device pointers; x, out,
 // qkv and attn are row-major bf16, the LayerNorm and bias vectors f32, the
 // weights bf16 in torch's Linear layout (out, in).  t and attn are (B*S, C)
-// and qkv (B*S, 3C) bf16 scratch.  Returns the first
-// non-zero cudaGetLastError() of the launches, else 0.
+// and qkv (B*S, 3C) bf16.  Each returns the first non-zero cudaGetLastError()
+// of its launches, else 0.
+//
+// Eval (kernel 1): t, qkv and attn are scratch.
 extern "C" int demo2_fused_attention_block(const void* x, const void* ln_scale,
                                            const void* ln_bias, const void* wqkv,
                                            const void* bqkv, const void* wout,
@@ -171,31 +219,32 @@ extern "C" int demo2_fused_attention_block(const void* x, const void* ln_scale,
                                            void* attn, int batch, int seq, int width, int heads,
                                            float scale, void* stream) {
   using namespace demo2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = batch * seq;
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* tb = static_cast<bf16*>(t);
-  bf16* qkvb = static_cast<bf16*>(qkv);
-  bf16* attnb = static_cast<bf16*>(attn);
+  return static_cast<int>(attention_block(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wout),
+      static_cast<const float*>(bout), static_cast<bf16*>(out), static_cast<bf16*>(t),
+      static_cast<bf16*>(qkv), static_cast<bf16*>(attn), nullptr, batch, seq, width, heads,
+      scale, static_cast<cudaStream_t>(stream)));
+}
 
-  cudaError_t err = launch_layernorm(xb, static_cast<const float*>(ln_scale),
-                                     static_cast<const float*>(ln_bias), tb, rows, width, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = launch_gemm(tb, static_cast<const bf16*>(wqkv), rows, 3 * width, width,
-                    BiasEpilogue{qkvb, static_cast<const float*>(bqkv), 3 * width}, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
-  attention_kernel<<<grid, kAttnThreads, 0, st>>>(qkvb, attnb, seq, width, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = launch_gemm(attnb, static_cast<const bf16*>(wout), rows, width, width,
-                    BiasResidualBf16Epilogue{static_cast<bf16*>(out),
-                                             static_cast<const float*>(bout), xb, width},
-                    st);
-  return static_cast<int>(err);
+// Training (kernel 3): qkv and attn are the residuals the backward reads, and
+// probs (B, H, S, S16) bf16 receives the normalised probabilities.
+extern "C" int demo2_fused_attention_block_train(const void* x, const void* ln_scale,
+                                                 const void* ln_bias, const void* wqkv,
+                                                 const void* bqkv, const void* wout,
+                                                 const void* bout, void* out, void* t,
+                                                 void* qkv, void* attn, void* probs, int batch,
+                                                 int seq, int width, int heads, float scale,
+                                                 void* stream) {
+  using namespace demo2;
+  return static_cast<int>(attention_block(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wout),
+      static_cast<const float*>(bout), static_cast<bf16*>(out), static_cast<bf16*>(t),
+      static_cast<bf16*>(qkv), static_cast<bf16*>(attn), static_cast<bf16*>(probs), batch, seq,
+      width, heads, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Compile-time limits the Python wrapper checks before launching.

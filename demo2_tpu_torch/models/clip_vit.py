@@ -1,13 +1,16 @@
-"""CLIP ViT visual tower at eval (demo2_tpu/models/clip_vit.py).
+"""CLIP ViT visual tower (demo2_tpu/models/clip_vit.py).
 
 Patch conv (no bias) -> CLS (+ the SIE camera embedding, on CLS only) ->
 positional embedding -> ln_pre -> residual blocks -> ln_post -> proj; all
 tokens are returned, projected.  Images are NHWC at the module boundary, as
 in the JAX package.
 
-With `fused=True` (cfg.TPU.USE_FLASH_ATTENTION) each block runs the two
-fused sub-blocks of ops/fused_block.py, i.e. the CUDA kernels on a CUDA
-tensor; otherwise the plain LayerNorm / MHA / MLP modules.
+With `fused=True` (cfg.TPU.USE_FLASH_ATTENTION) each block runs the fused
+sub-blocks of ops/fused_block.py, i.e. the CUDA kernels on a CUDA tensor:
+at eval the fused attention and the fused MLP; in training, or wherever a
+gradient has to flow, the fused attention with its custom backward, then the
+unfused ln_2 + MLP, as TPU.FUSED_MLP_TRAIN=False does in the JAX package.
+Otherwise the plain LayerNorm / MHA / MLP modules.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from ..ops.activations import quick_gelu
 from ..ops.attention import MultiHeadAttention
-from ..ops.fused_block import fused_attention_block, fused_mlp_block
+from ..ops.fused_block import fused_attention, fused_mlp_block, needs_grad
 from ..ops.linear import Linear, cached_cast, make_param, normal_init, truncated_normal_init
 from ..ops.norm import LayerNorm
 
@@ -76,18 +79,23 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width, device=device)
         self.mlp = CLIPMlp(width, dtype=dtype, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not self.fused:
             x = x + self.attn(self.ln_1(x))
             return x + self.mlp(self.ln_2(x))
         dt = self.dtype
         attn, mlp = self.attn, self.mlp
-        x = fused_attention_block(
-            x, self.ln_1.weight, self.ln_1.bias,
-            cached_cast(attn, "in_proj_weight", dt), attn.in_proj_bias,
-            cached_cast(attn.out_proj, "weight", dt), attn.out_proj.bias,
-            num_heads=self.heads, scale=(x.shape[-1] // self.heads) ** -0.5,
-        )
+        params = (self.ln_1.weight, self.ln_1.bias, attn.in_proj_weight, attn.in_proj_bias,
+                  attn.out_proj.weight, attn.out_proj.bias)
+        if not needs_grad(x, *params):  # eval: the weights' cached casts
+            params = (params[0], params[1], cached_cast(attn, "in_proj_weight", dt), params[3],
+                      cached_cast(attn.out_proj, "weight", dt), params[5])
+        x = fused_attention(x, *params, num_heads=self.heads,
+                            scale=(x.shape[-1] // self.heads) ** -0.5)
+        # The fused MLP kernel has no backward: where a gradient has to flow,
+        # the unfused MLP runs (in training that is TPU.FUSED_MLP_TRAIN=False).
+        if train or needs_grad(x, *self.ln_2.parameters(), *mlp.parameters()):
+            return x + self.mlp(self.ln_2(x))
         return fused_mlp_block(
             x, self.ln_2.weight, self.ln_2.bias,
             cached_cast(mlp.c_fc, "weight", dt), mlp.c_fc.bias,
@@ -122,7 +130,8 @@ class CLIPVisionTransformer(nn.Module):
         self.proj = make_param((width, output_dim), normal_init(scale), generator=generator,
                                device=device)
 
-    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         """x (B, H, W, 3) images, cv_emb (B, width) or None -> (B, N+1, output_dim)."""
         dt = self.dtype
         b = x.shape[0]
@@ -133,6 +142,6 @@ class CLIPVisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + cached_cast(self, "positional_embedding", dt)[None]
         x = self.ln_pre(x)
         for blk in self.resblocks:
-            x = blk(x)
+            x = blk(x, train)
         x = self.ln_post(x)
         return x @ cached_cast(self, "proj", dt)

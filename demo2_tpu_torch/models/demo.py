@@ -1,10 +1,10 @@
-"""DeMo at eval, the flagship branch: CLIP backbone -> SDTPS -> DGAF v3 ->
-BNNeck head (demo2_tpu/models/demo.py::DeMo, branch 4 with the SDTPS
-selector, make_model.py:872-962 of the reference).
+"""DeMo, the flagship branch: CLIP backbone -> SDTPS -> DGAF v3 -> BNNeck
+head (demo2_tpu/models/demo.py::DeMo, branch 4 with the SDTPS selector,
+make_model.py:872-962 of the reference), at eval and in training.
 
 The output contract is the JAX package's: {"branches": {name: (logits,
 feat)}, "embedding": f32 (B, 3C), "aux_loss": {}}.  Every configuration
-outside this slice raises NotImplementedError naming its ROADMAP item.
+outside the ported slices raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,14 +57,46 @@ def check_slice(cfg: Config) -> None:
         raise not_ported(f"TPU.INT8_MLP={cfg.TPU.INT8_MLP!r}", "the rest of the modules")
 
 
+def train_slice_error(cfg: Config, model_only: bool = False):
+    """The error for a training configuration outside the training slice, or
+    None.  The model's training forward raises the model's part
+    (`model_only`), create_train_state and build_train_step all of it."""
+    t, m = cfg.TPU, cfg.MODEL
+    for flag, item in (
+        ("FUSED_MLP_TRAIN", "the fused MLP's training backward (TPU.FUSED_MLP_TRAIN)"),
+        ("PALLAS_LN_BWD", "kernel 11"),
+        ("REMAT_BACKBONE", "the rest of the modules (REMAT_BACKBONE)"),
+    ):
+        if getattr(t, flag):
+            return not_ported(f"TPU.{flag}", item)
+    if model_only:
+        return None
+    if t.PIPELINED_AUGMENT:
+        return not_ported("TPU.PIPELINED_AUGMENT", "the rest of the modules (not ported)")
+    if "center" in m.METRIC_LOSS_TYPE:
+        return not_ported(f"MODEL.METRIC_LOSS_TYPE={m.METRIC_LOSS_TYPE!r} (center loss)",
+                          "the rest of the modules (center loss)")
+    if t.ENABLE_COSINE_SCHEDULE and cfg.SOLVER.LR_SCHEDULER == "cosine":
+        return not_ported("the cosine LR schedule", "the rest of the modules (timm_cosine_lr)")
+    if t.NUM_DEVICES > 1:
+        return not_ported(f"TPU.NUM_DEVICES={t.NUM_DEVICES}",
+                          "the rest of the modules (parallel/ as DDP / NCCL)")
+    if t.DATA_CACHE != "device":
+        return not_ported(f"TPU.DATA_CACHE={t.DATA_CACHE!r} (the host loader)",
+                          "eval entry points and datasets")
+    return None
+
+
 class DeMo(nn.Module):
     def __init__(self, cfg: Config, num_classes: int, camera_num: int, *,
                  device: torch.device, generator: torch.Generator):
         super().__init__()
         check_slice(cfg)
+        self.train_error = train_slice_error(cfg, model_only=True)
         m = cfg.MODEL
         dtype = compute_dtype(cfg)
         self.dtype = dtype
+        self.num_classes = num_classes
         self.direct = bool(m.DIRECT)
         self.feat_dim = feat_dim_for(m.TRANSFORMER_TYPE)
         kw = dict(device=device, generator=generator)
@@ -103,18 +135,22 @@ class DeMo(nn.Module):
         return 3 * self.feat_dim
 
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
-                modality_mask: Optional[torch.Tensor] = None,
-                train: bool = False) -> Dict[str, Any]:
+                modality_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """images (B, 3, H, W, 3), cam_label (B,), modality_mask (3,) or (B, 3).
+        `train` selects batch statistics in the BNNecks, dropout in SDTPS
+        (drawn from `generator`) and the training kernels of the backbone.
         The JAX model's view_label and return_pattern act only on branches
         not ported yet (SIE views, the 'moe' embedding)."""
-        if train:
-            raise not_ported("the training forward", "the training slice")
-        patches, globals_ = self.backbone(images.to(self.dtype), cam_label, modality_mask)
-        enh, _ = self.sdtps(patches, globals_)
+        if train and self.train_error is not None:
+            raise self.train_error
+        patches, globals_ = self.backbone(images.to(self.dtype), cam_label, modality_mask,
+                                          train)
+        enh, _ = self.sdtps(patches, globals_, train, generator)
         dgaf_feat = self.dgaf(enh)
-        branches = {"dgaf": (self.head_dgaf(dgaf_feat), dgaf_feat)}
+        branches = {"dgaf": (self.head_dgaf(dgaf_feat, train), dgaf_feat)}
         if not self.direct:
             for i, nm in enumerate(("r", "n", "t")):
-                branches[f"ori_{nm}"] = (getattr(self, f"head_{nm}")(globals_[i]), globals_[i])
+                head = getattr(self, f"head_{nm}")
+                branches[f"ori_{nm}"] = (head(globals_[i], train), globals_[i])
         return {"branches": branches, "embedding": dgaf_feat.float(), "aux_loss": {}}

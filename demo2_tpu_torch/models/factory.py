@@ -10,6 +10,7 @@ from .demo import DeMo
 
 def make_model(cfg: Config, num_class: int, camera_num: int, *,
                device: torch.device, generator: torch.Generator) -> DeMo:
-    """The eval model on `device`, its weights drawn from `generator` (a CPU
-    torch.Generator: one seed gives the same weights on every device)."""
+    """The model on `device`, its weights drawn from `generator` (a CPU
+    torch.Generator: one seed gives the same weights on every device).  Each
+    forward selects eval or training with its `train` argument."""
     return DeMo(cfg, num_class, camera_num, device=device, generator=generator).eval()

@@ -1,4 +1,5 @@
-"""BNNeck + bias-free classifier head at eval (demo2_tpu/models/heads.py)."""
+"""BNNeck + bias-free classifier head (demo2_tpu/models/heads.py); the BNNeck
+uses batch statistics in training."""
 
 from __future__ import annotations
 
@@ -18,5 +19,5 @@ class ClassifierHead(nn.Module):
                                  weight_init=normal_init(0.001), dtype=torch.float32,
                                  device=device, generator=generator)
 
-    def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.bottleneck(feat).float())
+    def forward(self, feat: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.classifier(self.bottleneck(feat, train).float())

@@ -50,7 +50,7 @@ class PIFE(nn.Module):
         )
 
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
-                modality_mask: Optional[torch.Tensor] = None):
+                modality_mask: Optional[torch.Tensor] = None, train: bool = False):
         """images (B, 3, H, W, 3): [batch, modality, H, W, channel]."""
         b = images.shape[0]
         m = NUM_MODALITIES
@@ -64,6 +64,6 @@ class PIFE(nn.Module):
         if self.cv_embed is not None and cam_label is not None:
             cv_emb = self.sie_coe * self.cv_embed[cam_label.long().repeat(m)]
             cv_emb = cv_emb[:, : self.width]
-        tokens = self.base(x, cv_emb)
+        tokens = self.base(x, cv_emb, train)
         tokens = tokens.reshape(m, b, *tokens.shape[1:])
         return tokens[:, :, 1:], tokens[:, :, 0]

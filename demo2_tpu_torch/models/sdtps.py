@@ -1,9 +1,12 @@
-"""SDTPS token scoring and soft masking at eval (demo2_tpu/models/sdtps.py).
+"""SDTPS token scoring and soft masking (demo2_tpu/models/sdtps.py).
 
 All 9 (modality, guide) pairs are scored by stacked einsums over parameters
 with leading (3, 3) axes; the quantile threshold + sigmoid soft mask keeps
 shapes static.  SDTPS_CROSS_ATTN_TYPE='attention' adds the projected
 cross-attention logits to the cosine scores; 'cosine' uses the cosines alone.
+In training the modality-weight MLPs' dropout draws from the caller's
+torch.Generator (flax's 'dropout' rng in the JAX package: the two give
+different draws from one seed).
 """
 
 from __future__ import annotations
@@ -35,12 +38,22 @@ def _xavier_half(fan_in: int, fan_out: int):
     return uniform_init(math.sqrt(3.0 * 0.25 / ((fan_in + fan_out) / 2.0)))
 
 
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """flax nn.Dropout in training: keep with probability 1 - rate, scale
+    the kept values by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ModalWeightMLP(nn.Module):
     """Sample-adaptive modality-weight MLP: (B, 3C) -> (B, 3) logits."""
 
     def __init__(self, in_features: int, *, dtype: torch.dtype, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.fc0 = Linear(in_features, 256, weight_init=_xavier_half(in_features, 256), **kw)
         self.ln = LayerNorm(256, device=device)
@@ -48,8 +61,11 @@ class ModalWeightMLP(nn.Module):
         # Zero-initialised so that the initial modality weights are uniform.
         self.fc2 = Linear(64, 3, weight_init=zeros_init, **kw)
 
-    def forward(self, g: torch.Tensor) -> torch.Tensor:
+    def forward(self, g: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
         x = F.gelu(self.ln(self.fc0(g)))
+        if train:
+            x = dropout(x, self.dropout, generator)
         x = F.gelu(self.fc1(x))
         return self.fc2(x)
 
@@ -84,7 +100,8 @@ class MultiModalSDTPS(nn.Module):
         var = (s - mean).square().sum(-1, keepdim=True) / max(n - 1, 1)
         return torch.sigmoid((s - mean) / (torch.sqrt(var + 1e-20) + 1e-5))
 
-    def forward(self, patches: torch.Tensor, globals_: torch.Tensor):
+    def forward(self, patches: torch.Tensor, globals_: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None):
         """patches (3, B, N, C), globals_ (3, B, C) -> (enhanced patches, mask (3, B, N))."""
         m, b, n, c = patches.shape
         pn = l2_normalize(patches.float())
@@ -109,7 +126,8 @@ class MultiModalSDTPS(nn.Module):
 
         gcat = torch.cat([globals_[0], globals_[1], globals_[2]], dim=-1)
         weights = torch.stack(
-            [torch.softmax(mlp(gcat).float(), dim=-1) for mlp in self.modal_weight_mlp]
+            [torch.softmax(mlp(gcat, train, generator).float(), dim=-1)
+             for mlp in self.modal_weight_mlp]
         )  # (3, B, 3)
         score = torch.einsum("mjbn,mbj->mbn", s_norm, weights)
 

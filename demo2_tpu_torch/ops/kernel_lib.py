@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under demo2_tpu_torch/csrc/.
 
-The sources are compiled at first use with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes.  The library
+The sources are compiled at first use with nvcc for Hopper (sm_90a), one
+nvcc process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  The library
 lands in demo2_tpu_torch/_build/<hash of sources and flags>/, so a changed
 source builds anew and an unchanged one loads at once.  Nothing here runs at
 import time; a missing nvcc or a failed build raises.
@@ -23,11 +24,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu")
+SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu")
 HEADERS = ("gemm.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libdemo2_kernels.so"
 
@@ -35,9 +36,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "demo2_fused_attention_block": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_fused_attention_block_train": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
+    "demo2_attention_bwd_head_dim": [],
+    "demo2_attention_bwd_max_seq": [],
 }
 
 
@@ -79,19 +85,29 @@ def source_hash() -> str:
 def _build(out_dir: Path) -> tuple[float, str]:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=".tmp_", suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
+    work = Path(tempfile.mkdtemp(prefix=".tmp_", dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(work / f"{src}.o"),
+             str(CSRC_DIR / src)] for src in SOURCES]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+            str(work / LIB_NAME), *(str(work / f"{src}.o") for src in SOURCES)]
+    failed = [c for c, proc in zip(cmds, procs) if proc.returncode != 0]
+    if not failed:
+        linked = subprocess.run(link, capture_output=True, text=True)
+        outs.append(linked.stdout + linked.stderr)
+        if linked.returncode != 0:
+            failed.append(link)
     seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds + [link], outs))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{log}")
     (out_dir / "build.log").write_text(log)
-    os.replace(tmp, out_dir / LIB_NAME)  # atomic: two processes building at once both succeed
+    os.replace(work / LIB_NAME, out_dir / LIB_NAME)  # atomic: concurrent builds both succeed
+    shutil.rmtree(work, ignore_errors=True)
     return seconds, log
 
 
@@ -119,3 +135,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = kernel_library().lib.demo2_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def expect(t, name: str, shape, dtype, device) -> None:
+    """Raise unless `t` is what a kernel takes: device, dtype, shape, and
+    contiguous 16-byte aligned storage."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the kernel runs on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")

@@ -1,9 +1,10 @@
 """Linear layer, seeded initialisers and cached dtype casts.
 
 Parameters are stored in f32, as the JAX package stores them
-(param_dtype=float32), and cast to the compute dtype at use.  The cast is
-cached per parameter (`cached_cast`) so that a bf16 model casts each weight
-once, not once per call.
+(param_dtype=float32), and cast to the compute dtype at use.  Outside
+training the cast is cached per parameter (`cached_cast`) so that a bf16
+model casts each weight once, not once per call; in training it is a
+differentiable cast, so the gradient reaches the f32 parameter.
 
 Initialisers follow the flax ones of demo2_tpu/ops/linear.py and draw from
 an explicit CPU `torch.Generator`; the values are then moved to `device`, so
@@ -70,13 +71,22 @@ def make_param(shape, init: Init, *, generator: torch.Generator,
 
 
 def cached_cast(module: nn.Module, name: str, dtype: torch.dtype) -> Optional[torch.Tensor]:
-    """`module.<name>` as a contiguous tensor of `dtype`, cast once and reused
+    """`module.<name>` as a contiguous tensor of `dtype`.
+
+    Where a gradient is to flow back to the parameter (grad mode on and the
+    parameter requires grad), the cast is a differentiable `to(dtype)` made
+    anew on every call: its graph belongs to the step that made it.  Else
+    (no-grad, inference, buffers) the detached cast is made once and reused
     until the parameter is replaced or written in place."""
     t = getattr(module, name)
     if t is None or (t.dtype == dtype and t.is_contiguous()):
         return t
+    if t.requires_grad and torch.is_grad_enabled():
+        return t.to(dtype).contiguous()
     cache = module.__dict__.setdefault("_cast_cache", {})
-    key = (t.data_ptr(), t._version, t.device, dtype)
+    # A cast made under inference_mode is an inference tensor, which autograd
+    # may not save: it serves inference_mode calls only.
+    key = (t.data_ptr(), t._version, t.device, dtype, torch.is_inference_mode_enabled())
     hit = cache.get(name)
     if hit is None or hit[0] != key:
         hit = (key, t.detach().to(dtype).contiguous())

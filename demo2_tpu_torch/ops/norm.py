@@ -1,4 +1,4 @@
-"""LayerNorm and the eval-mode BatchNorm / BNNeck (demo2_tpu/ops/norm.py)."""
+"""LayerNorm and BatchNorm / BNNeck with torch semantics (demo2_tpu/ops/norm.py)."""
 
 from __future__ import annotations
 
@@ -35,11 +35,15 @@ class LayerNorm(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the last axis at eval: the running statistics, in f32.
+    """BatchNorm over the last axis, torch semantics, statistics in f32.
 
-    Training-mode batch statistics belong to the training slice, which is
-    not ported yet.
+    At eval it normalises with the running statistics.  In training it
+    normalises with the batch's (biased) variance and updates the running
+    statistics in place: momentum 0.1 in the torch convention, the running
+    variance from the unbiased batch variance.
     """
+
+    momentum = 0.1
 
     def __init__(self, features: int, *, device: torch.device, use_bias: bool):
         super().__init__()
@@ -49,8 +53,22 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + EPS)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            # Centered form: E[x^2] - E[x]^2 can go negative in f32.
+            var = (xf - mean).square().mean(dims)
+            n = xf.numel() // xf.shape[-1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + EPS)
         y = y * self.weight
         if self.bias is not None:
             y = y + self.bias
@@ -64,5 +82,5 @@ class BNNeck(nn.Module):
         super().__init__()
         self.bn = TorchBatchNorm(features, device=device, use_bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.bn(x, train)

@@ -1,5 +1,5 @@
 """The port as a package: it imports without JAX, its config is the JAX
-package's config, and configurations outside the ported slice raise."""
+package's config, and configurations outside the ported slices raise."""
 
 import dataclasses
 import os
@@ -16,6 +16,7 @@ from demo2_tpu.engine.eval import MISS_MASKS as J_MISS_MASKS
 import demo2_tpu_torch.config as tcfg
 import demo2_tpu_torch.config.presets as tpresets
 from demo2_tpu_torch.engine.eval import MISS_MASKS, miss_mask
+from demo2_tpu_torch.engine.state import create_train_state
 from demo2_tpu_torch.models import make_model
 from torch_port_helpers import CPU, generator
 
@@ -93,10 +94,23 @@ def test_configs_outside_the_slice_raise(section, key, value):
         make_model(cfg, 6, 4, device=CPU, generator=generator())
 
 
-def test_training_forward_is_not_ported():
-    model = make_model(_flagship_tiny(), 6, 4, device=CPU, generator=generator())
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 3, 64, 32, 3), torch.zeros(1, dtype=torch.long), train=True)
+@pytest.mark.parametrize("section,key,value", [
+    ("TPU", "FUSED_MLP_TRAIN", True),
+    ("TPU", "PALLAS_LN_BWD", True),
+    ("MODEL", "METRIC_LOSS_TYPE", "triplet_center"),
+    ("TPU", "REMAT_BACKBONE", True),
+    ("TPU", "PIPELINED_AUGMENT", True),
+    ("TPU", "NUM_DEVICES", 4),
+])
+def test_training_configs_outside_the_slice_raise(section, key, value):
+    cfg = _flagship_tiny()
+    setattr(getattr(cfg, section), key, value)
+    model = make_model(cfg, 6, 4, device=CPU, generator=generator())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_train_state(cfg, model, steps_per_epoch=4)
+    if section == "TPU" and key in ("FUSED_MLP_TRAIN", "PALLAS_LN_BWD", "REMAT_BACKBONE"):
+        with pytest.raises(NotImplementedError, match=key):  # the model's own part
+            model(torch.zeros(2, 3, 64, 32, 3), torch.zeros(2, dtype=torch.long), train=True)
 
 
 def test_seeded_init_is_deterministic():
