@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 builds the hand-written CUDA kernels from demo2_tpu_torch/csrc, checks each
-against its plain PyTorch version at the flagship shapes, drives the
-flagship (DeMo SDTPS + DGAF v3 on CLIP ViT-B/16, 256x128, bf16, random
+against its plain PyTorch version at the shapes of the paths below, drives
+the flagship (DeMo SDTPS + DGAF v3 on CLIP ViT-B/16, 256x128, bf16, random
 weights from a seed) as a server through FeatureExtractor and match() and as
-a trainer through build_train_step and do_train, and times kernels, requests
-and train steps against the plain path.  Phases:
+a trainer through build_train_step and do_train, drives the same DeMo on
+the ImageNet ViT (vit_base_patch16_224, full width and depth) as a server
+and a trainer, and the head-major attention route, and times kernels,
+requests and train steps against the plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
      versions, kernel build time and ptxas register / smem / spill lines;
@@ -18,9 +20,17 @@ and train steps against the plain path.  Phases:
      residuals and probs, the saved-probs backward with db (4) and without
      (7, bitwise equal to 4's dqkv), and the autograd Function's 7 grads, each
      no further from an f32 run than the plain bf16 path;
+  9. attention kernels: the packed self-attention (5) and its recomputing
+     backward (6) at qkv (192, 129, 2304) and (3, 129, 2304), the head-major
+     attention (9) and its backward (10) at (192, 129, 12, 64) and
+     (3, 129, 12, 64), each output within phase 2's bounds of the plain
+     version and no further from f32 than the plain bf16 version, and within
+     a mean of 1e-5 of the plain version, a bound that the same arithmetic
+     rounded at the wrong point (controls run on the same inputs) fails;
   3. serving: requests of N = 0, 1, 64, 100 images with miss "None" and "nt";
      shape, finiteness, unit norm, 12 launches of kernels 1 and 2 per
-     forward, cosine >= 0.999 to the plain path, match() and CMC / mAP;
+     forward (and of no other kernel), cosine >= 0.999 to the plain path,
+     match() and CMC / mAP;
   4. serving timing (printed): kernels 1 and 2 vs plain with TFLOP/s,
      extractor batch-1 latency and batch-64 throughput on both paths, peak
      memory, a profile of one batch-64 request;
@@ -28,17 +38,29 @@ and train steps against the plain path.  Phases:
      step-1 gradients of both paths (cosine >= 0.999 whole, >= 0.99 per
      block's ln_1 / in_proj / out_proj); 20 Adam (bf16 moments) steps of PK
      batches of 64 = 8 ids x 8 through build_train_step, each launching
-     kernels 3 and 4 12 times and kernels 1 and 2 never; finite losses,
-     every parameter and the BatchNorm statistics changed, the loss falling
-     (mean of the last 5 steps below the first 5's), per-step loss within
-     2% of the plain path's over 10 steps; then an input gradient with the
+     kernels 3 and 4 12 times and no other kernel; finite losses, every
+     parameter and the BatchNorm statistics changed, the loss falling (mean
+     of the last 5 steps below the first 5's), per-step loss within 2% of
+     the plain path's over 10 steps; then an input gradient with the
      weights frozen (as a saliency map takes it), which runs kernel 7;
   7. do_train: one epoch with eval over a small synthetic val cache (kernels
      1 and 2 at eval, 3 and 4 in training), mAP in (0, 1], the best
      checkpoint saved and reloaded;
   8. training timing (printed): kernels 3, 4 and 7 vs plain with TFLOP/s,
      the train step in ms and img/s on both paths in turns, peak memory, a
-     profile of one train step on each path.
+     profile of one train step on each path;
+  10. the head-major route: attention_core(implementation="pallas") and a
+     MultiHeadAttention cross-attention of equal lengths, forward and
+     backward, each launching kernels 9 and 10 once, cosine >= 0.999 to the
+     plain route for the output and every gradient;
+  11. ViT serving: phase 3 on DeMo over vit_base_patch16_224, 12 launches of
+     kernel 5 per forward and of no other kernel;
+  12. ViT training: phase 6 with drop path 0.1 (both paths' generators
+     seeded alike, so their masks agree; step-1 cosine per block's qkv /
+     proj), each step launching kernels 5 and 6 12 times and no other;
+  13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s,
+     the extractor at batch 1 and 64 and the train step on both paths in
+     turns, peak memory, profiles of one request and one step.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
@@ -70,6 +92,14 @@ NUM_CLASSES, CAMERA_NUM = 171, 6  # RGBNT201, as bench.py sizes the flagship
 MAX_ABS_TOL = 6.25e-2
 MEAN_ABS_TOL = 5e-3
 F32_MEAN_RATIO = 1.5
+# Kernels 5, 6, 9 and 10 round at the very points their plain versions round,
+# so the two differ only where an f32 sum taken in another order lands on the
+# other side of a bf16 rounding: a mean of ~3e-7 on an H100.  A kernel that
+# rounds at another point (p to bf16 before PV, say) moves most outputs by a
+# fraction of a bf16 ulp, a mean of ~1e-4, yet passes the three bounds above.
+# Phase 9 holds these kernels to this bound and shows, on the same inputs,
+# that plain versions rounding at the wrong point fail it.
+ROUNDING_MEAN_TOL = 1e-5
 COSINE_MIN = 0.999
 BF16_PEAK_TFLOPS = 989.0  # H100 SXM data sheet, dense, at the 700 W limit
 # A rehearsal on the CPU (import this module, set REHEARSAL = True and call the
@@ -92,6 +122,36 @@ def require_launches(got: dict, want: dict, what: str) -> None:
         log(f"[rehearsal] {what}: launches {got}, on the card {want}")
         return
     require(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def all_kernels() -> dict:
+    """The wrappers of the nine kernels, each counting its launches."""
+    from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    return {"fused_attention_block": fb.fused_attention_block,
+            "fused_mlp_block": fb.fused_mlp_block,
+            "fused_attention_block_train": fb.fused_attention_block_train,
+            "attention_bwd_saved_db": pa.attention_bwd_saved_db,
+            "attention_bwd_saved": pa.attention_bwd_saved,
+            "packed_attention_fwd": pa.packed_attention_fwd,
+            "packed_attention_bwd": pa.packed_attention_bwd,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def reset_counts() -> None:
+    for k in all_kernels().values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {name: k.launches for name, k in all_kernels().items()}
+
+
+def launch_dict(**nonzero) -> dict:
+    """Launch counts of all nine kernels: `nonzero`, the rest 0."""
+    return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
 def sync() -> None:
@@ -233,13 +293,23 @@ def flagship_cfg(fused: bool, **overrides):
     return cfg.freeze()
 
 
-def build_models(device):
+def vit_cfg(fused: bool, **overrides):
+    """DeMo (SDTPS + DGAF v3) on vit_base_patch16_224: the flagship recipe
+    with the ImageNet ViT backbone at its full width, drop path 0.1."""
+    return flagship_cfg(fused, MODEL__TRANSFORMER_TYPE="vit_base_patch16_224",
+                        MODEL__DROP_PATH=0.1, TPU__BACKBONE_WIDTH=-1, TPU__BACKBONE_HEADS=-1,
+                        **overrides)
+
+
+def build_models(device, make_cfg=flagship_cfg):
+    """The kernel-path model (random weights from seed 0) and the plain-path
+    model with the same weights."""
     from demo2_tpu_torch.models import make_model
 
-    cfg = flagship_cfg(fused=True)
+    cfg = make_cfg(fused=True)
     model = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
                        generator=torch.Generator().manual_seed(0))
-    plain_cfg = flagship_cfg(fused=False)
+    plain_cfg = make_cfg(fused=False)
     plain = make_model(plain_cfg, NUM_CLASSES, CAMERA_NUM, device=device,
                        generator=torch.Generator().manual_seed(0))
     plain.load_state_dict(model.state_dict())
@@ -254,32 +324,36 @@ def request_images(n, cfg, seed):
     return (pixels.astype(np.float32) / 255.0 - 0.5) / 0.5, rng.integers(0, CAMERA_NUM, n)
 
 
-def phase_slice(device, cfg, model, plain_cfg, plain) -> dict:
-    from demo2_tpu_torch.ops.fused_block import fused_attention_block, fused_mlp_block
+def num_blocks(model) -> int:
+    base = model.backbone.base
+    return len(base.resblocks if hasattr(base, "resblocks") else base.blocks)
+
+
+def phase_slice(device, cfg, model, plain_cfg, plain, per_forward: dict,
+                label: str = "slice") -> dict:
+    """Serving: requests through FeatureExtractor, each forward launching
+    `per_forward` (all nine kernels' counts), embeddings against the plain
+    path, match() and CMC / mAP.  Returns the launches of the requests."""
     from demo2_tpu_torch.serving import FeatureExtractor, match
     from demo2_tpu_torch.utils.metrics import R1mAPEvaluator
 
-    kernels = (fused_attention_block, fused_mlp_block)
-    layers = len(model.backbone.base.resblocks)
     images, cams = request_images(100, cfg, seed=2)
     fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
     requests = [(n, miss) for miss in ("None", "nt") for n in (0, 1, 64, 100)]
 
-    for k in kernels:
-        k.launches = 0
+    reset_counts()
     embeddings = {}
     for n, miss in requests:
-        before = [k.launches for k in kernels]
+        before = counts()
         emb = fx.extract(images[:n], cams[:n], miss=miss)
-        torch.cuda.synchronize()
-        rose = [k.launches - b for k, b in zip(kernels, before)]
+        sync()
         forwards = math.ceil(n / fx.batch_size)
-        require(rose == [layers * forwards] * 2,
-                f"N={n} miss={miss}: kernel launches rose by {rose}, expected "
-                f"{layers} per forward x {forwards}")
+        require_launches({k: v - before[k] for k, v in counts().items()},
+                         {k: v * forwards for k, v in per_forward.items()},
+                         f"[{label}] N={n} miss={miss}")
         embeddings[(n, miss)] = emb
-    launches = {k.__name__: k.launches for k in kernels}
-    log(f"[slice] main path: {len(requests)} requests, launches {launches}")
+    launches = counts()
+    log(f"[{label}] main path: {len(requests)} requests, launches {launches}")
 
     fx_plain = FeatureExtractor(plain_cfg, plain, device=device, batch_size=64)
     for (n, miss), emb in embeddings.items():
@@ -292,10 +366,10 @@ def phase_slice(device, cfg, model, plain_cfg, plain) -> dict:
             require(bool(np.all(np.abs(norms - 1.0) < 1e-4)), f"N={n}: not unit norm")
             require(float(cos.min()) >= COSINE_MIN,
                     f"N={n} miss={miss}: cosine to the plain path {cos.min()} < {COSINE_MIN}")
-            log(f"[slice] N={n:3d} miss={miss:4s}: shape {emb.shape}, cosine to plain path "
+            log(f"[{label}] N={n:3d} miss={miss:4s}: shape {emb.shape}, cosine to plain path "
                 f"min {cos.min():.6f} mean {cos.mean():.6f}")
         else:
-            log(f"[slice] N=0 miss={miss}: shape {emb.shape}")
+            log(f"[{label}] N=0 miss={miss}: shape {emb.shape}")
     require(not np.allclose(embeddings[(64, "None")], embeddings[(64, "nt")]),
             "the miss mask changed nothing")
 
@@ -311,7 +385,7 @@ def phase_slice(device, cfg, model, plain_cfg, plain) -> dict:
     ev.update(gallery, pids, np.ones(100, np.int64))
     cmc, m_ap = ev.compute()
     require(cmc[0] == 1.0 and 0.0 < m_ap <= 1.0, f"CMC/mAP: rank-1 {cmc[0]}, mAP {m_ap}")
-    log(f"[slice] match top-10 ok; CMC rank-1 {cmc[0]:.3f}, mAP {m_ap:.4f} on the card")
+    log(f"[{label}] match top-10 ok; CMC rank-1 {cmc[0]:.3f}, mAP {m_ap:.4f} on the card")
     return launches
 
 
@@ -346,19 +420,34 @@ def block_flops(name: str, shape) -> int:
     return 2 * 2 * m * c * 4 * c  # fc1 + fc2
 
 
-def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
-    from demo2_tpu_torch.serving import FeatureExtractor
-
+def time_kernels(cases: dict, card) -> dict:
+    """name -> (kernel call, plain call, FLOPs, shape): CUDA-event times of
+    both, in turns, with TFLOP/s.  Returns name -> (kernel ms, plain ms)."""
     times = {}
-    x, attn, mlp = block_inputs(FLAGSHIP, device, seed=1)
-    for name, (kernel, plain_fn, weights) in kernel_cases(x, attn, mlp).items():
-        k_ms, p_ms = alternate(lambda: cuda_ms(lambda: plain_fn(x, weights)),
-                               lambda: cuda_ms(kernel))
+    for name, (kernel, plain_fn, flops, shape) in cases.items():
+        k_ms, p_ms = alternate(lambda: cuda_ms(plain_fn), lambda: cuda_ms(kernel))
         times[name] = (k_ms, p_ms)
-        tflops = lambda ms: block_flops(name, FLAGSHIP) / ms / 1e9
-        log(f"[time] {name} x{FLAGSHIP}: kernel {k_ms:.4f} ms ({tflops(k_ms):.1f} TFLOP/s, "
+        tflops = lambda ms: flops / ms / 1e9
+        log(f"[time] {name} x{shape}: kernel {k_ms:.4f} ms ({tflops(k_ms):.1f} TFLOP/s, "
             f"{100 * tflops(k_ms) / BF16_PEAK_TFLOPS:.1f}% of the bf16 peak), plain "
             f"{p_ms:.4f} ms ({tflops(p_ms):.1f} TFLOP/s) ({card})")
+    return times
+
+
+def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
+    x, attn, mlp = block_inputs(FLAGSHIP, device, seed=1)
+    times = time_kernels({
+        name: (kernel, lambda plain_fn=plain_fn, weights=weights: plain_fn(x, weights),
+               block_flops(name, FLAGSHIP), FLAGSHIP)
+        for name, (kernel, plain_fn, weights) in kernel_cases(x, attn, mlp).items()}, card)
+    time_extractor(device, card, cfg, model, plain_cfg, plain)
+    return times
+
+
+def time_extractor(device, card, cfg, model, plain_cfg, plain, label: str = "") -> None:
+    """Extractor batch-1 latency and batch-64 throughput on both paths, peak
+    memory, a profile of one batch-64 request on each path."""
+    from demo2_tpu_torch.serving import FeatureExtractor
 
     images, cams = request_images(64, cfg, seed=3)
 
@@ -383,23 +472,22 @@ def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
         return 64 * reps / (time.perf_counter() - t0)
 
     k_lat, p_lat = alternate(lambda: latency_ms(plain, plain_cfg), lambda: latency_ms(model, cfg))
-    log(f"[time] extractor batch-1 latency (median of 20): kernel path {k_lat:.3f} ms, "
+    log(f"[time] {label}extractor batch-1 latency (median of 20): kernel path {k_lat:.3f} ms, "
         f"plain path {p_lat:.3f} ms ({card})")
     k_tp, p_tp = alternate(lambda: throughput(plain, plain_cfg), lambda: throughput(model, cfg))
-    log(f"[time] extractor batch-64: kernel path {k_tp:.1f} img/s, plain path {p_tp:.1f} "
-        f"img/s, host arrays in and out included ({card})")
+    log(f"[time] {label}extractor batch-64: kernel path {k_tp:.1f} img/s, plain path "
+        f"{p_tp:.1f} img/s, host arrays in and out included ({card})")
     torch.cuda.reset_peak_memory_stats()
     throughput(model, cfg, reps=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[time] peak device memory, kernel path at batch 64: {peak:.2f} GiB ({card})")
+    log(f"[time] {label}peak device memory, kernel path at batch 64: {peak:.2f} GiB ({card})")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     log(f"[time] after timing: clocks.sm, power.draw, power.limit, temp = {smi}")
-    for label, m, c in (("kernel path", model, cfg), ("plain path", plain, plain_cfg)):
+    for path, m, c in (("kernel path", model, cfg), ("plain path", plain, plain_cfg)):
         fx = FeatureExtractor(c, m, device=device, batch_size=64)
-        profile(f"{label}, one batch-64 request", lambda: fx.extract(images, cams), card)
-    return times
+        profile(f"{label}{path}, one batch-64 request", lambda: fx.extract(images, cams), card)
 
 
 def profile(label, fn, card, top=10) -> None:
@@ -566,25 +654,6 @@ GRAD_COS_BLOCK = 0.99
 LOSS_REL = 0.02
 
 
-def training_kernels():
-    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
-
-    return {"fused_attention_block": fb.fused_attention_block,
-            "fused_mlp_block": fb.fused_mlp_block,
-            "fused_attention_block_train": fb.fused_attention_block_train,
-            "attention_bwd_saved_db": pa.attention_bwd_saved_db,
-            "attention_bwd_saved": pa.attention_bwd_saved}
-
-
-def reset_counts() -> None:
-    for k in training_kernels().values():
-        k.launches = 0
-
-
-def counts() -> dict:
-    return {name: k.launches for name, k in training_kernels().items()}
-
-
 def build_train_data(cfg, device):
     """A DeviceCache of SyntheticTriModal at the flagship's 256x128, RGBNT201's
     171 train ids, and its PK sampler."""
@@ -612,9 +681,18 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp(min=1e-300)).item()
 
 
-def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx) -> None:
+def block_groups(model):
+    """(key prefix of block i, the parameter groups whose step-1 gradient
+    cosine is held per block) for the model's backbone."""
+    if hasattr(model.backbone.base, "resblocks"):  # CLIP
+        return "backbone.base.resblocks.{}.", ("ln_1.", "attn.in_proj_", "attn.out_proj.")
+    return "backbone.base.blocks.{}.", ("attn.qkv.", "attn.proj.")
+
+
+def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train") -> None:
     """Gradients of the first step on the kernel and the plain path: the
-    same weights, batch and draws."""
+    same weights, batch and draws (the generator seeded alike, so that
+    augmentation, dropout and drop path agree)."""
     from demo2_tpu_torch.engine.train import loss_and_grads
     from demo2_tpu_torch.losses.losses import make_loss_fn
 
@@ -625,19 +703,21 @@ def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx) -> None:
         loss, _, g = loss_and_grads(c, m, make_loss_fn(c, NUM_CLASSES), images, pids, camids,
                                     gen)
         grads.append(g)
-        log(f"[train] step-1 loss, {'kernel' if c is cfg else 'plain'} path: {loss.item():.6f}")
+        log(f"[{label}] step-1 loss, {'kernel' if c is cfg else 'plain'} path: "
+            f"{loss.item():.6f}")
     gk, gp = grads
     whole = cosine(torch.cat([gk[k].flatten() for k in gk]), torch.cat([gp[k].flatten() for k in gk]))
     worst = (1.0, "")
-    for i in range(len(model.backbone.base.resblocks)):
-        pre = f"backbone.base.resblocks.{i}."
-        for group in ("ln_1.", "attn.in_proj_", "attn.out_proj."):
+    prefix, groups = block_groups(model)
+    for i in range(num_blocks(model)):
+        pre = prefix.format(i)
+        for group in groups:
             keys = [k for k in gk if k.startswith(pre + group)]
             c = cosine(torch.cat([gk[k].flatten() for k in keys]),
                        torch.cat([gp[k].flatten() for k in keys]))
             worst = min(worst, (c, pre + group))
-    log(f"[train] step-1 gradient cosine, kernel vs plain path: whole model {whole:.6f}; "
-        f"lowest block ln_1 / in_proj / out_proj {worst[0]:.6f} ({worst[1]})")
+    log(f"[{label}] step-1 gradient cosine, kernel vs plain path: whole model {whole:.6f}; "
+        f"lowest block {' / '.join(groups)} {worst[0]:.6f} ({worst[1]})")
     require(whole >= GRAD_COS_MODEL, f"step-1 gradient cosine {whole} < {GRAD_COS_MODEL}")
     require(worst[0] >= GRAD_COS_BLOCK, f"{worst[1]} gradient cosine {worst[0]} < {GRAD_COS_BLOCK}")
 
@@ -661,33 +741,32 @@ def train_steps(cfg, model, cache, order, steps, per_step=None):
     return [x.item() for x in losses]
 
 
-def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
-    layers = len(model.backbone.base.resblocks)
+def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
+                label: str = "train") -> dict:
+    """TRAIN_STEPS steps through build_train_step, each launching
+    `per_step_want` (all nine kernels' counts), against the plain path.
+    Returns the launches of the steps."""
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     plain.load_state_dict(init)
     check_step1_grads(cfg, model, plain_cfg, plain, cache,
-                      torch.from_numpy(order[:bs]).to(device))
+                      torch.from_numpy(order[:bs]).to(device), label)
     model.load_state_dict(init)  # undo the BatchNorm updates of the check
     plain.load_state_dict(init)
 
-    want = {"fused_attention_block": 0, "fused_mlp_block": 0,
-            "fused_attention_block_train": layers, "attention_bwd_saved_db": layers,
-            "attention_bwd_saved": 0}
-
     def per_step(i, rose):
         if i == 0 or not REHEARSAL:
-            require_launches(rose, want, f"train step {i}")
+            require_launches(rose, per_step_want, f"[{label}] train step {i}")
 
     reset_counts()
     t0 = time.perf_counter()
     losses = train_steps(cfg, model, cache, order, TRAIN_STEPS, per_step)
     wall = time.perf_counter() - t0
     launches = counts()
-    log(f"[train] main path: {TRAIN_STEPS} steps of {bs} through build_train_step in "
+    log(f"[{label}] main path: {TRAIN_STEPS} steps of {bs} through build_train_step in "
         f"{wall:.1f} s, launches {launches}")
-    log(f"[train] kernel path losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[{label}] kernel path losses: {' '.join(f'{x:.4f}' for x in losses)}")
     require(all(math.isfinite(x) for x in losses), "a non-finite loss")
     after = model.state_dict()
     stale = [k for k, _ in model.named_parameters() if torch.equal(after[k], init[k])]
@@ -696,17 +775,16 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
     require(bn and all(not torch.equal(after[k], init[k]) for k in bn),
             "BatchNorm running statistics did not change")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"[train] loss falls: mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    log(f"[{label}] loss falls: mean of the first 5 steps {first:.4f}, of the last 5 "
+        f"{last:.4f}")
     require(last < first, "the loss did not fall")
 
     plain_losses = train_steps(plain_cfg, plain, cache, order, PLAIN_STEPS)
     rel = [abs(k - p) / abs(p) for k, p in zip(losses, plain_losses)]
-    log(f"[train] plain path losses: {' '.join(f'{x:.4f}' for x in plain_losses)}; "
+    log(f"[{label}] plain path losses: {' '.join(f'{x:.4f}' for x in plain_losses)}; "
         f"largest relative difference {max(rel):.4%}")
     require(max(rel) <= LOSS_REL, f"kernel vs plain loss differ by {max(rel):.4%}")
-    return {"fused_attention_block_train": launches["fused_attention_block_train"],
-            "attention_bwd_saved_db": launches["attention_bwd_saved_db"],
-            "attention_bwd_saved": phase_input_grad(device, cfg, model, plain)}
+    return launches
 
 
 def phase_input_grad(device, cfg, model, plain) -> int:
@@ -717,7 +795,7 @@ def phase_input_grad(device, cfg, model, plain) -> int:
     plain bf16 path is."""
     from demo2_tpu_torch.models import make_model
 
-    layers = len(model.backbone.base.resblocks)
+    layers = num_blocks(model)
     images, cams = request_images(64, cfg, seed=4)
     f32 = make_model(flagship_cfg(False, TPU__COMPUTE_DTYPE="float32"), NUM_CLASSES,
                      CAMERA_NUM, device=device, generator=torch.Generator().manual_seed(0))
@@ -737,9 +815,7 @@ def phase_input_grad(device, cfg, model, plain) -> int:
         grads.append(x.grad.float())
         m.requires_grad_(True)
     del f32
-    want = {"fused_attention_block": 0, "fused_mlp_block": 0,
-            "fused_attention_block_train": layers, "attention_bwd_saved_db": 0,
-            "attention_bwd_saved": layers}
+    want = launch_dict(fused_attention_block_train=layers, attention_bwd_saved=layers)
     ref = grads[2]
     err = [((g - ref).norm() / ref.norm()).item() for g in grads[:2]]
     log(f"[train] input-gradient pass (weights frozen, batch 64): launches {launches}; "
@@ -776,7 +852,7 @@ def phase_do_train(device, model, cache, sampler) -> None:
     val_samples = val_ds.query + val_ds.gallery
     val = DeviceCache.from_arrays(val_ds.render_all(val_samples), val_samples, train=False,
                                   cfg=cfg, device=device)
-    layers = len(model.backbone.base.resblocks)
+    layers = num_blocks(model)
     bs = cfg.SOLVER.IMS_PER_BATCH
     steps = len(sampler.epoch_indices(1)) // bs
     evals = math.ceil(len(val_samples) / cfg.TEST.IMS_PER_BATCH)
@@ -793,9 +869,10 @@ def phase_do_train(device, model, cache, sampler) -> None:
         log(f"[do_train] 1 epoch, {entry['steps']} steps + eval of {len(val_samples)} samples "
             f"in {wall:.1f} s: loss {entry['loss']:.4f}, acc {entry['acc']:.3f}, mAP "
             f"{entry['mAP']:.4f}, Rank-1 {entry['Rank-1']:.3f}; launches {launches}")
-        want = {"fused_attention_block": layers * evals, "fused_mlp_block": layers * evals,
-                "fused_attention_block_train": layers * steps,
-                "attention_bwd_saved_db": layers * steps, "attention_bwd_saved": 0}
+        want = launch_dict(fused_attention_block=layers * evals,
+                           fused_mlp_block=layers * evals,
+                           fused_attention_block_train=layers * steps,
+                           attention_bwd_saved_db=layers * steps)
         require_launches(launches, want, "do_train")
         require(0.0 < entry["mAP"] <= 1.0 and best["mAP"] == entry["mAP"], f"mAP {best}")
         fresh = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
@@ -819,11 +896,8 @@ def train_kernel_flops(name: str, shape) -> int:
 
 
 def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
-    from demo2_tpu_torch.engine.state import create_train_state
-    from demo2_tpu_torch.engine.train import build_train_step
     from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
 
-    times = {}
     x, p, grad_out = train_kernel_inputs(FLAGSHIP, device, seed=5)
     w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
     kw = dict(num_heads=HEADS, scale=(FLAGSHIP[-1] // HEADS) ** -0.5)
@@ -838,12 +912,18 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
             lambda: pa.attention_bwd_saved(qkv, probs, grad_out, **kw),
             lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw)),
     }
-    for name, (kern, plain_fn) in cases.items():
-        k_ms, p_ms = alternate(lambda: cuda_ms(plain_fn), lambda: cuda_ms(kern))
-        times[name] = (k_ms, p_ms)
-        tf = lambda ms: train_kernel_flops(name, FLAGSHIP) / ms / 1e9
-        log(f"[time] {name} x{FLAGSHIP}: kernel {k_ms:.4f} ms ({tf(k_ms):.1f} TFLOP/s), plain "
-            f"{p_ms:.4f} ms ({tf(p_ms):.1f} TFLOP/s) ({card})")
+    times = time_kernels({name: (kern, plain_fn, train_kernel_flops(name, FLAGSHIP), FLAGSHIP)
+                          for name, (kern, plain_fn) in cases.items()}, card)
+    time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler)
+    return times
+
+
+def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
+                    label: str = "") -> None:
+    """The train step in ms and img/s on both paths in turns, the peak
+    memory of a step and a profile of one step on each path."""
+    from demo2_tpu_torch.engine.state import create_train_state
+    from demo2_tpu_torch.engine.train import build_train_step
 
     bs = cfg.SOLVER.IMS_PER_BATCH
     order = sampler.epoch_indices(2)
@@ -867,17 +947,248 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
         return (time.perf_counter() - t0) * 1e3 / reps
 
     k_ms, p_ms = alternate(lambda: step_ms("plain"), lambda: step_ms("kernel"))
-    log(f"[time] train step, batch {bs}: kernel path {k_ms:.2f} ms ({1e3 * bs / k_ms:.1f} img/s), "
-        f"plain path {p_ms:.2f} ms ({1e3 * bs / p_ms:.1f} img/s) ({card})")
+    log(f"[time] {label}train step, batch {bs}: kernel path {k_ms:.2f} ms "
+        f"({1e3 * bs / k_ms:.1f} img/s), plain path {p_ms:.2f} ms ({1e3 * bs / p_ms:.1f} img/s) "
+        f"({card})")
     for which in ("kernel", "plain"):
         torch.cuda.reset_peak_memory_stats()
         steppers[which](0)
         sync()
-        log(f"[time] peak device memory of a {which}-path train step: "
+        log(f"[time] {label}peak device memory of a {which}-path train step: "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     for which in ("kernel", "plain"):
-        profile(f"{which} path, one train step of {bs}", lambda: steppers[which](1), card,
-                top=14)
+        profile(f"{label}{which} path, one train step of {bs}", lambda: steppers[which](1),
+                card, top=14)
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+PACKED_SHAPES = ((192, 129, 2304), (3, 129, 2304))       # qkv (3B, S, 3C)
+FLASH_SHAPES = ((192, 129, 12, 64), (3, 129, 12, 64))     # q, k, v (3B, S, H, D)
+
+
+def as_tuple(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
+def attention_kernel_cases(device, packed_shape, flash_shape, seed):
+    """Kernels 5, 6, 9 and 10 with their plain versions: name -> (kernel
+    call, plain version, its inputs, FLOPs).  Unit-scale bf16 inputs (what
+    the qkv Linear of a LayerNormed x gives at init) and unit cotangents."""
+    from demo2_tpu_torch.ops import flash_attention as fa, packed_attention as pa
+
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    b, s, c3 = packed_shape
+    h, scale = c3 // 3 // 64, 64 ** -0.5
+    qkv, do = rnd(b, s, c3), rnd(b, s, c3 // 3)
+    q, k, v, dof = (rnd(*flash_shape) for _ in range(4))
+    fb_, fs, fh, fd = flash_shape
+    pk = dict(num_heads=h, scale=scale)
+    return {
+        "packed_attention_fwd": (lambda: pa.packed_attention_fwd(qkv, **pk),
+                                 lambda *x: pa.packed_self_attention_plain(*x, h, scale),
+                                 (qkv,), 4 * b * s * s * c3 // 3),
+        "packed_attention_bwd": (lambda: pa.packed_attention_bwd(qkv, do, **pk),
+                                 lambda *x: pa.packed_attention_bwd_plain(*x, h, scale),
+                                 (qkv, do), 10 * b * s * s * c3 // 3),
+        "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
+                                lambda *x: fa.flash_attention_plain(*x, scale=scale),
+                                (q, k, v), 4 * fb_ * fs * fs * fh * fd),
+        "flash_attention_bwd": (lambda: fa.flash_attention_bwd(q, k, v, dof, scale=scale),
+                                lambda *x: fa.flash_attention_bwd_plain(*x, scale=scale),
+                                (q, k, v, dof), 10 * fb_ * fs * fs * fh * fd),
+    }
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _softmax_f32(q, k, scale):
+    s = (q @ k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / (e.sum(-1, keepdim=True) + 1e-30)
+
+
+def _packed_heads(qkv, h):
+    """(B, S, 3C) -> q, k, v (B, H, S, D) in f32."""
+    b, s, c3 = qkv.shape
+    return (x.reshape(b, s, h, -1).transpose(1, 2).float() for x in qkv.split(c3 // 3, -1))
+
+
+def _merge(t):
+    """(B, H, S, D) -> (B, S, H*D)."""
+    return t.transpose(1, 2).flatten(2)
+
+
+def _misrounded_packed_fwd(qkv, h, scale):
+    """Kernel 5 with kernel 1's rounding point: p normalised, then rounded
+    to bf16 for PV (the Pallas kernel rounds the unnormalised exp)."""
+    q, k, v = _packed_heads(qkv, h)
+    return _merge(_bf16(_softmax_f32(q, k, scale)) @ v).to(qkv.dtype)
+
+
+def _misrounded_packed_bwd(qkv, do, h, scale):
+    """Kernel 6 with dS from the bf16 p, as kernel 4 takes it from the saved
+    probs (the Pallas kernel takes dS from the f32 p)."""
+    q, k, v = _packed_heads(qkv, h)
+    dof = do.reshape(*do.shape[:2], h, -1).transpose(1, 2).float()
+    pb = _bf16(_softmax_f32(q, k, scale))
+    dp = dof @ v.transpose(-1, -2)
+    ds = _bf16(pb * (dp - (dp * pb).sum(-1, keepdim=True)))
+    dqkv = (ds @ k * scale, ds.transpose(-1, -2) @ q * scale, pb.transpose(-1, -2) @ dof)
+    return torch.cat([_merge(_bf16(x)) for x in dqkv], -1).to(qkv.dtype)
+
+
+def _misrounded_flash_fwd(q, k, v, *, scale):
+    """Kernel 9 with p rounded to bf16 for PV, as JAX's off-TPU fallback
+    rounds it (the Pallas kernel keeps p in f32)."""
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    return (_bf16(_softmax_f32(qf, kf, scale)) @ vf).transpose(1, 2).to(q.dtype)
+
+
+def _misrounded_flash_bwd(q, k, v, do, *, scale):
+    """Kernel 10 with p rounded to bf16 for dV and dS (the Pallas kernel
+    keeps it in f32)."""
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    pb = _bf16(_softmax_f32(qf, kf, scale))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = pb * (dp - (dp * pb).sum(-1, keepdim=True))
+    grads = (ds @ kf * scale, ds.transpose(-1, -2) @ qf * scale, pb.transpose(-1, -2) @ dof)
+    return tuple(x.transpose(1, 2).to(q.dtype) for x in grads)
+
+
+def misrounded_controls(num_heads, scale) -> dict:
+    """For each of kernels 5, 6, 9 and 10, its plain version rounding at a
+    point where the Pallas kernel does not: what a kernel copied from the
+    wrong tile would compute."""
+    return {"packed_attention_fwd": lambda qkv: _misrounded_packed_fwd(qkv, num_heads, scale),
+            "packed_attention_bwd": lambda qkv, do: _misrounded_packed_bwd(qkv, do, num_heads,
+                                                                           scale),
+            "flash_attention_fwd": lambda *x: _misrounded_flash_fwd(*x, scale=scale),
+            "flash_attention_bwd": lambda *x: _misrounded_flash_bwd(*x, scale=scale)}
+
+
+def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES))) -> dict:
+    """Kernels 5, 6, 9 and 10 against their plain versions: every output
+    within the bounds of phase 2 of the plain bf16 version, no further from
+    an f32 run of the plain version than the plain bf16 version is, and
+    within a mean of ROUNDING_MEAN_TOL of the plain version.  The controls,
+    plain versions rounding at the wrong point, must fail that last bound on
+    the same inputs.  Returns name -> the kernel's max abs error at the
+    first shape."""
+    errors = {}
+    for packed_shape, flash_shape in shapes:
+        cases = attention_kernel_cases(device, packed_shape, flash_shape, seed=7)
+        controls = misrounded_controls(packed_shape[2] // 3 // 64, 64 ** -0.5)
+        for name, (kernel, plain, inputs, _) in cases.items():
+            got = as_tuple(kernel())
+            ref = as_tuple(plain(*inputs))
+            f32 = as_tuple(plain(*(x.float() for x in inputs)))
+            wrong = as_tuple(controls[name](*inputs))
+            sync()
+            shape = tuple(inputs[0].shape)
+            worst = 0.0
+            for i, (yk, yp, y32, yw) in enumerate(zip(got, ref, f32, wrong)):
+                what = f"{name} output {i} {shape}"
+                d = (yk.float() - yp.float()).abs()
+                k32, p32, w32 = mean_err(yk, y32), mean_err(yp, y32), mean_err(yw, y32)
+                dw = mean_err(yw, yp)
+                log(f"[attn-kernel] {what}: vs plain bf16 max {d.max().item():.3e} mean "
+                    f"{d.mean().item():.3e}; mean error vs f32 kernel {k32:.3e}, plain bf16 "
+                    f"{p32:.3e} (mean |f32| {y32.abs().mean().item():.3e})")
+                log(f"[attn-kernel] {what}: control rounding at the wrong point: vs plain "
+                    f"bf16 mean {dw:.3e}, mean error vs f32 {w32:.3e} ({w32 / p32:.3f} x the "
+                    f"plain's)")
+                require(bool(torch.isfinite(yk).all()), f"{what}: non-finite")
+                require(d.max().item() <= MAX_ABS_TOL, f"{what}: max abs {d.max().item()}")
+                require(d.mean().item() <= MEAN_ABS_TOL, f"{what}: mean abs {d.mean().item()}")
+                require(k32 <= F32_MEAN_RATIO * p32,
+                        f"{what}: {k32} > {F32_MEAN_RATIO} x the plain bf16 path's {p32}")
+                require(d.mean().item() <= ROUNDING_MEAN_TOL,
+                        f"{what}: mean abs {d.mean().item()} > {ROUNDING_MEAN_TOL}: the kernel "
+                        f"rounds where its plain version does not")
+                require(dw > ROUNDING_MEAN_TOL,
+                        f"{what}: the misrounded control is within {ROUNDING_MEAN_TOL} of the "
+                        f"plain version ({dw}), so the bound cannot tell where a kernel rounds")
+                worst = max(worst, d.max().item())
+            if packed_shape == shapes[0][0]:
+                errors[name] = worst
+    log(f"[attn-kernel] tolerances: max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}, "
+        f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's, mean abs <= "
+        f"{ROUNDING_MEAN_TOL} (every misrounded control above it): ok")
+    return errors
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def phase_head_major(device, shape=FLASH_SHAPES[0]) -> dict:
+    """The head-major route: attention_core(..., implementation="pallas") and
+    MultiHeadAttention's cross-attention of equal lengths, forward and
+    backward, each launching kernels 9 and 10 once, against the plain route
+    (implementation="xla") on the same inputs and weights.  Returns the
+    launches of both."""
+    from demo2_tpu_torch.ops.attention import MultiHeadAttention, attention_core
+
+    b, s, h, d = shape
+    c = h * d
+    g = torch.Generator().manual_seed(11)
+    rnd = lambda *sh: torch.randn(*sh, generator=g).to(device, torch.bfloat16)
+    q, k, v, dout = (rnd(b, s, h, d) for _ in range(4))
+    query, kv, gy = rnd(b, s, c), rnd(b, s, c), rnd(b, s, c)
+
+    def core(impl):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        y = attention_core(*leaves, scale=d ** -0.5, implementation=impl)
+        y.backward(dout)
+        return [y] + [x.grad for x in leaves]
+
+    def mha(impl):
+        m = MultiHeadAttention(c, h, dtype=torch.bfloat16, device=device,
+                               generator=torch.Generator().manual_seed(12), implementation=impl)
+        x, y_kv = query.clone().requires_grad_(True), kv.clone().requires_grad_(True)
+        y = m(x, y_kv)
+        y.backward(gy)
+        return [y, x.grad, y_kv.grad, m.in_proj_weight.grad]
+
+    total = launch_dict()
+    for name, fn in (("attention_core", core), ("MultiHeadAttention cross", mha)):
+        reset_counts()
+        got = fn("pallas")
+        sync()
+        launches = counts()
+        ref = fn("xla")
+        sync()
+        require_launches(launches, launch_dict(flash_attention_fwd=1, flash_attention_bwd=1),
+                         f"[head-major] {name}")
+        total = {k: total[k] + launches[k] for k in total}
+        for what, a, r in zip(("output", "grad 1", "grad 2", "grad 3"), got, ref):
+            cos = cosine(a.float(), r.float())
+            log(f"[head-major] {name} {what} {tuple(a.shape)}: cosine to the plain route "
+                f"{cos:.6f}")
+            require(bool(torch.isfinite(a).all()), f"[head-major] {name} {what}: non-finite")
+            require(cos >= COSINE_MIN, f"[head-major] {name} {what}: cosine {cos} < {COSINE_MIN}")
+    log(f"[head-major] main path: launches {total}")
+    return total
+
+
+# ---------------------------------------------------------------- phases 11-13
+
+
+def phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
+    """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s, the
+    extractor at batch 1 and 64, and the ViT train step, each on both paths
+    in turns."""
+    cases = attention_kernel_cases(device, PACKED_SHAPES[0], FLASH_SHAPES[0], seed=7)
+    times = time_kernels({
+        name: (kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs), flops,
+               tuple(inputs[0].shape))
+        for name, (kernel, plain_fn, inputs, flops) in cases.items()}, card)
+    time_extractor(device, card, cfg, model, plain_cfg, plain, label="ViT ")
+    time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler, label="ViT ")
     return times
 
 
@@ -892,6 +1203,14 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                                "demo2_tpu/ops/packed_attention.py:264"),
     "attention_bwd_saved": ("demo2_tpu_torch/csrc/attention_bwd.cu",
                             "demo2_tpu/ops/packed_attention.py:231"),
+    "packed_attention_fwd": ("demo2_tpu_torch/csrc/packed_attention.cu",
+                             "demo2_tpu/ops/packed_attention.py:52"),
+    "packed_attention_bwd": ("demo2_tpu_torch/csrc/packed_attention.cu",
+                             "demo2_tpu/ops/packed_attention.py:91"),
+    "flash_attention_fwd": ("demo2_tpu_torch/csrc/flash_attention.cu",
+                            "demo2_tpu/ops/flash_attention.py:53"),
+    "flash_attention_bwd": ("demo2_tpu_torch/csrc/flash_attention.cu",
+                            "demo2_tpu/ops/flash_attention.py:67"),
 }
 
 
@@ -903,13 +1222,42 @@ def main() -> None:
     card = phase_device()
     errors = phase_kernels(device)
     errors.update(phase_train_kernels(device))
+    errors.update(phase_attention_kernels(device))
+
+    # The CLIP flagship: serving (kernels 1, 2), training (3, 4), the input
+    # gradient (7), do_train, timing.
     cfg, model, plain_cfg, plain = build_models(device)
-    launches = phase_slice(device, cfg, model, plain_cfg, plain)
+    layers = num_blocks(model)
+    served = phase_slice(device, cfg, model, plain_cfg, plain,
+                         launch_dict(fused_attention_block=layers, fused_mlp_block=layers))
+    launches = {k: served[k] for k in ("fused_attention_block", "fused_mlp_block")}
     times = phase_timing(device, card, cfg, model, plain_cfg, plain)
     cache, sampler = build_train_data(cfg, device)
-    launches.update(phase_train(device, cfg, model, plain_cfg, plain, cache, sampler))
+    trained = phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                          launch_dict(fused_attention_block_train=layers,
+                                      attention_bwd_saved_db=layers))
+    launches.update({k: trained[k] for k in ("fused_attention_block_train",
+                                             "attention_bwd_saved_db")})
+    launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model, plain)
     phase_do_train(device, model, cache, sampler)
     times.update(phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
+    del model, plain
+    torch.cuda.empty_cache()
+
+    # The head-major route (kernels 9, 10).
+    routed = phase_head_major(device)
+    launches.update({k: routed[k] for k in ("flash_attention_fwd", "flash_attention_bwd")})
+
+    # DeMo on vit_base_patch16_224: serving (kernel 5), training (5, 6), timing.
+    cfg, model, plain_cfg, plain = build_models(device, vit_cfg)
+    layers = num_blocks(model)
+    phase_slice(device, cfg, model, plain_cfg, plain, launch_dict(packed_attention_fwd=layers),
+                label="vit-slice")
+    trained = phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                          launch_dict(packed_attention_fwd=layers, packed_attention_bwd=layers),
+                          label="vit-train")
+    launches.update({k: trained[k] for k in ("packed_attention_fwd", "packed_attention_bwd")})
+    times.update(phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

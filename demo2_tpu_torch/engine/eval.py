@@ -9,7 +9,7 @@ protocol come with the eval entry points (ROADMAP.md, port queue item 2).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +38,10 @@ def miss_mask(miss: str, *, device: torch.device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def eval_step(model, images: torch.Tensor, camids: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+def eval_step(model, images: torch.Tensor, camids: torch.Tensor, mask: torch.Tensor,
+              viewids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The eval forward: the f32 embedding of a batch."""
-    return model(images, camids, mask, train=False)["embedding"]
+    return model(images, camids, viewids, mask, train=False)["embedding"]
 
 
 def run_eval(cfg, model, cache, num_query: int) -> Tuple[np.ndarray, float]:
@@ -59,7 +59,8 @@ def run_eval(cfg, model, cache, num_query: int) -> Tuple[np.ndarray, float]:
                                reranking=cfg.TEST.RE_RANKING == "yes")
     n, bs = cache.images.shape[0], cfg.TEST.IMS_PER_BATCH
     for start in range(0, n, bs):
-        images, pids, camids = cache.batch(torch.arange(start, min(start + bs, n), device=dev))
-        feat = eval_step(model, images, camids, mask)
+        idx = torch.arange(start, min(start + bs, n), device=dev)
+        images, pids, camids = cache.batch(idx)
+        feat = eval_step(model, images, camids, mask, cache.viewids[idx])
         evaluator.update(feat.cpu().numpy(), pids.cpu().numpy(), camids.cpu().numpy())
     return evaluator.compute()

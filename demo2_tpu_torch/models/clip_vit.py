@@ -25,16 +25,19 @@ from torch import nn
 from ..ops.activations import quick_gelu
 from ..ops.attention import MultiHeadAttention
 from ..ops.fused_block import fused_attention, fused_mlp_block, needs_grad
-from ..ops.linear import Linear, cached_cast, make_param, normal_init, truncated_normal_init
+from ..ops.linear import (Linear, cached_cast, make_param, normal_init,
+                          truncated_normal_init, zeros_init)
 from ..ops.norm import LayerNorm
 
 
 class PatchConv(nn.Module):
-    """The bias-free patch-embedding conv: (B, H, W, 3) -> (B, N, width), the
-    tokens row-major over the patch grid.  Weight in torch's OIHW layout."""
+    """The patch-embedding conv, VALID: (B, H, W, 3) -> (B, N, width), the
+    tokens row-major over the patch grid.  Weight in torch's OIHW layout.
+    CLIP's has no bias; the ImageNet ViT's has one (vit.py:206-214).
+    `stride` is an int or an (sh, sw) pair."""
 
-    def __init__(self, width: int, patch_size: int, stride: int, *, dtype: torch.dtype,
-                 device: torch.device, generator: torch.Generator):
+    def __init__(self, width: int, patch_size: int, stride, *, dtype: torch.dtype,
+                 device: torch.device, generator: torch.Generator, bias: bool = False):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
@@ -45,11 +48,13 @@ class PatchConv(nn.Module):
             truncated_normal_init(math.sqrt(1.0 / fan_in) / 0.87962566103423978),
             generator=generator, device=device,
         )
+        self.bias = (make_param((width,), zeros_init, generator=generator, device=device)
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), cached_cast(self, "weight", dt),
-                     stride=self.stride)
+                     cached_cast(self, "bias", dt), stride=self.stride)
         return y.flatten(2).transpose(1, 2)
 
 

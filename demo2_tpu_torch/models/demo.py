@@ -1,6 +1,7 @@
-"""DeMo, the flagship branch: CLIP backbone -> SDTPS -> DGAF v3 -> BNNeck
-head (demo2_tpu/models/demo.py::DeMo, branch 4 with the SDTPS selector,
-make_model.py:872-962 of the reference), at eval and in training.
+"""DeMo, the flagship branch: backbone (CLIP ViT-B/16 or the ImageNet ViT
+family) -> SDTPS -> DGAF v3 -> BNNeck head (demo2_tpu/models/demo.py::DeMo,
+branch 4 with the SDTPS selector, make_model.py:872-962 of the reference), at
+eval and in training.
 
 The output contract is the JAX package's: {"branches": {name: (logits,
 feat)}, "embedding": f32 (B, 3C), "aux_loss": {}}.  Every configuration
@@ -88,7 +89,7 @@ def train_slice_error(cfg: Config, model_only: bool = False):
 
 
 class DeMo(nn.Module):
-    def __init__(self, cfg: Config, num_classes: int, camera_num: int, *,
+    def __init__(self, cfg: Config, num_classes: int, camera_num: int, view_num: int = 0, *,
                  device: torch.device, generator: torch.Generator):
         super().__init__()
         check_slice(cfg)
@@ -105,8 +106,13 @@ class DeMo(nn.Module):
             img_size=tuple(cfg.INPUT.SIZE_TRAIN),
             stride_size=tuple(m.STRIDE_SIZE),
             camera_num=camera_num,
+            view_num=view_num,
             sie_camera=m.SIE_CAMERA,
+            sie_view=m.SIE_VIEW,
             sie_coe=m.SIE_COE,
+            drop_path=m.DROP_PATH,
+            drop_rate=m.DROP_OUT,
+            attn_drop_rate=m.ATT_DROP_RATE,
             dtype=dtype,
             fused=cfg.TPU.USE_FLASH_ATTENTION,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
@@ -114,6 +120,15 @@ class DeMo(nn.Module):
             heads_override=cfg.TPU.BACKBONE_HEADS,
             **kw,
         )
+        if self.backbone.feat_dim != self.feat_dim:
+            # JAX builds SDTPS / DGAF at feat_dim_for's width whatever the
+            # backbone gives, and its forward then fails to broadcast (the
+            # 384-wide deit_small / swin alias, or BACKBONE_WIDTH on an
+            # ImageNet type); the port refuses the same configurations.
+            raise ValueError(
+                f"TRANSFORMER_TYPE {m.TRANSFORMER_TYPE!r}: the backbone gives "
+                f"{self.backbone.feat_dim}-wide tokens, DeMo's modules take feat_dim_for's "
+                f"{self.feat_dim}")
         self.sdtps = MultiModalSDTPS(
             self.feat_dim,
             sparse_ratio=m.SDTPS_SPARSE_RATIO,
@@ -135,17 +150,18 @@ class DeMo(nn.Module):
         return 3 * self.feat_dim
 
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
+                view_label: Optional[torch.Tensor] = None,
                 modality_mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """images (B, 3, H, W, 3), cam_label (B,), modality_mask (3,) or (B, 3).
-        `train` selects batch statistics in the BNNecks, dropout in SDTPS
-        (drawn from `generator`) and the training kernels of the backbone.
-        The JAX model's view_label and return_pattern act only on branches
-        not ported yet (SIE views, the 'moe' embedding)."""
+        """images (B, 3, H, W, 3), cam_label and view_label (B,), modality_mask
+        (3,) or (B, 3).  `train` selects batch statistics in the BNNecks,
+        dropout and drop path (drawn from `generator`) and the training
+        kernels of the backbone.  The JAX model's return_pattern acts only on
+        a branch not ported yet (the 'moe' embedding)."""
         if train and self.train_error is not None:
             raise self.train_error
-        patches, globals_ = self.backbone(images.to(self.dtype), cam_label, modality_mask,
-                                          train)
+        patches, globals_ = self.backbone(images.to(self.dtype), cam_label, view_label,
+                                          modality_mask, train, generator)
         enh, _ = self.sdtps(patches, globals_, train, generator)
         dgaf_feat = self.dgaf(enh)
         branches = {"dgaf": (self.head_dgaf(dgaf_feat, train), dgaf_feat)}

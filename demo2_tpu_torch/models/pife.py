@@ -1,9 +1,11 @@
-"""PIFE, the backbone wrapper, CLIP branch (demo2_tpu/models/pife.py).
+"""PIFE, the backbone wrapper (demo2_tpu/models/pife.py): the CLIP branch and
+the ImageNet ViT family.
 
 The three modalities run as ONE stacked batch of 3B images, modality-major;
-the camera ids are tiled over the modalities and their SIE embedding goes to
-the CLS token; a (3,) or (B, 3) modality mask multiplies the images inside
-the same forward, so every missing-modality setting shares the graph.
+the camera (and view) ids are tiled over the modalities.  The CLIP branch
+adds its SIE camera embedding to the CLS token; the ImageNet ViT adds its
+own to all tokens.  A (3,) or (B, 3) modality mask multiplies the images
+inside the same forward, so every missing-modality setting shares the graph.
 Returns patch tokens (3, B, N, C) and CLS features (3, B, C).
 """
 
@@ -17,13 +19,45 @@ from torch import nn
 from .. import not_ported
 from ..ops.linear import make_param, truncated_normal_init
 from .clip_vit import CLIPVisionTransformer
+from .vit import ImageNetViT
 
 NUM_MODALITIES = 3  # RGB, NIR, TIR
 
+# The ImageNet ViT family, first match wins (pife.py:249-275): name part ->
+# (embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale).  The
+# 'swin_small' alias is the reference's plain 384-wide ViT, not a Swin.
+IMAGENET_VITS = (
+    ("vit_small", (768, 8, 8, 3.0, False, 768 ** -0.5)),
+    ("swin", (384, 12, 6, 4.0, True, None)),
+    ("deit_small", (384, 12, 6, 4.0, True, None)),
+    ("vit_base", (768, 12, 12, 4.0, True, None)),
+    ("deit_base", (768, 12, 12, 4.0, True, None)),
+)
 
-def patch_grid_for(img_size, stride_size) -> Tuple[int, int]:
-    """Token grid of the ViT family's VALID 16-kernel patch conv."""
-    (h, w), (sh, sw) = img_size, stride_size
+
+def imagenet_vit_config(transformer_type: str):
+    for part, config in IMAGENET_VITS:
+        if part in transformer_type:
+            return config
+    raise NotImplementedError(
+        f"TRANSFORMER_TYPE '{transformer_type}' is not supported; use 'ViT-B-16' (CLIP), "
+        "'vit_base_patch16_224', 'deit_base_patch16_224', 'deit_small_patch16_224', "
+        "'vit_small_patch16_224', 't2t_vit_t_14' or 't2t_vit_t_24'. "
+        "(swin is an unregistered dead mention in the reference.)"
+    )
+
+
+def patch_grid_for(transformer_type: str, img_size, stride_size) -> Tuple[int, int]:
+    """Token grid (gh, gw) per backbone: the ViT family's VALID 16-kernel
+    patch conv at the configured stride gives (H - 16) // s + 1 per side;
+    T2T's three soft splits stride 16 in all; the CNN trunks are 16-stride
+    with a ceil."""
+    h, w = img_size
+    if transformer_type.startswith("t2t"):
+        return h // 16, w // 16
+    if transformer_type.startswith(("resnet", "osnet")):
+        return -(-h // 16), -(-w // 16)
+    sh, sw = stride_size
     return (h - 16) // sh + 1, (w - 16) // sw + 1
 
 
@@ -31,26 +65,56 @@ class PIFE(nn.Module):
     def __init__(self, *, transformer_type: str, img_size, stride_size, camera_num: int,
                  sie_camera: bool, sie_coe: float, dtype: torch.dtype, fused: bool,
                  depth_override: int, width_override: int, heads_override: int,
-                 device: torch.device, generator: torch.Generator):
+                 device: torch.device, generator: torch.Generator, view_num: int = 0,
+                 sie_view: bool = False, drop_path: float = 0.1, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0):
         super().__init__()
-        if "ViT-B-16" not in transformer_type:
-            raise not_ported(f"TRANSFORMER_TYPE {transformer_type!r}", "other backbones")
+        tt = transformer_type
+        self.transformer_type = tt
+        self.width_override = width_override
         self.sie_coe = sie_coe
-        self.width = 768 if width_override < 0 else width_override
-        depth = 12 if depth_override < 0 else depth_override
-        heads = self.width // 64 if heads_override < 0 else heads_override
         self.cv_embed = None
-        if sie_camera and camera_num > 0:
-            self.cv_embed = make_param((camera_num, 768), truncated_normal_init(1e-6),
-                                       generator=generator, device=device)
-        gh, gw = patch_grid_for(img_size, stride_size)
-        self.base = CLIPVisionTransformer(
-            gh, gw, stride_size=stride_size[0], width=self.width, layers=depth, heads=heads,
-            dtype=dtype, fused=fused, device=device, generator=generator,
+        if tt.startswith(("t2t", "resnet", "osnet")):
+            raise not_ported(f"TRANSFORMER_TYPE {tt!r}", "other backbones")
+        if "ViT-B-16" in tt:
+            self.width = 768 if width_override < 0 else width_override
+            depth = 12 if depth_override < 0 else depth_override
+            heads = self.width // 64 if heads_override < 0 else heads_override
+            if sie_camera and camera_num > 0:
+                self.cv_embed = make_param((camera_num, 768), truncated_normal_init(1e-6),
+                                           generator=generator, device=device)
+            gh, gw = patch_grid_for(tt, img_size, stride_size)
+            self.base = CLIPVisionTransformer(
+                gh, gw, stride_size=stride_size[0], width=self.width, layers=depth,
+                heads=heads, dtype=dtype, fused=fused, device=device, generator=generator,
+            )
+            return
+        embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale = imagenet_vit_config(tt)
+        self.base = ImageNetViT(
+            img_size=tuple(img_size), stride_size=tuple(stride_size),
+            embed_dim=embed_dim if width_override < 0 else width_override,
+            depth=depth if depth_override < 0 else depth_override,
+            num_heads=heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
+            camera=camera_num if sie_camera else 0, view=view_num if sie_view else 0,
+            sie_xishu=sie_coe, drop_path_rate=drop_path, drop_rate=drop_rate,
+            attn_drop_rate=attn_drop_rate, attn_implementation="pallas" if fused else "xla",
+            dtype=dtype, device=device, generator=generator,
         )
 
+    @property
+    def feat_dim(self) -> int:
+        """Output width per modality (pife.py:93-114)."""
+        tt = self.transformer_type
+        if "ViT-B-16" in tt:
+            return 512
+        if "swin" in tt or "deit_small" in tt:
+            return 384 if self.width_override < 0 else self.width_override
+        return 768 if self.width_override < 0 else self.width_override
+
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
-                modality_mask: Optional[torch.Tensor] = None, train: bool = False):
+                view_label: Optional[torch.Tensor] = None,
+                modality_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """images (B, 3, H, W, 3): [batch, modality, H, W, channel]."""
         b = images.shape[0]
         m = NUM_MODALITIES
@@ -60,10 +124,14 @@ class PIFE(nn.Module):
                 mask = mask[None, :]
             images = images * mask[:, :, None, None, None]
         x = images.transpose(0, 1).reshape(m * b, *images.shape[2:])
-        cv_emb = None
-        if self.cv_embed is not None and cam_label is not None:
-            cv_emb = self.sie_coe * self.cv_embed[cam_label.long().repeat(m)]
-            cv_emb = cv_emb[:, : self.width]
-        tokens = self.base(x, cv_emb, train)
+        cams = None if cam_label is None else cam_label.long().repeat(m)
+        if isinstance(self.base, CLIPVisionTransformer):
+            cv_emb = None
+            if self.cv_embed is not None and cams is not None:
+                cv_emb = (self.sie_coe * self.cv_embed[cams])[:, : self.width]
+            tokens = self.base(x, cv_emb, train)
+        else:
+            views = None if view_label is None else view_label.long().repeat(m)
+            tokens = self.base(x, cams, views, train, generator)
         tokens = tokens.reshape(m, b, *tokens.shape[1:])
         return tokens[:, :, 1:], tokens[:, :, 0]

@@ -38,8 +38,8 @@ import torch
 from .activations import quick_gelu
 from .attention import attention_core
 from .kernel_lib import check, expect, kernel_library
-from .packed_attention import (attention_bwd_saved, attention_bwd_saved_db, merge_heads,
-                               probs_cols, probs_shape, split_heads)
+from .packed_attention import (attention_bwd_saved, attention_bwd_saved_db, check_head_limits,
+                               merge_heads, needs_grad, probs_cols, probs_shape, split_heads)
 
 
 def _layernorm_f32(x, weight, bias, eps=1e-5):
@@ -50,9 +50,9 @@ def _layernorm_f32(x, weight, bias, eps=1e-5):
     return ((xf - mean) * torch.rsqrt(var + eps)) * weight.float() + bias.float()
 
 
-def packed_self_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """Self-attention on packed (B, S, 3C) qkv -> (B, S, C), plain path of
-    demo2_tpu/ops/packed_attention.py::packed_self_attention."""
+def _self_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Self-attention on packed (B, S, 3C) qkv -> (B, S, C), the attention
+    of fused_block.py::_reference_impl (p rounded after normalising)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     q, k, v = (t.reshape(b, s, num_heads, c // num_heads) for t in qkv.split(c, dim=-1))
@@ -65,7 +65,7 @@ def attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
     dt = x.dtype
     t = _layernorm_f32(x, ln_weight, ln_bias).to(dt)
     qkv = t @ wqkv.to(dt).t() + bqkv.to(dt)
-    o = packed_self_attention(qkv, num_heads, scale)
+    o = _self_attention(qkv, num_heads, scale)
     return x + o @ wout.to(dt).t() + bout.to(dt)
 
 
@@ -96,14 +96,7 @@ def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
         (bqkv, "bqkv", (3 * c,), f32), (wout, "wout", (c, c), bf16), (bout, "bout", (c,), f32),
     ):
         expect(tensor, name, shape, dtype, dev)
-    kl = kernel_library()
-    head_dim, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
-    if c != num_heads * head_dim:
-        raise ValueError(f"{what}: the kernel takes heads of {head_dim}, got width {c} / "
-                         f"{num_heads} heads")
-    if s > max_seq:
-        raise ValueError(f"{what}: sequence {s} exceeds the kernel's {max_seq}")
-    return kl
+    return check_head_limits(what, c, num_heads, s)
 
 
 def fused_attention_block(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
@@ -303,12 +296,6 @@ class FusedAttentionBlockFn(torch.autograd.Function):
                             - xhat * (dxhat * xhat).mean(-1, keepdim=True))
             dx = g + dx_ln.reshape(b, s, c).to(g.dtype)
         return dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout, None, None
-
-
-def needs_grad(*tensors) -> bool:
-    """Grad mode is on and some tensor requires grad: a call JAX would make
-    under jax.grad, where the custom VJP's forward runs."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def fused_attention(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *, num_heads: int,

@@ -24,8 +24,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu")
-HEADERS = ("gemm.cuh",)
+SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
+           "packed_attention.cu", "flash_attention.cu")
+HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,10 +41,12 @@ _SIGNATURES = {
     "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
+    "demo2_packed_attention": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
+    "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
-    "demo2_attention_bwd_head_dim": [],
-    "demo2_attention_bwd_max_seq": [],
 }
 
 

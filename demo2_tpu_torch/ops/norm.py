@@ -11,7 +11,8 @@ from .linear import cached_cast, make_param, ones_init, zeros_init
 EPS = 1e-5
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = EPS) -> torch.Tensor:
     """demo2_tpu/ops/norm.py::_layernorm_fwd_expr: mean and the centered
     two-pass variance accumulate in f32; for bf16 inputs the normalising
     arithmetic itself stays in bf16."""
@@ -19,19 +20,22 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tor
     mean = x.float().mean(-1, keepdim=True)
     d = x - mean.to(dt)
     var = d.square().float().mean(-1, keepdim=True)
-    rstd = torch.rsqrt(var + EPS)
+    rstd = torch.rsqrt(var + eps)
     return d * (rstd.to(dt) * weight.to(dt)) + bias.to(dt)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, features: int, *, device: torch.device):
+    """flax LayerNorm(epsilon=eps); the ImageNet ViT uses 1e-6."""
+
+    def __init__(self, features: int, *, device: torch.device, eps: float = EPS):
         super().__init__()
+        self.eps = eps
         self.weight = make_param((features,), ones_init, generator=None, device=device)
         self.bias = make_param((features,), zeros_init, generator=None, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, cached_cast(self, "weight", x.dtype),
-                          cached_cast(self, "bias", x.dtype))
+                          cached_cast(self, "bias", x.dtype), self.eps)
 
 
 class TorchBatchNorm(nn.Module):

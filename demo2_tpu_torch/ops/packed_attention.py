@@ -1,20 +1,34 @@
-"""Attention backward from saved probabilities, on the packed (B, S, 3C) qkv
-layout (demo2_tpu/ops/packed_attention.py: _packed_bwd_saved_db and
-_packed_bwd_saved), and the one definition of the saved-probs layout.
+"""Attention on the packed (B, S, 3C) qkv layout
+(demo2_tpu/ops/packed_attention.py), and the one definition of the
+saved-probs layout.
 
-The probs layout, written by the training forward (ops/fused_block.py and
-csrc/fused_attention_block.cu) and read by the backward here and in
-csrc/attention_bwd.cu: (B, H, S, S16) in the compute dtype, S16 = S rounded up
-to 16, row (b, h, i) the normalised probabilities of query i over the keys,
-zero in the columns >= S.  Unlike the TPU's head-concat layout it depends on
-no block-size policy, so the forward and the backward cannot disagree on it.
-
-  attention_bwd_saved_db: dqkv and the f32 qkv-bias gradient
+  packed_attention_fwd:   self-attention (B, S, 3C) -> (B, S, C)
+      replaces the Pallas kernel packed_attention.py::_fwd_kernel
+      (csrc/packed_attention.cu, demo2_packed_attention);
+  packed_attention_bwd:   its backward, recomputing the probabilities
+      replaces the Pallas kernel packed_attention.py::_bwd_kernel
+      (csrc/packed_attention.cu, demo2_packed_attention_bwd);
+  attention_bwd_saved_db: dqkv and the f32 qkv-bias gradient from saved probs
       replaces the Pallas kernel packed_attention.py::_bwd_saved_db_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db);
   attention_bwd_saved:    dqkv only
       replaces the Pallas kernel packed_attention.py::_bwd_saved_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved).
+
+`packed_self_attention` is the entry of the ImageNet ViT's blocks and of
+MultiHeadAttention's packed route: with grad enabled and a qkv that requires
+grad it runs PackedSelfAttentionFn, the custom VJP of
+packed_attention.py::_packed (its only residual is qkv, as `_packed_fwd`
+keeps it); otherwise the forward kernel alone, as JAX's primal-only call
+does.
+
+The probs layout, written by the training forward (ops/fused_block.py and
+csrc/fused_attention_block.cu) and read by the saved-probs backward here and
+in csrc/attention_bwd.cuh: (B, H, S, S16) in the compute dtype, S16 = S
+rounded up to 16, row (b, h, i) the normalised probabilities of query i over
+the keys, zero in the columns >= S.  Unlike the TPU's head-concat layout it
+depends on no block-size policy, so the forward and the backward cannot
+disagree on it.
 
 Each wrapper takes the plain version for tensors on the CPU and launches its
 kernel for CUDA tensors (it raises on what the kernel does not take); each
@@ -25,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import not_ported
 from .kernel_lib import check, expect, kernel_library
 
 PROBS_ALIGN = 16
@@ -74,18 +89,30 @@ def attention_bwd_saved_plain(qkv, probs, do, *, num_heads: int, scale: float,
     return dqkv, dqkv.float().sum((0, 1))
 
 
+def check_head_limits(what: str, width: int, num_heads: int, seq: int,
+                      dtype: torch.dtype = torch.bfloat16):
+    """Raise for heads, sequences or input dtypes the attention tiles
+    (kernels 1, 3-7, 9 and 10) do not take; return the library.  The Pallas
+    kernels 5, 6, 9 and 10 also run on f32 inputs; the CUDA tiles read bf16."""
+    item = "wider heads, longer sequences and f32 inputs in the attention kernels"
+    if dtype != torch.bfloat16:
+        raise not_ported(f"{what} on {dtype} inputs (the kernel takes torch.bfloat16)", item)
+    kl = kernel_library()
+    head_dim, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
+    if width != num_heads * head_dim:
+        raise not_ported(f"{what} with {num_heads} heads over width {width} (the kernel "
+                         f"takes heads of {head_dim})", item)
+    if seq > max_seq:
+        raise not_ported(f"{what} over {seq} tokens (the kernel takes {max_seq})", item)
+    return kl
+
+
 def _check_inputs(qkv, probs, do, num_heads, what):
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {qkv.device}")
     b, s, c3 = qkv.shape
     c = c3 // 3
-    kl = kernel_library()
-    head_dim, max_seq = kl.lib.demo2_attention_bwd_head_dim(), kl.lib.demo2_attention_bwd_max_seq()
-    if c != num_heads * head_dim:
-        raise ValueError(f"{what}: the kernel takes heads of {head_dim}, got width {c} / "
-                         f"{num_heads} heads")
-    if s > max_seq:
-        raise ValueError(f"{what}: sequence {s} exceeds the kernel's {max_seq}")
+    kl = check_head_limits(what, c, num_heads, s)
     for tensor, name, shape in ((qkv, "qkv", (b, s, c3)),
                                 (probs, "probs", probs_shape(b, num_heads, s)),
                                 (do, "do", (b, s, c))):
@@ -140,3 +167,137 @@ def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):
 
 
 attention_bwd_saved.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Packed self-attention (kernel 5) and its recomputing backward (kernel 6).
+# ---------------------------------------------------------------------------
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and some tensor requires grad: a call JAX would make
+    under jax.grad, where the custom VJP's forward runs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _probs_f32(q, k, scale):
+    """exp(s - rowmax) of the f32 scores s = (q @ k^T) * scale, and
+    rowsum + 1e-30 (packed_attention.py::_unnorm_probs)."""
+    sc = (q @ k.transpose(-1, -2)) * scale
+    pu = torch.exp(sc - sc.amax(-1, keepdim=True))
+    return pu, pu.sum(-1, keepdim=True) + 1e-30
+
+
+def packed_self_attention_plain(qkv, num_heads: int, scale: float) -> torch.Tensor:
+    """_fwd_kernel's arithmetic in the dtype of qkv: f32 scores, the
+    unnormalised exp rounded to that dtype for the PV product (f32
+    accumulation), the f32 result divided by rowsum + 1e-30.
+    qkv (B, S, 3C) -> (B, S, C)."""
+    dt = qkv.dtype
+    c = qkv.shape[-1] // 3
+    q, k, v = (split_heads(x, num_heads).float() for x in qkv.split(c, dim=-1))
+    pu, denom = _probs_f32(q, k, scale)
+    return merge_heads(((pu.to(dt).float() @ v) / denom).to(dt))
+
+
+def packed_attention_bwd_plain(qkv, do, num_heads: int, scale: float) -> torch.Tensor:
+    """_bwd_kernel's arithmetic in the dtype of qkv: p recomputed and
+    normalised in f32; dV from p rounded to that dtype, dS from the f32 p,
+    rounded before the dQ / dK products; dq, dk, dv rounded at the end.
+    qkv (B, S, 3C), do (B, S, C) -> dqkv (B, S, 3C)."""
+    dt = qkv.dtype
+    c = qkv.shape[-1] // 3
+    q, k, v = (split_heads(x, num_heads).float() for x in qkv.split(c, dim=-1))
+    dof = split_heads(do, num_heads).float()
+    pu, denom = _probs_f32(q, k, scale)
+    p = pu / denom
+    dv = (p.to(dt).float().transpose(-1, -2) @ dof).to(dt)
+    dp = dof @ v.transpose(-1, -2)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    dq = ((ds @ k) * scale).to(dt)
+    dk = ((ds.transpose(-1, -2) @ q) * scale).to(dt)
+    return torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)
+
+
+def _check_packed(qkv, num_heads, what, do=None):
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {qkv.device}")
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    kl = check_head_limits(what, c, num_heads, s, qkv.dtype)
+    expect(qkv, "qkv", (b, s, c3), torch.bfloat16, qkv.device)
+    if do is not None:
+        expect(do, "do", (b, s, c), torch.bfloat16, qkv.device)
+    return kl, b, s, c
+
+
+def packed_attention_fwd(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
+    """(B, S, 3C) -> (B, S, C): the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return packed_self_attention_plain(qkv, num_heads, scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_fwd")
+    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
+    if qkv.numel() == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention(
+            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_fwd")
+    packed_attention_fwd.launches += 1
+    return out
+
+
+packed_attention_fwd.launches = 0
+
+
+def packed_attention_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tensor:
+    """dqkv (B, S, 3C) from qkv and the output cotangent do (B, S, C): the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return packed_attention_bwd_plain(qkv, do, num_heads, scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_bwd", do)
+    dqkv = torch.empty_like(qkv)
+    if qkv.numel() == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention_bwd(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_bwd")
+    packed_attention_bwd.launches += 1
+    return dqkv
+
+
+packed_attention_bwd.launches = 0
+
+
+class PackedSelfAttentionFn(torch.autograd.Function):
+    """packed_attention.py::_packed with its custom VJP: the forward (kernel 5
+    on CUDA) keeps qkv alone, the backward (kernel 6 on CUDA) recomputes the
+    probabilities from it."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        qkv = qkv.contiguous()
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return packed_attention_fwd(qkv, num_heads=num_heads, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return (packed_attention_bwd(qkv, g.contiguous(), num_heads=ctx.num_heads,
+                                     scale=ctx.scale), None, None)
+
+
+def packed_self_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Self-attention on packed (B, S, 3C) qkv -> (B, S, C), heads laid out as
+    `reshape(B, S, H, D)` of each C slice: the Function where a gradient is
+    to flow, else the forward kernel alone."""
+    if needs_grad(qkv):
+        return PackedSelfAttentionFn.apply(qkv, num_heads, scale)
+    return packed_attention_fwd(qkv.contiguous(), num_heads=num_heads, scale=scale)

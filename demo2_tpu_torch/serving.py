@@ -26,17 +26,20 @@ class FeatureExtractor:
         self.device = torch.device(device)
         self.batch_size = batch_size
 
-    def _embed(self, images: np.ndarray, cams: np.ndarray, mask: torch.Tensor) -> np.ndarray:
+    def _embed(self, images: np.ndarray, cams: np.ndarray, mask: torch.Tensor,
+               views: Optional[np.ndarray]) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).to(self.device)
-        c = torch.from_numpy(np.asarray(cams, dtype=np.int64)).to(self.device)
-        out = eval_step(self.model, x, c, mask)
+        ids = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(self.device)
+        out = eval_step(self.model, x, ids(cams), mask, None if views is None else ids(views))
         out = out / out.norm(dim=-1, keepdim=True).clamp(min=1e-12)
         return out.cpu().numpy()
 
     def extract(self, images: np.ndarray, camids: Optional[np.ndarray] = None,
-                miss: str = "None") -> np.ndarray:
+                miss: str = "None", viewids: Optional[np.ndarray] = None) -> np.ndarray:
         """Embed (N, 3, H, W, 3) float32 images, already transform-normalised
-        ((x/255 - PIXEL_MEAN) / PIXEL_STD); any N, including 0."""
+        ((x/255 - PIXEL_MEAN) / PIXEL_STD); any N, including 0.  `viewids`
+        feed the ImageNet ViT's view SIE (MODEL.SIE_VIEW); the JAX
+        extractor passes none."""
         n = images.shape[0]
         if n == 0:
             return np.zeros((0, self.model.embed_dim), np.float32)
@@ -45,13 +48,15 @@ class FeatureExtractor:
             camids = np.zeros((n,), np.int64)
         bs = self.batch_size
         outs = []
+        pad = lambda a, valid: np.concatenate([a, np.repeat(a[-1:], bs - valid, axis=0)])
         for i in range(0, n, bs):
             chunk, cams = images[i : i + bs], camids[i : i + bs]
+            views = None if viewids is None else viewids[i : i + bs]
             valid = chunk.shape[0]
             if valid < bs:
-                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bs - valid, axis=0)])
-                cams = np.concatenate([cams, np.repeat(cams[-1:], bs - valid)])
-            outs.append(self._embed(chunk, cams, mask)[:valid])
+                chunk, cams = pad(chunk, valid), pad(cams, valid)
+                views = None if views is None else pad(views, valid)
+            outs.append(self._embed(chunk, cams, mask, views)[:valid])
         return np.concatenate(outs, axis=0)
 
 

@@ -9,14 +9,22 @@ The inverse of demo2_tpu/utils/converters.py's layout rules (`_t`, `_conv`):
   * cv_embed, class_embedding, positional_embedding, proj, the DGAF queries
     and alpha, and SDTPS's stacked (3, 3, C, C) q/k kernels stay as they are.
 Module names map one to one, with `resblocks_3` -> `resblocks.3`,
-`modal_weight_mlp_0` -> `modal_weight_mlp.0`, and TorchLinear's inner
-`Dense_0` dropped.  The conversion is strict both ways: a flax leaf that
-fills no port tensor, or a port tensor that no leaf fills, raises.
+`blocks_3` -> `blocks.3` (the ImageNet ViT), `modal_weight_mlp_0` ->
+`modal_weight_mlp.0`, and TorchLinear's inner `Dense_0` dropped; the
+ImageNet ViT's `patch_embed_proj` conv (with bias), `cls_token`, `pos_embed`
+and `sie_embed` keep their names.  The conversion is strict both ways: a
+flax leaf that fills no port tensor, or a port tensor that no leaf fills,
+raises.
 
 `convert_train_state` carries a JAX train state into the port's TrainState:
 the params and batch_stats (after any number of steps) into the model, and
 optax's Adam state (count, and mu / nu, trees shaped like the params) into
 the optimizer, under the same rules.
+
+`load_imagenet_vit_pretrained` loads a timm / TransReID ViT checkpoint into
+the port's ImageNetViT, as demo2_tpu/utils/converters.py::convert_imagenet_vit
+converts it for the JAX package: the positional embedding's square grid
+resized to the model's with torch's un-antialiased bilinear interpolation.
 """
 
 from __future__ import annotations
@@ -27,9 +35,10 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-_LISTS = re.compile(r"^(resblocks|modal_weight_mlp)_(\d+)$")
+_LISTS = re.compile(r"^(resblocks|blocks|modal_weight_mlp)_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -127,3 +136,50 @@ def convert_train_state(variables: Mapping, opt_state, state) -> None:
     opt.load_state_dict({"count": int(np.asarray(adam.count)),
                          "state": {n: {slot: moments[slot][n] for slot in moments}
                                    for n in opt.state}})
+
+
+def resize_pos_embed_grid(pos: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """A (1 + N, C) positional embedding whose N tokens form a square grid,
+    its grid resized to (new_h, new_w) with F.interpolate(mode='bilinear',
+    align_corners=False), no antialiasing: what both reference loaders call
+    and demo2_tpu/utils/converters.py::resize_pos_embed_grid mirrors."""
+    tok, grid = pos[:1], pos[1:]
+    if grid.shape[0] == new_h * new_w:
+        return pos
+    side = int(round(grid.shape[0] ** 0.5))
+    grid = grid.reshape(1, side, side, -1).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(new_h, new_w), mode="bilinear", align_corners=False)
+    return torch.cat([tok, grid.permute(0, 2, 3, 1).reshape(new_h * new_w, -1)], dim=0)
+
+
+_VIT_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+                   "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias", "mlp.fc1.weight",
+                   "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+def load_imagenet_vit_pretrained(model: nn.Module, state_dict: Mapping) -> list:
+    """Load a timm / TransReID ViT state dict (torch layouts: tensors or
+    arrays) into `model`, an ImageNetViT (models/vit.py), in place; the
+    counterpart of convert_imagenet_vit.  The patch conv, the final norm and
+    the qkv bias are taken where the checkpoint has them; cls_token,
+    pos_embed (resized to the model's grid) and every block are required.
+    The rest of the checkpoint (a classifier head) is not read, and the
+    model's SIE embedding keeps its values.  Returns the names loaded."""
+    sd = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in state_dict.items()}
+    out = {"cls_token": sd["cls_token"],
+           "pos_embed": resize_pos_embed_grid(sd["pos_embed"][0], *model.grid)[None]}
+    for src, dst in (("patch_embed.proj", "patch_embed_proj"), ("norm", "norm")):
+        if f"{src}.weight" in sd:
+            out[f"{dst}.weight"], out[f"{dst}.bias"] = sd[f"{src}.weight"], sd[f"{src}.bias"]
+    i = 0
+    while f"blocks.{i}.attn.qkv.weight" in sd:
+        keys = _VIT_BLOCK_KEYS + (("attn.qkv.bias",) if f"blocks.{i}.attn.qkv.bias" in sd else ())
+        out.update({f"blocks.{i}.{k}": sd[f"blocks.{i}.{k}"] for k in keys})
+        i += 1
+    target = model.state_dict()
+    for key, value in out.items():
+        if key not in target or tuple(target[key].shape) != tuple(value.shape):
+            raise ValueError(f"checkpoint {key} {tuple(value.shape)} has no place in the model "
+                             f"({tuple(target[key].shape) if key in target else 'no such tensor'})")
+        target[key].copy_(value)
+    return sorted(out)

@@ -1,0 +1,357 @@
+"""The port's packed and head-major attention against the JAX package.
+
+On the CPU the wrappers of kernels 5 and 6 (ops/packed_attention.py) and 9
+and 10 (ops/flash_attention.py) take their plain PyTorch versions.  Those are
+held here against the Pallas kernels they replace: kernels 5 and 6 in
+interpret mode, as tests/test_pallas_kernels.py runs them; kernels 9 and 10,
+whose JAX entry has no interpret switch, against the TPU kernel's arithmetic
+composed from JAX's own `_softmax_probs` (flash_attention.py:41-50) and
+against `jax.vjp` of that composition.  The autograd Functions run the plain
+versions inside the same autograd structure on the CPU as the kernels on the
+card; their gradients are held against `jax.vjp` of the JAX entry points.
+Then attention_core's and MultiHeadAttention's routes: the mask, dropout on
+the probabilities, and the conditions under which implementation="pallas"
+reaches a kernel.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from demo2_tpu.ops import attention as jattn
+from demo2_tpu.ops.flash_attention import _softmax_probs
+from demo2_tpu.ops.flash_attention import flash_attention as j_flash_attention
+from demo2_tpu.ops.packed_attention import _packed_bwd, _packed_fwd_impl
+from demo2_tpu.ops.packed_attention import packed_self_attention as j_packed
+from demo2_tpu_torch.ops import attention as attn
+from demo2_tpu_torch.ops import flash_attention as fa
+from demo2_tpu_torch.ops import packed_attention as pa
+from torch_port_helpers import CPU, apply_jit, generator, load_port, n, random_variables, t
+
+# f32 on both sides: only the summation order differs.
+TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 on both sides with the same rounding points: an f32 sum taken in
+# another order can put a value on the other side of a bf16 rounding
+# boundary, which moves it by one bf16 ulp (2^-8 relative), and that carries
+# through the products after it.  Held to two ulps at unit scale.
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -6)
+
+H, D = 2, 64
+
+
+def _qkv(b, s, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, s, 3 * H * D)).astype(np.float32), \
+        rng.standard_normal((b, s, H * D)).astype(np.float32)
+
+
+def _jnp(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+
+
+def _torch(a, dtype):
+    return t(a).to(getattr(torch, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Kernels 5 and 6: plain versions against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [9, 17])  # S_pad 16 and 24 on the TPU: padded keys and queries
+def test_packed_forward_plain_matches_pallas_kernel(s, dtype):
+    qkv, _ = _qkv(4, s, seed=s)
+    scale = D ** -0.5
+    want = _packed_fwd_impl(_jnp(qkv, dtype), H, scale, interpret=True)
+    got = pa.packed_attention_fwd(_torch(qkv, dtype), num_heads=H, scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (4, s, H * D)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [9, 17])
+def test_packed_backward_plain_matches_pallas_kernel(s, dtype):
+    qkv, do = _qkv(4, s, seed=10 + s)
+    scale = D ** -0.5
+    (want,) = _packed_bwd(H, scale, _jnp(qkv, dtype), _jnp(do, dtype), interpret=True)
+    got = pa.packed_attention_bwd(_torch(qkv, dtype), _torch(do, dtype), num_heads=H,
+                                  scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == qkv.shape
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
+def test_packed_function_grads_match_jax_vjp():
+    """PackedSelfAttentionFn (kernels 5 and 6 on the card) against jax.vjp of
+    packed_self_attention, which on the CPU is JAX's XLA path."""
+    qkv, do = _qkv(3, 9, seed=3)
+    scale = D ** -0.5
+    want, vjp = jax.vjp(lambda x: j_packed(x, H, scale), jnp.asarray(qkv))
+    (want_grad,) = vjp(jnp.asarray(do))
+    x = t(qkv).requires_grad_(True)
+    y = pa.packed_self_attention(x, H, scale)
+    assert type(y.grad_fn).__name__ == "PackedSelfAttentionFnBackward"
+    y.backward(t(do))
+    np.testing.assert_allclose(n(y), np.asarray(want), **TOL)
+    np.testing.assert_allclose(n(x.grad), np.asarray(want_grad), **GRAD_TOL)
+    with torch.no_grad():  # no gradient wanted: the forward kernel alone
+        assert pa.packed_self_attention(x, H, scale).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# Kernels 9 and 10: plain versions against the TPU kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _flash_kernel_math(q, k, v, scale):
+    """flash_attention.py::_fwd_kernel per (sample, head), from JAX's own
+    _softmax_probs: q, k, v cast to f32, p kept in f32 for the PV product,
+    the output rounded to the input dtype.  (B, S, H, D) in and out."""
+    s = q.shape[1]
+    qt, kt, vt = (jnp.moveaxis(x, 1, 2).astype(jnp.float32) for x in (q, k, v))
+    probs = jax.vmap(jax.vmap(lambda a, b: _softmax_probs(a, b, scale, s)))(qt, kt)
+    return jnp.moveaxis(jnp.einsum("bhqk,bhkd->bhqd", probs, vt), 1, 2).astype(q.dtype)
+
+
+def _bshd(b, s, seed, count):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, H, D)).astype(np.float32) for _ in range(count)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [9, 17])
+def test_flash_forward_plain_matches_kernel_math(s, dtype):
+    q, k, v = _bshd(3, s, seed=20 + s, count=3)
+    scale = D ** -0.5
+    want = _flash_kernel_math(*(_jnp(a, dtype) for a in (q, k, v)), scale)
+    got = fa.flash_attention_fwd(*(_torch(a, dtype) for a in (q, k, v)), scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [9, 17])
+def test_flash_backward_plain_matches_vjp_of_kernel_math(s, dtype):
+    """_bwd_kernel's f32 arithmetic is the derivative of _fwd_kernel's:
+    kernel 10's plain version against jax.vjp of the composition, computed
+    in f32 from the (rounded) inputs and rounded at the end, as the kernel
+    rounds only its outputs."""
+    q, k, v, do = _bshd(2, s, seed=30 + s, count=4)
+    scale = D ** -0.5
+    rounded = [np.asarray(_jnp(a, dtype), np.float32) for a in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda *a: _flash_kernel_math(*a, scale), *map(jnp.asarray, rounded[:3]))
+    want = vjp(jnp.asarray(rounded[3]))
+    got = fa.flash_attention_bwd(*(_torch(a, dtype) for a in (q, k, v, do)), scale=scale)
+    tol = GRAD_TOL if dtype == "float32" else BF16_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(n(g), np.asarray(_jnp(w, dtype), np.float32), err_msg=name,
+                                   **tol)
+
+
+def test_flash_function_grads_match_jax_vjp():
+    q, k, v, do = _bshd(2, 9, seed=4, count=4)
+    scale = D ** -0.5
+    want, vjp = jax.vjp(lambda *a: j_flash_attention(*a, scale=scale),
+                        *map(jnp.asarray, (q, k, v)))
+    want_grads = vjp(jnp.asarray(do))
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    y = fa.flash_attention(*leaves, scale=scale)
+    assert type(y.grad_fn).__name__ == "FlashAttentionFnBackward"
+    y.backward(t(do))
+    np.testing.assert_allclose(n(y), np.asarray(want), **TOL)
+    for name, leaf, w in zip("qkv", leaves, want_grads):
+        np.testing.assert_allclose(n(leaf.grad), np.asarray(w), err_msg=name, **GRAD_TOL)
+
+
+def test_attention_wrappers_never_fall_back_off_the_cpu():
+    qkv = torch.zeros(1, 3, 3 * H * D, device="meta", dtype=torch.bfloat16)
+    do = torch.zeros(1, 3, H * D, device="meta", dtype=torch.bfloat16)
+    q = torch.zeros(1, 3, H, D, device="meta", dtype=torch.bfloat16)
+    calls = [lambda: pa.packed_attention_fwd(qkv, num_heads=H, scale=1.0),
+             lambda: pa.packed_attention_bwd(qkv, do, num_heads=H, scale=1.0),
+             lambda: fa.flash_attention_fwd(q, q, q, scale=1.0),
+             lambda: fa.flash_attention_bwd(q, q, q, q, scale=1.0)]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("width,heads,seq,ok", [
+    (768, 12, 129, True),     # ViT-B: 12 heads of 64
+    (768, 12, 144, True),     # the longest sequence the tiles hold
+    (768, 8, 129, False),     # vit_small: heads of 96
+    (776, 12, 129, False),    # a width that is no whole number of 64-wide heads
+    (768, 12, 211, False),    # stride 12 at 256x128: 211 tokens
+])
+def test_attention_limits_raise_naming_the_roadmap(monkeypatch, width, heads, seq, ok):
+    """Every attention wrapper checks the tiles' limits through one function,
+    which reads them from the library: here a stand-in for the built one."""
+    class Lib:
+        demo2_attention_head_dim = staticmethod(lambda: 64)
+        demo2_attention_max_seq = staticmethod(lambda: 144)
+
+    class Library:
+        lib = Lib()
+
+    monkeypatch.setattr(pa, "kernel_library", lambda: Library)
+    if ok:
+        assert pa.check_head_limits("attention", width, heads, seq) is Library
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*wider heads"):
+            pa.check_head_limits("attention", width, heads, seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_attention_kernels_on_other_dtypes_raise_naming_the_roadmap(dtype):
+    """The Pallas kernels 5, 6, 9 and 10 run on f32 too; the CUDA tiles read
+    bf16, so another dtype on the card raises naming the ROADMAP item (before
+    the library is even asked for its limits)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*f32 inputs"):
+        pa.check_head_limits("attention", 768, 12, 129, dtype)
+
+
+SMALL_ATTENTION_SHAPES = (((2, 9, 3 * H * D), (2, 9, H, D)), ((2, 17, 3 * H * D), (2, 17, H, D)))
+
+
+@pytest.mark.parametrize("name", ["packed_attention_fwd", "packed_attention_bwd",
+                                  "flash_attention_fwd", "flash_attention_bwd"])
+def test_misrounded_controls_fail_the_rounding_bound(name):
+    """chip_smoke.py holds kernels 5, 6, 9 and 10 within a mean of
+    ROUNDING_MEAN_TOL of their plain versions.  Its controls, the same
+    arithmetic rounded at a point where the Pallas kernel does not round,
+    must be further than that from the plain version on every output, or the
+    bound could not tell where a kernel rounds."""
+    import chip_smoke as cs
+
+    for packed_shape, flash_shape in SMALL_ATTENTION_SHAPES:
+        _, plain, inputs, _ = cs.attention_kernel_cases(
+            CPU, packed_shape, flash_shape, seed=3)[name]
+        control = cs.misrounded_controls(H, D ** -0.5)[name]
+        for yp, yw in zip(cs.as_tuple(plain(*inputs)), cs.as_tuple(control(*inputs))):
+            assert yw.shape == yp.shape and yw.dtype == yp.dtype == torch.bfloat16
+            assert cs.mean_err(yw, yp) > 10 * cs.ROUNDING_MEAN_TOL
+
+
+def test_chip_smoke_attention_phase_passes_on_the_plain_versions():
+    """Phase 9 of chip_smoke.py at small shapes on the CPU, where each wrapper
+    is its plain version: every bound holds and every control fails."""
+    import chip_smoke as cs
+
+    errors = cs.phase_attention_kernels(CPU, shapes=SMALL_ATTENTION_SHAPES)
+    assert errors == {name: 0.0 for name in ("packed_attention_fwd", "packed_attention_bwd",
+                                             "flash_attention_fwd", "flash_attention_bwd")}
+
+
+# ---------------------------------------------------------------------------
+# attention_core and MultiHeadAttention: mask, dropout, routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Count the calls attention.py makes into the two kernel entries."""
+    calls = {"flash": 0, "packed": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(attn, "flash_attention", counted("flash", fa.flash_attention))
+    monkeypatch.setattr(attn, "packed_self_attention", counted("packed", pa.packed_self_attention))
+    return calls
+
+
+def _qkv_heads(sq, sk, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, sq, 2, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((2, sk, 2, 8)).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", ["pallas", "pallas_with_mask", "pallas_unequal_lengths",
+                                  "xla_with_mask"])
+def test_attention_core_routes_and_matches_jax(case, routes):
+    sk = 7 if case == "pallas_unequal_lengths" else 5
+    q, k, v = _qkv_heads(5, sk, seed=6)
+    mask = None
+    if "mask" in case:
+        mask = np.where(np.random.default_rng(7).random((2, 1, 5, sk)) < 0.3, -1e9,
+                        0.0).astype(np.float32)
+    impl = "xla" if case.startswith("xla") else "pallas"
+    kw = dict(scale=8 ** -0.5, implementation=impl)
+    want = jattn.attention_core(*map(jnp.asarray, (q, k, v)),
+                                mask_bias=None if mask is None else jnp.asarray(mask), **kw)
+    got = attn.attention_core(t(q), t(k), t(v), mask_bias=None if mask is None else t(mask), **kw)
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    assert routes == {"flash": int(case == "pallas"), "packed": 0}
+
+
+def test_attention_dropout_matches_jax_given_its_draw(routes):
+    """Dropout on the probabilities: JAX's keep mask, drawn from its key, fed
+    to the port; with dropout active the kernel route is not taken."""
+    q, k, v = _qkv_heads(5, 5, seed=8)
+    rate, rng = 0.3, jax.random.PRNGKey(5)
+    want = jattn.attention_core(*map(jnp.asarray, (q, k, v)), scale=0.35, dropout_rate=rate,
+                                deterministic=False, rng=rng, implementation="pallas")
+    keep = jax.random.bernoulli(rng, 1.0 - rate, (2, 2, 5, 5))
+    got = attn.plain_attention(t(q), t(k), t(v), scale=0.35, dropout_rate=rate,
+                               keep=t(np.asarray(keep)))
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    drawn = attn.attention_core(t(q), t(k), t(v), scale=0.35, dropout_rate=rate,
+                                deterministic=False, generator=generator(1),
+                                implementation="pallas")
+    assert routes["flash"] == 0
+    eval_out = attn.attention_core(t(q), t(k), t(v), scale=0.35, dropout_rate=rate,
+                                   deterministic=True, implementation="pallas")
+    assert routes["flash"] == 1 and not torch.allclose(drawn, eval_out)
+
+
+@functools.cache
+def _mha_pair(dropout_rate):
+    jm = jattn.MultiHeadAttention(num_heads=2, dropout_rate=dropout_rate, implementation="pallas")
+    x = np.zeros((2, 5, 16), np.float32)
+    variables = random_variables(jm, x, seed=9)
+    port = attn.MultiHeadAttention(16, 2, dtype=torch.float32, device=CPU, generator=generator(),
+                                   dropout_rate=dropout_rate, implementation="pallas")
+    return jm, variables, load_port(port, variables)
+
+
+@pytest.mark.parametrize("case,want_routes", [
+    ("self", {"packed": 1, "flash": 0}),
+    ("cross_equal_lengths", {"packed": 0, "flash": 1}),
+    ("cross_unequal_lengths", {"packed": 0, "flash": 0}),
+    ("self_with_mask", {"packed": 0, "flash": 0}),
+])
+def test_multi_head_attention_routes_and_matches_jax(case, want_routes, routes):
+    jm, variables, port = _mha_pair(0.0)
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    kv = rng.standard_normal((2, 7 if "unequal" in case else 5, 16)).astype(np.float32)
+    mask = np.where(rng.random((2, 1, 5, 5)) < 0.3, -1e9, 0.0).astype(np.float32)
+    args = (x,) if case.startswith("self") else (x, kv)
+    mask_kw = {"mask_bias": mask} if "mask" in case else {}
+    want = apply_jit(jm, variables, *map(jnp.asarray, args),
+                     **{k: jnp.asarray(v) for k, v in mask_kw.items()})
+    got = port(*map(t, args), **{k: t(v) for k, v in mask_kw.items()})
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    assert routes == want_routes
+
+
+def test_multi_head_attention_dropout_bypasses_the_kernels(routes):
+    _, _, port = _mha_pair(0.2)
+    x = t(np.random.default_rng(11).standard_normal((2, 5, 16)).astype(np.float32))
+    port(x, train=True, generator=generator(2))
+    assert routes == {"packed": 0, "flash": 0}
+    port(x)  # eval: dropout off, the packed route
+    assert routes == {"packed": 1, "flash": 0}

@@ -79,7 +79,7 @@ def test_demo_slice_matches_jax(cross_attn_type, direct, miss):
     mask = np.asarray(miss, np.float32)
     want = pair.japply(pair.variables, images, cams, mask)
     with torch.no_grad():
-        got = pair.port(t(images), t(cams).long(), t(mask))
+        got = pair.port(t(images), t(cams).long(), None, t(mask))
     assert set(got["branches"]) == set(want["branches"])
     assert got["embedding"].dtype == torch.float32 and got["embedding"].shape == (3, 1536)
     np.testing.assert_allclose(n(got["embedding"]), np.asarray(want["embedding"]), **TOL)

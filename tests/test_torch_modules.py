@@ -103,7 +103,7 @@ def test_pife_clip_branch(mask):
                           width_override=64, heads_override=2, device=CPU,
                           generator=generator()), var)
     want_p, want_g = apply_jit(jm, var, images, cams, None, mask)
-    got_p, got_g = port(t(images), t(cams).long(), t(mask))
+    got_p, got_g = port(t(images), t(cams).long(), None, t(mask))
     assert got_p.shape == (3, 2, 8, 512) and got_g.shape == (3, 2, 512)
     np.testing.assert_allclose(n(got_p), np.asarray(want_p), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(n(got_g), np.asarray(want_g), rtol=1e-4, atol=1e-4)

@@ -84,7 +84,7 @@ def _flagship_tiny():
     ("MODEL", "FROZEN", True),
     ("MODEL", "ADAPTER", True),
     ("MODEL", "PROMPT", True),
-    ("MODEL", "TRANSFORMER_TYPE", "vit_base_patch16_224"),
+    ("MODEL", "TRANSFORMER_TYPE", "t2t_vit_t_14"),
     ("TPU", "INT8_MLP", "dynamic"),
 ])
 def test_configs_outside_the_slice_raise(section, key, value):
@@ -111,6 +111,21 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     if section == "TPU" and key in ("FUSED_MLP_TRAIN", "PALLAS_LN_BWD", "REMAT_BACKBONE"):
         with pytest.raises(NotImplementedError, match=key):  # the model's own part
             model(torch.zeros(2, 3, 64, 32, 3), torch.zeros(2, dtype=torch.long), train=True)
+
+
+def test_remat_backbone_on_the_imagenet_vit_raises_in_training():
+    cfg = _flagship_tiny()
+    cfg.MODEL.TRANSFORMER_TYPE = "vit_base_patch16_224"
+    cfg.TPU.BACKBONE_WIDTH = cfg.TPU.BACKBONE_HEADS = -1
+    cfg.TPU.BACKBONE_DEPTH = 1
+    cfg.TPU.REMAT_BACKBONE = True
+    model = make_model(cfg, 6, 4, device=CPU, generator=generator())
+    images = torch.zeros(2, 3, 64, 32, 3)
+    assert model(images, torch.zeros(2, dtype=torch.long))["embedding"].shape == (2, 3 * 768)
+    with pytest.raises(NotImplementedError, match="REMAT_BACKBONE"):
+        model(images, torch.zeros(2, dtype=torch.long), train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_train_state(cfg, model, steps_per_epoch=4)
 
 
 def test_seeded_init_is_deterministic():
