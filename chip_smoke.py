@@ -9,7 +9,9 @@ the flagship (DeMo SDTPS + DGAF v3 on CLIP ViT-B/16, 256x128, bf16, random
 weights from a seed) as a server through FeatureExtractor and match() and as
 a trainer through build_train_step and do_train, drives the same DeMo on
 the ImageNet ViT (vit_base_patch16_224, full width and depth) as a server
-and a trainer, and the head-major attention route, and times kernels,
+and a trainer, the head-major attention route, the flagship's training with
+the one-pass LayerNorm backward (TPU.PALLAS_LN_BWD) and its re-ranked
+evaluation (TEST.RE_RANKING, the MSVR310 scene protocol), and times kernels,
 requests and train steps against the plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
@@ -58,13 +60,39 @@ requests and train steps against the plain path.  Phases:
   12. ViT training: phase 6 with drop path 0.1 (both paths' generators
      seeded alike, so their masks agree; step-1 cosine per block's qkv /
      proj), each step launching kernels 5 and 6 12 times and no other;
-  13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s,
-     the extractor at batch 1 and 64 and the train step on both paths in
-     turns, peak memory, profiles of one request and one step.
+  13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s and
+     beside scaled_dot_product_attention (forward, and its autograd
+     backward), the extractor at batch 1 and 64 and the train step on both
+     paths in turns, peak memory, profiles of one request and one step;
+  14. the LayerNorm backward (11) vs its plain version at (24768, 768) and
+     (387, 768) bf16 and at (387, 768) f32: dx within phase 2's bounds,
+     dweight / dbias within 1e-3 of their largest, each no further from an
+     f64 computation than 1.5 x the plain version, all three outputs
+     bit-identical over two runs; the Jaccard min-sum (12) vs its plain
+     version on the re-ranking weights of 1,600 queries among 4,800 clustered
+     features, at phase 16's 80 among 320 and at a ragged 70 x 333: max abs
+     <= 1e-6, bit-identical runs;
+  15. training with PALLAS_LN_BWD: phase 6 on the flagship kernel path with
+     the flag on, each step launching kernels 3, 4 and 11 12 times and no
+     other; step-1 gradient cosine to the plain model >= 0.999 whole and per
+     block, ln_2's weight and bias among the groups;
+  16. re-ranked eval: do_inference and run_eval with TEST.RE_RANKING over an
+     eval cache cut from the training images on the card, the second with
+     DATASETS.NAMES = MSVR310 (scene protocol, rank list file); each eval
+     launches kernel 12 once beside kernels 1 and 2; distances within 1e-5
+     of, and CMC / mAP equal to, the same calls with the kernel swapped for
+     its plain version;
+  17. timing (printed): kernels 11 (beside aten's native_layer_norm_backward)
+     and 12 vs plain, re_ranking as a whole at 1,600 / 3,200, the train step
+     with and without PALLAS_LN_BWD in turns, a profile of one step of each.
+
+Every timed kernel is printed beside its bound: the larger of its bytes
+(each input read and each output written once) over the card's 3.35 TB/s and
+its operations over the peak for their type.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
-are the kernels (JSON), the card's name and power limit, and
+are the eleven kernels (JSON), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -102,6 +130,8 @@ F32_MEAN_RATIO = 1.5
 ROUNDING_MEAN_TOL = 1e-5
 COSINE_MIN = 0.999
 BF16_PEAK_TFLOPS = 989.0  # H100 SXM data sheet, dense, at the 700 W limit
+F32_PEAK_TFLOPS = 67.0    # the same sheet: f32 outside the tensor cores
+HBM_PEAK_TBS = 3.35       # device memory rate
 # A rehearsal on the CPU (import this module, set REHEARSAL = True and call the
 # phases with torch.device("cpu")) runs the tiny config; the wrappers then take
 # their plain versions, which count no launches, so the launch checks only log.
@@ -125,9 +155,10 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def all_kernels() -> dict:
-    """The wrappers of the nine kernels, each counting its launches."""
+    """The wrappers of the eleven kernels, each counting its launches."""
     from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
-    from demo2_tpu_torch.ops import packed_attention as pa
+    from demo2_tpu_torch.ops import norm, packed_attention as pa
+    from demo2_tpu_torch.utils import reranking
 
     return {"fused_attention_block": fb.fused_attention_block,
             "fused_mlp_block": fb.fused_mlp_block,
@@ -137,7 +168,9 @@ def all_kernels() -> dict:
             "packed_attention_fwd": pa.packed_attention_fwd,
             "packed_attention_bwd": pa.packed_attention_bwd,
             "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "layernorm_bwd": norm.layernorm_bwd,
+            "jaccard_min_sum": reranking.jaccard_min_sum}
 
 
 def reset_counts() -> None:
@@ -150,7 +183,7 @@ def counts() -> dict:
 
 
 def launch_dict(**nonzero) -> dict:
-    """Launch counts of all nine kernels: `nonzero`, the rest 0."""
+    """Launch counts of all eleven kernels: `nonzero`, the rest 0."""
     return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
@@ -332,7 +365,7 @@ def num_blocks(model) -> int:
 def phase_slice(device, cfg, model, plain_cfg, plain, per_forward: dict,
                 label: str = "slice") -> dict:
     """Serving: requests through FeatureExtractor, each forward launching
-    `per_forward` (all nine kernels' counts), embeddings against the plain
+    `per_forward` (all eleven kernels' counts), embeddings against the plain
     path, match() and CMC / mAP.  Returns the launches of the requests."""
     from demo2_tpu_torch.serving import FeatureExtractor, match
     from demo2_tpu_torch.utils.metrics import R1mAPEvaluator
@@ -420,25 +453,59 @@ def block_flops(name: str, shape) -> int:
     return 2 * 2 * m * c * 4 * c  # fc1 + fc2
 
 
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(flops: int, peak_tflops: float, moved_bytes: int):
+    """(bound_ms, bound_by): the least time the card could take for the work,
+    the larger of its operations over their peak rate and its bytes (each
+    input read once, each output written once) over the memory rate."""
+    ops_ms = flops / (peak_tflops * 1e9)
+    bytes_ms = moved_bytes / (HBM_PEAK_TBS * 1e9)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def timed(kernel, plain, flops, shape, inputs, library=None, peak=BF16_PEAK_TFLOPS, iters=20,
+          plain_iters=20) -> dict:
+    """One entry of time_kernels: the kernel's call, its plain version's, the
+    operations of one call (at `peak` TFLOP/s) and its input tensors, and the
+    one PyTorch call that computes the same function where there is one."""
+    return dict(kernel=kernel, plain=plain, flops=flops, shape=shape, inputs=inputs,
+                library=library, peak=peak, iters=iters, plain_iters=plain_iters)
+
+
 def time_kernels(cases: dict, card) -> dict:
-    """name -> (kernel call, plain call, FLOPs, shape): CUDA-event times of
-    both, in turns, with TFLOP/s.  Returns name -> (kernel ms, plain ms)."""
+    """name -> timed(...): CUDA-event times of the kernel and its plain
+    version in turns, the library call's where there is one, the achieved
+    TFLOP/s and the bound from this run's tensors.  Returns name -> {ms,
+    plain_ms, bound_ms, bound_by, library_ms}."""
     times = {}
-    for name, (kernel, plain_fn, flops, shape) in cases.items():
-        k_ms, p_ms = alternate(lambda: cuda_ms(plain_fn), lambda: cuda_ms(kernel))
-        times[name] = (k_ms, p_ms)
-        tflops = lambda ms: flops / ms / 1e9
-        log(f"[time] {name} x{shape}: kernel {k_ms:.4f} ms ({tflops(k_ms):.1f} TFLOP/s, "
-            f"{100 * tflops(k_ms) / BF16_PEAK_TFLOPS:.1f}% of the bf16 peak), plain "
-            f"{p_ms:.4f} ms ({tflops(p_ms):.1f} TFLOP/s) ({card})")
+    for name, c in cases.items():
+        k_ms, p_ms = alternate(lambda: cuda_ms(c["plain"], c["plain_iters"]),
+                               lambda: cuda_ms(c["kernel"], c["iters"]))
+        lib_ms = None
+        if c["library"] is not None:
+            lib_ms = (cuda_ms(c["library"], c["iters"]) + cuda_ms(c["library"], c["iters"])) / 2
+        moved = tensor_bytes(c["inputs"]) + tensor_bytes(as_tuple(c["kernel"]()))
+        bound_ms, bound_by = roofline(c["flops"], c["peak"], moved)
+        times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": lib_ms}
+        tflops = lambda ms: c["flops"] / ms / 1e9
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[time] {name} x{c['shape']}: kernel {k_ms:.4f} ms ({tflops(k_ms):.1f} TFLOP/s, "
+            f"{100 * tflops(k_ms) / c['peak']:.1f}% of the {c['peak']:.0f} TFLOP/s peak), plain "
+            f"{p_ms:.4f} ms ({tflops(p_ms):.1f} TFLOP/s), library call {lib}; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB moved, "
+            f"{c['flops'] / 1e9:.1f} GFLOP; {100 * bound_ms / k_ms:.1f}% of it reached) ({card})")
     return times
 
 
 def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
     x, attn, mlp = block_inputs(FLAGSHIP, device, seed=1)
     times = time_kernels({
-        name: (kernel, lambda plain_fn=plain_fn, weights=weights: plain_fn(x, weights),
-               block_flops(name, FLAGSHIP), FLAGSHIP)
+        name: timed(kernel, lambda plain_fn=plain_fn, weights=weights: plain_fn(x, weights),
+                    block_flops(name, FLAGSHIP), FLAGSHIP, [x, *weights.values()])
         for name, (kernel, plain_fn, weights) in kernel_cases(x, attn, mlp).items()}, card)
     time_extractor(device, card, cfg, model, plain_cfg, plain)
     return times
@@ -689,10 +756,13 @@ def block_groups(model):
     return "backbone.base.blocks.{}.", ("attn.qkv.", "attn.proj.")
 
 
-def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train") -> None:
+def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train",
+                      extra_groups=(), block_min=None) -> None:
     """Gradients of the first step on the kernel and the plain path: the
     same weights, batch and draws (the generator seeded alike, so that
-    augmentation, dropout and drop path agree)."""
+    augmentation, dropout and drop path agree).  `extra_groups` are further
+    per-block parameter groups to hold, `block_min` their cosine bound."""
+    block_min = GRAD_COS_BLOCK if block_min is None else block_min
     from demo2_tpu_torch.engine.train import loss_and_grads
     from demo2_tpu_torch.losses.losses import make_loss_fn
 
@@ -709,6 +779,7 @@ def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train") -
     whole = cosine(torch.cat([gk[k].flatten() for k in gk]), torch.cat([gp[k].flatten() for k in gk]))
     worst = (1.0, "")
     prefix, groups = block_groups(model)
+    groups = groups + tuple(extra_groups)
     for i in range(num_blocks(model)):
         pre = prefix.format(i)
         for group in groups:
@@ -719,7 +790,7 @@ def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train") -
     log(f"[{label}] step-1 gradient cosine, kernel vs plain path: whole model {whole:.6f}; "
         f"lowest block {' / '.join(groups)} {worst[0]:.6f} ({worst[1]})")
     require(whole >= GRAD_COS_MODEL, f"step-1 gradient cosine {whole} < {GRAD_COS_MODEL}")
-    require(worst[0] >= GRAD_COS_BLOCK, f"{worst[1]} gradient cosine {worst[0]} < {GRAD_COS_BLOCK}")
+    require(worst[0] >= block_min, f"{worst[1]} gradient cosine {worst[0]} < {block_min}")
 
 
 def train_steps(cfg, model, cache, order, steps, per_step=None):
@@ -742,16 +813,16 @@ def train_steps(cfg, model, cache, order, steps, per_step=None):
 
 
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
-                label: str = "train") -> dict:
+                label: str = "train", extra_groups=(), block_min=None) -> dict:
     """TRAIN_STEPS steps through build_train_step, each launching
-    `per_step_want` (all nine kernels' counts), against the plain path.
+    `per_step_want` (all eleven kernels' counts), against the plain path.
     Returns the launches of the steps."""
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     plain.load_state_dict(init)
     check_step1_grads(cfg, model, plain_cfg, plain, cache,
-                      torch.from_numpy(order[:bs]).to(device), label)
+                      torch.from_numpy(order[:bs]).to(device), label, extra_groups, block_min)
     model.load_state_dict(init)  # undo the BatchNorm updates of the check
     plain.load_state_dict(init)
 
@@ -902,26 +973,33 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
     w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
     kw = dict(num_heads=HEADS, scale=(FLAGSHIP[-1] // HEADS) ** -0.5)
     _, qkv, _, probs = fb.fused_attention_block_train(x, **w, **kw)
+    saved = [qkv, probs, grad_out]
     cases = {
         "fused_attention_block_train": (lambda: fb.fused_attention_block_train(x, **w, **kw),
-                                        lambda: fb.attention_block_train_plain(x, **w, **kw)),
+                                        lambda: fb.attention_block_train_plain(x, **w, **kw),
+                                        [x, *w.values()]),
         "attention_bwd_saved_db": (
             lambda: pa.attention_bwd_saved_db(qkv, probs, grad_out, **kw),
-            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw)),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw),
+            saved),
         "attention_bwd_saved": (
             lambda: pa.attention_bwd_saved(qkv, probs, grad_out, **kw),
-            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw)),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw),
+            saved),
     }
-    times = time_kernels({name: (kern, plain_fn, train_kernel_flops(name, FLAGSHIP), FLAGSHIP)
-                          for name, (kern, plain_fn) in cases.items()}, card)
+    times = time_kernels({name: timed(kern, plain_fn, train_kernel_flops(name, FLAGSHIP),
+                                      FLAGSHIP, inputs)
+                          for name, (kern, plain_fn, inputs) in cases.items()}, card)
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler)
     return times
 
 
 def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
-                    label: str = "") -> None:
-    """The train step in ms and img/s on both paths in turns, the peak
-    memory of a step and a profile of one step on each path."""
+                    label: str = "", names=("kernel path", "plain path"),
+                    profiles: bool = True) -> None:
+    """The train step in ms and img/s on both paths (`names`) in turns, the
+    peak memory of a step and, with `profiles`, a profile of one step on each
+    path."""
     from demo2_tpu_torch.engine.state import create_train_state
     from demo2_tpu_torch.engine.train import build_train_step
 
@@ -933,7 +1011,7 @@ def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
         step = build_train_step(c, m, create_train_state(c, m, len(order) // bs), cache)
         return lambda i: step(idx[i % len(idx)])
 
-    steppers = {"kernel": stepper(cfg, model), "plain": stepper(plain_cfg, plain)}
+    steppers = {names[0]: stepper(cfg, model), names[1]: stepper(plain_cfg, plain)}
 
     def step_ms(which, reps=5):
         run = steppers[which]
@@ -946,18 +1024,22 @@ def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
         sync()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    k_ms, p_ms = alternate(lambda: step_ms("plain"), lambda: step_ms("kernel"))
-    log(f"[time] {label}train step, batch {bs}: kernel path {k_ms:.2f} ms "
-        f"({1e3 * bs / k_ms:.1f} img/s), plain path {p_ms:.2f} ms ({1e3 * bs / p_ms:.1f} img/s) "
-        f"({card})")
-    for which in ("kernel", "plain"):
+    # In turns; the four readings are printed, since the host sets the step
+    # and two readings of one path differ by more than some pairs of paths.
+    p1, k1, k2, p2 = step_ms(names[1]), step_ms(names[0]), step_ms(names[0]), step_ms(names[1])
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    log(f"[time] {label}train step, batch {bs}: {names[0]} {k_ms:.2f} ms "
+        f"({1e3 * bs / k_ms:.1f} img/s), {names[1]} {p_ms:.2f} ms ({1e3 * bs / p_ms:.1f} img/s); "
+        f"turns {names[1]} {p1:.2f}, {names[0]} {k1:.2f}, {names[0]} {k2:.2f}, {names[1]} "
+        f"{p2:.2f} ms ({card})")
+    for which in names:
         torch.cuda.reset_peak_memory_stats()
         steppers[which](0)
         sync()
-        log(f"[time] {label}peak device memory of a {which}-path train step: "
+        log(f"[time] {label}peak device memory of a train step, {which}: "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-    for which in ("kernel", "plain"):
-        profile(f"{label}{which} path, one train step of {bs}", lambda: steppers[which](1),
+    for which in names if profiles else ():
+        profile(f"{label}{which}, one train step of {bs}", lambda: steppers[which](1),
                 card, top=14)
 
 
@@ -974,8 +1056,14 @@ def as_tuple(y):
 
 def attention_kernel_cases(device, packed_shape, flash_shape, seed):
     """Kernels 5, 6, 9 and 10 with their plain versions: name -> (kernel
-    call, plain version, its inputs, FLOPs).  Unit-scale bf16 inputs (what
-    the qkv Linear of a LayerNormed x gives at init) and unit cotangents."""
+    call, plain version, its inputs, FLOPs, the library call).  Unit-scale
+    bf16 inputs (what the qkv Linear of a LayerNormed x gives at init) and
+    unit cotangents.  The library call is scaled_dot_product_attention on
+    (B, H, S, D) views of the same inputs, and for the backward kernels the
+    autograd backward of its output; it is a yardstick for the timing phase
+    and runs nowhere in the port."""
+    import torch.nn.functional as F
+
     from demo2_tpu_torch.ops import flash_attention as fa, packed_attention as pa
 
     g = torch.Generator().manual_seed(seed)
@@ -986,19 +1074,33 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
     q, k, v, dof = (rnd(*flash_shape) for _ in range(4))
     fb_, fs, fh, fd = flash_shape
     pk = dict(num_heads=h, scale=scale)
+
+    def sdpa(heads, cotangent):
+        """(forward call, backward call) of the library's attention on
+        head-major views; the backward differentiates one kept forward."""
+        qh, kh, vh = (x.detach().requires_grad_(True) for x in heads)
+        fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        if not qh.is_cuda:
+            return fwd, None
+        out = fwd()
+        return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), cotangent, retain_graph=True)
+
+    packed_heads = [x.reshape(b, s, h, 64).transpose(1, 2) for x in qkv.split(c3 // 3, -1)]
+    packed_lib = sdpa(packed_heads, do.reshape(b, s, h, 64).transpose(1, 2))
+    flash_lib = sdpa([x.transpose(1, 2) for x in (q, k, v)], dof.transpose(1, 2))
     return {
         "packed_attention_fwd": (lambda: pa.packed_attention_fwd(qkv, **pk),
                                  lambda *x: pa.packed_self_attention_plain(*x, h, scale),
-                                 (qkv,), 4 * b * s * s * c3 // 3),
+                                 (qkv,), 4 * b * s * s * c3 // 3, packed_lib[0]),
         "packed_attention_bwd": (lambda: pa.packed_attention_bwd(qkv, do, **pk),
                                  lambda *x: pa.packed_attention_bwd_plain(*x, h, scale),
-                                 (qkv, do), 10 * b * s * s * c3 // 3),
+                                 (qkv, do), 10 * b * s * s * c3 // 3, packed_lib[1]),
         "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
                                 lambda *x: fa.flash_attention_plain(*x, scale=scale),
-                                (q, k, v), 4 * fb_ * fs * fs * fh * fd),
+                                (q, k, v), 4 * fb_ * fs * fs * fh * fd, flash_lib[0]),
         "flash_attention_bwd": (lambda: fa.flash_attention_bwd(q, k, v, dof, scale=scale),
                                 lambda *x: fa.flash_attention_bwd_plain(*x, scale=scale),
-                                (q, k, v, dof), 10 * fb_ * fs * fs * fh * fd),
+                                (q, k, v, dof), 10 * fb_ * fs * fs * fh * fd, flash_lib[1]),
     }
 
 
@@ -1083,7 +1185,7 @@ def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES
     for packed_shape, flash_shape in shapes:
         cases = attention_kernel_cases(device, packed_shape, flash_shape, seed=7)
         controls = misrounded_controls(packed_shape[2] // 3 // 64, 64 ** -0.5)
-        for name, (kernel, plain, inputs, _) in cases.items():
+        for name, (kernel, plain, inputs, _, _) in cases.items():
             got = as_tuple(kernel())
             ref = as_tuple(plain(*inputs))
             f32 = as_tuple(plain(*(x.float() for x in inputs)))
@@ -1184,11 +1286,311 @@ def phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler)
     in turns."""
     cases = attention_kernel_cases(device, PACKED_SHAPES[0], FLASH_SHAPES[0], seed=7)
     times = time_kernels({
-        name: (kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs), flops,
-               tuple(inputs[0].shape))
-        for name, (kernel, plain_fn, inputs, flops) in cases.items()}, card)
+        name: timed(kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs), flops,
+                    tuple(inputs[0].shape), inputs, library)
+        for name, (kernel, plain_fn, inputs, flops, library) in cases.items()}, card)
     time_extractor(device, card, cfg, model, plain_cfg, plain, label="ViT ")
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler, label="ViT ")
+    return times
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+LN_BWD_SHAPES = ((24768, 768), (387, 768))  # the rows of x (192, 129, 768) and (3, 129, 768)
+LN_EPS = 1e-5
+LN_SUM_REL = 1e-3      # dweight / dbias vs the plain version's, of their largest
+# Kernel and plain version both sum in f32, in different orders; where both sit
+# at f32 rounding of the f64 result, their ratio is noise.  An error within
+# 1e-6 of the output's largest value passes whatever the plain version's is.
+F32_ROUNDING_FLOOR = 1e-6
+# (queries, gallery): n = 4,800 at dataset scale, phase 16's eval, a ragged 333
+JACCARD_SIZES = ((1600, 3200), (80, 240), (70, 263))
+JACCARD_TOL = 1e-6     # values lie in [0, 1]; the two sum 4,800 f32 terms in different orders
+
+
+def ln_bwd_inputs(shape, device, seed, dtype=torch.bfloat16):
+    """x off-centre and wider than unit scale, a unit cotangent, an
+    init-scale f32 weight."""
+    g = torch.Generator().manual_seed(seed)
+    r, c = shape
+    x = (torch.randn(r, c, generator=g) * 1.5 + 0.3).to(device, dtype)
+    dy = torch.randn(r, c, generator=g).to(device, dtype)
+    return x, dy, (1 + 0.1 * torch.randn(c, generator=g)).to(device)
+
+
+def ln_bwd_f64(x, dy, weight, eps):
+    """The LayerNorm backward in f64: the reference both versions are held to."""
+    xd, dyd, g = x.double(), dy.double(), weight.double()
+    mean = xd.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xd - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (xd - mean) * rstd
+    dyg = dyd * g
+    dx = rstd * (dyg - dyg.mean(-1, keepdim=True) - xhat * (dyg * xhat).mean(-1, keepdim=True))
+    return dx, (dyd * xhat).sum(0), dyd.sum(0)
+
+
+def phase_ln_bwd_kernel(device, cases=None) -> dict:
+    """Kernel 11 against its plain version and an f64 computation: bf16 at
+    both main-path shapes, f32 at the small one.  Returns its max abs dx
+    error at the first case."""
+    from demo2_tpu_torch.ops import norm
+
+    if cases is None:
+        cases = tuple((shape, torch.bfloat16) for shape in LN_BWD_SHAPES) + (
+            (LN_BWD_SHAPES[1], torch.float32),)
+    errors = {}
+    for shape, dtype in cases:
+        x, dy, w = ln_bwd_inputs(shape, device, seed=13, dtype=dtype)
+        got = norm.layernorm_bwd(x, dy, w, LN_EPS)
+        again = norm.layernorm_bwd(x, dy, w, LN_EPS)
+        plain = norm.layernorm_bwd_plain(x, dy, w, LN_EPS)
+        f64 = ln_bwd_f64(x, dy, w, LN_EPS)
+        sync()
+        what = f"kernel 11 {tuple(shape)} {str(dtype).split('.')[-1]}"
+        for name, yk, yp, y64 in zip(("dx", "dweight", "dbias"), got, plain, f64):
+            d = (yk.double() - yp.double()).abs()
+            k64 = (yk.double() - y64).abs().mean().item()
+            p64 = (yp.double() - y64).abs().mean().item()
+            scale = y64.abs().max().item()
+            log(f"[ln-bwd] {what} {name}: vs plain max {d.max().item():.3e} mean "
+                f"{d.mean().item():.3e}; mean error vs f64 kernel {k64:.3e}, plain {p64:.3e} "
+                f"(max |f64| {scale:.3e})")
+            require(bool(torch.isfinite(yk).all()), f"{what} {name}: non-finite")
+            require(k64 <= F32_MEAN_RATIO * p64 + F32_ROUNDING_FLOOR * scale,
+                    f"{what} {name}: error vs f64 {k64} > {F32_MEAN_RATIO} x the plain "
+                    f"version's {p64}")
+            if name == "dx":
+                require(yk.dtype == dtype, f"{what} dx: dtype {yk.dtype}")
+                require(d.max().item() <= MAX_ABS_TOL, f"{what} dx: max abs {d.max().item()}")
+                require(d.mean().item() <= MEAN_ABS_TOL, f"{what} dx: mean abs {d.mean().item()}")
+                errors.setdefault("layernorm_bwd", d.max().item())
+            else:
+                require(yk.dtype == torch.float32, f"{what} {name}: dtype {yk.dtype}")
+                require(d.max().item() <= LN_SUM_REL * scale,
+                        f"{what} {name}: off by {d.max().item()} of {scale}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{what}: two runs differ in their bits")
+        log(f"[ln-bwd] {what}: dx, dweight and dbias bit-identical over two runs")
+    log(f"[ln-bwd] tolerances: dx max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}; "
+        f"dweight / dbias within {LN_SUM_REL} of their largest; each error vs f64 <= "
+        f"{F32_MEAN_RATIO} x the plain version's (+ {F32_ROUNDING_FLOOR} of the largest "
+        f"value); bit-identical reruns: ok")
+    return errors
+
+
+def clustered_features(nq, ng, device, seed, dim=1536, per_id=24):
+    """Unit-norm embeddings of nq + ng samples, `per_id` to an identity,
+    around random centres, identities interleaved over queries and gallery;
+    a few exact duplicates, as repeated frames give them."""
+    g = torch.Generator().manual_seed(seed)
+    total = nq + ng
+    ids = max(total // per_id, 2)
+    centres = torch.randn(ids, dim, generator=g)
+    f = centres[torch.arange(total) % ids] + torch.randn(total, dim, generator=g)
+    f[nq + 1], f[total - 1], f[nq + 2] = f[nq + 7], f[total - 2], f[0]
+    f = f / f.norm(dim=1, keepdim=True)
+    return f[:nq].to(device), f[nq:].to(device)
+
+
+def rerank_weights(nq, ng, device, seed=17):
+    """The min-sum's operands as re_ranking gives them: Vq (nq, n), V (n, n)."""
+    from demo2_tpu_torch.utils import reranking as rr
+
+    qf, gf = clustered_features(nq, ng, device, seed)
+    v, _ = rr.reciprocal_weights(qf, gf, 50, 15)
+    return v[:nq].contiguous(), v.contiguous()
+
+
+def phase_jaccard_kernel(device, sizes=JACCARD_SIZES) -> dict:
+    """Kernel 12 against its plain version on the re-ranking weights of
+    clustered features.  Returns its max abs error at the first size."""
+    from demo2_tpu_torch.utils import reranking as rr
+
+    errors = {}
+    for nq, ng in sizes:
+        vq, v = rerank_weights(nq, ng, device)
+        got = rr.jaccard_min_sum(vq, v)
+        again = rr.jaccard_min_sum(vq, v)
+        want = rr.jaccard_min_sum_plain(vq, v)
+        sync()
+        d = (got - want).abs().max().item()
+        density = (v > 0).float().mean().item()
+        log(f"[jaccard] kernel 12 Vq {tuple(vq.shape)} x V {tuple(v.shape)} (V {100 * density:.2f}% "
+            f"non-zero): vs plain max abs {d:.3e}; values in [{got.min().item():.3e}, "
+            f"{got.max().item():.6f}]")
+        require(got.shape == (nq, nq + ng) and bool(torch.isfinite(got).all()),
+                f"kernel 12 {nq} x {nq + ng}: shape {tuple(got.shape)} or non-finite")
+        require(d <= JACCARD_TOL, f"kernel 12 {nq} x {nq + ng}: max abs {d} > {JACCARD_TOL}")
+        require(got.min().item() >= 0.0 and got.max().item() <= 1.0 + JACCARD_TOL,
+                f"kernel 12 {nq} x {nq + ng}: a min-sum of unit-sum rows outside [0, 1]")
+        require(torch.equal(got, again), f"kernel 12 {nq} x {nq + ng}: two runs differ")
+        errors.setdefault("jaccard_min_sum", d)
+    log(f"[jaccard] tolerance: max abs <= {JACCARD_TOL}, bit-identical reruns: ok")
+    return errors
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+def ln_bwd_cfg(fused: bool, **overrides):
+    """The flagship with TPU.PALLAS_LN_BWD on its kernel path; the plain path
+    keeps the default LayerNorm backward."""
+    return flagship_cfg(fused, TPU__PALLAS_LN_BWD=fused, **overrides)
+
+
+# ---------------------------------------------------------------- phase 16
+
+
+RERANK_DIST_TOL = 1e-5
+EVAL_IDS, EVAL_QUERIES_PER_ID = 40, 2  # 80 queries and 240 gallery samples of 40 identities
+
+
+def eval_cache_from(train_cache, cfg):
+    """An eval DeviceCache cut from the training images already on the card:
+    of each of the first EVAL_IDS identities, the first images as queries,
+    then the rest as gallery.  Returns (cache, number of queries)."""
+    import dataclasses
+
+    require(tuple(cfg.INPUT.SIZE_TEST) == tuple(train_cache.size), "eval and train sizes differ")
+    per = TRAIN_IMGS_PER_PID
+    rows = torch.arange(EVAL_IDS * per).reshape(EVAL_IDS, per)  # the cache is identity-major
+    sel = torch.cat([rows[:, :EVAL_QUERIES_PER_ID].flatten(),
+                     rows[:, EVAL_QUERIES_PER_ID:].flatten()]).to(train_cache.images.device)
+    val = dataclasses.replace(train_cache, images=train_cache.images[sel],
+                              pids=train_cache.pids[sel], camids=train_cache.camids[sel],
+                              viewids=train_cache.viewids[sel], train=False)
+    return val, EVAL_IDS * EVAL_QUERIES_PER_ID
+
+
+def phase_rerank_eval(device, model, train_cache) -> dict:
+    """do_inference and run_eval with TEST.RE_RANKING on the kernel path, the
+    second under MSVR310's scene protocol with its rank list file; then the
+    same calls with kernel 12 swapped for its plain version.  Returns the
+    launches of the two evals."""
+    import tempfile
+
+    from demo2_tpu_torch.engine.eval import do_inference, run_eval
+    from demo2_tpu_torch.utils import reranking as rr
+
+    kw = dict(TEST__RE_RANKING="yes", TEST__IMS_PER_BATCH=64)
+    val, nq = eval_cache_from(train_cache, flagship_cfg(True, **kw))
+    n = val.images.shape[0]
+    layers, batches = num_blocks(model), math.ceil(n / 64)
+    per_eval = launch_dict(fused_attention_block=layers * batches,
+                           fused_mlp_block=layers * batches, jaccard_min_sum=1)
+    distances = []
+    real_re_ranking, kernel = rr.re_ranking, rr.jaccard_min_sum
+
+    def recording(*args, **kwargs):
+        distances.append(real_re_ranking(*args, **kwargs))
+        return distances[-1]
+
+    def both_evals(tmp, tag, counted):
+        """name -> (CMC, mAP, launches of the eval, seconds); launches are
+        read only while the wrappers are in place (`counted`)."""
+        out = {}
+        for name, fn, cfg, path in (
+                ("do_inference", do_inference, flagship_cfg(True, **kw), None),
+                ("run_eval MSVR310", run_eval,
+                 flagship_cfg(True, DATASETS__NAMES="MSVR310", **kw), f"{tmp}/re_{tag}.txt")):
+            before = counts() if counted else {}
+            t0 = time.perf_counter()
+            cmc, m_ap = fn(cfg, model, val, nq, rank_list_path=path)
+            sync()
+            wall = time.perf_counter() - t0
+            rose = {k: v - before[k] for k, v in counts().items()} if counted else {}
+            out[name] = (cmc, m_ap, rose, wall)
+        return out
+
+    rr.re_ranking = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            on_kernel = both_evals(tmp, "kernel", counted=True)
+            launches = counts()
+            rr.jaccard_min_sum = rr.jaccard_min_sum_plain
+            on_plain = both_evals(tmp, "plain", counted=False)
+            rank_list = open(f"{tmp}/re_kernel.txt").read().splitlines()
+    finally:
+        rr.re_ranking, rr.jaccard_min_sum = real_re_ranking, kernel
+    for i, (name, (cmc, m_ap, rose, wall)) in enumerate(on_kernel.items()):
+        require_launches(rose, per_eval, f"[rerank-eval] {name}")
+        p_cmc, p_map = on_plain[name][:2]
+        dist, p_dist = distances[i], distances[i + 2]
+        d = (dist - p_dist).abs().max().item()
+        log(f"[rerank-eval] {name}: {nq} queries x {n - nq} gallery in {wall:.2f} s, mAP "
+            f"{m_ap:.4f}, Rank-1 {cmc[0]:.3f}; launches {rose}; distances vs the plain "
+            f"min-sum max abs {d:.3e}; plain mAP {p_map:.4f}")
+        require(dist.shape == (nq, n - nq) and bool(torch.isfinite(dist).all()),
+                f"[rerank-eval] {name}: distances {tuple(dist.shape)} or non-finite")
+        require(cmc.shape == (50,) and 0.0 < m_ap <= 1.0, f"[rerank-eval] {name}: mAP {m_ap}")
+        require(d <= RERANK_DIST_TOL, f"[rerank-eval] {name}: distances differ by {d}")
+        require(bool(np.all(np.abs(cmc - p_cmc) <= 1e-6)) and abs(m_ap - p_map) <= 1e-6,
+                f"[rerank-eval] {name}: CMC / mAP differ from the plain min-sum's")
+    require(rank_list[0] == "rank list file" and len(rank_list) == 1 + 2 * nq
+            and "_s" in rank_list[1], "[rerank-eval] MSVR310's rank list file is malformed")
+    log(f"[rerank-eval] rank list: {len(rank_list)} lines, first query {rank_list[1]} "
+        f"{' '.join(rank_list[2].split()[:4])} ...")
+    log(f"[rerank-eval] main path: 2 evals, launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 17
+
+
+def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sampler) -> dict:
+    """Kernels 11 and 12 against their plain versions (11 also beside
+    aten's native_layer_norm_backward, which reads the statistics the forward
+    saved), re_ranking as a whole with the kernel and with its plain version,
+    and the train step with and without PALLAS_LN_BWD, each pair in turns,
+    with a profile of one step of each."""
+    from demo2_tpu_torch.ops import norm
+    from demo2_tpu_torch.utils import reranking as rr
+
+    shape = LN_BWD_SHAPES[0]
+    x, dy, w = ln_bwd_inputs(shape, device, seed=13)
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    wb, bb = w.to(x.dtype), torch.zeros_like(w).to(x.dtype)
+    nq, ng = JACCARD_SIZES[0]
+    vq, v = rerank_weights(nq, ng, device)
+    times = time_kernels({
+        "layernorm_bwd": timed(
+            lambda: norm.layernorm_bwd(x, dy, w, LN_EPS),
+            lambda: norm.layernorm_bwd_plain(x, dy, w, LN_EPS),
+            12 * x.numel(), shape, [x, dy, w],
+            library=lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [shape[1]], mean, rstd, wb, bb, [True, True, True]),
+            peak=F32_PEAK_TFLOPS),
+        "jaccard_min_sum": timed(
+            lambda: rr.jaccard_min_sum(vq, v), lambda: rr.jaccard_min_sum_plain(vq, v),
+            2 * vq.shape[0] * v.shape[0] * v.shape[1], (tuple(vq.shape), tuple(v.shape)),
+            [vq, v], peak=F32_PEAK_TFLOPS, iters=10, plain_iters=2),
+    }, card)
+
+    qf, gf = clustered_features(nq, ng, device, seed=17)
+    kernel = rr.jaccard_min_sum
+
+    def whole_ms(min_sum, reps=3):
+        rr.jaccard_min_sum = min_sum
+        try:
+            rr.re_ranking(qf, gf)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                rr.re_ranking(qf, gf)
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / reps
+        finally:
+            rr.jaccard_min_sum = kernel
+
+    k_ms, p_ms = alternate(lambda: whole_ms(rr.jaccard_min_sum_plain), lambda: whole_ms(kernel))
+    log(f"[time] re_ranking of {nq} queries x {ng} gallery (k1 50, k2 15), whole: with kernel "
+        f"12 {k_ms:.2f} ms, with its plain version {p_ms:.2f} ms ({card})")
+    time_train_step(device, card, ln_cfg, ln_model, cfg, model, cache, sampler,
+                    label="PALLAS_LN_BWD ", names=("flag on", "flag off"))
     return times
 
 
@@ -1211,6 +1613,9 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                             "demo2_tpu/ops/flash_attention.py:53"),
     "flash_attention_bwd": ("demo2_tpu_torch/csrc/flash_attention.cu",
                             "demo2_tpu/ops/flash_attention.py:67"),
+    "layernorm_bwd": ("demo2_tpu_torch/csrc/layernorm_bwd.cu", "demo2_tpu/ops/norm.py:183"),
+    "jaccard_min_sum": ("demo2_tpu_torch/csrc/jaccard_min_sum.cu",
+                        "demo2_tpu/utils/reranking.py:23"),
 }
 
 
@@ -1223,6 +1628,8 @@ def main() -> None:
     errors = phase_kernels(device)
     errors.update(phase_train_kernels(device))
     errors.update(phase_attention_kernels(device))
+    errors.update(phase_ln_bwd_kernel(device))
+    errors.update(phase_jaccard_kernel(device))
 
     # The CLIP flagship: serving (kernels 1, 2), training (3, 4), the input
     # gradient (7), do_train, timing.
@@ -1241,7 +1648,20 @@ def main() -> None:
     launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model, plain)
     phase_do_train(device, model, cache, sampler)
     times.update(phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
-    del model, plain
+
+    # The flagship with PALLAS_LN_BWD (kernel 11 beside 3 and 4), its
+    # re-ranked eval (kernel 12 beside 1 and 2), their timing.
+    ln_cfg, ln_model, ln_plain_cfg, ln_plain = build_models(device, ln_bwd_cfg)
+    trained = phase_train(device, ln_cfg, ln_model, ln_plain_cfg, ln_plain, cache, sampler,
+                          launch_dict(fused_attention_block_train=layers,
+                                      attention_bwd_saved_db=layers, layernorm_bwd=layers),
+                          label="ln-train", extra_groups=("ln_2.",), block_min=GRAD_COS_MODEL)
+    launches["layernorm_bwd"] = trained["layernorm_bwd"]
+    del ln_plain
+    launches["jaccard_min_sum"] = phase_rerank_eval(device, model, cache)["jaccard_min_sum"]
+    times.update(phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache,
+                                        sampler))
+    del model, plain, ln_model
     torch.cuda.empty_cache()
 
     # The head-major route (kernels 9, 10).
@@ -1261,8 +1681,7 @@ def main() -> None:
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errors[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": launches[name], "max_abs_err": errors[name], **times[name]}
         for name, (src, rep) in KERNEL_SOURCES.items()
     ]}))
     print(card)

@@ -1,14 +1,18 @@
 """demo2_tpu_torch: the PyTorch / CUDA port of demo2_tpu.
 
-The package mirrors demo2_tpu's module paths.  Two slices of the flagship
-model, DeMo (SDTPS + DGAF v3 on CLIP ViT-B/16), are ported: serving (the
-eval forward, the embedding extractor and the retrieval metrics) and
-training (losses, optimizer, device-resident data cache with on-device
-augmentation, train step, epoch loop with eval and checkpoints).  The Pallas
+The package mirrors demo2_tpu's module paths.  Of DeMo (SDTPS + DGAF v3), on
+CLIP ViT-B/16 (the flagship) or the ImageNet ViT family, these paths are
+ported: serving (the eval forward, the embedding extractor, the retrieval
+metrics), training (losses, optimizer, device-resident data cache with
+on-device augmentation, train step, epoch loop with eval and checkpoints,
+optionally with the one-pass LayerNorm backward, TPU.PALLAS_LN_BWD), and
+evaluation with k-reciprocal re-ranking (TEST.RE_RANKING) under the camera
+protocol or MSVR310's scene protocol with its rank list file.  The Pallas
 kernels of those paths (the ViT's fused attention and MLP sub-blocks, the
-training forward with its residuals and the saved-probs attention backward)
-are hand-written CUDA kernels for Hopper (sm_90a) under csrc/, built at
-first use (ops/kernel_lib.py).  The package imports torch and never jax.
+training forward with its residuals, the attention backwards, the packed and
+head-major attention, the LayerNorm backward, the re-ranking min-sum) are
+hand-written CUDA kernels for Hopper (sm_90a) under csrc/, built at first
+use (ops/kernel_lib.py).  The package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

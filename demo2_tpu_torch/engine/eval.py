@@ -3,19 +3,24 @@ cache (demo2_tpu/engine/eval.py).
 
 `run_eval` is the JAX package's device-cache branch: the query and gallery
 samples are gathered and normalised on the device, embedded, and ranked by
-R1mAPEvaluator.  The host dataset loop, do_inference and MSVR310's scene
-protocol come with the eval entry points (ROADMAP.md, port queue item 2).
+R1mAPEvaluator: by the euclidean distance or, with TEST.RE_RANKING, by
+k-reciprocal re-ranking; under the camera protocol or, for MSVR310, the scene
+protocol with its rank list file.  `do_inference` is run_eval with the
+reference's log lines.  The host dataset loop waits for the dataset parsers
+(ROADMAP.md, port queue: eval entry points and datasets).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..utils.metrics import R1mAPEvaluator
+
+logger = logging.getLogger("DeMo")
 
 MISS_MASKS = {
     "None": (1.0, 1.0, 1.0),
@@ -44,23 +49,44 @@ def eval_step(model, images: torch.Tensor, camids: torch.Tensor, mask: torch.Ten
     return model(images, camids, viewids, mask, train=False)["embedding"]
 
 
-def run_eval(cfg, model, cache, num_query: int) -> Tuple[np.ndarray, float]:
+def run_eval(cfg, model, cache, num_query: int,
+             rank_list_path: Optional[str] = None) -> Tuple[np.ndarray, float]:
     """CMC and mAP of `model` over an eval DeviceCache holding the query
     samples then the gallery, in TEST.IMS_PER_BATCH batches, under the
-    TEST.MISS modality mask."""
-    if cfg.DATASETS.NAMES == "MSVR310":
-        raise not_ported("MSVR310's scene protocol", "eval entry points and datasets")
+    TEST.MISS modality mask.  DATASETS.NAMES == "MSVR310" selects the scene
+    protocol (the cache's viewids carry the scene ids) and writes the rank
+    list to `rank_list_path`, by default `re.txt` as the reference does.
+    The ranking runs on the cache's device, or on the CPU when
+    TPU.EVAL_ON_DEVICE is off."""
     if cache.train:
         raise ValueError("run_eval needs an eval cache (normalising, not augmenting)")
     dev = cache.images.device
     mask = miss_mask(str(cfg.TEST.MISS), device=dev)
-    evaluator = R1mAPEvaluator(num_query=num_query, device=dev,
-                               feat_norm=cfg.TEST.FEAT_NORM == "yes",
-                               reranking=cfg.TEST.RE_RANKING == "yes")
+    scene_protocol = cfg.DATASETS.NAMES == "MSVR310"
+    evaluator = R1mAPEvaluator(
+        num_query=num_query, device=dev if cfg.TPU.EVAL_ON_DEVICE else torch.device("cpu"),
+        feat_norm=cfg.TEST.FEAT_NORM == "yes", reranking=cfg.TEST.RE_RANKING == "yes",
+        scene_protocol=scene_protocol)
     n, bs = cache.images.shape[0], cfg.TEST.IMS_PER_BATCH
     for start in range(0, n, bs):
         idx = torch.arange(start, min(start + bs, n), device=dev)
         images, pids, camids = cache.batch(idx)
-        feat = eval_step(model, images, camids, mask, cache.viewids[idx])
-        evaluator.update(feat.cpu().numpy(), pids.cpu().numpy(), camids.cpu().numpy())
-    return evaluator.compute()
+        views = cache.viewids[idx]
+        feat = eval_step(model, images, camids, mask, views)
+        evaluator.update(feat.cpu().numpy(), pids.cpu().numpy(), camids.cpu().numpy(),
+                         views.cpu().numpy() if scene_protocol else None)
+    if rank_list_path is None and scene_protocol:
+        rank_list_path = "re.txt"  # the reference always writes this for MSVR310
+    return evaluator.compute(rank_list_path=rank_list_path)
+
+
+def do_inference(cfg, model, cache, num_query: int,
+                 rank_list_path: Optional[str] = None) -> Tuple[np.ndarray, float]:
+    """run_eval with the reference's result lines (processor.py::do_inference)."""
+    cmc, m_ap = run_eval(cfg, model, cache, num_query, rank_list_path)
+    logger.info("Validation Results")
+    logger.info("mAP: %.1f%%", m_ap * 100)
+    for r in (1, 5, 10):
+        if len(cmc) >= r:
+            logger.info("CMC curve, Rank-%d: %.1f%%", r, cmc[r - 1] * 100)
+    return cmc, m_ap

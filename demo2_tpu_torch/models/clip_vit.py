@@ -10,7 +10,10 @@ sub-blocks of ops/fused_block.py, i.e. the CUDA kernels on a CUDA tensor:
 at eval the fused attention and the fused MLP; in training, or wherever a
 gradient has to flow, the fused attention with its custom backward, then the
 unfused ln_2 + MLP, as TPU.FUSED_MLP_TRAIN=False does in the JAX package.
-Otherwise the plain LayerNorm / MHA / MLP modules.
+Otherwise the plain LayerNorm / MHA / MLP modules.  `pallas_ln_bwd`
+(cfg.TPU.PALLAS_LN_BWD) gives the blocks' unfused LayerNorms the one-pass
+backward of ops/norm.py: ln_2 always, ln_1 where the attention is unfused
+(fused, ln_1 lives inside the attention kernels); not ln_pre / ln_post.
 """
 
 from __future__ import annotations
@@ -73,15 +76,18 @@ class ResidualAttentionBlock(nn.Module):
     """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x))."""
 
     def __init__(self, width: int, heads: int, *, dtype: torch.dtype, fused: bool,
-                 device: torch.device, generator: torch.Generator):
+                 device: torch.device, generator: torch.Generator,
+                 pallas_ln_bwd: bool = False):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
         self.fused = fused
-        self.ln_1 = LayerNorm(width, device=device)
+        # Fused, ln_1's parameters go to the attention kernels, never through
+        # this module's forward.
+        self.ln_1 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd and not fused)
         self.attn = MultiHeadAttention(width, heads, dtype=dtype, device=device,
                                        generator=generator)
-        self.ln_2 = LayerNorm(width, device=device)
+        self.ln_2 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd)
         self.mlp = CLIPMlp(width, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -112,7 +118,7 @@ class CLIPVisionTransformer(nn.Module):
     def __init__(self, h_resolution: int, w_resolution: int, *, stride_size: int,
                  width: int, layers: int, heads: int, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
-                 patch_size: int = 16, output_dim: int = 512):
+                 patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False):
         super().__init__()
         self.width = width
         self.dtype = dtype
@@ -128,7 +134,7 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width, device=device)
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype=dtype, fused=fused, device=device,
-                                   generator=generator)
+                                   generator=generator, pallas_ln_bwd=pallas_ln_bwd)
             for _ in range(layers)
         )
         self.ln_post = LayerNorm(width, device=device)

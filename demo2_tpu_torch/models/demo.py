@@ -65,7 +65,6 @@ def train_slice_error(cfg: Config, model_only: bool = False):
     t, m = cfg.TPU, cfg.MODEL
     for flag, item in (
         ("FUSED_MLP_TRAIN", "the fused MLP's training backward (TPU.FUSED_MLP_TRAIN)"),
-        ("PALLAS_LN_BWD", "kernel 11"),
         ("REMAT_BACKBONE", "the rest of the modules (REMAT_BACKBONE)"),
     ):
         if getattr(t, flag):
@@ -115,6 +114,7 @@ class DeMo(nn.Module):
             attn_drop_rate=m.ATT_DROP_RATE,
             dtype=dtype,
             fused=cfg.TPU.USE_FLASH_ATTENTION,
+            pallas_ln_bwd=cfg.TPU.PALLAS_LN_BWD,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
             width_override=cfg.TPU.BACKBONE_WIDTH,
             heads_override=cfg.TPU.BACKBONE_HEADS,

@@ -67,7 +67,7 @@ class PIFE(nn.Module):
                  depth_override: int, width_override: int, heads_override: int,
                  device: torch.device, generator: torch.Generator, view_num: int = 0,
                  sie_view: bool = False, drop_path: float = 0.1, drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0):
+                 attn_drop_rate: float = 0.0, pallas_ln_bwd: bool = False):
         super().__init__()
         tt = transformer_type
         self.transformer_type = tt
@@ -87,6 +87,7 @@ class PIFE(nn.Module):
             self.base = CLIPVisionTransformer(
                 gh, gw, stride_size=stride_size[0], width=self.width, layers=depth,
                 heads=heads, dtype=dtype, fused=fused, device=device, generator=generator,
+                pallas_ln_bwd=pallas_ln_bwd,  # the CLIP branch only, as in the JAX package
             )
             return
         embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale = imagenet_vit_config(tt)

@@ -25,7 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
-           "packed_attention.cu", "flash_attention.cu")
+           "packed_attention.cu", "flash_attention.cu", "layernorm_bwd.cu",
+           "jaccard_min_sum.cu")
 HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+    "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_jaccard_min_sum": [_P] * 3 + [_I] * 3 + [_P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
 }

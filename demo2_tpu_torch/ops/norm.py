@@ -1,10 +1,28 @@
-"""LayerNorm and BatchNorm / BNNeck with torch semantics (demo2_tpu/ops/norm.py)."""
+"""LayerNorm and BatchNorm / BNNeck with torch semantics (demo2_tpu/ops/norm.py),
+and the one-pass LayerNorm backward.
+
+  layernorm_bwd: dx, dweight, dbias from x, dy and weight in one pass, mean
+      and rstd recomputed from x
+      replaces the Pallas kernel norm.py::_ln_bwd_kernel
+      (csrc/layernorm_bwd.cu, demo2_layernorm_bwd).
+
+`LayerNormFn` is norm.py::layernorm_pallas_bwd, the custom VJP around it:
+the forward is `layer_norm`, the same expression as the default route, and
+keeps x and weight alone.  `LayerNorm(pallas_bwd=True)`
+(cfg.TPU.PALLAS_LN_BWD) selects it.
+
+The wrapper takes the plain version for tensors on the CPU and launches the
+kernel for CUDA tensors (it raises on what the kernel does not take); it
+counts its launches in `.launches`.
+"""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .. import not_ported
+from .kernel_lib import check, expect, kernel_library
 from .linear import cached_cast, make_param, ones_init, zeros_init
 
 
@@ -24,16 +42,109 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return d * (rstd.to(dt) * weight.to(dt)) + bias.to(dt)
 
 
-class LayerNorm(nn.Module):
-    """flax LayerNorm(epsilon=eps); the ImageNet ViT uses 1e-6."""
+def layernorm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
+                        eps: float = EPS):
+    """_ln_bwd_kernel's arithmetic: everything in f32, mean and the centered
+    variance recomputed from x.  x, dy (R, C), weight (C,) ->
+    (dx (R, C) in dy's dtype, dweight (C,) f32, dbias (C,) f32)."""
+    xf, dyf, g = x.float(), dy.float(), weight.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    dyg = dyf * g
+    m1 = dyg.mean(-1, keepdim=True)
+    m2 = (dyg * xhat).mean(-1, keepdim=True)
+    dx = (rstd * (dyg - m1 - xhat * m2)).to(dy.dtype)
+    return dx, (dyf * xhat).sum(0), dyf.sum(0)
 
-    def __init__(self, features: int, *, device: torch.device, eps: float = EPS):
+
+# The kernel keeps a row in a warp's registers, 32 values a lane, and reads
+# 16-byte vectors; its column sums go through one partial row per block.
+LN_BWD_MAX_COLS = 1024
+LN_BWD_WARPS = 8
+LN_BWD_MAX_BLOCKS = 264
+
+
+def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, eps: float = EPS):
+    """(dx (R, C) in dy's dtype, dweight (C,) f32, dbias (C,) f32) of a
+    LayerNorm over the last axis of x (R, C): the kernel on CUDA tensors, the
+    plain version on CPU tensors.  bf16 or f32 x and dy, f32 weight."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_plain(x, dy, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layernorm_bwd: the kernel takes CUDA tensors, got {x.device}")
+    rows, cols = x.shape
+    item = "wider heads, longer sequences and f32 inputs in the attention kernels"
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise not_ported(f"layernorm_bwd on {x.dtype} inputs (the kernel takes bf16 and f32)",
+                         item)
+    vec = 16 // x.element_size()
+    if cols % vec or cols > LN_BWD_MAX_COLS:
+        raise not_ported(f"layernorm_bwd over {cols} columns (the kernel takes multiples of "
+                         f"{vec} up to {LN_BWD_MAX_COLS})", item)
+    expect(x, "x", (rows, cols), x.dtype, x.device)
+    expect(dy, "dy", (rows, cols), x.dtype, x.device)
+    expect(weight, "weight", (cols,), torch.float32, x.device)
+    dx = torch.empty_like(dy)
+    dweight = torch.empty((cols,), device=x.device, dtype=torch.float32)
+    dbias = torch.empty_like(dweight)
+    if rows == 0:
+        return dx, dweight.zero_(), dbias.zero_()
+    kl = kernel_library()
+    blocks = min(-(-rows // LN_BWD_WARPS), LN_BWD_MAX_BLOCKS)
+    partial = torch.empty((2, blocks, cols), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = kl.lib.demo2_layernorm_bwd(
+            x.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            dweight.data_ptr(), dbias.data_ptr(), rows, cols, blocks,
+            int(x.dtype == torch.bfloat16), float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    check(err, "layernorm_bwd")
+    layernorm_bwd.launches += 1
+    return dx, dweight, dbias
+
+
+layernorm_bwd.launches = 0
+
+
+class LayerNormFn(torch.autograd.Function):
+    """norm.py::_ln_pallas with its custom VJP: the forward is `layer_norm`
+    on the f32 parameters (bit-identical to the default route) and keeps x
+    and weight alone; the backward (kernel 11 on CUDA) returns dx in dy's
+    dtype and dweight, dbias in f32, straight to the f32 parameters."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return layer_norm(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        c = x.shape[-1]
+        dx, dweight, dbias = layernorm_bwd(x.reshape(-1, c).contiguous(),
+                                           dy.reshape(-1, c).contiguous(), weight, ctx.eps)
+        return dx.reshape(x.shape), dweight, dbias, None
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm(epsilon=eps); the ImageNet ViT uses 1e-6.  With
+    `pallas_bwd` the backward is the one-pass kernel (LayerNormFn)."""
+
+    def __init__(self, features: int, *, device: torch.device, eps: float = EPS,
+                 pallas_bwd: bool = False):
         super().__init__()
         self.eps = eps
+        self.pallas_bwd = pallas_bwd
         self.weight = make_param((features,), ones_init, generator=None, device=device)
         self.bias = make_param((features,), zeros_init, generator=None, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pallas_bwd:
+            return LayerNormFn.apply(x, self.weight, self.bias, self.eps)
         return layer_norm(x, cached_cast(self, "weight", x.dtype),
                           cached_cast(self, "bias", x.dtype), self.eps)
 

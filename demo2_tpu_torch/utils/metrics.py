@@ -2,18 +2,18 @@
 
 `cmc_map` is the port of `cmc_map_device`: ranking, same-id + same-camera
 (or same-scene) gallery removal, CMC and AP as mask arithmetic, no
-per-query loop.  Re-ranking waits for its kernel (ROADMAP.md, port queue).
+per-query loop.  `R1mAPEvaluator` ranks by the euclidean distance or, with
+`reranking`, by utils/reranking.py::re_ranking, under the market1501 (camera)
+or the MSVR310 (scene) protocol.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-
-from .. import not_ported
 
 
 def euclidean_distance(qf: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
@@ -54,35 +54,44 @@ def cmc_map(distmat: torch.Tensor, q_pids: torch.Tensor, g_pids: torch.Tensor,
 @dataclasses.dataclass
 class R1mAPEvaluator:
     """Feature accumulator; compute() ranks on `device` (reset / update /
-    compute protocol of the reference's R1_mAP_eval)."""
+    compute protocol of the reference's R1_mAP_eval, and of R1_mAP for
+    MSVR310)."""
 
     num_query: int
     device: torch.device
     feat_norm: bool = True
     reranking: bool = False
+    scene_protocol: bool = False  # MSVR310: filter by scene instead of camera
 
     def __post_init__(self):
-        if self.reranking:
-            raise not_ported("re-ranking", "kernel 12 with re-ranking")
         self.reset()
 
     def reset(self):
         self.feats: List[np.ndarray] = []
         self.pids: List[np.ndarray] = []
         self.camids: List[np.ndarray] = []
+        self.sceneids: List[np.ndarray] = []
 
-    def update(self, feat, pid, camid):
+    def update(self, feat, pid, camid, sceneid=None):
         self.feats.append(np.asarray(feat))
         self.pids.append(np.asarray(pid))
         self.camids.append(np.asarray(camid))
+        if sceneid is not None:
+            self.sceneids.append(np.asarray(sceneid))
 
-    def compute(self) -> Tuple[np.ndarray, float]:
-        """(CMC to rank 50, mAP), same-id + same-camera gallery entries
-        removed (the market1501 protocol; MSVR310's scene protocol comes with
-        the eval entry points)."""
+    def compute(self, rank_list_path: Optional[str] = None) -> Tuple[np.ndarray, float]:
+        """(CMC to rank 50, mAP); gallery entries with the query's id and
+        camera (scene under `scene_protocol`) are removed.  With
+        `rank_list_path` the per-query rank list is written there."""
         pids = np.concatenate(self.pids)
-        filt = np.concatenate(self.camids)
+        camids = np.concatenate(self.camids)
+        scenes = np.concatenate(self.sceneids) if self.sceneids else None
+        if self.scene_protocol and scenes is None:
+            raise ValueError("the scene protocol needs update(..., sceneid=...)")
         nq = self.num_query
+        # A split where no query identity appears in the gallery is broken,
+        # not a 0-mAP model.  Checked before the distance pass: the metadata
+        # alone decides it, and re-ranking at dataset scale is the costly part.
         if not np.any(np.isin(pids[:nq], pids[nq:])):
             raise AssertionError(
                 "all query identities do not appear in gallery — check num_query / the "
@@ -91,7 +100,22 @@ class R1mAPEvaluator:
         f = torch.from_numpy(np.concatenate(self.feats, axis=0)).to(self.device)
         if self.feat_norm:
             f = f / f.norm(dim=1, keepdim=True).clamp(min=1e-12)
-        distmat = euclidean_distance(f[:nq], f[nq:])
+        if self.reranking:
+            from .reranking import re_ranking
+
+            distmat = re_ranking(f[:nq], f[nq:], k1=50, k2=15, lambda_value=0.3)
+        else:
+            distmat = euclidean_distance(f[:nq], f[nq:])
+        if rank_list_path is not None:
+            from ..visualize.rank_list import save_rank_list
+
+            save_rank_list(
+                distmat.cpu().numpy(), pids[:nq], pids[nq:], camids[:nq], camids[nq:],
+                scenes[:nq] if scenes is not None else None,
+                scenes[nq:] if scenes is not None else None,
+                path=rank_list_path,
+            )
+        filt = scenes if self.scene_protocol else camids
         as_dev = lambda a: torch.from_numpy(np.asarray(a)).to(self.device)
         cmc, mean_ap = cmc_map(distmat, as_dev(pids[:nq]), as_dev(pids[nq:]),
                                as_dev(filt[:nq]), as_dev(filt[nq:]))

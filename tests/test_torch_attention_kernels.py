@@ -233,7 +233,7 @@ def test_misrounded_controls_fail_the_rounding_bound(name):
     import chip_smoke as cs
 
     for packed_shape, flash_shape in SMALL_ATTENTION_SHAPES:
-        _, plain, inputs, _ = cs.attention_kernel_cases(
+        _, plain, inputs, _, _ = cs.attention_kernel_cases(
             CPU, packed_shape, flash_shape, seed=3)[name]
         control = cs.misrounded_controls(H, D ** -0.5)[name]
         for yp, yw in zip(cs.as_tuple(plain(*inputs)), cs.as_tuple(control(*inputs))):
