@@ -11,7 +11,9 @@ a trainer through build_train_step and do_train, drives the same DeMo on
 the ImageNet ViT (vit_base_patch16_224, full width and depth) as a server
 and a trainer, the head-major attention route, the flagship's training with
 the one-pass LayerNorm backward (TPU.PALLAS_LN_BWD) and its re-ranked
-evaluation (TEST.RE_RANKING, the MSVR310 scene protocol), and times kernels,
+evaluation (TEST.RE_RANKING, the MSVR310 scene protocol), the block backward
+with the fused-dW kernel in its middle, the flagship's training with the fused
+MLP (TPU.FUSED_MLP_TRAIN) and the attention ablation tool, and times kernels,
 requests and train steps against the plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
@@ -84,7 +86,30 @@ requests and train steps against the plain path.  Phases:
      its plain version;
   17. timing (printed): kernels 11 (beside aten's native_layer_norm_backward)
      and 12 vs plain, re_ranking as a whole at 1,600 / 3,200, the train step
-     with and without PALLAS_LN_BWD in turns, a profile of one step of each.
+     with and without PALLAS_LN_BWD in turns, a profile of one step of each;
+  18. the fused-dW backward (8) vs its plain version at qkv (192, 129, 2304)
+     and (3, 129, 2304): dt within phase 2's bounds and within a mean of 1e-4
+     of its mean size of the plain version, a bound that the same contraction
+     of the unrounded dq, dk, dv (a control on the same inputs) fails; dW and
+     db within 1e-3 of their largest; each output no further from an f64
+     computation than 1.5 x the plain version; all three bit-identical over
+     two runs.  The MLP's training form (2) vs its plain version: out as
+     phase 2, the hidden h within one bf16 ulp.  The ablation kernel's (13)
+     five cases vs their plain versions at (192, 136, 2304) and (8, 136,
+     2304), within two bf16 ulps and a mean of 1e-5 of their mean size;
+  19. the block backward through the kernel-8 route at x (192, 129, 768): the
+     seven grads against the kernel-4 route's (cosine >= 0.9999, dx within
+     phase 2's bounds), launching kernel 3 once, kernel 8 once, kernel 4 never;
+  20. training with FUSED_MLP_TRAIN: phase 6 on the flagship kernel path with
+     the flag on, each step launching kernels 3, 4 and the training form of 2
+     12 times and no other; step-1 gradient cosine to the plain model >= 0.999
+     whole and per block (ln_2, mlp.c_fc and mlp.c_proj among the groups);
+     then one do_train epoch with eval (kernels 1 and 2 at eval);
+  21. timing (printed): kernel 8 beside kernel 4 + the two torch.mm it fuses,
+     2's training form beside the unfused MLP's forward, the ablation tool's
+     five cases (full h=12 beside scaled_dot_product_attention), the train
+     step with and without FUSED_MLP_TRAIN in turns with the peak memory of
+     each, a profile of one step of each.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -92,7 +117,8 @@ its operations over the peak for their type.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
-are the eleven kernels (JSON), the card's name and power limit, and
+are the fourteen kernels (JSON: the thirteen Pallas kernels' counterparts,
+the fused MLP in both forms), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -155,9 +181,10 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def all_kernels() -> dict:
-    """The wrappers of the eleven kernels, each counting its launches."""
+    """The wrappers of the fourteen kernels, each counting its launches."""
     from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
     from demo2_tpu_torch.ops import norm, packed_attention as pa
+    from demo2_tpu_torch.tools import bench_kernel_ablate as ab
     from demo2_tpu_torch.utils import reranking
 
     return {"fused_attention_block": fb.fused_attention_block,
@@ -170,7 +197,10 @@ def all_kernels() -> dict:
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "layernorm_bwd": norm.layernorm_bwd,
-            "jaccard_min_sum": reranking.jaccard_min_sum}
+            "jaccard_min_sum": reranking.jaccard_min_sum,
+            "fused_mlp_block_train": fb.fused_mlp_block_train,
+            "attention_bwd_fused_dw": pa.attention_bwd_fused_dw,
+            "attention_ablate": ab.ablate_attention}
 
 
 def reset_counts() -> None:
@@ -183,7 +213,7 @@ def counts() -> dict:
 
 
 def launch_dict(**nonzero) -> dict:
-    """Launch counts of all eleven kernels: `nonzero`, the rest 0."""
+    """Launch counts of all fourteen kernels: `nonzero`, the rest 0."""
     return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
@@ -270,10 +300,16 @@ def kernel_cases(x, attn, mlp):
     }
 
 
-def phase_kernels(device) -> dict:
+def exact_products() -> None:
+    """The plain versions' products as the references they are: no TF32, no
+    reduced-precision sums inside a bf16 product."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def phase_kernels(device) -> dict:
+    exact_products()
     errors = {}
     for shape in (FLAGSHIP, BATCH1):
         x, attn, mlp = block_inputs(shape, device, seed=1)
@@ -365,7 +401,7 @@ def num_blocks(model) -> int:
 def phase_slice(device, cfg, model, plain_cfg, plain, per_forward: dict,
                 label: str = "slice") -> dict:
     """Serving: requests through FeatureExtractor, each forward launching
-    `per_forward` (all eleven kernels' counts), embeddings against the plain
+    `per_forward` (all fourteen kernels' counts), embeddings against the plain
     path, match() and CMC / mAP.  Returns the launches of the requests."""
     from demo2_tpu_torch.serving import FeatureExtractor, match
     from demo2_tpu_torch.utils.metrics import R1mAPEvaluator
@@ -467,12 +503,14 @@ def roofline(flops: int, peak_tflops: float, moved_bytes: int):
 
 
 def timed(kernel, plain, flops, shape, inputs, library=None, peak=BF16_PEAK_TFLOPS, iters=20,
-          plain_iters=20) -> dict:
+          plain_iters=20, moved=None) -> dict:
     """One entry of time_kernels: the kernel's call, its plain version's, the
     operations of one call (at `peak` TFLOP/s) and its input tensors, and the
-    one PyTorch call that computes the same function where there is one."""
+    one PyTorch call that computes the same function where there is one.
+    `moved` gives the bytes where they are not those of the inputs and of the
+    output tensors (an output written in part)."""
     return dict(kernel=kernel, plain=plain, flops=flops, shape=shape, inputs=inputs,
-                library=library, peak=peak, iters=iters, plain_iters=plain_iters)
+                library=library, peak=peak, iters=iters, plain_iters=plain_iters, moved=moved)
 
 
 def time_kernels(cases: dict, card) -> dict:
@@ -487,7 +525,9 @@ def time_kernels(cases: dict, card) -> dict:
         lib_ms = None
         if c["library"] is not None:
             lib_ms = (cuda_ms(c["library"], c["iters"]) + cuda_ms(c["library"], c["iters"])) / 2
-        moved = tensor_bytes(c["inputs"]) + tensor_bytes(as_tuple(c["kernel"]()))
+        moved = c["moved"]
+        if moved is None:
+            moved = tensor_bytes(c["inputs"]) + tensor_bytes(as_tuple(c["kernel"]()))
         bound_ms, bound_by = roofline(c["flops"], c["peak"], moved)
         times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": lib_ms}
@@ -815,7 +855,7 @@ def train_steps(cfg, model, cache, order, steps, per_step=None):
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
                 label: str = "train", extra_groups=(), block_min=None) -> dict:
     """TRAIN_STEPS steps through build_train_step, each launching
-    `per_step_want` (all eleven kernels' counts), against the plain path.
+    `per_step_want` (all fourteen kernels' counts), against the plain path.
     Returns the launches of the steps."""
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
@@ -861,8 +901,9 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
 def phase_input_grad(device, cfg, model, plain) -> int:
     """The input gradient of the summed embedding norms with the weights
     frozen, as demo2_tpu/visualize/saliency.py::gradcam_heatmaps takes it:
-    the attention backward needs no db, so it runs kernel 7.  Held, as the
-    kernels are, to be no further from an f32 run of the plain path than the
+    the attention backward needs no db, so it runs kernel 7, and the MLP,
+    fused outside training, runs its training form for its backward.  Held,
+    as the kernels are, to be no further from an f32 run of the plain path than the
     plain bf16 path is."""
     from demo2_tpu_torch.models import make_model
 
@@ -886,7 +927,8 @@ def phase_input_grad(device, cfg, model, plain) -> int:
         grads.append(x.grad.float())
         m.requires_grad_(True)
     del f32
-    want = launch_dict(fused_attention_block_train=layers, attention_bwd_saved=layers)
+    want = launch_dict(fused_attention_block_train=layers, attention_bwd_saved=layers,
+                       fused_mlp_block_train=layers)
     ref = grads[2]
     err = [((g - ref).norm() / ref.norm()).item() for g in grads[:2]]
     log(f"[train] input-gradient pass (weights frozen, batch 64): launches {launches}; "
@@ -903,9 +945,10 @@ def phase_input_grad(device, cfg, model, plain) -> int:
 # ---------------------------------------------------------------- phase 7
 
 
-def phase_do_train(device, model, cache, sampler) -> None:
+def phase_do_train(device, model, cache, sampler, make_cfg=flagship_cfg, per_step=()) -> None:
     """One epoch of do_train with eval over a small synthetic val cache, and
-    the best checkpoint saved and reloaded."""
+    the best checkpoint saved and reloaded.  `per_step` names the kernels a
+    train step launches once per block beside kernels 3 and 4."""
     import tempfile
 
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
@@ -915,9 +958,8 @@ def phase_do_train(device, model, cache, sampler) -> None:
     from demo2_tpu_torch.models import make_model
     from demo2_tpu_torch.utils.checkpoint import restore_checkpoint
 
-    cfg = flagship_cfg(True, SOLVER__MAX_EPOCHS=1, SOLVER__EVAL_PERIOD=1,
-                       SOLVER__CHECKPOINT_PERIOD=0, SOLVER__LOG_PERIOD=7,
-                       TEST__IMS_PER_BATCH=64)
+    cfg = make_cfg(True, SOLVER__MAX_EPOCHS=1, SOLVER__EVAL_PERIOD=1, SOLVER__CHECKPOINT_PERIOD=0,
+                   SOLVER__LOG_PERIOD=7, TEST__IMS_PER_BATCH=64)
     val_ds = SyntheticTriModal(num_pids=16, num_cams=CAMERA_NUM, imgs_per_pid=4,
                                image_size=tuple(cfg.INPUT.SIZE_TEST), seed=1)
     val_samples = val_ds.query + val_ds.gallery
@@ -943,7 +985,8 @@ def phase_do_train(device, model, cache, sampler) -> None:
         want = launch_dict(fused_attention_block=layers * evals,
                            fused_mlp_block=layers * evals,
                            fused_attention_block_train=layers * steps,
-                           attention_bwd_saved_db=layers * steps)
+                           attention_bwd_saved_db=layers * steps,
+                           **{name: layers * steps for name in per_step})
         require_launches(launches, want, "do_train")
         require(0.0 < entry["mAP"] <= 1.0 and best["mAP"] == entry["mAP"], f"mAP {best}")
         fresh = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
@@ -1594,6 +1637,345 @@ def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sa
     return times
 
 
+# ---------------------------------------------------------------- phase 18
+
+
+QKV_SHAPES = ((192, 129, 2304), (3, 129, 2304))        # kernel 8's qkv (3B, S, 3C)
+ABLATE_SHAPES = ((192, 136, 2304), (8, 136, 2304))     # the tool's qkv, and a small batch
+DT_COS_MIN = 0.9999
+# Kernel 8's dt follows two stacked bf16 roundings (dS, then dq / dk / dv) and a
+# contraction over 3C = 2,304 columns: where an f32 sum taken in another order
+# flips one of those roundings, every dt that reads it moves.  On an H100 the
+# kernel lands 1e-5 of mean |dt| from its plain version; contracting the
+# unrounded dq, dk, dv lands 1.7e-3 away.  The bound sits between the two.
+FUSED_DW_ROUNDING_REL = 1e-4
+# Kernel 2's h is bf16(f32 h): one bf16 ulp from the plain version's where the
+# f32 sums land on either side of a rounding.  Where a LayerNorm output feeding
+# the product is itself an ulp apart (2^-6 at |t| < 4), the f32 h moves by that
+# times a weight (init scale 0.036, up to ~0.2): the floor.  Such elements are
+# rare: the share that differs at all is bounded too.
+HIDDEN_FLOOR = 4e-3
+HIDDEN_DIFFER_SHARE = 2e-3
+
+
+def fused_dw_inputs(shape, device, seed):
+    """Kernel 8's inputs as the block backward gives them: qkv and probs from
+    the training forward of a block (kernel 3 on the card), a unit cotangent
+    of the attention output, the LayerNorm output t and the qkv weight."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    b, s, c3 = shape
+    x, p, do = train_kernel_inputs((b, s, c3 // 3), device, seed)
+    w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
+    kw = dict(num_heads=c3 // 3 // 64, scale=64 ** -0.5)
+    _, qkv, _, probs = fb.fused_attention_block_train(x, **w, **kw)
+    t = fb._layernorm_f32(x, p["ln_weight"], p["ln_bias"]).to(torch.bfloat16)
+    return (qkv, probs, do, t, w["wqkv"]), kw
+
+
+def fused_dw_f64(qkv, probs, do, t, w, *, num_heads, scale):
+    """The function kernel 8 computes, in f64 with no rounding anywhere: the
+    reference the kernel and its plain version are both held to."""
+    from demo2_tpu_torch.ops.packed_attention import merge_heads, split_heads
+
+    s, c = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (split_heads(x, num_heads).double() for x in qkv.split(c, dim=-1))
+    dof, p = split_heads(do, num_heads).double(), probs[..., :s].double()
+    dp = dof @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dqkv = torch.cat([merge_heads(ds @ k * scale), merge_heads(ds.transpose(-1, -2) @ q * scale),
+                      merge_heads(p.transpose(-1, -2) @ dof)], dim=-1).reshape(-1, 3 * c)
+    return ((dqkv @ w.double()).reshape(do.shape), dqkv.t() @ t.reshape(-1, c).double(),
+            dqkv.sum(0))
+
+
+def misrounded_fused_dw(qkv, probs, do, t, w, *, num_heads, scale):
+    """Kernel 8's dt with dq, dk, dv contracted as the f32 values they are
+    before their rounding to bf16: what a kernel that feeds its accumulators
+    straight into the next product would compute."""
+    from demo2_tpu_torch.ops.packed_attention import merge_heads, split_heads
+
+    s, c = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (split_heads(x, num_heads).float() for x in qkv.split(c, dim=-1))
+    dof, p = split_heads(do, num_heads).float(), probs[..., :s].float()
+    dp = dof @ v.transpose(-1, -2)
+    ds = _bf16(p * (dp - (dp * p).sum(-1, keepdim=True)))
+    dqkv = torch.cat([merge_heads(ds @ k * scale), merge_heads(ds.transpose(-1, -2) @ q * scale),
+                      merge_heads(p.transpose(-1, -2) @ dof)], dim=-1)
+    return (dqkv.reshape(-1, 3 * c) @ w.float()).to(qkv.dtype).reshape(do.shape)
+
+
+def check_fused_dw(device, shape) -> float:
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    inputs, kw = fused_dw_inputs(shape, device, seed=19)
+    got = pa.attention_bwd_fused_dw(*inputs, **kw)
+    again = pa.attention_bwd_fused_dw(*inputs, **kw)
+    plain = pa.attention_bwd_fused_dw_plain(*inputs, **kw)
+    f64 = fused_dw_f64(*inputs, **kw)
+    wrong = misrounded_fused_dw(*inputs, **kw)
+    sync()
+    what = f"kernel 8 {tuple(shape)}"
+    for name, yk, yp, y64 in zip(("dt", "dW", "db"), got, plain, f64):
+        d = (yk.double() - yp.double()).abs()
+        k64 = (yk.double() - y64).abs().mean().item()
+        p64 = (yp.double() - y64).abs().mean().item()
+        scale, size = y64.abs().max().item(), y64.abs().mean().item()
+        log(f"[new-kernel] {what} {name}: vs plain max {d.max().item():.3e} mean "
+            f"{d.mean().item():.3e}; mean error vs f64 kernel {k64:.3e}, plain {p64:.3e} "
+            f"(|f64| max {scale:.3e} mean {size:.3e})")
+        require(bool(torch.isfinite(yk).all()), f"{what} {name}: non-finite")
+        require(k64 <= F32_MEAN_RATIO * p64 + F32_ROUNDING_FLOOR * scale,
+                f"{what} {name}: error vs f64 {k64} > {F32_MEAN_RATIO} x the plain version's {p64}")
+        if name == "dt":
+            dw_ = mean_err(wrong, yp)
+            log(f"[new-kernel] {what} dt: control contracting the unrounded dq, dk, dv: vs "
+                f"plain mean {dw_:.3e} ({dw_ / size:.3e} of mean |dt|)")
+            require(yk.dtype == torch.bfloat16, f"{what} dt: dtype {yk.dtype}")
+            require(d.max().item() <= MAX_ABS_TOL, f"{what} dt: max abs {d.max().item()}")
+            require(d.mean().item() <= MEAN_ABS_TOL, f"{what} dt: mean abs {d.mean().item()}")
+            require(d.mean().item() <= FUSED_DW_ROUNDING_REL * size,
+                    f"{what} dt: mean abs {d.mean().item()} > {FUSED_DW_ROUNDING_REL} of mean "
+                    f"|dt| {size}: the kernel rounds where its plain version does not")
+            require(dw_ > FUSED_DW_ROUNDING_REL * size,
+                    f"{what} dt: the misrounded control is within {FUSED_DW_ROUNDING_REL} of "
+                    f"the plain version, so the bound cannot tell where a kernel rounds")
+        else:
+            require(yk.dtype == torch.float32, f"{what} {name}: dtype {yk.dtype}")
+            require(d.max().item() <= LN_SUM_REL * scale,
+                    f"{what} {name}: off by {d.max().item()} of {scale}")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{what}: two runs differ in their bits")
+    log(f"[new-kernel] {what}: dt, dW and db bit-identical over two runs")
+    return (got[0].float() - plain[0].float()).abs().max().item()
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (f32): 2^(exponent - 7)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8)
+
+
+def check_mlp_train(device, shape) -> float:
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    x, _, mlp = block_inputs(shape, device, seed=1)
+    out, h = fb.fused_mlp_block_train(x, **mlp)
+    p_out, p_h = fb.mlp_block_train_plain(x, **mlp)
+    out32, _ = fb.mlp_block_train_plain(x.float(), **{k: v.float() for k, v in mlp.items()})
+    sync()
+    what = f"kernel 2 (training form) {tuple(shape)}"
+    d = (out.float() - p_out.float()).abs()
+    k32, p32 = mean_err(out, out32), mean_err(p_out, out32)
+    dh = (h.float() - p_h.float()).abs()
+    over = (dh - bf16_ulp(torch.maximum(h.float().abs(), p_h.float().abs()))).max().item()
+    log(f"[new-kernel] {what}: out vs plain bf16 max {d.max().item():.3e} mean "
+        f"{d.mean().item():.3e}; vs f32 kernel {k32:.3e}, plain bf16 {p32:.3e}; h "
+        f"{tuple(h.shape)} vs plain max {dh.max().item():.3e} mean {dh.mean().item():.3e}, "
+        f"{(dh > 0).float().mean().item():.2e} of its elements differ, the furthest "
+        f"{over:.3e} beyond one bf16 ulp")
+    require(bool(torch.isfinite(out).all()) and bool(torch.isfinite(h).all()), f"{what}: non-finite")
+    require(d.max().item() <= MAX_ABS_TOL, f"{what}: out max abs {d.max().item()}")
+    require(d.mean().item() <= MEAN_ABS_TOL, f"{what}: out mean abs {d.mean().item()}")
+    require(k32 <= F32_MEAN_RATIO * p32, f"{what}: out less accurate than the plain bf16 path")
+    require(h.shape == (x.numel() // x.shape[-1], mlp["w1"].shape[0]) and h.dtype == x.dtype,
+            f"{what}: h {tuple(h.shape)} {h.dtype}")
+    require(over <= HIDDEN_FLOOR,
+            f"{what}: h more than one bf16 ulp (+ {HIDDEN_FLOOR}) from the plain's")
+    require((dh > 0).float().mean().item() <= HIDDEN_DIFFER_SHARE,
+            f"{what}: more than {HIDDEN_DIFFER_SHARE} of h differs from the plain's")
+    return d.max().item()
+
+
+def ablate_input(shape, device, seed=23, std=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * std).to(device, torch.bfloat16)
+
+
+def check_ablate(device, shape) -> float:
+    from demo2_tpu_torch.tools import bench_kernel_ablate as ab
+
+    qkv = ablate_input(shape, device)
+    worst = 0.0
+    for mode, heads in ab.CASES:
+        got = ab.ablate_attention(qkv, mode, heads).float()
+        plain = ab.ablate_attention_plain(qkv, mode, heads).float()
+        sync()
+        what = f"kernel 13 {mode} h={heads} {tuple(shape)}"
+        cols = heads * ab.HEAD_DIM
+        d = (got - plain).abs()
+        size = plain[..., :cols].abs().mean().item()
+        mean = d[..., :cols].mean().item()
+        over = (d - 2.0 ** -7 * (plain.abs() + size)).max().item()
+        log(f"[new-kernel] {what}: vs plain max {d.max().item():.3e} mean {mean:.3e} (mean "
+            f"|plain| {size:.3e})")
+        require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        require(over <= 0.0, f"{what}: an element more than two bf16 ulps from the plain's")
+        require(mean <= ROUNDING_MEAN_TOL * size,
+                f"{what}: mean abs {mean} > {ROUNDING_MEAN_TOL} of mean |plain| {size}")
+        require(size > 1e-3 and not bool(got[..., cols:].any()),
+                f"{what}: an empty output, or columns of the heads left out written")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def phase_new_kernels(device, qkv_shapes=QKV_SHAPES, ablate_shapes=ABLATE_SHAPES) -> dict:
+    """Kernel 8, the training form of kernel 2 and kernel 13's five cases
+    against their plain versions.  Returns name -> max abs error at the first
+    shape."""
+    exact_products()
+    errors = {}
+    for shape in qkv_shapes:
+        errors.setdefault("attention_bwd_fused_dw", check_fused_dw(device, shape))
+        b, s, c3 = shape
+        errors.setdefault("fused_mlp_block_train", check_mlp_train(device, (b, s, c3 // 3)))
+    for shape in ablate_shapes:
+        errors.setdefault("attention_ablate", check_ablate(device, shape))
+    log(f"[new-kernel] tolerances: kernel 8 dt max abs <= {MAX_ABS_TOL}, mean abs <= "
+        f"{MEAN_ABS_TOL} and <= {FUSED_DW_ROUNDING_REL} of mean |dt| (the misrounded control above "
+        f"it); dW / db within {LN_SUM_REL} of their largest; each error vs f64 <= "
+        f"{F32_MEAN_RATIO} x the plain version's; bit-identical reruns.  Kernel 2's training "
+        f"form: out as phase 2, h within one bf16 ulp (+ {HIDDEN_FLOOR}), at most "
+        f"{HIDDEN_DIFFER_SHARE} of it differing.  Kernel 13: two bf16 "
+        f"ulps, mean <= {ROUNDING_MEAN_TOL} of mean |plain|: ok")
+    return errors
+
+
+# ---------------------------------------------------------------- phase 19
+
+
+def phase_block_backward(device, shape=FLAGSHIP) -> dict:
+    """The block backward with the fused-dW kernel in its middle: the
+    training forward (kernel 3), then attention_block_backward(fused_dw=True)
+    (kernel 8), against the route training runs (kernel 4 and the two
+    products).  Returns the launches of the kernel-8 route."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    x, p, g = train_kernel_inputs(shape, device, seed=29)
+    kw = dict(num_heads=shape[-1] // 64, scale=64 ** -0.5)
+    wqkv, wout = p["wqkv"].to(torch.bfloat16), p["wout"].to(torch.bfloat16)
+    args = (p["ln_weight"], p["ln_bias"], wqkv, p["bqkv"], wout, p["bout"])
+    reset_counts()
+    _, qkv, attn, probs = fb.fused_attention_block_train(x, *args, **kw)
+    saved = (x, qkv, attn, probs, p["ln_weight"], p["ln_bias"], wqkv, wout, g)
+    via_8 = fb.attention_block_backward(*saved, **kw, fused_dw=True)
+    sync()
+    launches = counts()
+    require_launches(launches, launch_dict(fused_attention_block_train=1,
+                                           attention_bwd_fused_dw=1), "[block-bwd] kernel-8 route")
+    via_4 = fb.attention_block_backward(*saved, **kw, fused_dw=False)
+    sync()
+    for name, a, r in zip(("x", "ln_weight", "ln_bias", "wqkv", "bqkv", "wout", "bout"),
+                          via_8, via_4):
+        cos = cosine(a.float(), r.float())
+        d = (a.float() - r.float()).abs()
+        log(f"[block-bwd] grad {name} {tuple(a.shape)}: kernel-8 route vs kernel-4 route cosine "
+            f"{cos:.8f}, max abs {d.max().item():.3e} mean {d.mean().item():.3e}")
+        require(bool(torch.isfinite(a).all()), f"[block-bwd] grad {name}: non-finite")
+        require(cos >= DT_COS_MIN, f"[block-bwd] grad {name}: cosine {cos} < {DT_COS_MIN}")
+        if name == "x":
+            require(d.max().item() <= MAX_ABS_TOL and d.mean().item() <= MEAN_ABS_TOL,
+                    f"[block-bwd] dx: max abs {d.max().item()}, mean abs {d.mean().item()}")
+    log(f"[block-bwd] main path: forward + backward of one block, launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------- phases 20-21
+
+
+def mlp_train_cfg(fused: bool, **overrides):
+    """The flagship with TPU.FUSED_MLP_TRAIN on its kernel path; the flag does
+    nothing on the plain path, whose blocks are unfused."""
+    return flagship_cfg(fused, TPU__FUSED_MLP_TRAIN=fused, **overrides)
+
+
+def phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg, model, cache, sampler) -> dict:
+    """Kernel 8 beside the route it fuses, kernel 2's training form beside the
+    unfused MLP's forward, the ablation tool's five cases through the
+    function its main() times them with, and the train step with and without
+    FUSED_MLP_TRAIN in turns.  Returns (times, the tool's launches)."""
+    import torch.nn.functional as F
+
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+    from demo2_tpu_torch.ops.activations import quick_gelu
+    from demo2_tpu_torch.tools import bench_kernel_ablate as ab
+
+    shape = QKV_SHAPES[0]
+    b, s, c3 = shape
+    c = c3 // 3
+    m = b * s
+    inputs, kw = fused_dw_inputs(shape, device, seed=19)
+    qkv, probs, do, t, w = inputs
+    t_m = t.reshape(-1, c)
+
+    def separate():
+        dqkv, db = pa.attention_bwd_saved_db(qkv, probs, do, **kw)
+        dqkv_m = dqkv.reshape(-1, c3)
+        return dqkv_m @ w, torch.mm(dqkv_m.t(), t_m, out_dtype=torch.float32), db
+
+    sep_ms = (cuda_ms(separate) + cuda_ms(separate)) / 2
+    log(f"[time] kernel 4 + the two torch.mm that kernel 8 fuses (dt = dqkv W, dW = dqkv^T t; "
+        f"dqkv through device memory) x{shape}: {sep_ms:.4f} ms ({card})")
+
+    x, _, mlp = block_inputs((b, s, c), device, seed=1)
+    bf = {k: v.to(torch.bfloat16) for k, v in mlp.items()}
+
+    def unfused_mlp():
+        y = F.layer_norm(x.float(), (c,), mlp["ln_weight"], mlp["ln_bias"], 1e-5).to(x.dtype)
+        return x + F.linear(quick_gelu(F.linear(y, bf["w1"], bf["b1"])), bf["w2"], bf["b2"])
+
+    unfused_ms = (cuda_ms(unfused_mlp) + cuda_ms(unfused_mlp)) / 2
+    log(f"[time] the unfused MLP's forward (layer_norm in f32, two F.linear, QuickGELU, the "
+        f"residual) x{(b, s, c)}: {unfused_ms:.4f} ms ({card})")
+
+    a_shape = ABLATE_SHAPES[0]
+    ab_b, ab_s = a_shape[:2]
+    aqkv = ablate_input(a_shape, device, seed=0, std=0.05)  # the tool's input scale
+    heads12 = [y.reshape(ab_b, ab_s, 12, 64).transpose(1, 2)
+               for y in aqkv.split(a_shape[2] // 3, dim=-1)]
+    key_mask = (torch.arange(ab_s, device=device) < ab.VALID_KEYS).expand(ab_s, ab_s)
+    sdpa = lambda: F.scaled_dot_product_attention(*heads12, attn_mask=key_mask,
+                                                  scale=ab.FULL_SCALE)
+    products = {"full": 4, "no_softmax": 4, "scores_only": 2, "slice_only": 0}
+    cases = {
+        "attention_bwd_fused_dw": timed(
+            lambda: pa.attention_bwd_fused_dw(*inputs, **kw),
+            lambda: pa.attention_bwd_fused_dw_plain(*inputs, **kw),
+            8 * b * s * s * c + 4 * m * c * c3, shape, list(inputs), plain_iters=5),
+        "fused_mlp_block_train": timed(
+            lambda: fb.fused_mlp_block_train(x, **mlp),
+            lambda: fb.mlp_block_train_plain(x, **mlp),
+            block_flops("fused_mlp_block", (b, s, c)), (b, s, c), [x, *mlp.values()]),
+    }
+    for mode, heads in ab.CASES:
+        cases[f"attention_ablate {mode} h={heads}"] = timed(
+            lambda mode=mode, heads=heads: ab.ablate_attention(aqkv, mode, heads),
+            lambda mode=mode, heads=heads: ab.ablate_attention_plain(aqkv, mode, heads),
+            products[mode] * ab_b * ab_s * ab_s * heads * ab.HEAD_DIM, a_shape, [aqkv],
+            library=sdpa if (mode, heads) == ("full", 12) else None,
+            moved=ab.case_bytes(a_shape, heads))
+    times = time_kernels(cases, card)
+    times["attention_ablate"] = times["attention_ablate full h=12"]
+
+    # The tool's own path: what `python3 -m demo2_tpu_torch.tools.bench_kernel_ablate` runs.
+    reset_counts()
+    tool_ms = ab.time_cases(aqkv)
+    tool_launches = counts()
+    for (mode, heads), ms in tool_ms.items():
+        bound = ab.case_bytes(a_shape, heads) / (HBM_PEAK_TBS * 1e9)
+        log(f"[ablate] {mode} h={heads}: {ms:.4f} ms/iter; bound {bound:.4f} ms by bytes "
+            f"({100 * bound / ms:.1f}% of it reached) ({card})")
+    full, nosm, scores, slices = (tool_ms[k] for k in (("full", 12), ("no_softmax", 12),
+                                                       ("scores_only", 12), ("slice_only", 12)))
+    log(f"[ablate] the forward's {full:.4f} ms split by what each case leaves out: loads and "
+        f"store {slices:.4f}, + QK^T {scores - slices:.4f}, + PV {nosm - scores:.4f}, + softmax "
+        f"{full - nosm:.4f} ms; 4 of 12 heads take {tool_ms[('full', 4)]:.4f} ms ({card})")
+    log(f"[ablate] main path: {len(tool_ms)} cases through time_cases, launches {tool_launches}")
+
+    time_train_step(device, card, mlp_cfg, mlp_model, cfg, model, cache, sampler,
+                    label="FUSED_MLP_TRAIN ", names=("flag on", "flag off"))
+    return times, tool_launches
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -1616,6 +1998,12 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "layernorm_bwd": ("demo2_tpu_torch/csrc/layernorm_bwd.cu", "demo2_tpu/ops/norm.py:183"),
     "jaccard_min_sum": ("demo2_tpu_torch/csrc/jaccard_min_sum.cu",
                         "demo2_tpu/utils/reranking.py:23"),
+    "fused_mlp_block_train": ("demo2_tpu_torch/csrc/fused_mlp_block.cu",
+                              "demo2_tpu/ops/fused_block.py:369"),
+    "attention_bwd_fused_dw": ("demo2_tpu_torch/csrc/attention_bwd_fused_dw.cu",
+                               "demo2_tpu/ops/packed_attention.py:377"),
+    "attention_ablate": ("demo2_tpu_torch/csrc/attention_ablate.cu",
+                         "tools/bench_kernel_ablate.py:25"),
 }
 
 
@@ -1630,6 +2018,7 @@ def main() -> None:
     errors.update(phase_attention_kernels(device))
     errors.update(phase_ln_bwd_kernel(device))
     errors.update(phase_jaccard_kernel(device))
+    errors.update(phase_new_kernels(device))
 
     # The CLIP flagship: serving (kernels 1, 2), training (3, 4), the input
     # gradient (7), do_train, timing.
@@ -1661,7 +2050,28 @@ def main() -> None:
     launches["jaccard_min_sum"] = phase_rerank_eval(device, model, cache)["jaccard_min_sum"]
     times.update(phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache,
                                         sampler))
-    del model, plain, ln_model
+    del ln_model
+
+    # The block backward through kernel 8; the flagship with FUSED_MLP_TRAIN
+    # (the training form of kernel 2 beside 3 and 4), its do_train epoch, the
+    # ablation tool (kernel 13), their timing.
+    launches["attention_bwd_fused_dw"] = phase_block_backward(device)["attention_bwd_fused_dw"]
+    mlp_cfg, mlp_model, mlp_plain_cfg, mlp_plain = build_models(device, mlp_train_cfg)
+    trained = phase_train(device, mlp_cfg, mlp_model, mlp_plain_cfg, mlp_plain, cache, sampler,
+                          launch_dict(fused_attention_block_train=layers,
+                                      attention_bwd_saved_db=layers,
+                                      fused_mlp_block_train=layers),
+                          label="mlp-train", extra_groups=("ln_2.", "mlp.c_fc.", "mlp.c_proj."),
+                          block_min=GRAD_COS_MODEL)
+    launches["fused_mlp_block_train"] = trained["fused_mlp_block_train"]
+    del mlp_plain
+    phase_do_train(device, mlp_model, cache, sampler, mlp_train_cfg,
+                   per_step=("fused_mlp_block_train",))
+    new_times, tool_launches = phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg,
+                                                      model, cache, sampler)
+    times.update(new_times)
+    launches["attention_ablate"] = tool_launches["attention_ablate"]
+    del model, plain, mlp_model
     torch.cuda.empty_cache()
 
     # The head-major route (kernels 9, 10).

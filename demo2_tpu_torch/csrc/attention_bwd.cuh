@@ -1,5 +1,6 @@
 // The attention backward kernel shared by the saved-probs backward
-// (attention_bwd.cu: kernels 4 and 7), the packed self-attention backward
+// (attention_bwd.cu: kernels 4 and 7; attention_bwd_fused_dw.cu: kernel 8),
+// the packed self-attention backward
 // (packed_attention.cu: kernel 6) and the head-major attention backward
 // (flash_attention.cu: kernel 10).  Per (sample, head), from bf16 q, k, v
 // and dO:
@@ -23,6 +24,9 @@
 // With kDb (kSaved only: kernel 4) the f32 column sums of the rounded dq,
 // dk, dv of the (sample, head) go to db_partial (B, 3C), which
 // attention_bwd.cu adds up over B in a fixed order: no atomics.
+// With kOnChip (kSaved only: kernel 8, attention_bwd_fused_dw.cu) the rounded
+// dq, dk, dv never leave the SM: they stay in shared memory as bf16 tiles
+// (rows >= S zero) for the products that follow in the same block.
 //
 // Layouts: q, k, v through HeadLayout `in`, dO through `dol`, dq, dk, dv
 // through `outl` (attention_fwd.cuh); probs (B, H, S, S16) bf16, S16 = S
@@ -74,14 +78,17 @@ constexpr int kFTileElems = kBwdQTile * kLdF;
 enum class Probs { kSaved, kRecompute, kRecomputeF32 };
 
 // Shared memory of one block: Q, K, V, dO; dK, dV; the P and dS tiles; the
-// f32 tile; [recompute] the f32 p tile; [f32] the lo halves of P and dS.
-constexpr int bwd_smem_bytes(Probs mode) {
+// f32 tile; [recompute] the f32 p tile; [f32] the lo halves of P and dS;
+// [on chip] the bf16 dq of the head.
+__host__ __device__ constexpr int bwd_smem_bytes(Probs mode, bool on_chip = false) {
   return 4 * kHeadElems * 2 + 2 * kAccElems * 4 + 2 * kPTileElems * 2 + kFTileElems * 4 +
          (mode != Probs::kSaved ? kFTileElems * 4 : 0) +
-         (mode == Probs::kRecomputeF32 ? 2 * kPTileElems * 2 : 0);
+         (mode == Probs::kRecomputeF32 ? 2 * kPTileElems * 2 : 0) +
+         (on_chip ? kHeadElems * 2 : 0);
 }
 static_assert(bwd_smem_bytes(Probs::kSaved) == 180480, "kernel 4's footprint");
-static_assert(bwd_smem_bytes(Probs::kRecomputeF32) <= 232448,
+static_assert(bwd_smem_bytes(Probs::kRecomputeF32) <= 232448 &&
+                  bwd_smem_bytes(Probs::kSaved, true) <= 232448,
               "the block must fit one SM's shared memory");
 static_assert((kHeadElems * 2) % 128 == 0 && (kAccElems * 4) % 128 == 0 &&
                   (kPTileElems * 2) % 128 == 0 && (kFTileElems * 4) % 128 == 0,
@@ -91,18 +98,23 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <Probs kMode, bool kDb>
-__global__ void __launch_bounds__(kBwdThreads)
-attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, HeadLayout in, const bf16* __restrict__ dout,
-                     HeadLayout dol, const bf16* __restrict__ probs, bf16* __restrict__ dq,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, HeadLayout outl,
-                     float* __restrict__ db_partial, int S, float scale) {
+// The backward of one (sample b, head h) by the whole block.  With kOnChip
+// nothing is written to dq / dk / dv: on return (after a block barrier) the
+// bf16 dq, dk and dv of the head, rows < S16 and rows >= S zero, lie in
+// shared memory at bwd_dq_tile(), the Q region and the K region, each
+// [row * kLdH + d]; every other region is free.
+template <Probs kMode, bool kDb, bool kOnChip>
+__device__ __forceinline__ void attention_bwd_head(
+    unsigned char* bwd_smem, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, HeadLayout in, const bf16* __restrict__ dout, HeadLayout dol,
+    const bf16* __restrict__ probs, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, HeadLayout outl, float* __restrict__ db_partial, int S, float scale,
+    int h, int b, int heads) {
   using namespace nvcuda;
   constexpr bool kRecompute = kMode != Probs::kSaved;
   constexpr bool kSplit = kMode == Probs::kRecomputeF32;
   static_assert(!(kDb && kRecompute), "db is kernel 4's, from saved probs");
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  static_assert(!(kOnChip && (kRecompute || kDb)), "kernel 8 reads saved probs, sums db itself");
   bf16* q_s = reinterpret_cast<bf16*>(bwd_smem);
   bf16* k_s = q_s + kHeadElems;
   bf16* v_s = k_s + kHeadElems;
@@ -115,10 +127,9 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* pf_s = f_s + kFTileElems;                                     // kRecompute
   bf16* plo_s = reinterpret_cast<bf16*>(pf_s + (kRecompute ? kFTileElems : 0));  // kSplit
   bf16* dslo_s = plo_s + kPTileElems;                                  // kSplit
+  constexpr int kDqOffset = bwd_smem_bytes(kMode);
+  bf16* dq_s = reinterpret_cast<bf16*>(bwd_smem + kDqOffset);          // kOnChip
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int heads = gridDim.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -305,11 +316,16 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 8; ++e) f[e] = f_s[r * kLdF + c + e] * scale;
       if (q0 + r < S) {
         const uint4 u = pack8(f);
-        *reinterpret_cast<uint4*>(dq + dst + static_cast<size_t>(q0 + r) * outl.row + c) = u;
+        if (kOnChip) {
+          *reinterpret_cast<uint4*>(&dq_s[(q0 + r) * kLdH + c]) = u;
+        } else {
+          *reinterpret_cast<uint4*>(dq + dst + static_cast<size_t>(q0 + r) * outl.row + c) = u;
+        }
         if (kDb) unpack8(u, f);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) f[e] = 0.f;
+        if (kOnChip) *reinterpret_cast<uint4*>(&dq_s[(q0 + r) * kLdH + c]) = zero;
       }
       if (kDb) {
 #pragma unroll
@@ -325,8 +341,10 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  // dk (scaled) and dv rows < S, rounded to bf16.
-  for (int i = tid; i < S * 8; i += kBwdThreads) {
+  // dk (scaled) and dv rows < S, rounded to bf16.  On chip: all S16 rows (the
+  // accumulators' rows >= S are zero), into the Q and K regions, which the
+  // loop above no longer reads.
+  for (int i = tid; i < (kOnChip ? s_pad : S) * 8; i += kBwdThreads) {
     const int r = i >> 3;
     const int c = (i & 7) * 8;
     float fk[8], fv[8];
@@ -335,10 +353,16 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fk[e] = dk_s[r * kLdAcc + c + e] * scale;
       fv[e] = dv_s[r * kLdAcc + c + e];
     }
-    const size_t row = dst + static_cast<size_t>(r) * outl.row + c;
-    *reinterpret_cast<uint4*>(dk + row) = pack8(fk);
-    *reinterpret_cast<uint4*>(dv + row) = pack8(fv);
+    if (kOnChip) {
+      *reinterpret_cast<uint4*>(&q_s[r * kLdH + c]) = pack8(fk);
+      *reinterpret_cast<uint4*>(&k_s[r * kLdH + c]) = pack8(fv);
+    } else {
+      const size_t row = dst + static_cast<size_t>(r) * outl.row + c;
+      *reinterpret_cast<uint4*>(dk + row) = pack8(fk);
+      *reinterpret_cast<uint4*>(dv + row) = pack8(fv);
+    }
   }
+  if (kOnChip) __syncthreads();
 
   if (kDb) {
     // Column sums of the rounded dq, dk, dv of this (head, sample), rows in
@@ -357,6 +381,26 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       part[2 * C + c] = dv_sum;
     }
   }
+}
+
+// Where attention_bwd_head<Probs::kSaved, false, true> leaves the head's dq.
+__device__ __forceinline__ bf16* bwd_dq_tile(unsigned char* bwd_smem) {
+  constexpr int kDqOffset = bwd_smem_bytes(Probs::kSaved);
+  return reinterpret_cast<bf16*>(bwd_smem + kDqOffset);
+}
+
+// One block per (head, sample).
+template <Probs kMode, bool kDb>
+__global__ void __launch_bounds__(kBwdThreads)
+attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, HeadLayout in, const bf16* __restrict__ dout,
+                     HeadLayout dol, const bf16* __restrict__ probs, bf16* __restrict__ dq,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, HeadLayout outl,
+                     float* __restrict__ db_partial, int S, float scale) {
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  attention_bwd_head<kMode, kDb, false>(bwd_smem, q, k, v, in, dout, dol, probs, dq, dk, dv,
+                                        outl, db_partial, S, scale, blockIdx.x, blockIdx.y,
+                                        gridDim.x);
 }
 
 template <Probs kMode, bool kDb>

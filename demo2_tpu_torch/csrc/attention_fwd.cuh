@@ -18,7 +18,9 @@
 //
 // In every mode the scores are f32 (bf16 q and k on the tensor cores, f32
 // accumulation, then * scale) and keys >= S are never visited (the Pallas
-// kernels mask them to -1e30, whose exp is 0: the same arithmetic).
+// kernels mask them to -1e30, whose exp is 0: the same arithmetic).  `keys`
+// <= S is the number of valid keys where it is not S itself: the ablation
+// tool (attention_ablate.cu) masks 129 keys of its 136 rows.
 //
 // Layout: a head-split tensor is addressed through HeadLayout, element
 // (b, h, s, d) at b * sample + h * head + s * row + d.  The packed qkv
@@ -70,7 +72,7 @@ template <Softmax kMode, bool kSaveProbs>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, HeadLayout in, bf16* __restrict__ out,
-                     HeadLayout ol, bf16* __restrict__ probs, int S, float scale) {
+                     HeadLayout ol, bf16* __restrict__ probs, int S, int keys, float scale) {
   using namespace nvcuda;
   constexpr bool kSplit = kMode == Softmax::kF32;
   __shared__ __align__(128) bf16 q_s[kQTile * kLdQK];
@@ -134,14 +136,14 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * (kQTile / 4) + rr;
     float* srow = s_s + r * kLdS;
     float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
+    for (int j = lane; j < keys; j += 32) {
       const float val = srow[j] * scale;
       srow[j] = val;
       m = fmaxf(m, val);
     }
     m = warp_max(m);
     float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
+    for (int j = lane; j < keys; j += 32) {
       const float e = expf(srow[j] - m);
       srow[j] = e;
       sum += e;
@@ -150,7 +152,7 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kMode == Softmax::kNormAfterPV && lane == 0) denom_s[r] = denom;
     for (int j = lane; j < s_pad; j += 32) {
       float p = 0.f;
-      if (j < S) p = kMode == Softmax::kNormAfterPV ? srow[j] : srow[j] / denom;
+      if (j < keys) p = kMode == Softmax::kNormAfterPV ? srow[j] : srow[j] / denom;
       const bf16 hi = __float2bfloat16_rn(p);
       p_s[r * kLdP + j] = hi;
       if (kSplit) plo_s[r * kLdP + j] = __float2bfloat16_rn(p - __bfloat162float(hi));
@@ -210,10 +212,10 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <Softmax kMode, bool kSaveProbs>
 cudaError_t launch_attention_fwd(const bf16* q, const bf16* k, const bf16* v, HeadLayout in,
                                  bf16* out, HeadLayout ol, bf16* probs, int batch, int seq,
-                                 int heads, float scale, cudaStream_t st) {
+                                 int heads, float scale, cudaStream_t st, int keys = -1) {
   const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
-  attention_fwd_kernel<kMode, kSaveProbs>
-      <<<grid, kAttnThreads, 0, st>>>(q, k, v, in, out, ol, probs, seq, scale);
+  attention_fwd_kernel<kMode, kSaveProbs><<<grid, kAttnThreads, 0, st>>>(
+      q, k, v, in, out, ol, probs, seq, keys < 0 ? seq : keys, scale);
   return cudaGetLastError();
 }
 

@@ -153,6 +153,24 @@ struct BiasQuickGeluEpilogue {
   }
 };
 
+// The same, and the pre-GELU hidden beside it: hidden = bf16(h), with g still
+// taken from the f32 h (fused_block.py::_mlp_kernel, which training reads).
+struct BiasQuickGeluHiddenEpilogue {
+  bf16* out;
+  bf16* hidden;
+  const float* bias;
+  int ldo;
+  __device__ __forceinline__ void operator()(int row, int col, float (&acc)[8]) const {
+    const size_t off = static_cast<size_t>(row) * ldo + col;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += bias[col + i];
+    *reinterpret_cast<uint4*>(hidden + off) = pack8(acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = acc[i] * (1.f / (1.f + expf(-1.702f * acc[i])));
+    *reinterpret_cast<uint4*>(out + off) = pack8(acc);
+  }
+};
+
 // y = bf16(acc + bias); out = bf16(resid + y): the residual add in bf16.
 struct BiasResidualBf16Epilogue {
   bf16* out;

@@ -7,13 +7,14 @@ in the JAX package.
 
 With `fused=True` (cfg.TPU.USE_FLASH_ATTENTION) each block runs the fused
 sub-blocks of ops/fused_block.py, i.e. the CUDA kernels on a CUDA tensor:
-at eval the fused attention and the fused MLP; in training, or wherever a
-gradient has to flow, the fused attention with its custom backward, then the
-unfused ln_2 + MLP, as TPU.FUSED_MLP_TRAIN=False does in the JAX package.
-Otherwise the plain LayerNorm / MHA / MLP modules.  `pallas_ln_bwd`
-(cfg.TPU.PALLAS_LN_BWD) gives the blocks' unfused LayerNorms the one-pass
-backward of ops/norm.py: ln_2 always, ln_1 where the attention is unfused
-(fused, ln_1 lives inside the attention kernels); not ln_pre / ln_post.
+the fused attention always, with its custom backward wherever a gradient has
+to flow; the fused MLP where `not train or fused_mlp_train`
+(cfg.TPU.FUSED_MLP_TRAIN), with its custom backward likewise, else the
+unfused ln_2 + MLP, as in the JAX package.  Otherwise the plain LayerNorm /
+MHA / MLP modules.  `pallas_ln_bwd` (cfg.TPU.PALLAS_LN_BWD) gives the blocks'
+unfused LayerNorms the one-pass backward of ops/norm.py: ln_2 where the MLP is
+unfused, ln_1 where the attention is (fused, each lives inside its
+sub-block's kernels); not ln_pre / ln_post.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from torch import nn
 
 from ..ops.activations import quick_gelu
 from ..ops.attention import MultiHeadAttention
-from ..ops.fused_block import fused_attention, fused_mlp_block, needs_grad
+from ..ops.fused_block import fused_attention, fused_mlp, needs_grad
 from ..ops.linear import (Linear, cached_cast, make_param, normal_init,
                           truncated_normal_init, zeros_init)
 from ..ops.norm import LayerNorm
@@ -77,11 +78,12 @@ class ResidualAttentionBlock(nn.Module):
 
     def __init__(self, width: int, heads: int, *, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
-                 pallas_ln_bwd: bool = False):
+                 pallas_ln_bwd: bool = False, fused_mlp_train: bool = False):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
         self.fused = fused
+        self.fused_mlp_train = fused_mlp_train
         # Fused, ln_1's parameters go to the attention kernels, never through
         # this module's forward.
         self.ln_1 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd and not fused)
@@ -103,22 +105,26 @@ class ResidualAttentionBlock(nn.Module):
                       cached_cast(attn.out_proj, "weight", dt), params[5])
         x = fused_attention(x, *params, num_heads=self.heads,
                             scale=(x.shape[-1] // self.heads) ** -0.5)
-        # The fused MLP kernel has no backward: where a gradient has to flow,
-        # the unfused MLP runs (in training that is TPU.FUSED_MLP_TRAIN=False).
-        if train or needs_grad(x, *self.ln_2.parameters(), *mlp.parameters()):
+        # The MLP is fused where JAX fuses it (clip_vit.py:250): outside
+        # training, and in training with TPU.FUSED_MLP_TRAIN.  JAX's fused MLP
+        # is differentiable wherever it runs, so an input gradient taken
+        # outside training (a saliency map) goes through FusedMlpBlockFn.
+        if train and not self.fused_mlp_train:
             return x + self.mlp(self.ln_2(x))
-        return fused_mlp_block(
-            x, self.ln_2.weight, self.ln_2.bias,
-            cached_cast(mlp.c_fc, "weight", dt), mlp.c_fc.bias,
-            cached_cast(mlp.c_proj, "weight", dt), mlp.c_proj.bias,
-        )
+        params = (self.ln_2.weight, self.ln_2.bias, mlp.c_fc.weight, mlp.c_fc.bias,
+                  mlp.c_proj.weight, mlp.c_proj.bias)
+        if not needs_grad(x, *params):  # eval: the weights' cached casts
+            params = (params[0], params[1], cached_cast(mlp.c_fc, "weight", dt), params[3],
+                      cached_cast(mlp.c_proj, "weight", dt), params[5])
+        return fused_mlp(x, *params)
 
 
 class CLIPVisionTransformer(nn.Module):
     def __init__(self, h_resolution: int, w_resolution: int, *, stride_size: int,
                  width: int, layers: int, heads: int, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
-                 patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False):
+                 patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False,
+                 fused_mlp_train: bool = False):
         super().__init__()
         self.width = width
         self.dtype = dtype
@@ -134,7 +140,8 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width, device=device)
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype=dtype, fused=fused, device=device,
-                                   generator=generator, pallas_ln_bwd=pallas_ln_bwd)
+                                   generator=generator, pallas_ln_bwd=pallas_ln_bwd,
+                                   fused_mlp_train=fused_mlp_train)
             for _ in range(layers)
         )
         self.ln_post = LayerNorm(width, device=device)

@@ -63,12 +63,8 @@ def train_slice_error(cfg: Config, model_only: bool = False):
     None.  The model's training forward raises the model's part
     (`model_only`), create_train_state and build_train_step all of it."""
     t, m = cfg.TPU, cfg.MODEL
-    for flag, item in (
-        ("FUSED_MLP_TRAIN", "the fused MLP's training backward (TPU.FUSED_MLP_TRAIN)"),
-        ("REMAT_BACKBONE", "the rest of the modules (REMAT_BACKBONE)"),
-    ):
-        if getattr(t, flag):
-            return not_ported(f"TPU.{flag}", item)
+    if t.REMAT_BACKBONE:
+        return not_ported("TPU.REMAT_BACKBONE", "the rest of the modules (REMAT_BACKBONE)")
     if model_only:
         return None
     if t.PIPELINED_AUGMENT:
@@ -115,6 +111,7 @@ class DeMo(nn.Module):
             dtype=dtype,
             fused=cfg.TPU.USE_FLASH_ATTENTION,
             pallas_ln_bwd=cfg.TPU.PALLAS_LN_BWD,
+            fused_mlp_train=cfg.TPU.FUSED_MLP_TRAIN,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
             width_override=cfg.TPU.BACKBONE_WIDTH,
             heads_override=cfg.TPU.BACKBONE_HEADS,

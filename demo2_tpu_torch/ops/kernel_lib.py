@@ -25,8 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
-           "packed_attention.cu", "flash_attention.cu", "layernorm_bwd.cu",
-           "jaccard_min_sum.cu")
+           "attention_bwd_fused_dw.cu", "packed_attention.cu", "flash_attention.cu",
+           "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
 HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,13 +41,16 @@ _SIGNATURES = {
     "demo2_fused_attention_block_train": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_fused_dw": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
+    "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
     "demo2_packed_attention": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_jaccard_min_sum": [_P] * 3 + [_I] * 3 + [_P],
+    "demo2_attention_ablate": [_P] * 2 + [_I] * 6 + [_P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
 }

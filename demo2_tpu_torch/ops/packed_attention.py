@@ -13,7 +13,11 @@ saved-probs layout.
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db);
   attention_bwd_saved:    dqkv only
       replaces the Pallas kernel packed_attention.py::_bwd_saved_kernel
-      (csrc/attention_bwd.cu, demo2_attention_bwd_saved).
+      (csrc/attention_bwd.cu, demo2_attention_bwd_saved);
+  attention_bwd_fused_dw: the saved-probs backward with dqkv kept on chip and
+      contracted at once into dt, the f32 dW_qkv and the f32 db_qkv
+      replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
+      (csrc/attention_bwd_fused_dw.cu, demo2_attention_bwd_fused_dw).
 
 `packed_self_attention` is the entry of the ImageNet ViT's blocks and of
 MultiHeadAttention's packed route: with grad enabled and a qkv that requires
@@ -167,6 +171,64 @@ def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):
 
 
 attention_bwd_saved.launches = 0
+
+
+def attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, *, num_heads: int, scale: float):
+    """_bwd_fused_dw_kernel's arithmetic in the dtype of qkv:
+    attention_bwd_saved_plain's dqkv, rounded to that dtype, and only then
+    contracted, each product accumulated in f32: dt = dqkv @ W over the whole
+    3C, rounded once; dW = dqkv^T t and db = the column sums, returned in f32.
+    t (B, S, C) is the qkv projection's input, wqkv (3C, C) its weight in
+    torch's Linear layout -> (dt (B, S, C), dwqkv (3C, C) f32, dbqkv (3C,) f32)."""
+    dt = qkv.dtype
+    b, s, c3 = qkv.shape
+    dqkv = attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                     with_db=False).reshape(-1, c3).float()
+    dw = dqkv.t() @ t.reshape(-1, c3 // 3).float()
+    return (dqkv @ wqkv.float()).to(dt).reshape(b, s, c3 // 3), dw, dqkv.sum(0)
+
+
+def _dw_groups(device, batch: int, num_heads: int) -> int:
+    """Sample groups of kernel 8's grid (heads, groups): one block per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(batch, sms // num_heads))
+
+
+def attention_bwd_fused_dw(qkv, probs, do, t, wqkv, *, num_heads: int, scale: float):
+    """(dt (B, S, C), dwqkv (3C, C) f32, dbqkv (3C,) f32) as
+    attention_bwd_fused_dw_plain returns them: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  The kernel's f32 partial sums of dt (per
+    head) and of dW and db (per group of samples) are scratch allocated here;
+    no copy of dqkv is."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, num_heads=num_heads,
+                                            scale=scale)
+    kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_fused_dw")
+    dev, f32 = qkv.device, torch.float32
+    expect(t, "t", (b, s, c), torch.bfloat16, dev)
+    expect(wqkv, "wqkv", (3 * c, c), torch.bfloat16, dev)
+    dt = torch.empty_like(t)
+    dw = torch.empty((3 * c, c), device=dev, dtype=f32)
+    db = torch.empty((3 * c,), device=dev, dtype=f32)
+    if qkv.numel() == 0:
+        return dt, dw.zero_(), db.zero_()
+    groups = _dw_groups(dev, b, num_heads)
+    dt_partial = torch.empty((num_heads, b, probs_cols(s), c), device=dev, dtype=f32)
+    dw_partial = torch.empty((groups, 3 * c, c), device=dev, dtype=f32)
+    db_partial = torch.empty((groups, 3 * c), device=dev, dtype=f32)
+    with torch.cuda.device(dev):
+        err = kl.lib.demo2_attention_bwd_fused_dw(
+            qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), t.data_ptr(), wqkv.data_ptr(),
+            dt.data_ptr(), dw.data_ptr(), db.data_ptr(), dt_partial.data_ptr(),
+            dw_partial.data_ptr(), db_partial.data_ptr(), b, s, c, num_heads, groups,
+            float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(err, "attention_bwd_fused_dw")
+    attention_bwd_fused_dw.launches += 1
+    return dt, dw, db
+
+
+attention_bwd_fused_dw.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ import demo2_tpu_torch
 for m in pkgutil.walk_packages(demo2_tpu_torch.__path__, "demo2_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_list", "engine.eval"):
+for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_list", "engine.eval",
+             "tools.bench_kernel_ablate"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 """
 
@@ -97,7 +98,6 @@ def test_configs_outside_the_slice_raise(section, key, value):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("TPU", "FUSED_MLP_TRAIN", True),
     ("MODEL", "METRIC_LOSS_TYPE", "triplet_center"),
     ("TPU", "REMAT_BACKBONE", True),
     ("TPU", "PIPELINED_AUGMENT", True),
@@ -109,12 +109,13 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     model = make_model(cfg, 6, 4, device=CPU, generator=generator())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_train_state(cfg, model, steps_per_epoch=4)
-    if section == "TPU" and key in ("FUSED_MLP_TRAIN", "REMAT_BACKBONE"):
+    if section == "TPU" and key == "REMAT_BACKBONE":
         with pytest.raises(NotImplementedError, match=key):  # the model's own part
             model(torch.zeros(2, 3, 64, 32, 3), torch.zeros(2, dtype=torch.long), train=True)
 
 
 @pytest.mark.parametrize("section,key,value", [
+    ("TPU", "FUSED_MLP_TRAIN", True),
     ("TPU", "PALLAS_LN_BWD", True),
     ("TEST", "RE_RANKING", "yes"),
     ("DATASETS", "NAMES", "MSVR310"),
@@ -122,8 +123,8 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
-    refused: the LayerNorm backward flag, re-ranking, MSVR310's scene
-    protocol, ranking off the device."""
+    refused: the fused MLP in training, the LayerNorm backward flag,
+    re-ranking, MSVR310's scene protocol, ranking off the device."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.engine.eval import run_eval
@@ -131,6 +132,8 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
 
     cfg = _flagship_tiny()
     setattr(getattr(cfg, section), key, value)
+    if key == "FUSED_MLP_TRAIN":
+        cfg.TPU.USE_FLASH_ATTENTION = True  # the flag acts on the fused blocks only
     ds = SyntheticTriModal(num_pids=8, imgs_per_pid=4, image_size=tuple(cfg.INPUT.SIZE_TRAIN))
     model = make_model(cfg, 8, 4, device=CPU, generator=generator())
     train = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,

@@ -17,14 +17,14 @@ import pytest
 import torch
 
 from demo2_tpu.ops.fused_block import _fused_bwd, _fused_fwd_impl, _reference_impl
-from demo2_tpu.ops.packed_attention import (_choose_bb, _packed_bwd_saved,
-                                            _packed_bwd_saved_db)
+from demo2_tpu.ops.packed_attention import _packed_bwd_saved, _packed_bwd_saved_db
 from demo2_tpu_torch.ops import fused_block as fb
 from demo2_tpu_torch.ops import packed_attention as pa
 from demo2_tpu_torch.ops.linear import Linear, cached_cast
 from demo2_tpu_torch.ops.norm import LayerNorm
 from demo2_tpu_torch.models.clip_vit import PatchConv
-from torch_port_helpers import CPU, generator, n, t
+from torch_port_helpers import (CPU, generator, jax_to_port_probs, n, port_to_jax_probs,
+                                t)
 
 # f32 on both sides; only the summation order differs.
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -37,25 +37,6 @@ def _attn_inputs(b, s, c, seed):
     f = lambda *shape, std=1.0: (rng.standard_normal(shape) * std).astype(np.float32)
     return (f(b, s, c), 1.0 + f(c, std=0.1), f(c, std=0.1), f(c, 3 * c, std=c ** -0.5),
             f(3 * c, std=0.1), f(c, c, std=c ** -0.5), f(c, std=0.1))
-
-
-def _jax_to_port_probs(jprobs, b, h, s):
-    """(H*B, S_pad, S_pad), H*bb rows per program, head-major inside it ->
-    (B, H, S, S16)."""
-    bb = _choose_bb(b, 8)
-    sp = jprobs.shape[-1]
-    p = np.asarray(jprobs).reshape(b // bb, h, bb, sp, sp).transpose(0, 2, 1, 3, 4)
-    p = p.reshape(b, h, sp, sp)[:, :, :s, :s]
-    return np.pad(p, ((0, 0), (0, 0), (0, 0), (0, pa.probs_cols(s) - s)))
-
-
-def _port_to_jax_probs(probs, s_pad):
-    b, h, s, _ = probs.shape
-    bb = _choose_bb(b, 8)
-    p = np.zeros((b, h, s_pad, s_pad), np.float32)
-    p[:, :, :s, :s] = probs[..., :s]
-    p = p.reshape(b // bb, bb, h, s_pad, s_pad).transpose(0, 2, 1, 3, 4)
-    return p.reshape(h * b, s_pad, s_pad)
 
 
 # b = 4, 12 and 16 give the TPU block sizes 4, 4 and 8 (12 is the case where
@@ -76,7 +57,7 @@ def test_training_forward_plain_matches_pallas_kernel(b, s, c, h):
     np.testing.assert_allclose(n(got[0]), np.asarray(out), **TOL)
     np.testing.assert_allclose(n(got[1]), np.asarray(qkv)[:, :s], **TOL)
     np.testing.assert_allclose(n(got[2]), np.asarray(attn)[:, :s], **TOL)
-    np.testing.assert_allclose(n(got[3]), _jax_to_port_probs(probs, b, h, s), **TOL)
+    np.testing.assert_allclose(n(got[3]), jax_to_port_probs(probs, b, h, s), **TOL)
     assert not n(got[3])[..., s:].any(), "probs columns past S must be zero"
 
 
@@ -99,7 +80,7 @@ def test_saved_probs_backward_plain_matches_pallas_kernel(b, s, c, h, with_db):
     scale = (c // h) ** -0.5
     s_pad = -(-s // 8) * 8
     pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, s_pad - s), (0, 0))))
-    jprobs = jnp.asarray(_port_to_jax_probs(probs, s_pad))
+    jprobs = jnp.asarray(port_to_jax_probs(probs, s_pad))
     if with_db:
         want, want_db = _packed_bwd_saved_db(h, scale, pad(qkv), jprobs, pad(do), interpret=True)
         got, got_db = pa.attention_bwd_saved_db(t(qkv), t(probs), t(do), num_heads=h,

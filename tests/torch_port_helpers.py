@@ -15,6 +15,8 @@ import jax
 import numpy as np
 import torch
 
+from demo2_tpu.ops.packed_attention import _choose_bb
+from demo2_tpu_torch.ops.packed_attention import probs_cols
 from demo2_tpu_torch.utils.converters import convert_flax_variables
 
 CPU = torch.device("cpu")
@@ -65,3 +67,23 @@ def t(a) -> torch.Tensor:
 
 def n(x) -> np.ndarray:
     return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def jax_to_port_probs(jprobs, b, h, s):
+    """The TPU's saved probs, (H*B, S_pad, S_pad) with H*bb rows per program
+    and head-major inside it, in the port's (B, H, S, S16) layout."""
+    bb = _choose_bb(b, 8)
+    sp = jprobs.shape[-1]
+    p = np.asarray(jprobs).reshape(b // bb, h, bb, sp, sp).transpose(0, 2, 1, 3, 4)
+    p = p.reshape(b, h, sp, sp)[:, :, :s, :s]
+    return np.pad(p, ((0, 0), (0, 0), (0, 0), (0, probs_cols(s) - s)))
+
+
+def port_to_jax_probs(probs, s_pad):
+    """The port's (B, H, S, S16) probs in the TPU's layout at S_pad."""
+    b, h, s, _ = probs.shape
+    bb = _choose_bb(b, 8)
+    p = np.zeros((b, h, s_pad, s_pad), np.float32)
+    p[:, :, :s, :s] = probs[..., :s]
+    p = p.reshape(b // bb, bb, h, s_pad, s_pad).transpose(0, 2, 1, 3, 4)
+    return p.reshape(h * b, s_pad, s_pad)
