@@ -31,6 +31,10 @@ requests and train steps against the plain path.  Phases:
      version and no further from f32 than the plain bf16 version, and within
      a mean of 1e-5 of the plain version, a bound that the same arithmetic
      rounded at the wrong point (controls run on the same inputs) fails;
+     kernels 9 and 10 also at the edges of their tiling, (48, 144, 12, 64),
+     (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64) and (5, 77, 3, 64),
+     within the same bounds; kernel 10's three outputs bit-identical over two
+     runs;
   3. serving: requests of N = 0, 1, 64, 100 images with miss "None" and "nt";
      shape, finiteness, unit norm, 12 launches of kernels 1 and 2 per
      forward (and of no other kernel), cosine >= 0.999 to the plain path,
@@ -64,7 +68,10 @@ requests and train steps against the plain path.  Phases:
      proj), each step launching kernels 5 and 6 12 times and no other;
   13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s and
      beside scaled_dot_product_attention (forward, and its autograd
-     backward), the extractor at batch 1 and 64 and the train step on both
+     backward); kernels 9 and 10 beside their first design and that library
+     call in turns (new, first, library; six rounds of 20 launches), the
+     median and the spread of each, the two designs within a mean of 1e-5 of
+     each other; the extractor at batch 1 and 64 and the train step on both
      paths in turns, peak memory, profiles of one request and one step;
   14. the LayerNorm backward (11) vs its plain version at (24768, 768) and
      (387, 768) bf16 and at (387, 768) f32: dx within phase 2's bounds,
@@ -1091,6 +1098,12 @@ def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
 
 PACKED_SHAPES = ((192, 129, 2304), (3, 129, 2304))       # qkv (3B, S, 3C)
 FLASH_SHAPES = ((192, 129, 12, 64), (3, 129, 12, 64))     # q, k, v (3B, S, H, D)
+# The edges of kernels 9 and 10's tiling (one warp per 16 rows of one (sample,
+# head), nine at most): no padded row, one tile, one key, other head counts.
+# All but the last give a block several (sample, head) items, and the short
+# ones put a warp's consecutive tasks many items apart.
+FLASH_EDGE_SHAPES = ((48, 144, 12, 64), (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64),
+                     (5, 77, 3, 64))
 
 
 def as_tuple(y):
@@ -1216,51 +1229,75 @@ def misrounded_controls(num_heads, scale) -> dict:
             "flash_attention_bwd": lambda *x: _misrounded_flash_bwd(*x, scale=scale)}
 
 
-def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES))) -> dict:
+def check_attention_case(name, case, control, errors=None) -> None:
+    """One kernel of phase 9 at one shape against its plain version, the f32
+    run of it and (where `control` is given) the misrounded control."""
+    kernel, plain, inputs, _, _ = case
+    got = as_tuple(kernel())
+    ref = as_tuple(plain(*inputs))
+    f32 = as_tuple(plain(*(x.float() for x in inputs)))
+    wrong = as_tuple(control(*inputs)) if control is not None else (None,) * len(got)
+    again = as_tuple(kernel()) if name == "flash_attention_bwd" else ()
+    sync()
+    shape = tuple(inputs[0].shape)
+    worst = 0.0
+    for i, (yk, yp, y32, yw) in enumerate(zip(got, ref, f32, wrong)):
+        what = f"{name} output {i} {shape}"
+        d = (yk.float() - yp.float()).abs()
+        k32, p32 = mean_err(yk, y32), mean_err(yp, y32)
+        log(f"[attn-kernel] {what}: vs plain bf16 max {d.max().item():.3e} mean "
+            f"{d.mean().item():.3e}; mean error vs f32 kernel {k32:.3e}, plain bf16 "
+            f"{p32:.3e} (mean |f32| {y32.abs().mean().item():.3e})")
+        require(yk.shape == yp.shape and yk.dtype == yp.dtype, f"{what}: shape or dtype")
+        require(bool(torch.isfinite(yk).all()), f"{what}: non-finite")
+        require(d.max().item() <= MAX_ABS_TOL, f"{what}: max abs {d.max().item()}")
+        require(d.mean().item() <= MEAN_ABS_TOL, f"{what}: mean abs {d.mean().item()}")
+        require(k32 <= F32_MEAN_RATIO * p32,
+                f"{what}: {k32} > {F32_MEAN_RATIO} x the plain bf16 path's {p32}")
+        require(d.mean().item() <= ROUNDING_MEAN_TOL,
+                f"{what}: mean abs {d.mean().item()} > {ROUNDING_MEAN_TOL}: the kernel "
+                f"rounds where its plain version does not")
+        if yw is not None:
+            w32, dw = mean_err(yw, y32), mean_err(yw, yp)
+            log(f"[attn-kernel] {what}: control rounding at the wrong point: vs plain "
+                f"bf16 mean {dw:.3e}, mean error vs f32 {w32:.3e} ({w32 / p32:.3f} x the "
+                f"plain's)")
+            require(dw > ROUNDING_MEAN_TOL,
+                    f"{what}: the misrounded control is within {ROUNDING_MEAN_TOL} of the "
+                    f"plain version ({dw}), so the bound cannot tell where a kernel rounds")
+        worst = max(worst, d.max().item())
+    for i, (a, b) in enumerate(zip(got, again)):
+        require(torch.equal(a, b), f"{name} output {i} {shape}: two runs differ")
+    if again:
+        log(f"[attn-kernel] {name} {shape}: dq, dk, dv bit-identical over two runs")
+    if errors is not None:
+        errors[name] = worst
+
+
+def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES)),
+                            flash_edges=FLASH_EDGE_SHAPES) -> dict:
     """Kernels 5, 6, 9 and 10 against their plain versions: every output
     within the bounds of phase 2 of the plain bf16 version, no further from
     an f32 run of the plain version than the plain bf16 version is, and
     within a mean of ROUNDING_MEAN_TOL of the plain version.  The controls,
     plain versions rounding at the wrong point, must fail that last bound on
-    the same inputs.  Returns name -> the kernel's max abs error at the
-    first shape."""
+    the same inputs.  Kernel 10's three outputs are bit-identical over two
+    runs.  Then kernels 9 and 10 at `flash_edges`, the edges of their tiling,
+    within the same bounds (the controls at the main shapes only: over one key
+    every probability is exactly 1 and nothing is rounded).  Returns name ->
+    the kernel's max abs error at the first shape."""
     errors = {}
     for packed_shape, flash_shape in shapes:
         cases = attention_kernel_cases(device, packed_shape, flash_shape, seed=7)
         controls = misrounded_controls(packed_shape[2] // 3 // 64, 64 ** -0.5)
-        for name, (kernel, plain, inputs, _, _) in cases.items():
-            got = as_tuple(kernel())
-            ref = as_tuple(plain(*inputs))
-            f32 = as_tuple(plain(*(x.float() for x in inputs)))
-            wrong = as_tuple(controls[name](*inputs))
-            sync()
-            shape = tuple(inputs[0].shape)
-            worst = 0.0
-            for i, (yk, yp, y32, yw) in enumerate(zip(got, ref, f32, wrong)):
-                what = f"{name} output {i} {shape}"
-                d = (yk.float() - yp.float()).abs()
-                k32, p32, w32 = mean_err(yk, y32), mean_err(yp, y32), mean_err(yw, y32)
-                dw = mean_err(yw, yp)
-                log(f"[attn-kernel] {what}: vs plain bf16 max {d.max().item():.3e} mean "
-                    f"{d.mean().item():.3e}; mean error vs f32 kernel {k32:.3e}, plain bf16 "
-                    f"{p32:.3e} (mean |f32| {y32.abs().mean().item():.3e})")
-                log(f"[attn-kernel] {what}: control rounding at the wrong point: vs plain "
-                    f"bf16 mean {dw:.3e}, mean error vs f32 {w32:.3e} ({w32 / p32:.3f} x the "
-                    f"plain's)")
-                require(bool(torch.isfinite(yk).all()), f"{what}: non-finite")
-                require(d.max().item() <= MAX_ABS_TOL, f"{what}: max abs {d.max().item()}")
-                require(d.mean().item() <= MEAN_ABS_TOL, f"{what}: mean abs {d.mean().item()}")
-                require(k32 <= F32_MEAN_RATIO * p32,
-                        f"{what}: {k32} > {F32_MEAN_RATIO} x the plain bf16 path's {p32}")
-                require(d.mean().item() <= ROUNDING_MEAN_TOL,
-                        f"{what}: mean abs {d.mean().item()} > {ROUNDING_MEAN_TOL}: the kernel "
-                        f"rounds where its plain version does not")
-                require(dw > ROUNDING_MEAN_TOL,
-                        f"{what}: the misrounded control is within {ROUNDING_MEAN_TOL} of the "
-                        f"plain version ({dw}), so the bound cannot tell where a kernel rounds")
-                worst = max(worst, d.max().item())
-            if packed_shape == shapes[0][0]:
-                errors[name] = worst
+        for name, case in cases.items():
+            check_attention_case(name, case, controls[name],
+                                 errors if packed_shape == shapes[0][0] else None)
+    for flash_shape in flash_edges:
+        b, s, h, d = flash_shape
+        cases = attention_kernel_cases(device, (b, s, 3 * h * d), flash_shape, seed=9)
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            check_attention_case(name, cases[name], None)
     log(f"[attn-kernel] tolerances: max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}, "
         f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's, mean abs <= "
         f"{ROUNDING_MEAN_TOL} (every misrounded control above it): ok")
@@ -1323,15 +1360,79 @@ def phase_head_major(device, shape=FLASH_SHAPES[0]) -> dict:
 # ---------------------------------------------------------------- phases 11-13
 
 
+DESIGN_ROUNDS = 6  # turns of (new, first design, library), 20 launches each
+
+
+def spread(xs) -> str:
+    """median [min .. max] of a list of times in ms."""
+    return f"{float(np.median(xs)):.4f} [{min(xs):.4f} .. {max(xs):.4f}]"
+
+
+def run_untimed(fn, iters) -> float:
+    """A rehearsal's stand-in for cuda_ms: one call, and no time for it."""
+    fn()
+    return math.nan
+
+
+def time_designs(device, card, shape=FLASH_SHAPES[0], rounds=DESIGN_ROUNDS, iters=20) -> dict:
+    """Kernels 9 and 10 beside their first design and the library's call on
+    the same inputs, in turns (new, first, library, new, first, library, ...):
+    the median and the spread of each over `rounds` readings of `iters`
+    launches, beside the bound and the TFLOP/s by the counted operations.  The
+    first design must sit within ROUNDING_MEAN_TOL of the new one.  The two
+    *_first wrappers are reached from here only.  Returns name -> {new,
+    first, library}: the lists of readings."""
+    from demo2_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = shape
+    cases = attention_kernel_cases(device, (b, s, 3 * h * d), shape, seed=7)
+    scale = d ** -0.5
+    firsts = {"flash_attention_fwd": lambda q, k, v: fa.flash_attention_fwd_first(
+                  q, k, v, scale=scale),
+              "flash_attention_bwd": lambda q, k, v, do: fa.flash_attention_bwd_first(
+                  q, k, v, do, scale=scale)}
+    timer = cuda_ms if device.type == "cuda" else run_untimed
+    readings = {}
+    for name, first in firsts.items():
+        kernel, _, inputs, flops, library = cases[name]
+        first_fn = lambda: first(*inputs)
+        for i, (a, f) in enumerate(zip(as_tuple(kernel()), as_tuple(first_fn()))):
+            diff = mean_err(a, f)
+            log(f"[designs] {name} output {i}: first design vs new mean abs {diff:.3e}")
+            require(diff <= ROUNDING_MEAN_TOL,
+                    f"{name} output {i}: the two designs differ by {diff} > {ROUNDING_MEAN_TOL}")
+        turns = {"new": kernel, "first": first_fn}
+        if library is not None:
+            turns["library"] = library
+        got = {which: [] for which in turns}
+        for _ in range(rounds):
+            for which, fn in turns.items():
+                got[which].append(timer(fn, iters))
+        moved = tensor_bytes(inputs) + tensor_bytes(as_tuple(kernel()))
+        bound_ms, bound_by = roofline(flops, BF16_PEAK_TFLOPS, moved)
+        new_ms = float(np.median(got["new"]))
+        rate = ("not timed off the card" if math.isnan(new_ms)
+                else f"{flops / new_ms / 1e9:.1f} TFLOP/s")
+        log(f"[designs] {name} x{shape}, {rounds} turns of {iters} launches, ms as median "
+            f"[min .. max]: new {spread(got['new'])} ({rate} by the {flops / 1e9:.1f} GFLOP "
+            f"counted), first design {spread(got['first'])}, library call "
+            f"{spread(got['library']) if 'library' in got else 'none'}; bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({moved / 1e6:.1f} MB moved) ({card})")
+        readings[name] = got
+    return readings
+
+
 def phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
-    """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s, the
-    extractor at batch 1 and 64, and the ViT train step, each on both paths
-    in turns."""
+    """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s,
+    kernels 9 and 10 beside their first design and the library's call in
+    turns, the extractor at batch 1 and 64, and the ViT train step, each on
+    both paths in turns."""
     cases = attention_kernel_cases(device, PACKED_SHAPES[0], FLASH_SHAPES[0], seed=7)
     times = time_kernels({
         name: timed(kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs), flops,
                     tuple(inputs[0].shape), inputs, library)
         for name, (kernel, plain_fn, inputs, flops, library) in cases.items()}, card)
+    time_designs(device, card)
     time_extractor(device, card, cfg, model, plain_cfg, plain, label="ViT ")
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler, label="ViT ")
     return times

@@ -48,8 +48,8 @@ from .activations import quick_gelu
 from .attention import attention_core
 from .kernel_lib import check, expect, kernel_library
 from .packed_attention import (attention_bwd_fused_dw, attention_bwd_saved,
-                               attention_bwd_saved_db, check_head_limits, merge_heads,
-                               needs_grad, probs_cols, probs_shape, split_heads)
+                               attention_bwd_saved_db, check_head_limits, check_input_dtype,
+                               merge_heads, needs_grad, probs_cols, probs_shape, split_heads)
 
 
 def _layernorm_f32(x, weight, bias, eps=1e-5):
@@ -98,7 +98,9 @@ def _expect_cuda(x: torch.Tensor, what: str) -> None:
 def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, num_heads):
     """Raise on what the attention kernels do not take; return the library."""
     _expect_cuda(x, what)
+    check_input_dtype(what, x.dtype)
     b, s, c = x.shape
+    kl = check_head_limits(what, c, num_heads, s)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     for tensor, name, shape, dtype in (
         (x, "x", (b, s, c), bf16), (ln_weight, "ln_weight", (c,), f32),
@@ -106,7 +108,7 @@ def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
         (bqkv, "bqkv", (3 * c,), f32), (wout, "wout", (c, c), bf16), (bout, "bout", (c,), f32),
     ):
         expect(tensor, name, shape, dtype, dev)
-    return check_head_limits(what, c, num_heads, s)
+    return kl
 
 
 def fused_attention_block(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
@@ -147,6 +149,7 @@ def _launch_mlp(wrapper, x, ln_weight, ln_bias, w1, b1, w2, b2, with_hidden: boo
     None)."""
     what = wrapper.__name__
     _expect_cuda(x, what)
+    check_input_dtype(what, x.dtype)
     c = x.shape[-1]
     f = w1.shape[0]
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16

@@ -27,7 +27,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
            "attention_bwd_fused_dw.cu", "packed_attention.cu", "flash_attention.cu",
            "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
-HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
+HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh", "attention_regs_fwd.cuh",
+           "attention_regs_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+    "demo2_flash_attention_first": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
+    "demo2_flash_attention_bwd_first": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_jaccard_min_sum": [_P] * 3 + [_I] * 3 + [_P],
     "demo2_attention_ablate": [_P] * 2 + [_I] * 6 + [_P],

@@ -93,14 +93,26 @@ def attention_bwd_saved_plain(qkv, probs, do, *, num_heads: int, scale: float,
     return dqkv, dqkv.float().sum((0, 1))
 
 
+# The ROADMAP item (queue 2a, item 1) that an f32 model on the block kernels
+# (1, 2, 3, 4, 7 and 8) waits for; kernels 5, 6, 9 and 10 wait for item 2.
+BLOCK_DTYPE_ITEM = "f32 inputs in the block kernels 1, 2, 3, 4, 7 and 8"
+
+
+def check_input_dtype(what: str, dtype: torch.dtype, item: str = BLOCK_DTYPE_ITEM) -> None:
+    """Raise, naming the ROADMAP item, for an input dtype the CUDA kernels do
+    not read: the Pallas kernels compute in the dtype of x, f32 included; the
+    CUDA tiles read bf16."""
+    if dtype != torch.bfloat16:
+        raise not_ported(f"{what} on {dtype} inputs (the kernel takes torch.bfloat16)", item)
+
+
 def check_head_limits(what: str, width: int, num_heads: int, seq: int,
                       dtype: torch.dtype = torch.bfloat16):
     """Raise for heads, sequences or input dtypes the attention tiles
-    (kernels 1, 3-7, 9 and 10) do not take; return the library.  The Pallas
-    kernels 5, 6, 9 and 10 also run on f32 inputs; the CUDA tiles read bf16."""
+    (kernels 1, 3-10) do not take; return the library.  The Pallas kernels 5,
+    6, 9 and 10 also run on f32 inputs; the CUDA tiles read bf16."""
     item = "wider heads, longer sequences and f32 inputs in the attention kernels"
-    if dtype != torch.bfloat16:
-        raise not_ported(f"{what} on {dtype} inputs (the kernel takes torch.bfloat16)", item)
+    check_input_dtype(what, dtype, item)
     kl = kernel_library()
     head_dim, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
     if width != num_heads * head_dim:
@@ -111,9 +123,14 @@ def check_head_limits(what: str, width: int, num_heads: int, seq: int,
     return kl
 
 
+def _expect_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {t.device}")
+
+
 def _check_inputs(qkv, probs, do, num_heads, what):
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {qkv.device}")
+    _expect_cuda(qkv, what)
+    check_input_dtype(what, qkv.dtype)
     b, s, c3 = qkv.shape
     c = c3 // 3
     kl = check_head_limits(what, c, num_heads, s)

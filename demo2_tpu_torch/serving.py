@@ -3,8 +3,9 @@
 `FeatureExtractor` keeps the JAX package's contract: ragged requests are
 padded to the fixed batch size by repeating the last row, an empty request
 returns a (0, D) array without touching the device, the embeddings come back
-L2-normalised (norm clamped at 1e-12) as numpy, and the missing-modality
-mask is a runtime input of the one forward.
+as numpy, L2-normalised (norm clamped at 1e-12) unless the extractor was
+made with normalize=False, and the missing-modality mask is a runtime input
+of the one forward.
 """
 
 from __future__ import annotations
@@ -20,18 +21,21 @@ from .utils.metrics import euclidean_distance
 
 
 class FeatureExtractor:
-    def __init__(self, cfg: Config, model, *, device: torch.device, batch_size: int = 64):
+    def __init__(self, cfg: Config, model, *, device: torch.device, batch_size: int = 64,
+                 normalize: bool = True):
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self.batch_size = batch_size
+        self.normalize = normalize
 
     def _embed(self, images: np.ndarray, cams: np.ndarray, mask: torch.Tensor,
                views: Optional[np.ndarray]) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).to(self.device)
         ids = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(self.device)
         out = eval_step(self.model, x, ids(cams), mask, None if views is None else ids(views))
-        out = out / out.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        if self.normalize:
+            out = out / out.norm(dim=-1, keepdim=True).clamp(min=1e-12)
         return out.cpu().numpy()
 
     def extract(self, images: np.ndarray, camids: Optional[np.ndarray] = None,

@@ -157,6 +157,39 @@ def test_flash_backward_plain_matches_vjp_of_kernel_math(s, dtype):
                                    **tol)
 
 
+# The edges of the register-resident kernels' tiling (one warp per 16 rows,
+# nine tiles at most): no padded row, exactly one tile, one key, other head
+# counts.  f32 on both sides: only the summation order differs.
+EDGE_SHAPES = [(2, 144, 2, 64), (2, 16, 2, 64), (3, 1, 2, 64), (2, 77, 3, 64)]
+
+
+def _edge_inputs(shape, seed, count):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(count)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_flash_forward_plain_matches_kernel_math_at_the_tiling_edges(shape):
+    q, k, v = _edge_inputs(shape, seed=40 + shape[1], count=3)
+    scale = shape[3] ** -0.5
+    want = _flash_kernel_math(*map(jnp.asarray, (q, k, v)), scale)
+    got = fa.flash_attention_fwd(t(q), t(k), t(v), scale=scale)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_flash_backward_plain_matches_vjp_of_kernel_math_at_the_tiling_edges(shape):
+    q, k, v, do = _edge_inputs(shape, seed=50 + shape[1], count=4)
+    scale = shape[3] ** -0.5
+    _, vjp = jax.vjp(lambda *a: _flash_kernel_math(*a, scale), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = fa.flash_attention_bwd(t(q), t(k), t(v), t(do), scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == shape
+        np.testing.assert_allclose(n(g), np.asarray(w), err_msg=name, **GRAD_TOL)
+
+
 def test_flash_function_grads_match_jax_vjp():
     q, k, v, do = _bshd(2, 9, seed=4, count=4)
     scale = D ** -0.5
@@ -183,6 +216,48 @@ def test_attention_wrappers_never_fall_back_off_the_cpu():
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd_first", "flash_attention_bwd_first"])
+def test_first_design_wrappers_take_the_plain_version_on_the_cpu_only(name):
+    """The first design of kernels 9 and 10 stays callable for the timing that
+    holds it beside the kernels in use: on CPU tensors each wrapper is the
+    plain version, bit for bit, counting no launch; off the CPU it raises
+    without a card; and no module of the package routes to it."""
+    import demo2_tpu_torch
+    from pathlib import Path
+
+    first = getattr(fa, name)
+    current = getattr(fa, name.removesuffix("_first"))
+    args = [t(a) for a in _bshd(2, 9, seed=5, count=3 if "fwd" in name else 4)]
+    for got, want in zip(_tuple(first(*args, scale=0.125)), _tuple(current(*args, scale=0.125))):
+        assert torch.equal(got, want)
+    assert first.launches == 0
+    meta = [torch.zeros(1, 3, H, D, device="meta", dtype=torch.bfloat16)] * len(args)
+    with pytest.raises(ValueError, match="CUDA"):
+        first(*meta, scale=1.0)
+    package = Path(demo2_tpu_torch.__file__).parent
+    users = {p.name for p in package.rglob("*.py") if name in p.read_text()}
+    assert users - {"kernel_lib.py"} == {"flash_attention.py"}  # kernel_lib: the C signatures
+
+
+def _tuple(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
+def test_every_cuda_source_is_part_of_the_build():
+    """kernel_lib hashes and compiles what SOURCES and HEADERS name: a file
+    under csrc/ that neither names would change no build."""
+    from demo2_tpu_torch.ops import kernel_lib
+
+    on_disk = sorted(p.name for p in kernel_lib.CSRC_DIR.iterdir())
+    assert on_disk == sorted(kernel_lib.SOURCES + kernel_lib.HEADERS)
+    assert all(name.endswith(".cu") for name in kernel_lib.SOURCES)
+    assert all(name.endswith(".cuh") for name in kernel_lib.HEADERS)
+    for entry in ("demo2_flash_attention", "demo2_flash_attention_bwd",
+                  "demo2_flash_attention_first", "demo2_flash_attention_bwd_first"):
+        assert entry in kernel_lib._SIGNATURES
+        assert f'extern "C" int {entry}(' in (kernel_lib.CSRC_DIR / "flash_attention.cu").read_text()
 
 
 @pytest.mark.parametrize("width,heads,seq,ok", [
@@ -219,6 +294,57 @@ def test_attention_kernels_on_other_dtypes_raise_naming_the_roadmap(dtype):
         pa.check_head_limits("attention", 768, 12, 129, dtype)
 
 
+def _meta(*shape, dtype):
+    return torch.zeros(*shape, device="meta", dtype=dtype)
+
+
+def _block_kernel_calls(dtype):
+    """Kernels 1, 2 (both forms), 3, 4, 7 and 8 on an x of `dtype` that lies on
+    no CPU: each wrapper must refuse it by name before it looks further."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    c, f = H * D, 4 * H * D
+    x, qkv, do = (_meta(2, 9, w, dtype=dtype) for w in (c, 3 * c, c))
+    vec = lambda n_: _meta(n_, dtype=torch.float32)
+    attn = dict(ln_weight=vec(c), ln_bias=vec(c), wqkv=_meta(3 * c, c, dtype=dtype),
+                bqkv=vec(3 * c), wout=_meta(c, c, dtype=dtype), bout=vec(c))
+    mlp = dict(ln_weight=vec(c), ln_bias=vec(c), w1=_meta(f, c, dtype=dtype), b1=vec(f),
+               w2=_meta(c, f, dtype=dtype), b2=vec(c))
+    probs = _meta(*pa.probs_shape(2, H, 9), dtype=dtype)
+    kw = dict(num_heads=H, scale=D ** -0.5)
+    return {
+        "fused_attention_block": lambda: fb.fused_attention_block(x, **attn, **kw),
+        "fused_mlp_block": lambda: fb.fused_mlp_block(x, **mlp),
+        "fused_mlp_block_train": lambda: fb.fused_mlp_block_train(x, **mlp),
+        "fused_attention_block_train": lambda: fb.fused_attention_block_train(x, **attn, **kw),
+        "attention_bwd_saved_db": lambda: pa.attention_bwd_saved_db(qkv, probs, do, **kw),
+        "attention_bwd_saved": lambda: pa.attention_bwd_saved(qkv, probs, do, **kw),
+        "attention_bwd_fused_dw": lambda: pa.attention_bwd_fused_dw(
+            qkv, probs, do, _meta(2, 9, c, dtype=dtype), _meta(3 * c, c, dtype=dtype), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["fused_attention_block", "fused_mlp_block",
+                                  "fused_mlp_block_train", "fused_attention_block_train",
+                                  "attention_bwd_saved_db", "attention_bwd_saved",
+                                  "attention_bwd_fused_dw"])
+def test_block_kernels_on_f32_raise_naming_the_roadmap(name, monkeypatch):
+    """The Pallas kernels 1, 2, 3, 4, 7 and 8 compute in the dtype of x, f32
+    included; the CUDA kernels read bf16.  An f32 model with the kernels on
+    must be told so by name (ROADMAP queue 2a, item 1), not by a bare
+    ValueError from a shape check, and before the library is built."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    for module in (pa, fb):
+        monkeypatch.setattr(module, "kernel_library",
+                            lambda: pytest.fail("the library was asked for"))
+        # The meta device stands in for the card: it is not the CPU, so each
+        # wrapper takes its kernel path, and here it passes the device check.
+        monkeypatch.setattr(module, "_expect_cuda", lambda x, what: None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*f32 inputs in the block kernels"):
+        _block_kernel_calls(torch.float32)[name]()
+
+
 SMALL_ATTENTION_SHAPES = (((2, 9, 3 * H * D), (2, 9, H, D)), ((2, 17, 3 * H * D), (2, 17, H, D)))
 
 
@@ -246,9 +372,31 @@ def test_chip_smoke_attention_phase_passes_on_the_plain_versions():
     is its plain version: every bound holds and every control fails."""
     import chip_smoke as cs
 
-    errors = cs.phase_attention_kernels(CPU, shapes=SMALL_ATTENTION_SHAPES)
+    errors = cs.phase_attention_kernels(CPU, shapes=SMALL_ATTENTION_SHAPES,
+                                        flash_edges=EDGE_SHAPES)
     assert errors == {name: 0.0 for name in ("packed_attention_fwd", "packed_attention_bwd",
                                              "flash_attention_fwd", "flash_attention_bwd")}
+    assert {s_[1] for s_ in cs.FLASH_EDGE_SHAPES} >= {144, 16, 1}
+    assert any(s_[2] != 12 for s_ in cs.FLASH_EDGE_SHAPES)
+
+
+def test_chip_smoke_design_timing_rehearses_on_the_plain_versions():
+    """The timing of kernels 9 and 10 beside their first design and the
+    library's call, rehearsed on the CPU: the turns are taken in order, the two
+    designs are held to the rounding bound, and no time is read off the card."""
+    import math
+
+    import chip_smoke as cs
+
+    readings = cs.time_designs(CPU, "a rehearsal on the CPU", shape=(2, 9, H, D), rounds=5,
+                               iters=1)
+    assert set(readings) == {"flash_attention_fwd", "flash_attention_bwd"}
+    assert list(readings["flash_attention_fwd"]) == ["new", "first", "library"]
+    assert list(readings["flash_attention_bwd"]) == ["new", "first"]  # no backward off the card
+    for got in readings.values():
+        for times in got.values():
+            assert len(times) == 5 and all(math.isnan(x) for x in times)
+    assert cs.DESIGN_ROUNDS >= 5
 
 
 # ---------------------------------------------------------------------------

@@ -146,6 +146,28 @@ def test_feature_extractor_matches_jax():
         fx.extract(images, cams, miss="rnt")
 
 
+def test_feature_extractor_raw_embeddings_match_jax():
+    """normalize=False: the embeddings as the model gives them, equal to the
+    JAX extractor's with normalize=False from the same weights, and not of
+    unit norm; the default still normalises them."""
+    pair = _pair("attention", 1)
+    jfx = JFeatureExtractor(pair.cfg, pair.jmodel, jax.tree.map(jnp.asarray, pair.variables),
+                            batch_size=4, normalize=False)
+    fx = FeatureExtractor(pair.cfg, pair.port, device=CPU, batch_size=4, normalize=False)
+    images, cams = _images(5, pair.cfg, seed=2)
+    for miss in ("None", "nt"):
+        got = fx.extract(images, cams, miss=miss)
+        want = jfx.extract(images, cams, miss=miss)
+        assert got.shape == want.shape == (5, 1536) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    raw = fx.extract(images, cams)
+    norms = np.linalg.norm(raw, axis=1)
+    assert np.abs(norms - 1.0).min() > 1e-3
+    unit = FeatureExtractor(pair.cfg, pair.port, device=CPU, batch_size=4).extract(images, cams)
+    np.testing.assert_allclose(unit, raw / norms[:, None], rtol=1e-5, atol=1e-6)
+    assert fx.extract(images[:0], cams[:0]).shape == (0, 1536)
+
+
 def test_match_matches_jax():
     rng = np.random.default_rng(3)
     q = rng.standard_normal((4, 16)).astype(np.float32)
