@@ -31,10 +31,11 @@ requests and train steps against the plain path.  Phases:
      version and no further from f32 than the plain bf16 version, and within
      a mean of 1e-5 of the plain version, a bound that the same arithmetic
      rounded at the wrong point (controls run on the same inputs) fails;
-     kernels 9 and 10 also at the edges of their tiling, (48, 144, 12, 64),
-     (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64) and (5, 77, 3, 64),
-     within the same bounds; kernel 10's three outputs bit-identical over two
-     runs;
+     all four also at the edges of their tiling, (48, 144, 12, 64),
+     (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64) and (5, 77, 3, 64)
+     and the packed qkv of the same sizes, (48, 144, 2304) to (5, 77, 576),
+     within the same bounds; the outputs of kernels 6 and 10 bit-identical
+     over two runs at every shape;
   3. serving: requests of N = 0, 1, 64, 100 images with miss "None" and "nt";
      shape, finiteness, unit norm, 12 launches of kernels 1 and 2 per
      forward (and of no other kernel), cosine >= 0.999 to the plain path,
@@ -68,11 +69,12 @@ requests and train steps against the plain path.  Phases:
      proj), each step launching kernels 5 and 6 12 times and no other;
   13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s and
      beside scaled_dot_product_attention (forward, and its autograd
-     backward); kernels 9 and 10 beside their first design and that library
+     backward); kernels 5 and 6 beside their first design and that library
      call in turns (new, first, library; six rounds of 20 launches), the
      median and the spread of each, the two designs within a mean of 1e-5 of
-     each other; the extractor at batch 1 and 64 and the train step on both
-     paths in turns, peak memory, profiles of one request and one step;
+     each other, and the host's time for one call of each design, read in
+     the same turns; the extractor at batch 1 and 64 and the train step on
+     both paths in turns, peak memory, profiles of one request and one step;
   14. the LayerNorm backward (11) vs its plain version at (24768, 768) and
      (387, 768) bf16 and at (387, 768) f32: dx within phase 2's bounds,
      dweight / dbias within 1e-3 of their largest, each no further from an
@@ -1098,12 +1100,17 @@ def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
 
 PACKED_SHAPES = ((192, 129, 2304), (3, 129, 2304))       # qkv (3B, S, 3C)
 FLASH_SHAPES = ((192, 129, 12, 64), (3, 129, 12, 64))     # q, k, v (3B, S, H, D)
-# The edges of kernels 9 and 10's tiling (one warp per 16 rows of one (sample,
-# head), nine at most): no padded row, one tile, one key, other head counts.
-# All but the last give a block several (sample, head) items, and the short
-# ones put a warp's consecutive tasks many items apart.
+# The edges of the tiling of kernels 5, 6, 9 and 10 (one warp per 16 rows of
+# one (sample, head), nine at most): no padded row, one tile, one key, other
+# head counts.  All but the last give a block several (sample, head) items,
+# and the short ones put a warp's consecutive tasks many items apart.  Kernels
+# 5 and 6 take the packed qkv of the same sizes, (B, S, 3 * H * D).
 FLASH_EDGE_SHAPES = ((48, 144, 12, 64), (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64),
                      (5, 77, 3, 64))
+
+
+# The recomputing backwards sum in a fixed order, without atomics.
+BITWISE_RERUN = ("packed_attention_bwd", "flash_attention_bwd")
 
 
 def as_tuple(y):
@@ -1237,7 +1244,7 @@ def check_attention_case(name, case, control, errors=None) -> None:
     ref = as_tuple(plain(*inputs))
     f32 = as_tuple(plain(*(x.float() for x in inputs)))
     wrong = as_tuple(control(*inputs)) if control is not None else (None,) * len(got)
-    again = as_tuple(kernel()) if name == "flash_attention_bwd" else ()
+    again = as_tuple(kernel()) if name in BITWISE_RERUN else ()
     sync()
     shape = tuple(inputs[0].shape)
     worst = 0.0
@@ -1269,7 +1276,7 @@ def check_attention_case(name, case, control, errors=None) -> None:
     for i, (a, b) in enumerate(zip(got, again)):
         require(torch.equal(a, b), f"{name} output {i} {shape}: two runs differ")
     if again:
-        log(f"[attn-kernel] {name} {shape}: dq, dk, dv bit-identical over two runs")
+        log(f"[attn-kernel] {name} {shape}: every output bit-identical over two runs")
     if errors is not None:
         errors[name] = worst
 
@@ -1281,11 +1288,12 @@ def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES
     an f32 run of the plain version than the plain bf16 version is, and
     within a mean of ROUNDING_MEAN_TOL of the plain version.  The controls,
     plain versions rounding at the wrong point, must fail that last bound on
-    the same inputs.  Kernel 10's three outputs are bit-identical over two
-    runs.  Then kernels 9 and 10 at `flash_edges`, the edges of their tiling,
-    within the same bounds (the controls at the main shapes only: over one key
-    every probability is exactly 1 and nothing is rounded).  Returns name ->
-    the kernel's max abs error at the first shape."""
+    the same inputs.  The outputs of kernels 6 and 10 are bit-identical over
+    two runs.  Then all four at `flash_edges`, the edges of their tiling
+    (kernels 5 and 6 on the packed qkv of the same sizes), within the same
+    bounds (the controls at the main shapes only: over one key every
+    probability is exactly 1 and nothing is rounded).  Returns name -> the
+    kernel's max abs error at the first shape."""
     errors = {}
     for packed_shape, flash_shape in shapes:
         cases = attention_kernel_cases(device, packed_shape, flash_shape, seed=7)
@@ -1296,8 +1304,8 @@ def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES
     for flash_shape in flash_edges:
         b, s, h, d = flash_shape
         cases = attention_kernel_cases(device, (b, s, 3 * h * d), flash_shape, seed=9)
-        for name in ("flash_attention_fwd", "flash_attention_bwd"):
-            check_attention_case(name, cases[name], None)
+        for name, case in cases.items():
+            check_attention_case(name, case, None)
     log(f"[attn-kernel] tolerances: max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}, "
         f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's, mean abs <= "
         f"{ROUNDING_MEAN_TOL} (every misrounded control above it): ok")
@@ -1364,7 +1372,7 @@ DESIGN_ROUNDS = 6  # turns of (new, first design, library), 20 launches each
 
 
 def spread(xs) -> str:
-    """median [min .. max] of a list of times in ms."""
+    """median [min .. max] of a list of readings."""
     return f"{float(np.median(xs)):.4f} [{min(xs):.4f} .. {max(xs):.4f}]"
 
 
@@ -1374,23 +1382,37 @@ def run_untimed(fn, iters) -> float:
     return math.nan
 
 
-def time_designs(device, card, shape=FLASH_SHAPES[0], rounds=DESIGN_ROUNDS, iters=20) -> dict:
-    """Kernels 9 and 10 beside their first design and the library's call on
+def host_us(fn, iters=100) -> float:
+    """The host's time for one call of `fn`, in microseconds: the clock around
+    `iters` calls that wait for nothing (the launch queue holds them), between
+    two synchronisations."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    sync()
+    return seconds * 1e6 / iters
+
+
+def time_designs(device, card, shape=PACKED_SHAPES[0], rounds=DESIGN_ROUNDS, iters=20) -> dict:
+    """Kernels 5 and 6 beside their first design and the library's call on
     the same inputs, in turns (new, first, library, new, first, library, ...):
     the median and the spread of each over `rounds` readings of `iters`
-    launches, beside the bound and the TFLOP/s by the counted operations.  The
-    first design must sit within ROUNDING_MEAN_TOL of the new one.  The two
-    *_first wrappers are reached from here only.  Returns name -> {new,
-    first, library}: the lists of readings."""
-    from demo2_tpu_torch.ops import flash_attention as fa
+    launches, beside the bound and the TFLOP/s by the counted operations, and
+    the host's time for one call of each design, read in the same turns (the
+    new one encodes its tensor maps at every launch).  The first design must
+    sit within
+    ROUNDING_MEAN_TOL of the new one.  The two *_first wrappers are reached
+    from here only.  Returns name -> {new, first, library}: the lists of
+    readings."""
+    from demo2_tpu_torch.ops import packed_attention as pa
 
-    b, s, h, d = shape
-    cases = attention_kernel_cases(device, (b, s, 3 * h * d), shape, seed=7)
-    scale = d ** -0.5
-    firsts = {"flash_attention_fwd": lambda q, k, v: fa.flash_attention_fwd_first(
-                  q, k, v, scale=scale),
-              "flash_attention_bwd": lambda q, k, v, do: fa.flash_attention_bwd_first(
-                  q, k, v, do, scale=scale)}
+    b, s, c3 = shape
+    pk = dict(num_heads=c3 // 3 // 64, scale=64 ** -0.5)
+    cases = attention_kernel_cases(device, shape, (b, s, pk["num_heads"], 64), seed=7)
+    firsts = {"packed_attention_fwd": lambda qkv: pa.packed_attention_fwd_first(qkv, **pk),
+              "packed_attention_bwd": lambda qkv, do: pa.packed_attention_bwd_first(qkv, do, **pk)}
     timer = cuda_ms if device.type == "cuda" else run_untimed
     readings = {}
     for name, first in firsts.items():
@@ -1405,9 +1427,13 @@ def time_designs(device, card, shape=FLASH_SHAPES[0], rounds=DESIGN_ROUNDS, iter
         if library is not None:
             turns["library"] = library
         got = {which: [] for which in turns}
+        host = {"new": [], "first": []}
         for _ in range(rounds):
             for which, fn in turns.items():
                 got[which].append(timer(fn, iters))
+            if device.type == "cuda":
+                for which in host:
+                    host[which].append(host_us(turns[which]))
         moved = tensor_bytes(inputs) + tensor_bytes(as_tuple(kernel()))
         bound_ms, bound_by = roofline(flops, BF16_PEAK_TFLOPS, moved)
         new_ms = float(np.median(got["new"]))
@@ -1418,13 +1444,17 @@ def time_designs(device, card, shape=FLASH_SHAPES[0], rounds=DESIGN_ROUNDS, iter
             f"counted), first design {spread(got['first'])}, library call "
             f"{spread(got['library']) if 'library' in got else 'none'}; bound {bound_ms:.4f} ms "
             f"by {bound_by} ({moved / 1e6:.1f} MB moved) ({card})")
+        if device.type == "cuda":
+            log(f"[designs] {name}: host time of one call through the wrapper, {rounds} turns, "
+                f"us as median [min .. max]: new {spread(host['new'])}, first design "
+                f"{spread(host['first'])} ({card})")
         readings[name] = got
     return readings
 
 
 def phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
     """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s,
-    kernels 9 and 10 beside their first design and the library's call in
+    kernels 5 and 6 beside their first design and the library's call in
     turns, the extractor at batch 1 and 64, and the ViT train step, each on
     both paths in turns."""
     cases = attention_kernel_cases(device, PACKED_SHAPES[0], FLASH_SHAPES[0], seed=7)

@@ -1,6 +1,7 @@
 // The attention ablation tool's kernel: the packed self-attention forward
-// with parts of its work left out, to see on the card where kernel 5's time
-// goes (loads, QK^T, softmax, PV).
+// with parts of its work left out, to see on the card where the time of the
+// attention forward's first design goes (loads, QK^T, softmax, PV): the tiling
+// of kernels 1 and 3, and of kernel 5 before it moved to attention_regs_fwd.cuh.
 //
 // Replaces the Pallas kernel that tools/bench_kernel_ablate.py::make_kernel
 // builds, with its cases and their numerics (:32-52).  qkv (B*S, 3C) bf16 ->
@@ -9,8 +10,8 @@
 //   full         scores * 0.125, keys >= `keys` masked (the tool masks 129 of
 //                its 136), the unnormalised exp rounded to bf16 for PV, the
 //                f32 result divided by (rowsum + 1e-30): kernel 5's
-//                attention_fwd_kernel<Softmax::kNormAfterPV> as it is, with
-//                the key count passed in;
+//                arithmetic, attention_fwd_kernel<Softmax::kNormAfterPV> as it
+//                is, with the key count passed in;
 //   no_softmax   p = bf16(s * 0.01) on the unscaled, unmasked scores, PV,
 //                no division: no max, exp or sums;
 //   scores_only  out = bf16(s[:, :64]), the raw scores of the first 64 keys:

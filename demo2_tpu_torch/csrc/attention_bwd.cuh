@@ -1,26 +1,14 @@
-// The attention backward kernel shared by the saved-probs backward
-// (attention_bwd.cu: kernels 4 and 7; attention_bwd_fused_dw.cu: kernel 8),
-// the packed self-attention backward
-// (packed_attention.cu: kernel 6) and the head-major attention backward
-// (flash_attention.cu: kernel 10).  Per (sample, head), from bf16 q, k, v
-// and dO:
+// The attention backward kernel of the saved-probs backward
+// (attention_bwd.cu: kernels 4 and 7; attention_bwd_fused_dw.cu: kernel 8)
+// and of the first design of the packed self-attention backward
+// (packed_attention.cu: demo2_packed_attention_bwd_first, kept for the timing
+// beside kernel 6, which runs on attention_regs_bwd.cuh as the head-major
+// kernel 10 does).  Per (sample, head), from bf16 q, k, v and dO:
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P))   (f32, from
 //   dP and P, not through dO.O);  dQ = dS K * scale;  dK = dS^T Q * scale;
 //   dq, dk, dv rounded to bf16.
-// Where P comes from and where it is rounded is the template's Probs mode:
-//
-//   kSaved (packed_attention.py::_bwd_saved(_db)_kernel, kernels 4 and 7):
-//       P is the forward's saved bf16 p; dS uses that bf16 p and is rounded
-//       to bf16 before the dQ / dK products;
-//   kRecompute (packed_attention.py::_bwd_kernel, kernel 6): p is
-//       recomputed from Q and K in f32 (exp(s - max) / (sum + 1e-30)); dV
-//       takes bf16(p), dS takes the f32 p and is rounded to bf16 before the
-//       dQ / dK products;
-//   kRecomputeF32 (flash_attention.py::_bwd_kernel, kernel 10): f32
-//       throughout.  p and dS enter the products as a bf16 hi / lo split
-//       (x = hi + lo, two tensor-core products into one f32 accumulator; at
-//       most 2^-18 |x| is left out), the other operands are bf16 values,
-//       exact in f32.
+// Where P comes from and where it is rounded is the Probs mode, a template
+// parameter of both designs, listed at the enum below.
 // With kDb (kSaved only: kernel 4) the f32 column sums of the rounded dq,
 // dk, dv of the (sample, head) go to db_partial (B, 3C), which
 // attention_bwd.cu adds up over B in a fixed order: no atomics.
@@ -47,8 +35,7 @@
 // of 64) the kernel reads q, k, v and dO (152 MB; the saved probs another 86
 // MB) and writes dq, dk, dv (114 MB): ~0.1 ms at the card's 3.35 TB/s.  Its
 // 2 x 4 x 129 x 144 x 64 FLOP per (sample, head), ~22 GFLOP in all (the
-// recomputed QK^T adds a fifth product, the split products of kernel 10
-// three more), run through simple wmma tiles with one block per SM; the
+// recomputed QK^T adds a fifth product), run through simple wmma tiles with one block per SM; the
 // shared-memory traffic of those tiles, not device memory, bounds this
 // first version.  wgmma with register accumulators is later work.
 
@@ -75,19 +62,28 @@ constexpr int kAccElems = kMaxSeq * kLdAcc;
 constexpr int kPTileElems = kBwdQTile * kLdPt;
 constexpr int kFTileElems = kBwdQTile * kLdF;
 
+// Where P comes from and where the backward rounds, and which header
+// instantiates the mode:
+//   kSaved (packed_attention.py::_bwd_saved(_db)_kernel, kernels 4, 7 and 8;
+//       this file): P is the forward's saved bf16 p; dS uses that bf16 p and
+//       is rounded to bf16 before the dQ / dK products;
+//   kRecompute (packed_attention.py::_bwd_kernel; kernel 6 on
+//       attention_regs_bwd.cuh, its first design on this file): p is
+//       recomputed from Q and K in f32 (exp(s - max) / (sum + 1e-30)); dV
+//       takes bf16(p), dS takes the f32 p and is rounded to bf16 before the
+//       dQ / dK products;
+//   kRecomputeF32 (flash_attention.py::_bwd_kernel, kernel 10;
+//       attention_regs_bwd.cuh only): f32 throughout.
 enum class Probs { kSaved, kRecompute, kRecomputeF32 };
 
 // Shared memory of one block: Q, K, V, dO; dK, dV; the P and dS tiles; the
-// f32 tile; [recompute] the f32 p tile; [f32] the lo halves of P and dS;
-// [on chip] the bf16 dq of the head.
+// f32 tile; [recompute] the f32 p tile; [on chip] the bf16 dq of the head.
 __host__ __device__ constexpr int bwd_smem_bytes(Probs mode, bool on_chip = false) {
   return 4 * kHeadElems * 2 + 2 * kAccElems * 4 + 2 * kPTileElems * 2 + kFTileElems * 4 +
-         (mode != Probs::kSaved ? kFTileElems * 4 : 0) +
-         (mode == Probs::kRecomputeF32 ? 2 * kPTileElems * 2 : 0) +
-         (on_chip ? kHeadElems * 2 : 0);
+         (mode != Probs::kSaved ? kFTileElems * 4 : 0) + (on_chip ? kHeadElems * 2 : 0);
 }
 static_assert(bwd_smem_bytes(Probs::kSaved) == 180480, "kernel 4's footprint");
-static_assert(bwd_smem_bytes(Probs::kRecomputeF32) <= 232448 &&
+static_assert(bwd_smem_bytes(Probs::kRecompute) <= 232448 &&
                   bwd_smem_bytes(Probs::kSaved, true) <= 232448,
               "the block must fit one SM's shared memory");
 static_assert((kHeadElems * 2) % 128 == 0 && (kAccElems * 4) % 128 == 0 &&
@@ -111,8 +107,8 @@ __device__ __forceinline__ void attention_bwd_head(
     bf16* __restrict__ dv, HeadLayout outl, float* __restrict__ db_partial, int S, float scale,
     int h, int b, int heads) {
   using namespace nvcuda;
-  constexpr bool kRecompute = kMode != Probs::kSaved;
-  constexpr bool kSplit = kMode == Probs::kRecomputeF32;
+  static_assert(kMode != Probs::kRecomputeF32, "f32 probabilities: attention_regs_bwd.cuh");
+  constexpr bool kRecompute = kMode == Probs::kRecompute;
   static_assert(!(kDb && kRecompute), "db is kernel 4's, from saved probs");
   static_assert(!(kOnChip && (kRecompute || kDb)), "kernel 8 reads saved probs, sums db itself");
   bf16* q_s = reinterpret_cast<bf16*>(bwd_smem);
@@ -125,8 +121,6 @@ __device__ __forceinline__ void attention_bwd_head(
   bf16* ds_s = p_s + kPTileElems;
   float* f_s = reinterpret_cast<float*>(ds_s + kPTileElems);
   float* pf_s = f_s + kFTileElems;                                     // kRecompute
-  bf16* plo_s = reinterpret_cast<bf16*>(pf_s + (kRecompute ? kFTileElems : 0));  // kSplit
-  bf16* dslo_s = plo_s + kPTileElems;                                  // kSplit
   constexpr int kDqOffset = bwd_smem_bytes(kMode);
   bf16* dq_s = reinterpret_cast<bf16*>(bwd_smem + kDqOffset);          // kOnChip
 
@@ -185,8 +179,8 @@ __device__ __forceinline__ void attention_bwd_head(
       }
       __syncthreads();
       // 1b. p = exp(s * scale - max) / (sum + 1e-30) over the S keys, in f32
-      //     (pf_s), and its bf16 rounding (p_s) [with the lo half, plo_s];
-      //     zero past S and in query rows >= S.
+      //     (pf_s), and its bf16 rounding (p_s); zero past S and in query
+      //     rows >= S.
 #pragma unroll
       for (int rr = 0; rr < rows_per_warp; ++rr) {
         const int r = warp * rows_per_warp + rr;
@@ -208,10 +202,8 @@ __device__ __forceinline__ void attention_bwd_head(
         const float denom = warp_sum(sum) + 1e-30f;
         for (int j = lane; j < s_pad; j += 32) {
           const float p = (live && j < S) ? srow[j] / denom : 0.f;
-          const bf16 hi = __float2bfloat16_rn(p);
           pf_s[r * kLdF + j] = p;
-          p_s[r * kLdPt + j] = hi;
-          if (kSplit) plo_s[r * kLdPt + j] = __float2bfloat16_rn(p - __bfloat162float(hi));
+          p_s[r * kLdPt + j] = __float2bfloat16_rn(p);
         }
       }
       __syncthreads();
@@ -243,8 +235,8 @@ __device__ __forceinline__ void attention_bwd_head(
     __syncthreads();
 
     // 3. dS = P * (dP - rowsum(dP * P)) in f32 (P: the saved bf16 p, or the
-    //    recomputed f32 p), rounded to bf16 [with the lo half]: warp w owns
-    //    rows 2w and 2w + 1.  Columns >= S have P = 0, so dS = 0 there.
+    //    recomputed f32 p), rounded to bf16: warp w owns rows 2w and 2w + 1.
+    //    Columns >= S have P = 0, so dS = 0 there.
 #pragma unroll
     for (int rr = 0; rr < rows_per_warp; ++rr) {
       const int r = warp * rows_per_warp + rr;
@@ -256,10 +248,7 @@ __device__ __forceinline__ void attention_bwd_head(
       for (int j = lane; j < s_pad; j += 32) sum += dp[j] * p_at(j);
       sum = warp_sum(sum);
       for (int j = lane; j < s_pad; j += 32) {
-        const float ds = p_at(j) * (dp[j] - sum);
-        const bf16 hi = __float2bfloat16_rn(ds);
-        ds_s[r * kLdPt + j] = hi;
-        if (kSplit) dslo_s[r * kLdPt + j] = __float2bfloat16_rn(ds - __bfloat162float(hi));
+        ds_s[r * kLdPt + j] = __float2bfloat16_rn(p_at(j) * (dp[j] - sum));
       }
     }
     __syncthreads();
@@ -280,10 +269,6 @@ __device__ __forceinline__ void attention_bwd_head(
       wmma::load_matrix_sync(fb, (is_k ? q_s : do_s) + q0 * kLdH + nt * 16, kLdH);
       wmma::load_matrix_sync(fa, (is_k ? ds_s : p_s) + mt * 16, kLdPt);
       wmma::mma_sync(acc, fa, fb, acc);
-      if (kSplit) {
-        wmma::load_matrix_sync(fa, (is_k ? dslo_s : plo_s) + mt * 16, kLdPt);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
       wmma::store_matrix_sync(acc_p, acc, kLdAcc, wmma::mem_row_major);
     }
     // 5. dQ_tile = dS K -> f_s columns 0..63 (warps 0-3, one 16-column tile
@@ -297,10 +282,6 @@ __device__ __forceinline__ void attention_bwd_head(
         wmma::load_matrix_sync(fb, k_s + kk * kLdH + warp * 16, kLdH);
         wmma::load_matrix_sync(fa, ds_s + kk, kLdPt);
         wmma::mma_sync(acc, fa, fb, acc);
-        if (kSplit) {
-          wmma::load_matrix_sync(fa, dslo_s + kk, kLdPt);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
       }
       wmma::store_matrix_sync(f_s + warp * 16, acc, kLdF, wmma::mem_row_major);
     }

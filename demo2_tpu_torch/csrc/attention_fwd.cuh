@@ -1,20 +1,10 @@
-// The attention forward tile kernel shared by the block kernels
-// (fused_attention_block.cu: kernels 1 and 3), the packed self-attention
-// (packed_attention.cu: kernel 5) and the head-major attention
-// (flash_attention.cu: kernel 9).  Each of those Pallas kernels rounds at
-// another point; the rounding point is the template's Softmax mode:
-//
-//   kNormBeforePV (fused_block.py::_attention_core, kernels 1 and 3):
-//       p = exp(s - max) / (sum + 1e-30) in f32, rounded to bf16, then
-//       o = bf16(p_bf16 @ v) with f32 accumulation;
-//   kNormAfterPV (packed_attention.py::_fwd_kernel, kernel 5): the
-//       UNnormalised exp rounded to bf16 for the PV product, the f32 result
-//       divided by (sum + 1e-30), where sum adds the unrounded f32 exps;
-//   kF32 (flash_attention.py::_fwd_kernel, kernel 9): p stays f32 for the
-//       PV product.  The tensor cores take it as a bf16 hi / lo split,
-//       p = hi + lo with hi = bf16(p) and lo = bf16(p - hi), two products
-//       into one f32 accumulator: the split leaves at most 2^-18 |p| out,
-//       so the product is as close to an f32 product as the f32 sum order.
+// The attention forward tile kernel of the block kernels
+// (fused_attention_block.cu: kernels 1 and 3), of the ablation tool
+// (attention_ablate.cu: kernel 13) and of the first design of the packed
+// self-attention (packed_attention.cu: demo2_packed_attention_first, kept for
+// the timing beside kernel 5, which runs on attention_regs_fwd.cuh as the
+// head-major kernel 9 does).  Each Pallas kernel rounds at another point: the
+// Softmax mode, a template parameter of both designs, listed at the enum below.
 //
 // In every mode the scores are f32 (bf16 q and k on the tensor cores, f32
 // accumulation, then * scale) and keys >= S are never visited (the Pallas
@@ -66,6 +56,16 @@ struct HeadLayout {
   }
 };
 
+// Where the forward rounds, and which header instantiates the mode:
+//   kNormBeforePV (fused_block.py::_attention_core, kernels 1 and 3; this
+//       file): p = exp(s - max) / (sum + 1e-30) in f32, rounded to bf16, then
+//       o = bf16(p_bf16 @ v) with f32 accumulation;
+//   kNormAfterPV (packed_attention.py::_fwd_kernel; kernel 5 on
+//       attention_regs_fwd.cuh, its first design and kernel 13 on this file):
+//       the UNnormalised exp rounded to bf16 for the PV product, the f32
+//       result divided by (sum + 1e-30), where sum adds the unrounded f32 exps;
+//   kF32 (flash_attention.py::_fwd_kernel, kernel 9; attention_regs_fwd.cuh
+//       only): p stays f32 for the PV product.
 enum class Softmax { kNormBeforePV, kNormAfterPV, kF32 };
 
 template <Softmax kMode, bool kSaveProbs>
@@ -74,13 +74,12 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, HeadLayout in, bf16* __restrict__ out,
                      HeadLayout ol, bf16* __restrict__ probs, int S, int keys, float scale) {
   using namespace nvcuda;
-  constexpr bool kSplit = kMode == Softmax::kF32;
+  static_assert(kMode != Softmax::kF32, "f32 probabilities: attention_regs_fwd.cuh");
   __shared__ __align__(128) bf16 q_s[kQTile * kLdQK];
   __shared__ __align__(128) bf16 kv_s[kMaxSeq * kLdQK];
   __shared__ __align__(128) float s_s[kQTile * kLdS];
   __shared__ __align__(128) bf16 p_s[kQTile * kLdP];
-  __shared__ __align__(128) bf16 plo_s[kSplit ? kQTile * kLdP : 16];  // kF32: lo of p
-  __shared__ float denom_s[kQTile];                                   // kNormAfterPV
+  __shared__ float denom_s[kQTile];  // kNormAfterPV
 
   const int q0 = blockIdx.x * kQTile;
   const int h = blockIdx.y;
@@ -153,9 +152,7 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = lane; j < s_pad; j += 32) {
       float p = 0.f;
       if (j < keys) p = kMode == Softmax::kNormAfterPV ? srow[j] : srow[j] / denom;
-      const bf16 hi = __float2bfloat16_rn(p);
-      p_s[r * kLdP + j] = hi;
-      if (kSplit) plo_s[r * kLdP + j] = __float2bfloat16_rn(p - __bfloat162float(hi));
+      p_s[r * kLdP + j] = __float2bfloat16_rn(p);
     }
   }
   __syncthreads();
@@ -183,10 +180,6 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::load_matrix_sync(fv, kv_s + kk * kLdQK + warp * 16, kLdQK);
       wmma::load_matrix_sync(fp, p_s + kk, kLdP);
       wmma::mma_sync(acc, fp, fv, acc);
-      if (kSplit) {
-        wmma::load_matrix_sync(fp, plo_s + kk, kLdP);
-        wmma::mma_sync(acc, fp, fv, acc);
-      }
     }
     wmma::store_matrix_sync(s_s + warp * 16, acc, kLdS, wmma::mem_row_major);
   }

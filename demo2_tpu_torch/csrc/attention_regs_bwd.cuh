@@ -1,23 +1,27 @@
 // The register-resident attention backward: the second design of the
-// head-major attention backward (flash_attention.cu: kernel 10), written so
-// that the packed backward (kernel 6) can move onto it by adding an
-// instantiation.  It replaces the Pallas kernel
-// demo2_tpu/ops/flash_attention.py::_bwd_kernel: per (sample, head), from
-// bf16 q, k, v and dO, with the probabilities recomputed from q and k,
+// recomputing attention backward.  Two kernels are instantiated from it, one
+// per rounding mode:
+//   Probs::kRecomputeF32  flash_attention.cu, kernel 10: replaces the Pallas
+//       kernel demo2_tpu/ops/flash_attention.py::_bwd_kernel.  f32 throughout:
+//       P and dS enter their products as a bf16 hi / lo split (two tensor-core
+//       products into one f32 accumulator);
+//   Probs::kRecompute     packed_attention.cu, kernel 6: replaces
+//       demo2_tpu/ops/packed_attention.py::_bwd_kernel.  P is normalised in
+//       f32; dV takes bf16(P), dS is computed from the f32 P and rounded to
+//       bf16 once for the dQ and dK products.
+// Probs::kSaved reads saved probabilities and stays on the first design
+// (attention_bwd.cuh: kernels 4, 7 and 8).  Per (sample, head), from bf16 q,
+// k, v and dO, with the probabilities recomputed from q and k,
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P))  (from dP and
 //   P, not through dO . O);  dQ = dS K * scale;  dK = dS^T Q * scale,
-// f32 throughout in Probs::kRecomputeF32 (P and dS enter their products as a
-// bf16 hi / lo split, attention_bwd.cuh), the outputs rounded to bf16 once.
-// Probs::kRecompute rounds where attention_bwd.cuh says kernel 6 rounds (P to
-// bf16 for dV, dS to bf16 for dQ and dK); it is not instantiated yet.
-// Probs::kSaved reads saved probabilities and stays on the first design.
+// the outputs rounded to bf16 once.
 //
-// What bounds the work on an H100: at (192, 129, 12, 64) the kernel must move
-// 266 MB (0.080 ms at 3.35 TB/s) and counts 24.5 GFLOP.  The first design
-// (attention_bwd.cuh) took 17x that: one block per SM walked nine query tiles
-// with six block barriers each, kept the dK / dV accumulators in shared
-// memory (72 tiles loaded and stored per query tile) and passed S, P, dP and
-// dS through shared memory.
+// What bounds the work on an H100: at 192 samples x 129 rows x 12 heads of 64
+// the kernel must move 266 MB (0.080 ms at 3.35 TB/s) and counts 24.5 GFLOP.
+// The first design (attention_bwd.cuh) took 15-17x that: one block per SM
+// walked nine query tiles with six block barriers each, kept the dK / dV
+// accumulators in shared memory (72 tiles loaded and stored per query tile)
+// and passed S, P, dP and dS through shared memory.
 //
 // The design: a (sample, head) is an item; its Q, K, V and dO (<= 144 x 64
 // bf16 each) are read from device memory once, each by one TMA tile copy into
@@ -48,13 +52,19 @@
 // item's first task asks for the next item once the one before is consumed.
 // It recomputes QK^T and dO V^T (ten 144 x 144 x 64 products with the split
 // where the first design ran eight: ~61 GFLOP executed, 0.06 ms at the tensor
-// cores' peak) and buys: no load / store of 72 accumulator tiles on each of
-// nine query tiles, no block barrier in place of 54 an item, every warp busy,
+// cores' peak; seven without the split, ~43 GFLOP) and buys: no load / store
+// of 72 accumulator tiles on each of nine query tiles, no block barrier in
+// place of 54 an item, every warp busy,
 // tensor-core, ALU and special-function work of different tasks overlapping,
 // and a fixed summation order: reruns are bit-identical.  Row statistics from
 // the forward are not taken: the VJP's residuals are q, k and v only.
-// Measured on the way (H100, (192, 129, 12, 64)): nine warps in lockstep with
-// two block barriers an item took 0.452 ms; the task stream 0.344 ms with the
+// Both kinds of task compute P from the same raw score, maximum and 1 / sum by
+// the same expression (softmax_rows, attention_regs_fwd.cuh) and dS from the
+// same dP and delta, so dQ and dK are products of one dS, rounded or split
+// alike.
+// Measured on the way (H100, kRecomputeF32 at (192, 129, 12, 64)): nine warps
+// in lockstep with two block barriers an item took 0.452 ms; the task stream
+// 0.344 ms with the
 // outputs staged through a shared-memory tile per warp for 16-byte stores, and
 // 0.289 ms with the direct stores (in the forward the two ways to store read
 // the same, and it stages through rows it owns anyway).  A ring of three with
@@ -69,11 +79,15 @@
 // Query rows >= S have zero q and dO: the query-owner task leaves them
 // 1 / sum = 0, so their P^T and dS^T columns are exactly zero afterwards.
 //
-// Resources (nvcc 12.9, -Xptxas -v, sm_90a):
-// attention_regs_bwd_kernel<kRecomputeF32> uses 168 registers (the cap of
-// three warps a sub-core) with a 56-byte stack frame (76 bytes of spill
-// stores, 244 of spill loads), 150,968 bytes of dynamic shared memory: one
-// block, twelve warps, on an SM.
+// kRecompute on the packed qkv (192, 129, 2304), probed once with the warp
+// count as a build option: 8 warps (254 registers, no spills) 0.284 ms, 10
+// 0.283, 12 0.249, 14 (128 registers, 1,360 bytes of spill stores) 0.433, 16
+// 0.446: the two 72-register tiles decide, split or not, so twelve for both.
+//
+// Resources (nvcc 12.9, -Xptxas -v, sm_90a), both 150,968 bytes of dynamic
+// shared memory, one block of twelve warps on an SM: kRecomputeF32 and
+// kRecompute alike use 168 registers (the cap of three warps a sub-core) with
+// a 56-byte stack frame (76 bytes of spill stores, 244 of spill loads).
 
 #pragma once
 

@@ -1,38 +1,43 @@
-// The register-resident attention forward: the second design of the
-// head-major attention (flash_attention.cu: kernel 9), written so that the
-// packed self-attention (kernel 5) and the ablation tool (kernel 13) can move
-// onto it by adding instantiations.  It replaces the Pallas kernel
-// demo2_tpu/ops/flash_attention.py::_fwd_kernel: per (sample, head),
+// The register-resident attention forward: the second design of the attention
+// forward tile.  Two kernels are instantiated from it, one per rounding mode:
+//   Softmax::kF32         flash_attention.cu, kernel 9: replaces the Pallas
+//       kernel demo2_tpu/ops/flash_attention.py::_fwd_kernel.  p stays f32 for
+//       the PV product (a bf16 hi / lo split, two tensor-core products into one
+//       f32 accumulator: p = hi + lo leaves at most 2^-18 |p| out);
+//   Softmax::kNormAfterPV packed_attention.cu, kernel 5: replaces
+//       demo2_tpu/ops/packed_attention.py::_fwd_kernel.  The UNnormalised exp
+//       is rounded to bf16 once for the PV product and the f32 result is
+//       multiplied by 1 / (sum + 1e-30), where sum adds the unrounded exps.
+// Softmax::kNormBeforePV (kernels 1 and 3) and the ablation tool (kernel 13)
+// stay on the first design, attention_fwd.cuh.  Per (sample, head),
 //   o = softmax(q k^T * scale) v,
-// with the scores in f32 and, in Softmax::kF32, p kept in f32 for the PV
-// product (a bf16 hi / lo split, two tensor-core products into one f32
-// accumulator, as attention_fwd.cuh describes).  The other two modes round
-// where attention_fwd.cuh says they round; this file instantiates none of
-// them yet.
+// with the scores in f32.
 //
-// What bounds the work on an H100: at (192, 129, 12, 64) the kernel must move
-// 152 MB (0.045 ms at 3.35 TB/s) and counts 9.8 GFLOP; with the split it
-// executes 18.3 GFLOP, 0.02 ms at the tensor cores' peak.  So bytes bound it,
-// and the first design (attention_fwd.cuh) missed that bound by 8x because it
-// read every head's K and V nine times and passed scores and probabilities
-// through shared memory between barriers.
+// What bounds the work on an H100: at 192 samples x 129 rows x 12 heads of 64
+// the kernel must move 152 MB (0.045 ms at 3.35 TB/s) and counts 9.8 GFLOP;
+// with the split it executes 18.3 GFLOP, 0.02 ms at the tensor cores' peak,
+// without it 12.2.  So bytes bound it, and the first design (attention_fwd.cuh)
+// missed that bound by 7-8x because it read every head's K and V nine times and
+// passed scores and probabilities through shared memory between barriers.
 //
 // The design:
 //   * A (sample, head) is an item: its Q, K and V (<= 144 x 64 bf16 each) are
 //     read from device memory once, each by one TMA tile copy (a 4-d tensor
-//     map over the strided (B, S, H, D) view, rows >= S zero-filled by the
-//     copy engine) into a ring of four items in shared memory.  Rows are 128
-//     bytes with the TMA's 128-byte swizzle, which ldmatrix addresses undo, so
-//     fragment loads are free of bank conflicts without padding.
+//     map over the strided view the HeadLayout describes: (B, S, H, D), or the
+//     three C-wide column blocks of the packed (B, S, 3C) qkv; rows >= S
+//     zero-filled by the copy engine) into a ring of four items in shared
+//     memory.  Rows are 128 bytes with the TMA's 128-byte swizzle, which
+//     ldmatrix addresses undo, so fragment loads are free of bank conflicts
+//     without padding.
 //   * A task is 16 query rows of an item against all its S16 keys, done by one
 //     warp.  The 16 x 144 f32 scores are 72 registers a thread (mma.sync
 //     m16n8k16 accumulators); the row maximum and sum are two quad shuffles
 //     each; the accumulator layout of the scores is the A-operand layout of
-//     the next product, so p is split into hi and lo in registers and feeds PV
-//     directly (V through ldmatrix.trans).  Scores and probabilities never
-//     touch shared memory.  O (16 x 64, 32 registers) is rounded once and
-//     staged through the task's own Q rows, which no other task reads, for
-//     16-byte stores.
+//     the next product, so p is rounded (or split into hi and lo) in registers
+//     and feeds PV directly (V through ldmatrix.trans).  Scores and
+//     probabilities never touch shared memory.  O (16 x 64, 32 registers) is
+//     rounded once and staged through the task's own Q rows, which no other
+//     task reads, for 16-byte stores.
 //   * The grid is persistent (one 512-thread block an SM) and inside a block
 //     the tasks of its items form one stream that the sixteen warps take in
 //     turn.  No block barrier exists after the start: a warp waits on an
@@ -41,30 +46,35 @@
 //     three ahead.  So the warps drift apart, and QK^T (tensor cores), softmax
 //     (ALU and the special-function unit) and PV of different tasks overlap on
 //     each of the SM's four sub-cores, four warps on each.
-// Measured on the way (H100, this shape): with one block barrier pair per item
-// and nine warps in lockstep the kernel took 0.147 ms, 40% of it in the
-// softmax, which every warp reached at the same time; the task stream with
-// the same arithmetic computes in 0.077 ms.  Loading rows by 128-byte bulk
-// copies (387 an item) held the stream to 0.173 ms: the copy engine wants few
-// large requests, hence the tensor map.  Warps a block, with the registers
-// that leaves a thread: 8 (168 used) 0.129 ms, 10 0.127, 12 (168) 0.107, 16
-// (128, no spills) 0.097, 18 (96: 780 bytes of spill stores) 0.204.  More
-// warps hide more of each other's latencies until the scores spill.
-// mma.sync with 16-row tasks was chosen over wgmma's 64-row tiles: 129 rows
-// fill nine 16-row tiles to 90% and three 64-row tiles to 67%, the scores of
-// a 64 x 144 tile would not fit a warpgroup's registers beside O with the
+// Measured on the way (H100, kF32 at (192, 129, 12, 64)): with one block
+// barrier pair per item and nine warps in lockstep the kernel took 0.147 ms,
+// 40% of it in the softmax, which every warp reached at the same time; the
+// task stream with the same arithmetic computes in 0.077 ms.  Loading rows by
+// 128-byte bulk copies (387 an item) held the stream to 0.173 ms: the copy
+// engine wants few large requests, hence the tensor map.  Warps a block, with
+// the registers that leaves a thread: 8 (168 used) 0.129 ms, 10 0.127, 12
+// (168) 0.107, 16 (128, no spills) 0.097, 18 (96: 780 bytes of spill stores)
+// 0.204.  More warps hide more of each other's latencies until the scores
+// spill.  mma.sync with 16-row tasks was chosen over wgmma's 64-row tiles: 129
+// rows fill nine 16-row tiles to 90% and three 64-row tiles to 67%, the scores
+// of a 64 x 144 tile would not fit a warpgroup's registers beside O with the
 // split, and the bound is bytes, not operations.
 //
-// Arithmetic: the scale multiplies the f32 scores (the Pallas kernel scales q
-// before the product: the same value for the power-of-two scale of 64-wide
-// heads), folded with log2(e) into one factor; exp is ex2.approx on that
-// argument and the normalisation multiplies by 1 / (sum + 1e-30).  Both stay
-// within f32 rounding noise of the plain version (~1e-6 relative in p), far
-// inside the bf16 bounds the kernel is held to.
+// Arithmetic: the scale multiplies the f32 scores (the Pallas kernels scale q
+// before the product or the scores after it: the same value for the
+// power-of-two scale of 64-wide heads), folded with log2(e) into one factor c;
+// exp is ex2.approx on fma(s, c, -max(s) c) and the normalisation multiplies
+// by 1 / (sum + 1e-30).  Both stay within f32 rounding noise of the plain
+// version (~1e-6 relative in p), far inside the bf16 bounds the kernels are
+// held to.
 //
-// Resources (nvcc 12.9, -Xptxas -v, sm_90a): attention_regs_fwd_kernel<kF32>
-// uses 128 registers (the cap of four warps a sub-core), no spills, 221,264
-// bytes of dynamic shared memory: one block, sixteen warps, on an SM.
+// kNormAfterPV on the packed qkv (192, 129, 2304), probed once with the warp
+// count as a build option: 8 warps 0.115 ms, 12 0.090, 14 0.088, 16 0.081,
+// 20 (96 registers, 604 bytes of spill stores) 0.156: sixteen for both modes.
+//
+// Resources (nvcc 12.9, -Xptxas -v, sm_90a), both 221,264 bytes of dynamic
+// shared memory, one block of sixteen warps on an SM: kF32 128 registers (the
+// cap of four warps a sub-core), kNormAfterPV 127, neither spills.
 
 #pragma once
 
@@ -322,9 +332,11 @@ __device__ __forceinline__ void product_regs(float (&out)[kRegsDim8][4],
 }
 
 // The row softmax of the warp's 16 x S16 raw scores, in registers, with
-// c = scale * log2(e): on return s holds exp2(s * c - m) [* rinv when
-// kNormalise], 0 in columns >= keys; m0 / m1 are the maxima of s * c of rows
-// lane/4 and lane/4 + 8, rinv0 / rinv1 = 1 / (sum + 1e-30) of their exps.
+// c = scale * log2(e) > 0: on return s holds exp2(fma(s, c, -m)) [* rinv when
+// kNormalise], 0 in columns >= keys; m0 / m1 are max(s) * c of rows lane/4 and
+// lane/4 + 8, rinv0 / rinv1 = 1 / (sum + 1e-30) of their exps.  Whoever holds
+// a raw score, m and rinv of its row gets the same p from the same expression,
+// bit for bit: the backward's two kinds of task do.
 template <bool kNormalise>
 __device__ __forceinline__ void softmax_rows(float (&s)[kRegsCols8][4], int pairs, int keys,
                                              float c, int lane, float& m0, float& m1,
@@ -335,8 +347,6 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kRegsCols8][4], int pair
 #pragma unroll
   for (int nt = 0; nt < kRegsCols8; ++nt) {
     if (nt < 2 * pairs) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= c;
       if (nt * 8 + 8 > keys) {  // only the last tiles hold columns >= keys
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -346,16 +356,16 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kRegsCols8][4], int pair
       m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
     }
   }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
+  m0 = quad_max(m0) * c;
+  m1 = quad_max(m1) * c;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int nt = 0; nt < kRegsCols8; ++nt) {
     if (nt < 2 * pairs) {
-      s[nt][0] = exp2_approx(s[nt][0] - m0);
-      s[nt][1] = exp2_approx(s[nt][1] - m0);
-      s[nt][2] = exp2_approx(s[nt][2] - m1);
-      s[nt][3] = exp2_approx(s[nt][3] - m1);
+      s[nt][0] = exp2_approx(fmaf(s[nt][0], c, -m0));
+      s[nt][1] = exp2_approx(fmaf(s[nt][1], c, -m0));
+      s[nt][2] = exp2_approx(fmaf(s[nt][2], c, -m1));
+      s[nt][3] = exp2_approx(fmaf(s[nt][3], c, -m1));
       sum0 += s[nt][0] + s[nt][1];
       sum1 += s[nt][2] + s[nt][3];
     }
@@ -419,6 +429,7 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
                           HeadLayout ol, int S, int keys, int heads, int items, float scale) {
+  static_assert(kMode != Softmax::kNormBeforePV, "kernels 1 and 3 stay on attention_fwd.cuh");
   constexpr bool kSplit = kMode == Softmax::kF32;
   constexpr bool kNormFirst = kMode != Softmax::kNormAfterPV;
   extern __shared__ __align__(1024) unsigned char regs_fwd_smem[];
@@ -479,7 +490,7 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
       product_regs<kSplit>(o, s, v_s, pairs, lane);
-      if (!kNormFirst) {  // the unnormalised exp went through PV: divide now
+      if (!kNormFirst) {  // the unnormalised exp went through PV: normalise now
 #pragma unroll
         for (int nt = 0; nt < kRegsDim8; ++nt) {
           o[nt][0] *= rinv0;

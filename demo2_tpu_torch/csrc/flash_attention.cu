@@ -22,20 +22,15 @@
 //   attention_regs_fwd_kernel<Softmax::kF32> and
 //   attention_regs_bwd_kernel<Probs::kRecomputeF32> (attention_regs_fwd.cuh,
 //   attention_regs_bwd.cuh) hold the design and what bounds it on the card:
-//   one block per (sample, head), scores, probabilities and dS in registers.
-//   The first design (attention_fwd_kernel<Softmax::kF32>,
-//   attention_bwd_kernel<Probs::kRecomputeF32>: scores through shared memory)
-//   stays reachable through the two *_first entries, which nothing in the
-//   package routes to: chip_smoke.py times the two designs in turns.  They
-//   go, with the kF32 modes of the first templates, once the packed attention
-//   has moved onto the register-resident headers too.
+//   one warp per 16 rows of a (sample, head), scores, probabilities and dS
+//   in registers.  The packed self-attention (packed_attention.cu) runs the
+//   other rounding modes of the same two kernels.
 //
 // Layout: q, k, v, dO and the outputs are (B, S, H, D) bf16, contiguous,
 // read through their strides (row stride H*D), so the (B, S, H, D) <->
 // (B, H, S, D) copies of the JAX wrapper (jnp.moveaxis) do not exist here.
 // Heads of 64 and S <= 144, as packed_attention.cu.
 
-#include "attention_bwd.cuh"
 #include "attention_regs_bwd.cuh"
 #include "attention_regs_fwd.cuh"
 
@@ -70,29 +65,4 @@ extern "C" int demo2_flash_attention_bwd(const void* q, const void* k, const voi
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), l,
       static_cast<const bf16*>(dout), l, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), l, batch, seq, heads, scale, static_cast<cudaStream_t>(stream)));
-}
-
-// The first design of both, for the timing that holds the two side by side.
-extern "C" int demo2_flash_attention_first(const void* q, const void* k, const void* v,
-                                           void* out, int batch, int seq, int heads,
-                                           float scale, void* stream) {
-  using namespace demo2;
-  const HeadLayout l = bshd_layout(seq, heads);
-  return static_cast<int>(launch_attention_fwd<Softmax::kF32, false>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), l,
-      static_cast<bf16*>(out), l, nullptr, batch, seq, heads, scale,
-      static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int demo2_flash_attention_bwd_first(const void* q, const void* k, const void* v,
-                                               const void* dout, void* dq, void* dk, void* dv,
-                                               int batch, int seq, int heads, float scale,
-                                               void* stream) {
-  using namespace demo2;
-  const HeadLayout l = bshd_layout(seq, heads);
-  return static_cast<int>(launch_attention_bwd<Probs::kRecomputeF32, false>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), l,
-      static_cast<const bf16*>(dout), l, nullptr, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), l, nullptr, batch, seq, heads, scale,
-      static_cast<cudaStream_t>(stream)));
 }

@@ -7,10 +7,8 @@
   flash_attention_bwd: (dq, dk, dv), the probabilities recomputed
       replaces the Pallas kernel flash_attention.py::_bwd_kernel
       (csrc/flash_attention.cu, demo2_flash_attention_bwd).
-Both keep scores and probabilities in registers, one block per (sample, head)
-(csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh).  Their first design
-stays callable as flash_attention_fwd_first / flash_attention_bwd_first for
-the timing that holds the two side by side; no route reaches those.
+Both keep scores and probabilities in registers, one warp per 16 rows of a
+(sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh).
 
 `flash_attention` is attention_core's route for implementation="pallas"
 (ops/attention.py): with grad enabled and an input that requires grad it
@@ -78,47 +76,23 @@ def _check(what, *tensors):
     return kl, b, s, h
 
 
-def _launch_fwd(wrapper, entry: str, q, k, v, scale):
-    """The forward C entry `entry` on CUDA q, k, v, counted on `wrapper`."""
-    what = wrapper.__name__
-    kl, b, s, h = _check(what, q, k, v)
-    out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        err = getattr(kl.lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    check(err, what)
-    wrapper.launches += 1
-    return out
-
-
-def _launch_bwd(wrapper, entry: str, q, k, v, do, scale):
-    """The backward C entry `entry` on CUDA q, k, v, dO, counted on `wrapper`."""
-    what = wrapper.__name__
-    kl, b, s, h = _check(what, q, k, v, do)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if q.numel() == 0:
-        return dq, dk, dv
-    with torch.cuda.device(q.device):
-        err = getattr(kl.lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, s, h, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    check(err, what)
-    wrapper.launches += 1
-    return dq, dk, dv
-
-
 def flash_attention_fwd(q, k, v, *, scale: float) -> torch.Tensor:
     """q, k, v (B, S, H, D) -> (B, S, H, D): the kernel on CUDA tensors, the
     plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
-    return _launch_fwd(flash_attention_fwd, "demo2_flash_attention", q, k, v, scale)
+    kl, b, s, h = _check("flash_attention_fwd", q, k, v)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = kl.lib.demo2_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    check(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out
 
 
 flash_attention_fwd.launches = 0
@@ -129,34 +103,22 @@ def flash_attention_bwd(q, k, v, do, *, scale: float):
     version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, scale=scale)
-    return _launch_bwd(flash_attention_bwd, "demo2_flash_attention_bwd", q, k, v, do, scale)
+    kl, b, s, h = _check("flash_attention_bwd", q, k, v, do)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        err = kl.lib.demo2_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-
-
-def flash_attention_fwd_first(q, k, v, *, scale: float) -> torch.Tensor:
-    """flash_attention_fwd through the first design of the kernel (one block
-    per 16 query rows, scores in shared memory).  Nothing in the package
-    routes here: chip_smoke.py times it beside the kernel in use."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale)
-    return _launch_fwd(flash_attention_fwd_first, "demo2_flash_attention_first", q, k, v, scale)
-
-
-flash_attention_fwd_first.launches = 0
-
-
-def flash_attention_bwd_first(q, k, v, do, *, scale: float):
-    """flash_attention_bwd through the first design of the kernel (dK / dV
-    accumulators in shared memory); as flash_attention_fwd_first."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, do, scale=scale)
-    return _launch_bwd(flash_attention_bwd_first, "demo2_flash_attention_bwd_first", q, k, v, do,
-                       scale)
-
-
-flash_attention_bwd_first.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):

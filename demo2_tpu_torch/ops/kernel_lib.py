@@ -47,10 +47,10 @@ _SIGNATURES = {
     "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
     "demo2_packed_attention": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_first": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_bwd_first": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
-    "demo2_flash_attention_first": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
-    "demo2_flash_attention_bwd_first": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_jaccard_min_sum": [_P] * 3 + [_I] * 3 + [_P],
     "demo2_attention_ablate": [_P] * 2 + [_I] * 6 + [_P],

@@ -8,6 +8,11 @@ saved-probs layout.
   packed_attention_bwd:   its backward, recomputing the probabilities
       replaces the Pallas kernel packed_attention.py::_bwd_kernel
       (csrc/packed_attention.cu, demo2_packed_attention_bwd);
+      both keep scores and probabilities in registers, one warp per 16 rows
+      of a (sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh);
+      their first design stays callable as packed_attention_fwd_first /
+      packed_attention_bwd_first for the timing that holds the two side by
+      side, and no route reaches those;
   attention_bwd_saved_db: dqkv and the f32 qkv-bias gradient from saved probs
       replaces the Pallas kernel packed_attention.py::_bwd_saved_db_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db);
@@ -310,23 +315,46 @@ def _check_packed(qkv, num_heads, what, do=None):
     return kl, b, s, c
 
 
+def _launch_fwd(wrapper, entry: str, qkv, num_heads, scale):
+    """The forward C entry `entry` on a CUDA qkv, counted on `wrapper`."""
+    what = wrapper.__name__
+    kl, b, s, c = _check_packed(qkv, num_heads, what)
+    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
+    if qkv.numel() == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        err = getattr(kl.lib, entry)(
+            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, what)
+    wrapper.launches += 1
+    return out
+
+
+def _launch_bwd(wrapper, entry: str, qkv, do, num_heads, scale):
+    """The backward C entry `entry` on CUDA qkv and dO, counted on `wrapper`."""
+    what = wrapper.__name__
+    kl, b, s, c = _check_packed(qkv, num_heads, what, do)
+    dqkv = torch.empty_like(qkv)
+    if qkv.numel() == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        err = getattr(kl.lib, entry)(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, what)
+    wrapper.launches += 1
+    return dqkv
+
+
 def packed_attention_fwd(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
     """(B, S, 3C) -> (B, S, C): the kernel on CUDA tensors, the plain version
     on CPU tensors."""
     if qkv.device.type == "cpu":
         return packed_self_attention_plain(qkv, num_heads, scale)
-    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_fwd")
-    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
-    if qkv.numel() == 0:
-        return out
-    with torch.cuda.device(qkv.device):
-        err = kl.lib.demo2_packed_attention(
-            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, "packed_attention_fwd")
-    packed_attention_fwd.launches += 1
-    return out
+    return _launch_fwd(packed_attention_fwd, "demo2_packed_attention", qkv, num_heads, scale)
 
 
 packed_attention_fwd.launches = 0
@@ -337,21 +365,36 @@ def packed_attention_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tens
     kernel on CUDA tensors, the plain version on CPU tensors."""
     if qkv.device.type == "cpu":
         return packed_attention_bwd_plain(qkv, do, num_heads, scale)
-    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_bwd", do)
-    dqkv = torch.empty_like(qkv)
-    if qkv.numel() == 0:
-        return dqkv
-    with torch.cuda.device(qkv.device):
-        err = kl.lib.demo2_packed_attention_bwd(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, "packed_attention_bwd")
-    packed_attention_bwd.launches += 1
-    return dqkv
+    return _launch_bwd(packed_attention_bwd, "demo2_packed_attention_bwd", qkv, do, num_heads,
+                       scale)
 
 
 packed_attention_bwd.launches = 0
+
+
+def packed_attention_fwd_first(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
+    """packed_attention_fwd through the first design of the kernel (one block
+    per 16 query rows, scores in shared memory).  Nothing in the package
+    routes here: chip_smoke.py times it beside the kernel in use."""
+    if qkv.device.type == "cpu":
+        return packed_self_attention_plain(qkv, num_heads, scale)
+    return _launch_fwd(packed_attention_fwd_first, "demo2_packed_attention_first", qkv,
+                       num_heads, scale)
+
+
+packed_attention_fwd_first.launches = 0
+
+
+def packed_attention_bwd_first(qkv, do, *, num_heads: int, scale: float) -> torch.Tensor:
+    """packed_attention_bwd through the first design of the kernel (dK / dV
+    accumulators in shared memory); as packed_attention_fwd_first."""
+    if qkv.device.type == "cpu":
+        return packed_attention_bwd_plain(qkv, do, num_heads, scale)
+    return _launch_bwd(packed_attention_bwd_first, "demo2_packed_attention_bwd_first", qkv, do,
+                       num_heads, scale)
+
+
+packed_attention_bwd_first.launches = 0
 
 
 class PackedSelfAttentionFn(torch.autograd.Function):

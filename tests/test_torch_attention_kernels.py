@@ -88,6 +88,44 @@ def test_packed_backward_plain_matches_pallas_kernel(s, dtype):
     np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
 
 
+# The edges of the register-resident kernels' tiling, as packed qkv at a small
+# width: no padded row, exactly one tile, one key, two and a half tiles, three
+# heads.  (batch, S, heads).
+PACKED_EDGES = [(2, 144, 2), (2, 16, 2), (3, 1, 2), (2, 40, 2), (2, 77, 3)]
+
+
+def _packed_edge_inputs(edge, seed):
+    b, s, heads = edge
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, s, 3 * heads * D)).astype(np.float32), \
+        rng.standard_normal((b, s, heads * D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", PACKED_EDGES)
+def test_packed_forward_plain_matches_pallas_kernel_at_the_tiling_edges(edge, dtype):
+    qkv, _ = _packed_edge_inputs(edge, seed=60 + edge[1])
+    heads, scale = edge[2], D ** -0.5
+    want = _packed_fwd_impl(_jnp(qkv, dtype), heads, scale, interpret=True)
+    got = pa.packed_attention_fwd(_torch(qkv, dtype), num_heads=heads, scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (*edge[:2], heads * D)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", PACKED_EDGES)
+def test_packed_backward_plain_matches_pallas_kernel_at_the_tiling_edges(edge, dtype):
+    qkv, do = _packed_edge_inputs(edge, seed=70 + edge[1])
+    heads, scale = edge[2], D ** -0.5
+    (want,) = _packed_bwd(heads, scale, _jnp(qkv, dtype), _jnp(do, dtype), interpret=True)
+    got = pa.packed_attention_bwd(_torch(qkv, dtype), _torch(do, dtype), num_heads=heads,
+                                  scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == qkv.shape
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
 def test_packed_function_grads_match_jax_vjp():
     """PackedSelfAttentionFn (kernels 5 and 6 on the card) against jax.vjp of
     packed_self_attention, which on the CPU is JAX's XLA path."""
@@ -218,31 +256,28 @@ def test_attention_wrappers_never_fall_back_off_the_cpu():
             call()
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fwd_first", "flash_attention_bwd_first"])
+@pytest.mark.parametrize("name", ["packed_attention_fwd_first", "packed_attention_bwd_first"])
 def test_first_design_wrappers_take_the_plain_version_on_the_cpu_only(name):
-    """The first design of kernels 9 and 10 stays callable for the timing that
+    """The first design of kernels 5 and 6 stays callable for the timing that
     holds it beside the kernels in use: on CPU tensors each wrapper is the
     plain version, bit for bit, counting no launch; off the CPU it raises
     without a card; and no module of the package routes to it."""
     import demo2_tpu_torch
     from pathlib import Path
 
-    first = getattr(fa, name)
-    current = getattr(fa, name.removesuffix("_first"))
-    args = [t(a) for a in _bshd(2, 9, seed=5, count=3 if "fwd" in name else 4)]
-    for got, want in zip(_tuple(first(*args, scale=0.125)), _tuple(current(*args, scale=0.125))):
-        assert torch.equal(got, want)
+    first = getattr(pa, name)
+    current = getattr(pa, name.removesuffix("_first"))
+    args = [t(a) for a in _qkv(2, 9, seed=5)[:1 if "fwd" in name else 2]]
+    kw = dict(num_heads=H, scale=0.125)
+    assert torch.equal(first(*args, **kw), current(*args, **kw))
     assert first.launches == 0
-    meta = [torch.zeros(1, 3, H, D, device="meta", dtype=torch.bfloat16)] * len(args)
+    meta = [torch.zeros(a.shape, device="meta", dtype=torch.bfloat16) for a in args]
     with pytest.raises(ValueError, match="CUDA"):
-        first(*meta, scale=1.0)
+        first(*meta, **kw)
     package = Path(demo2_tpu_torch.__file__).parent
     users = {p.name for p in package.rglob("*.py") if name in p.read_text()}
-    assert users - {"kernel_lib.py"} == {"flash_attention.py"}  # kernel_lib: the C signatures
-
-
-def _tuple(y):
-    return y if isinstance(y, tuple) else (y,)
+    assert users - {"kernel_lib.py"} == {"packed_attention.py"}  # kernel_lib: the C signatures
+    assert not hasattr(fa, name.replace("packed", "flash"))  # kernels 9 and 10 have one design
 
 
 def test_every_cuda_source_is_part_of_the_build():
@@ -254,10 +289,17 @@ def test_every_cuda_source_is_part_of_the_build():
     assert on_disk == sorted(kernel_lib.SOURCES + kernel_lib.HEADERS)
     assert all(name.endswith(".cu") for name in kernel_lib.SOURCES)
     assert all(name.endswith(".cuh") for name in kernel_lib.HEADERS)
-    for entry in ("demo2_flash_attention", "demo2_flash_attention_bwd",
-                  "demo2_flash_attention_first", "demo2_flash_attention_bwd_first"):
-        assert entry in kernel_lib._SIGNATURES
-        assert f'extern "C" int {entry}(' in (kernel_lib.CSRC_DIR / "flash_attention.cu").read_text()
+    for source, entries in (("flash_attention.cu", ("demo2_flash_attention",
+                                                    "demo2_flash_attention_bwd")),
+                            ("packed_attention.cu", ("demo2_packed_attention",
+                                                     "demo2_packed_attention_bwd",
+                                                     "demo2_packed_attention_first",
+                                                     "demo2_packed_attention_bwd_first"))):
+        text = (kernel_lib.CSRC_DIR / source).read_text()
+        for entry in entries:
+            assert entry in kernel_lib._SIGNATURES
+            assert f'extern "C" int {entry}(' in text
+    assert not any("flash" in entry and "first" in entry for entry in kernel_lib._SIGNATURES)
 
 
 @pytest.mark.parametrize("width,heads,seq,ok", [
@@ -376,23 +418,40 @@ def test_chip_smoke_attention_phase_passes_on_the_plain_versions():
                                         flash_edges=EDGE_SHAPES)
     assert errors == {name: 0.0 for name in ("packed_attention_fwd", "packed_attention_bwd",
                                              "flash_attention_fwd", "flash_attention_bwd")}
-    assert {s_[1] for s_ in cs.FLASH_EDGE_SHAPES} >= {144, 16, 1}
+    assert {s_[1] for s_ in cs.FLASH_EDGE_SHAPES} >= {144, 16, 1, 40, 77}
     assert any(s_[2] != 12 for s_ in cs.FLASH_EDGE_SHAPES)
 
 
+def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsys):
+    """Phase 9's edge shapes reach kernels 5 and 6 as packed qkv of the same
+    sizes, and kernel 6's dqkv is compared over two runs at each of them."""
+    import chip_smoke as cs
+
+    edges = [(b, s, heads, D) for b, s, heads in PACKED_EDGES]
+    cs.phase_attention_kernels(CPU, shapes=SMALL_ATTENTION_SHAPES[:1], flash_edges=edges)
+    out = capsys.readouterr().out
+    for b, s, heads in PACKED_EDGES:
+        shape = (b, s, 3 * heads * D)
+        assert f"packed_attention_fwd output 0 {shape}: vs plain" in out
+        assert f"packed_attention_bwd output 0 {shape}: vs plain" in out
+        assert f"packed_attention_bwd {shape}: every output bit-identical over two runs" in out
+    assert [(b, s, 3 * h * d) for b, s, h, d in cs.FLASH_EDGE_SHAPES] == [
+        (48, 144, 2304), (192, 16, 2304), (192, 1, 2304), (64, 40, 1152), (5, 77, 576)]
+
+
 def test_chip_smoke_design_timing_rehearses_on_the_plain_versions():
-    """The timing of kernels 9 and 10 beside their first design and the
+    """The timing of kernels 5 and 6 beside their first design and the
     library's call, rehearsed on the CPU: the turns are taken in order, the two
     designs are held to the rounding bound, and no time is read off the card."""
     import math
 
     import chip_smoke as cs
 
-    readings = cs.time_designs(CPU, "a rehearsal on the CPU", shape=(2, 9, H, D), rounds=5,
+    readings = cs.time_designs(CPU, "a rehearsal on the CPU", shape=(2, 9, 3 * H * D), rounds=5,
                                iters=1)
-    assert set(readings) == {"flash_attention_fwd", "flash_attention_bwd"}
-    assert list(readings["flash_attention_fwd"]) == ["new", "first", "library"]
-    assert list(readings["flash_attention_bwd"]) == ["new", "first"]  # no backward off the card
+    assert set(readings) == {"packed_attention_fwd", "packed_attention_bwd"}
+    assert list(readings["packed_attention_fwd"]) == ["new", "first", "library"]
+    assert list(readings["packed_attention_bwd"]) == ["new", "first"]  # no backward off the card
     for got in readings.values():
         for times in got.values():
             assert len(times) == 5 and all(math.isnan(x) for x in times)
