@@ -23,7 +23,14 @@ requests and train steps against the plain path.  Phases:
   5. training kernels at the same shapes: the training forward (3) with its
      residuals and probs, the saved-probs backward with db (4) and without
      (7, bitwise equal to 4's dqkv), and the autograd Function's 7 grads, each
-     no further from an f32 run than the plain bf16 path;
+     no further from an f32 run than the plain bf16 path; kernel 4's dqkv also
+     within phase 2's bounds and a mean of 1e-5 of the plain version, a bound
+     that the same arithmetic with dS left in f32 (a control on the same
+     inputs) fails, its dqkv and db bit-identical over two runs; kernels 4 and
+     7 also at the edges of their tiling, packed qkv (48, 144, 2304),
+     (192, 16, 2304), (192, 1, 2304), (64, 40, 1152) and (5, 77, 576) with the
+     probabilities the plain forward saves, within the same bounds (the
+     control wherever there is more than one key);
   9. attention kernels: the packed self-attention (5) and its recomputing
      backward (6) at qkv (192, 129, 2304) and (3, 129, 2304), the head-major
      attention (9) and its backward (10) at (192, 129, 12, 64) and
@@ -55,9 +62,13 @@ requests and train steps against the plain path.  Phases:
   7. do_train: one epoch with eval over a small synthetic val cache (kernels
      1 and 2 at eval, 3 and 4 in training), mAP in (0, 1], the best
      checkpoint saved and reloaded;
-  8. training timing (printed): kernels 3, 4 and 7 vs plain with TFLOP/s,
-     the train step in ms and img/s on both paths in turns, peak memory, a
-     profile of one train step on each path;
+  8. training timing (printed): kernels 3, 4 and 7 vs plain with TFLOP/s;
+     kernel 4 beside its first design in turns (new, first; six rounds of 20
+     launches), the median and the spread of each, the two designs' dqkv
+     within a mean of 1e-5 of each other, and the host's time for one call of
+     each design, read in the same turns; the train step in ms and img/s on
+     both paths in turns, peak memory, a profile of one train step on each
+     path;
   10. the head-major route: attention_core(implementation="pallas") and a
      MultiHeadAttention cross-attention of equal lengths, forward and
      backward, each launching kernels 9 and 10 once, cosine >= 0.999 to the
@@ -69,11 +80,7 @@ requests and train steps against the plain path.  Phases:
      proj), each step launching kernels 5 and 6 12 times and no other;
   13. ViT timing (printed): kernels 5, 6, 9 and 10 vs plain with TFLOP/s and
      beside scaled_dot_product_attention (forward, and its autograd
-     backward); kernels 5 and 6 beside their first design and that library
-     call in turns (new, first, library; six rounds of 20 launches), the
-     median and the spread of each, the two designs within a mean of 1e-5 of
-     each other, and the host's time for one call of each design, read in
-     the same turns; the extractor at batch 1 and 64 and the train step on
+     backward); the extractor at batch 1 and 64 and the train step on
      both paths in turns, peak memory, profiles of one request and one step;
   14. the LayerNorm backward (11) vs its plain version at (24768, 768) and
      (387, 768) bf16 and at (387, 768) f32: dx within phase 2's bounds,
@@ -116,7 +123,8 @@ requests and train steps against the plain path.  Phases:
      then one do_train epoch with eval (kernels 1 and 2 at eval);
   21. timing (printed): kernel 8 beside kernel 4 + the two torch.mm it fuses,
      2's training form beside the unfused MLP's forward, the ablation tool's
-     five cases (full h=12 beside scaled_dot_product_attention), the train
+     five cases (full h=12 beside scaled_dot_product_attention, and no
+     slower than it), the train
      step with and without FUSED_MLP_TRAIN in turns with the peak memory of
      each, a profile of one step of each.
 
@@ -634,6 +642,11 @@ def profile(label, fn, card, top=10) -> None:
 PROBS_MAX_ABS = 7.8e-3   # 2 bf16 ulps just below 1 (2^-8 each)
 PROBS_ROW_SUM = 1e-2     # rows of bf16 probabilities sum to 1 within this
 DB_REL = 1e-3            # db vs the f32 column sums of the kernel's own dqkv
+# The edges of the tiling of kernels 4 and 7, the packed qkv of phase 9's
+# FLASH_EDGE_SHAPES: no padded row, one tile, one key, other head counts; the
+# short ones give a block many (sample, head) items.
+SAVED_EDGE_SHAPES = ((48, 144, 2304), (192, 16, 2304), (192, 1, 2304), (64, 40, 1152),
+                     (5, 77, 576))
 
 
 def mean_err(a, ref) -> float:
@@ -681,32 +694,89 @@ def check_train_forward(x, p, shape, kw) -> dict:
             "residuals": got}
 
 
-def check_train_backward(res, grad_out, shape, kw) -> dict:
+def saved_probs_inputs(shape, device, seed):
+    """Kernel 4's inputs at a packed shape (B, S, 3C) without a block around
+    them: unit-scale bf16 qkv, the probabilities the plain forward saves for
+    it (softmax of the f32 scores, rounded to bf16, zero columns up to S16)
+    and a unit cotangent of the attention output."""
+    import torch.nn.functional as F
+
     from demo2_tpu_torch.ops import packed_attention as pa
 
-    _, qkv, _, probs = res
-    do = grad_out
+    b, s, c3 = shape
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *sh: torch.randn(*sh, generator=g).to(device, torch.bfloat16)
+    qkv, do = rnd(b, s, c3), rnd(b, s, c3 // 3)
+    q, k, _ = _packed_heads(qkv, c3 // 3 // 64)
+    p = _softmax_f32(q, k, 64 ** -0.5).to(torch.bfloat16)
+    return qkv, F.pad(p, (0, pa.probs_cols(s) - s)).contiguous(), do
+
+
+def _misrounded_saved_bwd(qkv, probs, do, *, num_heads, scale):
+    """Kernel 4 with dS left in f32 for the dQ and dK products (the Pallas
+    kernel rounds it to bf16 once, before both): what a kernel that feeds
+    its dS registers straight into the next product as hi + lo would compute."""
+    s = qkv.shape[1]
+    q, k, v = _packed_heads(qkv, num_heads)
+    dof = do.reshape(*do.shape[:2], num_heads, -1).transpose(1, 2).float()
+    p = probs[..., :s].float()
+    dp = dof @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dqkv = (ds @ k * scale, ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ dof)
+    return torch.cat([_merge(_bf16(x)) for x in dqkv], -1).to(qkv.dtype)
+
+
+def check_train_backward(qkv, probs, do, kw, control: bool = True) -> dict:
+    """Kernels 4 and 7 on one set of inputs, as phase 9 holds 5 and 6: dqkv
+    within phase 2's bounds and a mean of ROUNDING_MEAN_TOL of the plain
+    version, no further from an f32 run than the plain bf16 version; with
+    `control`, the misrounded control on the same inputs fails that bound; dqkv
+    and db bit-identical over two runs; db within DB_REL of the f32 column
+    sums of its own dqkv; kernel 7's dqkv bitwise equal to kernel 4's."""
+    from demo2_tpu_torch.ops import packed_attention as pa
+
     dqkv, db = pa.attention_bwd_saved_db(qkv, probs, do, **kw)
+    dqkv_again, db_again = pa.attention_bwd_saved_db(qkv, probs, do, **kw)
     dqkv7 = pa.attention_bwd_saved(qkv, probs, do, **kw)
     plain, _ = pa.attention_bwd_saved_plain(qkv, probs, do, with_db=True, **kw)
     f32, _ = pa.attention_bwd_saved_plain(qkv.float(), probs.float(), do.float(), with_db=True,
                                           **kw)
+    wrong = _misrounded_saved_bwd(qkv, probs, do, **kw) if control else None
     sync()
+    shape = tuple(qkv.shape)
     d = (dqkv.float() - plain.float()).abs()
+    max_abs, mean_abs = d.max().item(), d.mean().item()
     k32, p32 = mean_err(dqkv, f32), mean_err(plain, f32)
     ref_db = dqkv.float().sum((0, 1))
     db_err = (db - ref_db).abs().max().item()
     db_scale = ref_db.abs().max().item()
-    log(f"[train-kernel] kernel 4 dqkv {tuple(shape)}: vs plain bf16 max {d.max().item():.3e} "
-        f"mean {d.mean().item():.3e}; vs f32 kernel {k32:.3e}, plain bf16 {p32:.3e}; db vs "
+    log(f"[train-kernel] kernel 4 dqkv {shape}: vs plain bf16 max {max_abs:.3e} "
+        f"mean {mean_abs:.3e}; vs f32 kernel {k32:.3e}, plain bf16 {p32:.3e}; db vs "
         f"the f32 column sums of its dqkv: max {db_err:.3e} (max |sum| {db_scale:.3e})")
+    require(dqkv.shape == plain.shape and dqkv.dtype == plain.dtype and db.dtype == torch.float32,
+            f"kernel 4 {shape}: shape or dtype")
     require(bool(torch.isfinite(dqkv).all()) and bool(torch.isfinite(db).all()),
             f"kernel 4 {shape}: non-finite")
+    require(max_abs <= MAX_ABS_TOL, f"kernel 4 {shape}: max abs {max_abs}")
+    require(mean_abs <= MEAN_ABS_TOL, f"kernel 4 {shape}: mean abs {mean_abs}")
     require(k32 <= F32_MEAN_RATIO * p32, f"kernel 4 {shape}: less accurate than plain")
+    require(mean_abs <= ROUNDING_MEAN_TOL,
+            f"kernel 4 {shape}: mean abs {mean_abs} > {ROUNDING_MEAN_TOL}: the kernel rounds "
+            f"where its plain version does not")
+    if wrong is not None:
+        w32, dw = mean_err(wrong, f32), mean_err(wrong, plain)
+        log(f"[train-kernel] kernel 4 dqkv {shape}: control with dS left in f32: vs plain bf16 "
+            f"mean {dw:.3e}, mean error vs f32 {w32:.3e}")
+        require(dw > ROUNDING_MEAN_TOL,
+                f"kernel 4 {shape}: the misrounded control is within {ROUNDING_MEAN_TOL} of the "
+                f"plain version ({dw}), so the bound cannot tell where a kernel rounds")
     require(db_err <= DB_REL * db_scale, f"kernel 4 {shape}: db off by {db_err}")
+    require(torch.equal(dqkv_again, dqkv) and torch.equal(db_again, db),
+            f"kernel 4 {shape}: two runs differ in their bits")
     require(torch.equal(dqkv7, dqkv), f"kernel 7 {shape}: dqkv not bitwise equal to kernel 4's")
-    log(f"[train-kernel] kernel 7 dqkv {tuple(shape)}: bitwise equal to kernel 4's")
-    return {"max_abs": d.max().item()}
+    log(f"[train-kernel] kernel 4 {shape}: dqkv and db bit-identical over two runs; kernel 7's "
+        f"dqkv bitwise equal to kernel 4's")
+    return {"max_abs": max_abs}
 
 
 def check_train_function(x, p, grad_out, shape, kw) -> None:
@@ -738,24 +808,35 @@ def check_train_function(x, p, grad_out, shape, kw) -> None:
                 f"Function grad {name} {shape}: {k32} > {F32_MEAN_RATIO} x {p32}")
 
 
-def phase_train_kernels(device, shapes=(FLAGSHIP, BATCH1)) -> dict:
+def phase_train_kernels(device, shapes=(FLAGSHIP, BATCH1), edges=SAVED_EDGE_SHAPES) -> dict:
     """Kernels 3, 4 and 7 against their plain versions, and the training
-    Function against autograd of the plain block."""
+    Function against autograd of the plain block; then kernels 4 and 7 at
+    `edges`, the edges of their tiling, on packed qkv with the probabilities
+    the plain forward saves (no control over one key: dS is exactly zero there
+    and nothing is rounded)."""
+    exact_products()
     errors = {}
     for shape in shapes:
         x, p, grad_out = train_kernel_inputs(shape, device, seed=5)
         kw = dict(num_heads=shape[-1] // 64, scale=64 ** -0.5)
         fwd = check_train_forward(x, p, shape, kw)
-        bwd = check_train_backward(fwd["residuals"], grad_out, shape, kw)
+        _, qkv, _, probs = fwd["residuals"]
+        bwd = check_train_backward(qkv, probs, grad_out, kw)
         check_train_function(x, p, grad_out, shape, kw)
         if shape == shapes[0]:
             errors["fused_attention_block_train"] = fwd["max_abs"]
             errors["attention_bwd_saved_db"] = bwd["max_abs"]
             errors["attention_bwd_saved"] = bwd["max_abs"]
+    for shape in edges:
+        kw = dict(num_heads=shape[-1] // 3 // 64, scale=64 ** -0.5)
+        check_train_backward(*saved_probs_inputs(shape, device, seed=9), kw,
+                             control=shape[1] > 1)
     log(f"[train-kernel] tolerances: forward as phase 2; probs max abs <= {PROBS_MAX_ABS}, "
-        f"row sums within {PROBS_ROW_SUM}, zero past S; dqkv and the 7 Function grads no "
-        f"further from f32 than {F32_MEAN_RATIO} x the plain bf16 path; db within {DB_REL} "
-        f"of max |column sum|; kernel 7 bitwise kernel 4: ok")
+        f"row sums within {PROBS_ROW_SUM}, zero past S; dqkv as phase 2 and within a mean of "
+        f"{ROUNDING_MEAN_TOL} of the plain version (the misrounded control above it); dqkv and "
+        f"the 7 Function grads no further from f32 than {F32_MEAN_RATIO} x the plain bf16 path; "
+        f"db within {DB_REL} of max |column sum|; dqkv and db bit-identical over two runs; "
+        f"kernel 7 bitwise kernel 4: ok")
     return errors
 
 
@@ -1018,6 +1099,86 @@ def train_kernel_flops(name: str, shape) -> int:
     return 8 * b * s * s * c  # dV, dP, dQ, dK
 
 
+DESIGN_ROUNDS = 6  # turns of (new, first design), 20 launches each
+QKV_SHAPE = (192, 129, 2304)  # the flagship's packed qkv (3B, S, 3C) at batch 64
+
+
+def spread(xs) -> str:
+    """median [min .. max] of a list of readings."""
+    return f"{float(np.median(xs)):.4f} [{min(xs):.4f} .. {max(xs):.4f}]"
+
+
+def run_untimed(fn, iters) -> float:
+    """A rehearsal's stand-in for cuda_ms: one call, and no time for it."""
+    fn()
+    return math.nan
+
+
+def host_us(fn, iters=100) -> float:
+    """The host's time for one call of `fn`, in microseconds: the clock around
+    `iters` calls that wait for nothing (the launch queue holds them), between
+    two synchronisations."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    sync()
+    return seconds * 1e6 / iters
+
+
+def time_designs(device, card, shape=QKV_SHAPE, rounds=DESIGN_ROUNDS, iters=20) -> dict:
+    """Kernel 4 beside its first design on the same inputs, in turns (new,
+    first, new, first, ...): the median and the spread of each over `rounds`
+    readings of `iters` launches, beside the bound and the TFLOP/s by the
+    counted operations, and the host's time for one call of each design, read
+    in the same turns (the new one encodes its tensor maps at every launch).
+    No one library call computes the function.  The first design's dqkv must
+    sit within ROUNDING_MEAN_TOL of the new one's and its db within DB_REL.
+    The *_first wrapper is reached from here only.  Returns name -> {new,
+    first}: the lists of readings."""
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    b, s, c3 = shape
+    kw = dict(num_heads=c3 // 3 // 64, scale=64 ** -0.5)
+    inputs = saved_probs_inputs(shape, device, seed=7)
+    name = "attention_bwd_saved_db"
+    turns = {"new": lambda: pa.attention_bwd_saved_db(*inputs, **kw),
+             "first": lambda: pa.attention_bwd_saved_db_first(*inputs, **kw)}
+    (dqkv, db), (dqkv_first, db_first) = turns["new"](), turns["first"]()
+    diff = mean_err(dqkv, dqkv_first)
+    db_diff, db_scale = (db - db_first).abs().max().item(), db.abs().max().item()
+    log(f"[designs] {name}: first design vs new: dqkv mean abs {diff:.3e}, db max abs "
+        f"{db_diff:.3e} (max |db| {db_scale:.3e})")
+    require(diff <= ROUNDING_MEAN_TOL,
+            f"{name}: the two designs' dqkv differ by {diff} > {ROUNDING_MEAN_TOL}")
+    require(db_diff <= DB_REL * db_scale, f"{name}: the two designs' db differ by {db_diff}")
+    timer = cuda_ms if device.type == "cuda" else run_untimed
+    got = {which: [] for which in turns}
+    host = {which: [] for which in turns}
+    for _ in range(rounds):
+        for which, fn in turns.items():
+            got[which].append(timer(fn, iters))
+        if device.type == "cuda":
+            for which, fn in turns.items():
+                host[which].append(host_us(fn))
+    flops = train_kernel_flops(name, (b, s, c3 // 3))
+    moved = tensor_bytes(inputs) + tensor_bytes((dqkv, db))
+    bound_ms, bound_by = roofline(flops, BF16_PEAK_TFLOPS, moved)
+    new_ms = float(np.median(got["new"]))
+    rate = ("not timed off the card" if math.isnan(new_ms)
+            else f"{flops / new_ms / 1e9:.1f} TFLOP/s")
+    log(f"[designs] {name} x{shape}, {rounds} turns of {iters} launches, ms as median "
+        f"[min .. max]: new {spread(got['new'])} ({rate} by the {flops / 1e9:.1f} GFLOP "
+        f"counted), first design {spread(got['first'])}, library call none; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB moved) ({card})")
+    if device.type == "cuda":
+        log(f"[designs] {name}: host time of one call through the wrapper, {rounds} turns, "
+            f"us as median [min .. max]: new {spread(host['new'])}, first design "
+            f"{spread(host['first'])} ({card})")
+    return {name: got}
+
+
 def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
     from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
 
@@ -1042,6 +1203,7 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
     times = time_kernels({name: timed(kern, plain_fn, train_kernel_flops(name, FLAGSHIP),
                                       FLAGSHIP, inputs)
                           for name, (kern, plain_fn, inputs) in cases.items()}, card)
+    time_designs(device, card)
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler)
     return times
 
@@ -1368,101 +1530,15 @@ def phase_head_major(device, shape=FLASH_SHAPES[0]) -> dict:
 # ---------------------------------------------------------------- phases 11-13
 
 
-DESIGN_ROUNDS = 6  # turns of (new, first design, library), 20 launches each
-
-
-def spread(xs) -> str:
-    """median [min .. max] of a list of readings."""
-    return f"{float(np.median(xs)):.4f} [{min(xs):.4f} .. {max(xs):.4f}]"
-
-
-def run_untimed(fn, iters) -> float:
-    """A rehearsal's stand-in for cuda_ms: one call, and no time for it."""
-    fn()
-    return math.nan
-
-
-def host_us(fn, iters=100) -> float:
-    """The host's time for one call of `fn`, in microseconds: the clock around
-    `iters` calls that wait for nothing (the launch queue holds them), between
-    two synchronisations."""
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    seconds = time.perf_counter() - t0
-    sync()
-    return seconds * 1e6 / iters
-
-
-def time_designs(device, card, shape=PACKED_SHAPES[0], rounds=DESIGN_ROUNDS, iters=20) -> dict:
-    """Kernels 5 and 6 beside their first design and the library's call on
-    the same inputs, in turns (new, first, library, new, first, library, ...):
-    the median and the spread of each over `rounds` readings of `iters`
-    launches, beside the bound and the TFLOP/s by the counted operations, and
-    the host's time for one call of each design, read in the same turns (the
-    new one encodes its tensor maps at every launch).  The first design must
-    sit within
-    ROUNDING_MEAN_TOL of the new one.  The two *_first wrappers are reached
-    from here only.  Returns name -> {new, first, library}: the lists of
-    readings."""
-    from demo2_tpu_torch.ops import packed_attention as pa
-
-    b, s, c3 = shape
-    pk = dict(num_heads=c3 // 3 // 64, scale=64 ** -0.5)
-    cases = attention_kernel_cases(device, shape, (b, s, pk["num_heads"], 64), seed=7)
-    firsts = {"packed_attention_fwd": lambda qkv: pa.packed_attention_fwd_first(qkv, **pk),
-              "packed_attention_bwd": lambda qkv, do: pa.packed_attention_bwd_first(qkv, do, **pk)}
-    timer = cuda_ms if device.type == "cuda" else run_untimed
-    readings = {}
-    for name, first in firsts.items():
-        kernel, _, inputs, flops, library = cases[name]
-        first_fn = lambda: first(*inputs)
-        for i, (a, f) in enumerate(zip(as_tuple(kernel()), as_tuple(first_fn()))):
-            diff = mean_err(a, f)
-            log(f"[designs] {name} output {i}: first design vs new mean abs {diff:.3e}")
-            require(diff <= ROUNDING_MEAN_TOL,
-                    f"{name} output {i}: the two designs differ by {diff} > {ROUNDING_MEAN_TOL}")
-        turns = {"new": kernel, "first": first_fn}
-        if library is not None:
-            turns["library"] = library
-        got = {which: [] for which in turns}
-        host = {"new": [], "first": []}
-        for _ in range(rounds):
-            for which, fn in turns.items():
-                got[which].append(timer(fn, iters))
-            if device.type == "cuda":
-                for which in host:
-                    host[which].append(host_us(turns[which]))
-        moved = tensor_bytes(inputs) + tensor_bytes(as_tuple(kernel()))
-        bound_ms, bound_by = roofline(flops, BF16_PEAK_TFLOPS, moved)
-        new_ms = float(np.median(got["new"]))
-        rate = ("not timed off the card" if math.isnan(new_ms)
-                else f"{flops / new_ms / 1e9:.1f} TFLOP/s")
-        log(f"[designs] {name} x{shape}, {rounds} turns of {iters} launches, ms as median "
-            f"[min .. max]: new {spread(got['new'])} ({rate} by the {flops / 1e9:.1f} GFLOP "
-            f"counted), first design {spread(got['first'])}, library call "
-            f"{spread(got['library']) if 'library' in got else 'none'}; bound {bound_ms:.4f} ms "
-            f"by {bound_by} ({moved / 1e6:.1f} MB moved) ({card})")
-        if device.type == "cuda":
-            log(f"[designs] {name}: host time of one call through the wrapper, {rounds} turns, "
-                f"us as median [min .. max]: new {spread(host['new'])}, first design "
-                f"{spread(host['first'])} ({card})")
-        readings[name] = got
-    return readings
-
-
 def phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
-    """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s,
-    kernels 5 and 6 beside their first design and the library's call in
-    turns, the extractor at batch 1 and 64, and the ViT train step, each on
-    both paths in turns."""
+    """Kernels 5, 6, 9 and 10 against their plain versions with TFLOP/s and
+    beside the library's call, the extractor at batch 1 and 64, and the ViT
+    train step, each on both paths in turns."""
     cases = attention_kernel_cases(device, PACKED_SHAPES[0], FLASH_SHAPES[0], seed=7)
     times = time_kernels({
         name: timed(kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs), flops,
                     tuple(inputs[0].shape), inputs, library)
         for name, (kernel, plain_fn, inputs, flops, library) in cases.items()}, card)
-    time_designs(device, card)
     time_extractor(device, card, cfg, model, plain_cfg, plain, label="ViT ")
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler, label="ViT ")
     return times
@@ -1771,7 +1847,7 @@ def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sa
 # ---------------------------------------------------------------- phase 18
 
 
-QKV_SHAPES = ((192, 129, 2304), (3, 129, 2304))        # kernel 8's qkv (3B, S, 3C)
+QKV_SHAPES = (QKV_SHAPE, (3, 129, 2304))                  # kernel 8's qkv (3B, S, 3C)
 ABLATE_SHAPES = ((192, 136, 2304), (8, 136, 2304))     # the tool's qkv, and a small batch
 DT_COS_MIN = 0.9999
 # Kernel 8's dt follows two stacked bf16 roundings (dS, then dq / dk / dv) and a
@@ -2085,7 +2161,10 @@ def phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg, model, cache, 
             library=sdpa if (mode, heads) == ("full", 12) else None,
             moved=ab.case_bytes(a_shape, heads))
     times = time_kernels(cases, card)
-    times["attention_ablate"] = times["attention_ablate full h=12"]
+    times["attention_ablate"] = full12 = times["attention_ablate full h=12"]
+    require(full12["ms"] <= full12["library_ms"],
+            f"kernel 13 full h=12 takes {full12['ms']} ms, the library's call "
+            f"{full12['library_ms']} ms on the same inputs")
 
     # The tool's own path: what `python3 -m demo2_tpu_torch.tools.bench_kernel_ablate` runs.
     reset_counts()
@@ -2097,9 +2176,10 @@ def phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg, model, cache, 
             f"({100 * bound / ms:.1f}% of it reached) ({card})")
     full, nosm, scores, slices = (tool_ms[k] for k in (("full", 12), ("no_softmax", 12),
                                                        ("scores_only", 12), ("slice_only", 12)))
-    log(f"[ablate] the forward's {full:.4f} ms split by what each case leaves out: loads and "
-        f"store {slices:.4f}, + QK^T {scores - slices:.4f}, + PV {nosm - scores:.4f}, + softmax "
-        f"{full - nosm:.4f} ms; 4 of 12 heads take {tool_ms[('full', 4)]:.4f} ms ({card})")
+    log(f"[ablate] the forward's {full:.4f} ms by what each case leaves out: the loads of q, k "
+        f"and v, the ring and the store alone {slices:.4f}; QK^T with q and k alone loaded "
+        f"{scores:.4f}; + the load of v and PV {nosm - scores:.4f}; + softmax {full - nosm:.4f} "
+        f"ms; 4 of 12 heads take {tool_ms[('full', 4)]:.4f} ms ({card})")
     log(f"[ablate] main path: {len(tool_ms)} cases through time_cases, launches {tool_launches}")
 
     time_train_step(device, card, mlp_cfg, mlp_model, cfg, model, cache, sampler,

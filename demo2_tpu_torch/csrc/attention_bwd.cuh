@@ -1,18 +1,19 @@
-// The attention backward kernel of the saved-probs backward
-// (attention_bwd.cu: kernels 4 and 7; attention_bwd_fused_dw.cu: kernel 8)
-// and of the first design of the packed self-attention backward
-// (packed_attention.cu: demo2_packed_attention_bwd_first, kept for the timing
-// beside kernel 6, which runs on attention_regs_bwd.cuh as the head-major
-// kernel 10 does).  Per (sample, head), from bf16 q, k, v and dO:
+// The first design of the attention backward from saved probabilities: the
+// attention part of kernel 8 (attention_bwd_fused_dw.cu, kOnChip) and the one
+// entry of attention_bwd.cu that keeps the first design of kernel 4 callable
+// for the timing beside the kernel in use (demo2_attention_bwd_saved_db_first).
+// Kernels 4 and 7 themselves, like 6 and 10, run on attention_regs_bwd.cuh.
+// Per (sample, head), from bf16 q, k, v, dO and the forward's saved bf16 P:
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P))   (f32, from
-//   dP and P, not through dO.O);  dQ = dS K * scale;  dK = dS^T Q * scale;
-//   dq, dk, dv rounded to bf16.
+//   dP and P, not through dO.O), rounded to bf16 once;  dQ = dS K * scale;
+//   dK = dS^T Q * scale;  dq, dk, dv rounded to bf16.
 // Where P comes from and where it is rounded is the Probs mode, a template
-// parameter of both designs, listed at the enum below.
-// With kDb (kSaved only: kernel 4) the f32 column sums of the rounded dq,
-// dk, dv of the (sample, head) go to db_partial (B, 3C), which
+// parameter of both designs, listed at the enum below; this file carries
+// Probs::kSaved alone.
+// With kDb (the first design of kernel 4) the f32 column sums of the rounded
+// dq, dk, dv of the (sample, head) go to db_partial (B, 3C), which
 // attention_bwd.cu adds up over B in a fixed order: no atomics.
-// With kOnChip (kSaved only: kernel 8, attention_bwd_fused_dw.cu) the rounded
+// With kOnChip (kernel 8, attention_bwd_fused_dw.cu) the rounded
 // dq, dk, dv never leave the SM: they stay in shared memory as bf16 tiles
 // (rows >= S zero) for the products that follow in the same block.
 //
@@ -23,21 +24,22 @@
 //
 // Design: one 256-thread block (8 warps) per (head, sample).  Q, K, V and dO
 // of the head (<= 144 x 64 bf16 each) and f32 dK / dV accumulators live in
-// shared memory (180-200 KB of the SM's 227 KB, so one block per SM); the
+// shared memory (176-195 KB of the SM's 227 KB, so one block per SM); the
 // queries are walked in 16-row tiles.  dK and dV sum over every query row,
 // so keeping the whole sequence in one block needs no second pass over the
-// queries.  Per tile: [recompute: S = Q_tile K^T (wmma) -> softmax rows on
-// CUDA cores, all keys at hand] dP (wmma) -> dS on CUDA cores, one warp per
-// 2 rows -> dV += P^T dO and dK += dS^T Q (wmma, accumulators loaded from
-// and stored to shared memory) and dQ = dS K (wmma) -> bf16 rows of dq.
+// queries.  Per tile: the saved P rows -> dP (wmma) -> dS on CUDA cores, one
+// warp per 2 rows -> dV += P^T dO and dK += dS^T Q (wmma, accumulators loaded
+// from and stored to shared memory) and dQ = dS K (wmma) -> bf16 rows of dq.
 //
 // What bounds it on an H100: at the ViT-B shape (B = 192, S = 129, 12 heads
 // of 64) the kernel reads q, k, v and dO (152 MB; the saved probs another 86
 // MB) and writes dq, dk, dv (114 MB): ~0.1 ms at the card's 3.35 TB/s.  Its
-// 2 x 4 x 129 x 144 x 64 FLOP per (sample, head), ~22 GFLOP in all (the
-// recomputed QK^T adds a fifth product), run through simple wmma tiles with one block per SM; the
-// shared-memory traffic of those tiles, not device memory, bounds this
-// first version.  wgmma with register accumulators is later work.
+// 2 x 4 x 129 x 144 x 64 FLOP per (sample, head), ~22 GFLOP in all, run
+// through simple wmma tiles with one block per SM; five block barriers a query
+// tile, 72 accumulator tiles loaded and stored on each, four of eight warps
+// idle in the dQ product and the db sums walked row by row hold it at ten times
+// that (1.01 ms): the shared-memory traffic of those tiles, not device memory,
+// bounds this design.  attention_regs_bwd.cuh keeps all of it in registers.
 
 #pragma once
 
@@ -56,7 +58,7 @@ constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kLdH = kHeadDim + 8;      // bf16 rows of Q, K, V, dO
 constexpr int kLdAcc = kHeadDim + 4;    // f32 rows of dK, dV
 constexpr int kLdPt = kMaxSeq + 8;      // bf16 rows of the P and dS tiles
-constexpr int kLdF = kMaxSeq + 4;       // f32 rows of the S / dP tile, dQ staging, f32 p
+constexpr int kLdF = kMaxSeq + 4;       // f32 rows of the dP tile and the dQ staging
 constexpr int kHeadElems = kMaxSeq * kLdH;
 constexpr int kAccElems = kMaxSeq * kLdAcc;
 constexpr int kPTileElems = kBwdQTile * kLdPt;
@@ -64,11 +66,12 @@ constexpr int kFTileElems = kBwdQTile * kLdF;
 
 // Where P comes from and where the backward rounds, and which header
 // instantiates the mode:
-//   kSaved (packed_attention.py::_bwd_saved(_db)_kernel, kernels 4, 7 and 8;
-//       this file): P is the forward's saved bf16 p; dS uses that bf16 p and
-//       is rounded to bf16 before the dQ / dK products;
-//   kRecompute (packed_attention.py::_bwd_kernel; kernel 6 on
-//       attention_regs_bwd.cuh, its first design on this file): p is
+//   kSaved (packed_attention.py::_bwd_saved(_db)_kernel; kernels 4 and 7 on
+//       attention_regs_bwd.cuh, kernel 8 and kernel 4's first design on this
+//       file): P is the forward's saved bf16 p; dS uses that bf16 p and is
+//       rounded to bf16 before the dQ / dK products;
+//   kRecompute (packed_attention.py::_bwd_kernel; kernel 6,
+//       attention_regs_bwd.cuh only): p is
 //       recomputed from Q and K in f32 (exp(s - max) / (sum + 1e-30)); dV
 //       takes bf16(p), dS takes the f32 p and is rounded to bf16 before the
 //       dQ / dK products;
@@ -77,14 +80,13 @@ constexpr int kFTileElems = kBwdQTile * kLdF;
 enum class Probs { kSaved, kRecompute, kRecomputeF32 };
 
 // Shared memory of one block: Q, K, V, dO; dK, dV; the P and dS tiles; the
-// f32 tile; [recompute] the f32 p tile; [on chip] the bf16 dq of the head.
+// f32 tile; [on chip] the bf16 dq of the head.  `mode` is Probs::kSaved.
 __host__ __device__ constexpr int bwd_smem_bytes(Probs mode, bool on_chip = false) {
   return 4 * kHeadElems * 2 + 2 * kAccElems * 4 + 2 * kPTileElems * 2 + kFTileElems * 4 +
-         (mode != Probs::kSaved ? kFTileElems * 4 : 0) + (on_chip ? kHeadElems * 2 : 0);
+         (on_chip ? kHeadElems * 2 : 0);
 }
-static_assert(bwd_smem_bytes(Probs::kSaved) == 180480, "kernel 4's footprint");
-static_assert(bwd_smem_bytes(Probs::kRecompute) <= 232448 &&
-                  bwd_smem_bytes(Probs::kSaved, true) <= 232448,
+static_assert(bwd_smem_bytes(Probs::kSaved) == 180480, "the footprint of kernel 4's first design");
+static_assert(bwd_smem_bytes(Probs::kSaved, true) <= 232448,
               "the block must fit one SM's shared memory");
 static_assert((kHeadElems * 2) % 128 == 0 && (kAccElems * 4) % 128 == 0 &&
                   (kPTileElems * 2) % 128 == 0 && (kFTileElems * 4) % 128 == 0,
@@ -107,10 +109,8 @@ __device__ __forceinline__ void attention_bwd_head(
     bf16* __restrict__ dv, HeadLayout outl, float* __restrict__ db_partial, int S, float scale,
     int h, int b, int heads) {
   using namespace nvcuda;
-  static_assert(kMode != Probs::kRecomputeF32, "f32 probabilities: attention_regs_bwd.cuh");
-  constexpr bool kRecompute = kMode == Probs::kRecompute;
-  static_assert(!(kDb && kRecompute), "db is kernel 4's, from saved probs");
-  static_assert(!(kOnChip && (kRecompute || kDb)), "kernel 8 reads saved probs, sums db itself");
+  static_assert(kMode == Probs::kSaved, "recomputed probabilities: attention_regs_bwd.cuh");
+  static_assert(!(kOnChip && kDb), "kernel 8 sums db itself");
   bf16* q_s = reinterpret_cast<bf16*>(bwd_smem);
   bf16* k_s = q_s + kHeadElems;
   bf16* v_s = k_s + kHeadElems;
@@ -120,7 +120,6 @@ __device__ __forceinline__ void attention_bwd_head(
   bf16* p_s = reinterpret_cast<bf16*>(dv_s + kAccElems);
   bf16* ds_s = p_s + kPTileElems;
   float* f_s = reinterpret_cast<float*>(ds_s + kPTileElems);
-  float* pf_s = f_s + kFTileElems;                                     // kRecompute
   constexpr int kDqOffset = bwd_smem_bytes(kMode);
   bf16* dq_s = reinterpret_cast<bf16*>(bwd_smem + kDqOffset);          // kOnChip
 
@@ -131,8 +130,7 @@ __device__ __forceinline__ void attention_bwd_head(
   const size_t src = in.at(b, h);
   const size_t do_src = dol.at(b, h);
   const size_t dst = outl.at(b, h);
-  const bf16* p_src =
-      kRecompute ? nullptr : probs + (static_cast<size_t>(b) * heads + h) * S * s_pad;
+  const bf16* p_src = probs + (static_cast<size_t>(b) * heads + h) * S * s_pad;
 
   // Q, K, V, dO of the head, rows >= S zero; dK = dV = 0.
   const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -162,61 +160,14 @@ __device__ __forceinline__ void attention_bwd_head(
   const int key_tiles = s_pad / 16;
   const int rows_per_warp = kBwdQTile / kBwdWarps;
   for (int q0 = 0; q0 < S; q0 += kBwdQTile) {
-    if (kRecompute) {
-      // 1a. S = Q_tile K^T -> f_s: the warps split the key tiles.
-      for (int nt = warp; nt < key_tiles; nt += kBwdWarps) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < kHeadDim; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, q_s + q0 * kLdH + kk, kLdH);
-          wmma::load_matrix_sync(fb, k_s + nt * 16 * kLdH + kk, kLdH);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(f_s + nt * 16, acc, kLdF, wmma::mem_row_major);
-      }
-      __syncthreads();
-      // 1b. p = exp(s * scale - max) / (sum + 1e-30) over the S keys, in f32
-      //     (pf_s), and its bf16 rounding (p_s); zero past S and in query
-      //     rows >= S.
-#pragma unroll
-      for (int rr = 0; rr < rows_per_warp; ++rr) {
-        const int r = warp * rows_per_warp + rr;
-        const bool live = q0 + r < S;
-        float* srow = f_s + r * kLdF;
-        float m = -INFINITY;
-        for (int j = lane; j < S; j += 32) {
-          const float val = srow[j] * scale;
-          srow[j] = val;
-          m = fmaxf(m, val);
-        }
-        m = warp_max(m);
-        float sum = 0.f;
-        for (int j = lane; j < S; j += 32) {
-          const float e = expf(srow[j] - m);
-          srow[j] = e;
-          sum += e;
-        }
-        const float denom = warp_sum(sum) + 1e-30f;
-        for (int j = lane; j < s_pad; j += 32) {
-          const float p = (live && j < S) ? srow[j] / denom : 0.f;
-          pf_s[r * kLdF + j] = p;
-          p_s[r * kLdPt + j] = __float2bfloat16_rn(p);
-        }
-      }
-      __syncthreads();
-    } else {
-      // 1. The saved P tile: 16 query rows x S16 keys, rows >= S zero.
-      for (int i = tid; i < kBwdQTile * vecs; i += kBwdThreads) {
-        const int r = i / vecs;
-        const int c = (i - r * vecs) * 8;
-        *reinterpret_cast<uint4*>(&p_s[r * kLdPt + c]) =
-            q0 + r < S
-                ? *reinterpret_cast<const uint4*>(p_src + static_cast<size_t>(q0 + r) * s_pad + c)
-                : zero;
-      }
+    // 1. The saved P tile: 16 query rows x S16 keys, rows >= S zero.
+    for (int i = tid; i < kBwdQTile * vecs; i += kBwdThreads) {
+      const int r = i / vecs;
+      const int c = (i - r * vecs) * 8;
+      *reinterpret_cast<uint4*>(&p_s[r * kLdPt + c]) =
+          q0 + r < S
+              ? *reinterpret_cast<const uint4*>(p_src + static_cast<size_t>(q0 + r) * s_pad + c)
+              : zero;
     }
     // 2. dP = dO_tile V^T -> f_s: the warps split the key tiles.
     for (int nt = warp; nt < key_tiles; nt += kBwdWarps) {
@@ -234,16 +185,14 @@ __device__ __forceinline__ void attention_bwd_head(
     }
     __syncthreads();
 
-    // 3. dS = P * (dP - rowsum(dP * P)) in f32 (P: the saved bf16 p, or the
-    //    recomputed f32 p), rounded to bf16: warp w owns rows 2w and 2w + 1.
+    // 3. dS = P * (dP - rowsum(dP * P)) in f32 from the saved bf16 p,
+    //    rounded to bf16: warp w owns rows 2w and 2w + 1.
     //    Columns >= S have P = 0, so dS = 0 there.
 #pragma unroll
     for (int rr = 0; rr < rows_per_warp; ++rr) {
       const int r = warp * rows_per_warp + rr;
       const float* dp = f_s + r * kLdF;
-      auto p_at = [&](int j) {
-        return kRecompute ? pf_s[r * kLdF + j] : __bfloat162float(p_s[r * kLdPt + j]);
-      };
+      auto p_at = [&](int j) { return __bfloat162float(p_s[r * kLdPt + j]); };
       float sum = 0.f;
       for (int j = lane; j < s_pad; j += 32) sum += dp[j] * p_at(j);
       sum = warp_sum(sum);

@@ -1,16 +1,13 @@
-// The attention forward tile kernel of the block kernels
-// (fused_attention_block.cu: kernels 1 and 3), of the ablation tool
-// (attention_ablate.cu: kernel 13) and of the first design of the packed
-// self-attention (packed_attention.cu: demo2_packed_attention_first, kept for
-// the timing beside kernel 5, which runs on attention_regs_fwd.cuh as the
-// head-major kernel 9 does).  Each Pallas kernel rounds at another point: the
-// Softmax mode, a template parameter of both designs, listed at the enum below.
+// The first design of the attention forward tile: the attention part of the
+// block kernels (fused_attention_block.cu: kernels 1 and 3).  The packed
+// self-attention (5), the head-major attention (9) and the ablation tool (13)
+// run on attention_regs_fwd.cuh.  Each Pallas kernel rounds at another point:
+// the Softmax mode, a template parameter of both designs, listed at the enum
+// below; this file carries Softmax::kNormBeforePV alone.
 //
-// In every mode the scores are f32 (bf16 q and k on the tensor cores, f32
-// accumulation, then * scale) and keys >= S are never visited (the Pallas
-// kernels mask them to -1e30, whose exp is 0: the same arithmetic).  `keys`
-// <= S is the number of valid keys where it is not S itself: the ablation
-// tool (attention_ablate.cu) masks 129 keys of its 136 rows.
+// The scores are f32 (bf16 q and k on the tensor cores, f32 accumulation,
+// then * scale) and keys >= S are never visited (the Pallas kernels mask them
+// to -1e30, whose exp is 0: the same arithmetic).
 //
 // Layout: a head-split tensor is addressed through HeadLayout, element
 // (b, h, s, d) at b * sample + h * head + s * row + d.  The packed qkv
@@ -26,7 +23,10 @@
 // tensor cores (wmma), the softmax on CUDA cores, one warp per 4 query rows.
 // At the ViT-B shape (B = 192, S = 129, 12 heads of 64) attention is ~10
 // GFLOP on 33 KB of K/V per (sample, head) and is bound by the shared-memory
-// traffic of the simple wmma tiles, not by device memory.
+// traffic of the simple wmma tiles, not by device memory.  Split by the
+// ablation tool while it still ran on this tiling (H100, qkv (192, 136, 2304),
+// 0.3205 ms in all): loads and store 0.0756, QK^T 0.0627, PV 0.1038, softmax
+// 0.0784 ms, one after another with block barriers between.
 
 #pragma once
 
@@ -60,8 +60,8 @@ struct HeadLayout {
 //   kNormBeforePV (fused_block.py::_attention_core, kernels 1 and 3; this
 //       file): p = exp(s - max) / (sum + 1e-30) in f32, rounded to bf16, then
 //       o = bf16(p_bf16 @ v) with f32 accumulation;
-//   kNormAfterPV (packed_attention.py::_fwd_kernel; kernel 5 on
-//       attention_regs_fwd.cuh, its first design and kernel 13 on this file):
+//   kNormAfterPV (packed_attention.py::_fwd_kernel; kernels 5 and 13,
+//       attention_regs_fwd.cuh only):
 //       the UNnormalised exp rounded to bf16 for the PV product, the f32
 //       result divided by (sum + 1e-30), where sum adds the unrounded f32 exps;
 //   kF32 (flash_attention.py::_fwd_kernel, kernel 9; attention_regs_fwd.cuh
@@ -72,14 +72,13 @@ template <Softmax kMode, bool kSaveProbs>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, HeadLayout in, bf16* __restrict__ out,
-                     HeadLayout ol, bf16* __restrict__ probs, int S, int keys, float scale) {
+                     HeadLayout ol, bf16* __restrict__ probs, int S, float scale) {
   using namespace nvcuda;
-  static_assert(kMode != Softmax::kF32, "f32 probabilities: attention_regs_fwd.cuh");
+  static_assert(kMode == Softmax::kNormBeforePV, "the other modes: attention_regs_fwd.cuh");
   __shared__ __align__(128) bf16 q_s[kQTile * kLdQK];
   __shared__ __align__(128) bf16 kv_s[kMaxSeq * kLdQK];
   __shared__ __align__(128) float s_s[kQTile * kLdS];
   __shared__ __align__(128) bf16 p_s[kQTile * kLdP];
-  __shared__ float denom_s[kQTile];  // kNormAfterPV
 
   const int q0 = blockIdx.x * kQTile;
   const int h = blockIdx.y;
@@ -135,24 +134,21 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * (kQTile / 4) + rr;
     float* srow = s_s + r * kLdS;
     float m = -INFINITY;
-    for (int j = lane; j < keys; j += 32) {
+    for (int j = lane; j < S; j += 32) {
       const float val = srow[j] * scale;
       srow[j] = val;
       m = fmaxf(m, val);
     }
     m = warp_max(m);
     float sum = 0.f;
-    for (int j = lane; j < keys; j += 32) {
+    for (int j = lane; j < S; j += 32) {
       const float e = expf(srow[j] - m);
       srow[j] = e;
       sum += e;
     }
     const float denom = warp_sum(sum) + 1e-30f;
-    if (kMode == Softmax::kNormAfterPV && lane == 0) denom_s[r] = denom;
     for (int j = lane; j < s_pad; j += 32) {
-      float p = 0.f;
-      if (j < keys) p = kMode == Softmax::kNormAfterPV ? srow[j] : srow[j] / denom;
-      p_s[r * kLdP + j] = __float2bfloat16_rn(p);
+      p_s[r * kLdP + j] = __float2bfloat16_rn(j < S ? srow[j] / denom : 0.f);
     }
   }
   __syncthreads();
@@ -189,13 +185,9 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = tid >> 3;
     const int c = (tid & 7) * 8;
     if (q0 + r < S) {
-      const float div = kMode == Softmax::kNormAfterPV ? denom_s[r] : 1.f;
       float f[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        f[i] = s_s[r * kLdS + c + i];
-        if (kMode == Softmax::kNormAfterPV) f[i] /= div;
-      }
+      for (int i = 0; i < 8; ++i) f[i] = s_s[r * kLdS + c + i];
       *reinterpret_cast<uint4*>(out + ol.at(b, h) + static_cast<size_t>(q0 + r) * ol.row + c) =
           pack8(f);
     }
@@ -205,10 +197,10 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <Softmax kMode, bool kSaveProbs>
 cudaError_t launch_attention_fwd(const bf16* q, const bf16* k, const bf16* v, HeadLayout in,
                                  bf16* out, HeadLayout ol, bf16* probs, int batch, int seq,
-                                 int heads, float scale, cudaStream_t st, int keys = -1) {
+                                 int heads, float scale, cudaStream_t st) {
   const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
   attention_fwd_kernel<kMode, kSaveProbs><<<grid, kAttnThreads, 0, st>>>(
-      q, k, v, in, out, ol, probs, seq, keys < 0 ? seq : keys, scale);
+      q, k, v, in, out, ol, probs, seq, scale);
   return cudaGetLastError();
 }
 

@@ -8,8 +8,10 @@
 //       demo2_tpu/ops/packed_attention.py::_fwd_kernel.  The UNnormalised exp
 //       is rounded to bf16 once for the PV product and the f32 result is
 //       multiplied by 1 / (sum + 1e-30), where sum adds the unrounded exps.
-// Softmax::kNormBeforePV (kernels 1 and 3) and the ablation tool (kernel 13)
-// stay on the first design, attention_fwd.cuh.  Per (sample, head),
+// The ablation tool (attention_ablate.cu, kernel 13) instantiates
+// kNormAfterPV a few more times, with parts of a task's work left out (the
+// Ablate forms, listed at the enum below).  Softmax::kNormBeforePV (kernels 1
+// and 3) stays on the first design, attention_fwd.cuh.  Per (sample, head),
 //   o = softmax(q k^T * scale) v,
 // with the scores in f32.
 //
@@ -72,9 +74,21 @@
 // count as a build option: 8 warps 0.115 ms, 12 0.090, 14 0.088, 16 0.081,
 // 20 (96 registers, 604 bytes of spill stores) 0.156: sixteen for both modes.
 //
-// Resources (nvcc 12.9, -Xptxas -v, sm_90a), both 221,264 bytes of dynamic
+// The ablation forms at the tool's qkv (192, 136, 2304), 129 valid keys (H100,
+// six launches of 20 by CUDA events; bound 0.048 ms by bytes): kernel 5's own
+// form 0.096 ms (one PyTorch call, scaled_dot_product_attention with a key
+// mask, 0.209); without the softmax 0.081; QK^T alone, with no V asked of the
+// copy engine, 0.066; the loads, the ring and the store alone 0.078; four of
+// twelve heads 0.049.  So the data movement by itself, three TMA tiles of
+// 128-byte rows 4,608 bytes apart an item and 16-byte stores, reaches 62% of
+// the byte bound, and the products and the softmax add 0.018 ms behind it: what
+// separates kernels 5 and 9 from their bound is how the tiles arrive, not what
+// a task computes.
+//
+// Resources (nvcc 12.9, -Xptxas -v, sm_90a), all 221,264 bytes of dynamic
 // shared memory, one block of sixteen warps on an SM: kF32 128 registers (the
-// cap of four warps a sub-core), kNormAfterPV 127, neither spills.
+// cap of four warps a sub-core), kNormAfterPV 127, neither spills; the
+// ablation forms 128 (kNoSoftmax), 72 (kScoresOnly) and 48 (kSliceOnly).
 
 #pragma once
 
@@ -414,6 +428,17 @@ __device__ __forceinline__ void store_tile(const float (&o)[kRegsDim8][4], float
 
 // ---- the kernel ----------------------------------------------------------------
 
+// What a task leaves out, for the ablation tool (tools/bench_kernel_ablate.py's
+// cases; kNone is the attention forward itself).  Each form leaves its work
+// out; none computes it and throws it away:
+//   kNoSoftmax   p = bf16(s * 0.01) on the raw scores in place of the softmax,
+//                PV, no normalisation: no max, exp or sums;
+//   kScoresOnly  the raw scores of the first 64 keys are the output: QK^T over
+//                all keys, no V tile asked of the copy engine, no PV;
+//   kSliceOnly   bf16(bf16(q + k) + v) of the task's 16 rows: the loads, the
+//                ring and the store alone.
+enum class Ablate { kNone, kNoSoftmax, kScoresOnly, kSliceOnly };
+
 // Items of this block (block i takes items i, i + gridDim.x, ... of the
 // batch * heads (sample, head) pairs).
 __device__ __forceinline__ int block_items(int items) {
@@ -423,13 +448,16 @@ __device__ __forceinline__ int block_items(int items) {
 // Persistent, and a stream of tasks inside the block: task u is tile u %
 // pairs of the block's item u / pairs, and warp w takes tasks w, w + 16, ...
 // `keys` <= S is the number of valid keys.
-template <Softmax kMode>
+template <Softmax kMode, Ablate kAblate = Ablate::kNone>
 __global__ void __launch_bounds__(kRegsThreads, 1)
 attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
                           HeadLayout ol, int S, int keys, int heads, int items, float scale) {
   static_assert(kMode != Softmax::kNormBeforePV, "kernels 1 and 3 stay on attention_fwd.cuh");
+  static_assert(kAblate == Ablate::kNone || kMode == Softmax::kNormAfterPV,
+                "the ablation forms are forms of kernel 5");
+  constexpr bool kLoadV = kAblate != Ablate::kScoresOnly;
   constexpr bool kSplit = kMode == Softmax::kF32;
   constexpr bool kNormFirst = kMode != Softmax::kNormAfterPV;
   extern __shared__ __align__(1024) unsigned char regs_fwd_smem[];
@@ -459,10 +487,13 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const int item = blockIdx.x + i * gridDim.x;
     const int slot = i % kRegsFwdRing;
     bf16* dst = smem + slot * 3 * kRegsTile;
-    mbar_arrive_expect(full + slot, static_cast<uint32_t>(3 * s_pad * kRegsRowBytes));
+    mbar_arrive_expect(full + slot,
+                       static_cast<uint32_t>((kLoadV ? 3 : 2) * s_pad * kRegsRowBytes));
     tma_load_head(dst, &q_map, item % heads, item / heads, full + slot);
     tma_load_head(dst + kRegsTile, &k_map, item % heads, item / heads, full + slot);
-    tma_load_head(dst + 2 * kRegsTile, &v_map, item % heads, item / heads, full + slot);
+    if (kLoadV) {
+      tma_load_head(dst + 2 * kRegsTile, &v_map, item % heads, item / heads, full + slot);
+    }
     started[slot] = i;
   };
   if (warp == 0 && lane == 0) {
@@ -476,10 +507,61 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const int item = blockIdx.x + i * gridDim.x;
     wait_started(started + slot, i);
     mbar_wait(full + slot, (i / kRegsFwdRing) & 1);
-    {
-      bf16* q_s = smem + slot * 3 * kRegsTile;
-      const bf16* k_s = q_s + kRegsTile;
-      const bf16* v_s = k_s + kRegsTile;
+    bf16* q_s = smem + slot * 3 * kRegsTile;
+    const bf16* k_s = q_s + kRegsTile;
+    const bf16* v_s = k_s + kRegsTile;
+    bf16* o_dst = out + ol.at(item / heads, item % heads);
+    if constexpr (kAblate == Ablate::kSliceOnly) {
+      // 16 rows x 8 chunks of 16 bytes, four a lane, straight to the output.
+#pragma unroll
+      for (int j = lane; j < 16 * 8; j += 32) {
+        const int r = tile * 16 + (j >> 3);
+        if (r < S) {
+          float fq[8], fk[8], fv[8];
+          unpack8(*reinterpret_cast<const uint4*>(swizzled(q_s, r, j & 7)), fq);
+          unpack8(*reinterpret_cast<const uint4*>(swizzled(k_s, r, j & 7)), fk);
+          unpack8(*reinterpret_cast<const uint4*>(swizzled(v_s, r, j & 7)), fv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            fq[e] = __bfloat162float(__float2bfloat16_rn(fq[e] + fk[e])) + fv[e];
+          *reinterpret_cast<uint4*>(o_dst + static_cast<size_t>(r) * ol.row + (j & 7) * 8) =
+              pack8(fq);
+        }
+      }
+    } else if constexpr (kAblate == Ablate::kScoresOnly) {
+      float s[kRegsCols8][4];
+      product_rows(s, q_s, tile * 16, k_s, pairs, lane);
+      float o[kRegsDim8][4];
+#pragma unroll
+      for (int nt = 0; nt < kRegsCols8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (nt < kRegsDim8) {
+            o[nt][e] = s[nt][e];
+          } else {
+            // The scores past the first 64 keys are computed, as the tool
+            // computes them, and go nowhere: keep the compiler from dropping
+            // their products.
+            asm volatile("" ::"f"(s[nt][e]));
+          }
+        }
+      }
+      store_tile(o, 1.f, q_s + tile * 16 * kHeadDim, o_dst, ol.row, tile * 16, S, lane);
+    } else if constexpr (kAblate == Ablate::kNoSoftmax) {
+      float s[kRegsCols8][4];
+      product_rows(s, q_s, tile * 16, k_s, pairs, lane);
+#pragma unroll
+      for (int nt = 0; nt < kRegsCols8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= 0.01f;
+      float o[kRegsDim8][4];
+#pragma unroll
+      for (int nt = 0; nt < kRegsDim8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+      product_regs<false>(o, s, v_s, pairs, lane);
+      store_tile(o, 1.f, q_s + tile * 16 * kHeadDim, o_dst, ol.row, tile * 16, S, lane);
+    } else {
       float s[kRegsCols8][4];
       product_rows(s, q_s, tile * 16, k_s, pairs, lane);
       float m0, m1, rinv0, rinv1;
@@ -500,8 +582,7 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
       // Staged through the task's own Q rows, which no other task reads.
-      store_tile(o, 1.f, q_s + tile * 16 * kHeadDim, out + ol.at(item / heads, item % heads),
-                 ol.row, tile * 16, S, lane);
+      store_tile(o, 1.f, q_s + tile * 16 * kHeadDim, o_dst, ol.row, tile * 16, S, lane);
     }
     fence_async_proxy();  // the staging stores, before a TMA copy reuses the slot
     __syncwarp();
@@ -533,11 +614,11 @@ inline cudaError_t regs_grid(int items, int* grid) {
   return cudaSuccess;
 }
 
-template <Softmax kMode>
+template <Softmax kMode, Ablate kAblate = Ablate::kNone>
 cudaError_t launch_attention_regs_fwd(const bf16* q, const bf16* k, const bf16* v, HeadLayout in,
                                       bf16* out, HeadLayout ol, int batch, int seq, int heads,
                                       float scale, cudaStream_t st, int keys = -1) {
-  auto kernel = attention_regs_fwd_kernel<kMode>;
+  auto kernel = attention_regs_fwd_kernel<kMode, kAblate>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kRegsFwdSmemBytes);
   if (err != cudaSuccess) return err;

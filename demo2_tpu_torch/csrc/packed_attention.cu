@@ -25,13 +25,6 @@
 // probabilities and dS in registers.  The kernels take heads of 64 and
 // S <= 144 (demo2_attention_head_dim / _max_seq), which the Python wrapper
 // checks.
-//
-// The first design of both (attention_fwd_kernel<Softmax::kNormAfterPV> and
-// attention_bwd_kernel<Probs::kRecompute>, attention_fwd.cuh and
-// attention_bwd.cuh: one block per 16 query rows, scores through shared
-// memory, dK / dV accumulators in shared memory) stays reachable through the
-// two *_first entries, which nothing in the package routes to: chip_smoke.py
-// times the two designs in turns.
 
 #include "attention_regs_bwd.cuh"
 #include "attention_regs_fwd.cuh"
@@ -59,28 +52,4 @@ extern "C" int demo2_packed_attention_bwd(const void* qkv, const void* dout, voi
       x, x + width, x + 2 * width, packed, static_cast<const bf16*>(dout),
       rows_layout(seq, width), dx, dx + width, dx + 2 * width, packed, batch, seq, heads, scale,
       static_cast<cudaStream_t>(stream)));
-}
-
-// The first design of both, for the timing that holds the two side by side.
-extern "C" int demo2_packed_attention_first(const void* qkv, void* out, int batch, int seq,
-                                            int width, int heads, float scale, void* stream) {
-  using namespace demo2;
-  const bf16* x = static_cast<const bf16*>(qkv);
-  return static_cast<int>(launch_attention_fwd<Softmax::kNormAfterPV, false>(
-      x, x + width, x + 2 * width, packed_layout(seq, width), static_cast<bf16*>(out),
-      rows_layout(seq, width), nullptr, batch, seq, heads, scale,
-      static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int demo2_packed_attention_bwd_first(const void* qkv, const void* dout, void* dqkv,
-                                                int batch, int seq, int width, int heads,
-                                                float scale, void* stream) {
-  using namespace demo2;
-  const bf16* x = static_cast<const bf16*>(qkv);
-  bf16* dx = static_cast<bf16*>(dqkv);
-  const HeadLayout packed = packed_layout(seq, width);
-  return static_cast<int>(launch_attention_bwd<Probs::kRecompute, false>(
-      x, x + width, x + 2 * width, packed, static_cast<const bf16*>(dout),
-      rows_layout(seq, width), nullptr, dx, dx + width, dx + 2 * width, packed, nullptr, batch,
-      seq, heads, scale, static_cast<cudaStream_t>(stream)));
 }

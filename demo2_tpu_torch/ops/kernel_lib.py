@@ -41,14 +41,13 @@ _SIGNATURES = {
     "demo2_fused_attention_block": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_fused_attention_block_train": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_db_first": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_fused_dw": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
     "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
     "demo2_packed_attention": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
-    "demo2_packed_attention_first": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
-    "demo2_packed_attention_bwd_first": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],

@@ -10,15 +10,16 @@ saved-probs layout.
       (csrc/packed_attention.cu, demo2_packed_attention_bwd);
       both keep scores and probabilities in registers, one warp per 16 rows
       of a (sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh);
-      their first design stays callable as packed_attention_fwd_first /
-      packed_attention_bwd_first for the timing that holds the two side by
-      side, and no route reaches those;
   attention_bwd_saved_db: dqkv and the f32 qkv-bias gradient from saved probs
       replaces the Pallas kernel packed_attention.py::_bwd_saved_db_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db);
   attention_bwd_saved:    dqkv only
       replaces the Pallas kernel packed_attention.py::_bwd_saved_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved);
+      both on the same register-resident backward, reading the saved
+      probabilities in place of recomputing them; the first design of the
+      former stays callable as attention_bwd_saved_db_first for the timing that
+      holds the two side by side, and no route reaches it;
   attention_bwd_fused_dw: the saved-probs backward with dqkv kept on chip and
       contracted at once into dt, the f32 dW_qkv and the f32 db_qkv
       replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
@@ -33,9 +34,9 @@ does.
 
 The probs layout, written by the training forward (ops/fused_block.py and
 csrc/fused_attention_block.cu) and read by the saved-probs backward here and
-in csrc/attention_bwd.cuh: (B, H, S, S16) in the compute dtype, S16 = S
-rounded up to 16, row (b, h, i) the normalised probabilities of query i over
-the keys, zero in the columns >= S.  Unlike the TPU's head-concat layout it
+in csrc/attention_regs_bwd.cuh and attention_bwd.cuh: (B, H, S, S16) in the
+compute dtype, S16 = S rounded up to 16, row (b, h, i) the normalised
+probabilities of query i over the keys, zero in the columns >= S.  Unlike the TPU's head-concat layout it
 depends on no block-size policy, so the forward and the backward cannot
 disagree on it.
 
@@ -146,30 +147,51 @@ def _check_inputs(qkv, probs, do, num_heads, what):
     return kl, b, s, c
 
 
-def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
-    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+def _launch_saved_db(wrapper, entry: str, qkv, probs, do, num_heads, scale):
+    """The C entry `entry` of the saved-probs backward with db on CUDA or CPU
+    tensors, counted on `wrapper`.  The (B, 3C) f32 partial sums, one row a
+    sample, are scratch allocated here."""
     if qkv.device.type == "cpu":
         return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
                                          with_db=True)
-    kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_db")
+    what = wrapper.__name__
+    kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, what)
     dqkv = torch.empty_like(qkv)
     db = torch.empty((3 * c,), device=qkv.device, dtype=torch.float32)
     partial = torch.empty((b, 3 * c), device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, db.zero_()
     with torch.cuda.device(qkv.device):
-        err = kl.lib.demo2_attention_bwd_saved_db(
+        err = getattr(kl.lib, entry)(
             qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
             partial.data_ptr(), db.data_ptr(), b, s, c, num_heads, float(scale),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
-    check(err, "attention_bwd_saved_db")
-    attention_bwd_saved_db.launches += 1
+    check(err, what)
+    wrapper.launches += 1
     return dqkv, db
 
 
+def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
+    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    return _launch_saved_db(attention_bwd_saved_db, "demo2_attention_bwd_saved_db", qkv, probs,
+                            do, num_heads, scale)
+
+
 attention_bwd_saved_db.launches = 0
+
+
+def attention_bwd_saved_db_first(qkv, probs, do, *, num_heads: int, scale: float):
+    """attention_bwd_saved_db through the first design of the kernel (one block
+    per (head, sample), dK / dV accumulators and dS in shared memory).  Nothing
+    in the package routes here: chip_smoke.py times it beside the kernel in
+    use."""
+    return _launch_saved_db(attention_bwd_saved_db_first, "demo2_attention_bwd_saved_db_first",
+                            qkv, probs, do, num_heads, scale)
+
+
+attention_bwd_saved_db_first.launches = 0
 
 
 def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):
@@ -315,46 +337,23 @@ def _check_packed(qkv, num_heads, what, do=None):
     return kl, b, s, c
 
 
-def _launch_fwd(wrapper, entry: str, qkv, num_heads, scale):
-    """The forward C entry `entry` on a CUDA qkv, counted on `wrapper`."""
-    what = wrapper.__name__
-    kl, b, s, c = _check_packed(qkv, num_heads, what)
-    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
-    if qkv.numel() == 0:
-        return out
-    with torch.cuda.device(qkv.device):
-        err = getattr(kl.lib, entry)(
-            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, what)
-    wrapper.launches += 1
-    return out
-
-
-def _launch_bwd(wrapper, entry: str, qkv, do, num_heads, scale):
-    """The backward C entry `entry` on CUDA qkv and dO, counted on `wrapper`."""
-    what = wrapper.__name__
-    kl, b, s, c = _check_packed(qkv, num_heads, what, do)
-    dqkv = torch.empty_like(qkv)
-    if qkv.numel() == 0:
-        return dqkv
-    with torch.cuda.device(qkv.device):
-        err = getattr(kl.lib, entry)(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, what)
-    wrapper.launches += 1
-    return dqkv
-
-
 def packed_attention_fwd(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
     """(B, S, 3C) -> (B, S, C): the kernel on CUDA tensors, the plain version
     on CPU tensors."""
     if qkv.device.type == "cpu":
         return packed_self_attention_plain(qkv, num_heads, scale)
-    return _launch_fwd(packed_attention_fwd, "demo2_packed_attention", qkv, num_heads, scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_fwd")
+    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
+    if qkv.numel() == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention(
+            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_fwd")
+    packed_attention_fwd.launches += 1
+    return out
 
 
 packed_attention_fwd.launches = 0
@@ -365,36 +364,21 @@ def packed_attention_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tens
     kernel on CUDA tensors, the plain version on CPU tensors."""
     if qkv.device.type == "cpu":
         return packed_attention_bwd_plain(qkv, do, num_heads, scale)
-    return _launch_bwd(packed_attention_bwd, "demo2_packed_attention_bwd", qkv, do, num_heads,
-                       scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_bwd", do)
+    dqkv = torch.empty_like(qkv)
+    if qkv.numel() == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention_bwd(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_bwd")
+    packed_attention_bwd.launches += 1
+    return dqkv
 
 
 packed_attention_bwd.launches = 0
-
-
-def packed_attention_fwd_first(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
-    """packed_attention_fwd through the first design of the kernel (one block
-    per 16 query rows, scores in shared memory).  Nothing in the package
-    routes here: chip_smoke.py times it beside the kernel in use."""
-    if qkv.device.type == "cpu":
-        return packed_self_attention_plain(qkv, num_heads, scale)
-    return _launch_fwd(packed_attention_fwd_first, "demo2_packed_attention_first", qkv,
-                       num_heads, scale)
-
-
-packed_attention_fwd_first.launches = 0
-
-
-def packed_attention_bwd_first(qkv, do, *, num_heads: int, scale: float) -> torch.Tensor:
-    """packed_attention_bwd through the first design of the kernel (dK / dV
-    accumulators in shared memory); as packed_attention_fwd_first."""
-    if qkv.device.type == "cpu":
-        return packed_attention_bwd_plain(qkv, do, num_heads, scale)
-    return _launch_bwd(packed_attention_bwd_first, "demo2_packed_attention_bwd_first", qkv, do,
-                       num_heads, scale)
-
-
-packed_attention_bwd_first.launches = 0
 
 
 class PackedSelfAttentionFn(torch.autograd.Function):

@@ -23,6 +23,13 @@ The cases, as the tool hard-codes them (:32-52), for the first `heads` heads:
   slice_only   q + k + v.
 With fewer heads than the width holds, the Pallas kernel leaves the other
 output columns unwritten; here they are zero.
+
+On the card every case is a form of the packed self-attention's kernel
+(csrc/attention_regs_fwd.cuh: a (sample, head)'s q, k and v loaded once, one
+warp per 16 query rows with the scores in registers), so the cases split the
+kernel the port runs.  Its stages overlap inside a block: the difference of
+two cases is what a stage adds to the stream, not what it takes alone, and
+scores_only does not load v at all.
 """
 
 from __future__ import annotations

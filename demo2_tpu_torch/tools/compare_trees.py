@@ -1,0 +1,58 @@
+"""Time the attention kernels of several checkouts on one card, in turns.
+
+    python3 -m demo2_tpu_torch.tools.compare_trees parent/ . . parent/
+
+Each argument is the root of a checkout (one that holds chip_smoke.py and
+demo2_tpu_torch/).  One process per argument, in the order given, each in its
+own checkout, so each builds and loads its own kernels: two commits are read
+on the same card within one call, as parent, change, change, parent.  Every
+process prints one line: for kernels 5, 6, 9 and 10 at qkv (192, 129, 2304)
+and (192, 129, 12, 64), the median [min .. max] in ms of six rounds of 20
+launches by CUDA events, taken kernel by kernel in turns, with the card's
+name and power limit.  Two readings of one checkout say how far two processes
+differ before two checkouts are compared.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROUNDS = 6
+TREE_SECONDS = 900  # one checkout's build and turns; a hung process fails the comparison
+CHILD = f"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+if not torch.cuda.is_available():
+    raise SystemExit("compare_trees needs a CUDA device")
+device = torch.device("cuda", 0)
+cs.exact_products()
+cases = cs.attention_kernel_cases(device, cs.PACKED_SHAPES[0], cs.FLASH_SHAPES[0], seed=7)
+got = {{name: [] for name in cases}}
+for _ in range({ROUNDS}):
+    for name, case in cases.items():
+        got[name].append(cs.cuda_ms(case[0], 20))
+times = ", ".join(f"{{name}} {{cs.spread(ms)}}" for name, ms in got.items())
+print(f"{{os.getcwd()}}: {{times}} ms ({{cs.card_line()}})", flush=True)
+"""
+
+
+def main(trees: list[str]) -> None:
+    if not trees:
+        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.compare_trees TREE [TREE ...]")
+    for tree in trees:
+        if not (Path(tree) / "chip_smoke.py").is_file():
+            raise SystemExit(f"compare_trees: {tree} holds no chip_smoke.py")
+    for tree in trees:
+        done = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
+                              text=True, timeout=TREE_SECONDS)
+        if done.returncode != 0:
+            raise SystemExit(f"compare_trees: {tree} failed:\n{done.stdout}{done.stderr}")
+        print(done.stdout.strip().splitlines()[-1], flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -120,3 +120,18 @@ def test_wrapper_counts_no_launch_on_the_cpu():
 def test_bound_counts_the_bytes_of_the_written_columns():
     assert ab.case_bytes(ab.SHAPE, 12) == 2 * 192 * 136 * (2304 + 768)
     assert ab.case_bytes(ab.SHAPE, 4) == 2 * 192 * 136 * (2304 + 256)
+
+
+def test_compare_trees_refuses_what_it_cannot_time(tmp_path):
+    """tools/compare_trees.py times checkouts in turns on the card: without
+    arguments, with a directory that is no checkout, or without a card (each
+    tree's process says so) it exits with a message and prints no time."""
+    from demo2_tpu_torch.tools import compare_trees
+
+    with pytest.raises(SystemExit, match="usage"):
+        compare_trees.main([])
+    with pytest.raises(SystemExit, match="holds no chip_smoke.py"):
+        compare_trees.main([str(tmp_path)])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA device"):
+            compare_trees.main([str(Path(ab.__file__).resolve().parents[2])])

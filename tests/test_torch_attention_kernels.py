@@ -256,28 +256,23 @@ def test_attention_wrappers_never_fall_back_off_the_cpu():
             call()
 
 
-@pytest.mark.parametrize("name", ["packed_attention_fwd_first", "packed_attention_bwd_first"])
-def test_first_design_wrappers_take_the_plain_version_on_the_cpu_only(name):
-    """The first design of kernels 5 and 6 stays callable for the timing that
-    holds it beside the kernels in use: on CPU tensors each wrapper is the
-    plain version, bit for bit, counting no launch; off the CPU it raises
-    without a card; and no module of the package routes to it."""
+FIRST_DESIGN_OF_5_AND_6 = ["packed_attention_fwd_first", "packed_attention_bwd_first",
+                           "demo2_packed_attention_first", "demo2_packed_attention_bwd_first"]
+
+
+@pytest.mark.parametrize("name", FIRST_DESIGN_OF_5_AND_6)
+def test_first_design_of_kernels_5_and_6_is_gone(name):
+    """Kernels 5 and 6 have one design: the wrappers and C entries that kept
+    their first one callable for a timing are in no signature, source or
+    module of the package."""
     import demo2_tpu_torch
+    from demo2_tpu_torch.ops import kernel_lib
     from pathlib import Path
 
-    first = getattr(pa, name)
-    current = getattr(pa, name.removesuffix("_first"))
-    args = [t(a) for a in _qkv(2, 9, seed=5)[:1 if "fwd" in name else 2]]
-    kw = dict(num_heads=H, scale=0.125)
-    assert torch.equal(first(*args, **kw), current(*args, **kw))
-    assert first.launches == 0
-    meta = [torch.zeros(a.shape, device="meta", dtype=torch.bfloat16) for a in args]
-    with pytest.raises(ValueError, match="CUDA"):
-        first(*meta, **kw)
+    assert not hasattr(pa, name) and name not in kernel_lib._SIGNATURES
     package = Path(demo2_tpu_torch.__file__).parent
-    users = {p.name for p in package.rglob("*.py") if name in p.read_text()}
-    assert users - {"kernel_lib.py"} == {"packed_attention.py"}  # kernel_lib: the C signatures
-    assert not hasattr(fa, name.replace("packed", "flash"))  # kernels 9 and 10 have one design
+    files = [p for p in package.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert files and not [p.name for p in files if name in p.read_text()]
 
 
 def test_every_cuda_source_is_part_of_the_build():
@@ -292,14 +287,28 @@ def test_every_cuda_source_is_part_of_the_build():
     for source, entries in (("flash_attention.cu", ("demo2_flash_attention",
                                                     "demo2_flash_attention_bwd")),
                             ("packed_attention.cu", ("demo2_packed_attention",
-                                                     "demo2_packed_attention_bwd",
-                                                     "demo2_packed_attention_first",
-                                                     "demo2_packed_attention_bwd_first"))):
+                                                     "demo2_packed_attention_bwd")),
+                            ("attention_bwd.cu", ("demo2_attention_bwd_saved_db",
+                                                  "demo2_attention_bwd_saved",
+                                                  "demo2_attention_bwd_saved_db_first")),
+                            ("attention_ablate.cu", ("demo2_attention_ablate",))):
         text = (kernel_lib.CSRC_DIR / source).read_text()
         for entry in entries:
             assert entry in kernel_lib._SIGNATURES
             assert f'extern "C" int {entry}(' in text
-    assert not any("flash" in entry and "first" in entry for entry in kernel_lib._SIGNATURES)
+    # One first design is kept, kernel 4's; every signature has its C entry.
+    assert [e for e in kernel_lib._SIGNATURES if "first" in e] == [
+        "demo2_attention_bwd_saved_db_first"]
+    sources = "".join((kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES)
+    assert all(f" {entry}(" in sources for entry in kernel_lib._SIGNATURES)
+    # The register-resident headers carry the packed, head-major, saved-probs
+    # and ablation kernels; the first design's stay for kernels 1, 3 and 8.
+    includes = {src: (kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES}
+    for src in ("packed_attention.cu", "flash_attention.cu", "attention_bwd.cu"):
+        assert '#include "attention_regs_bwd.cuh"' in includes[src]
+    assert '#include "attention_regs_fwd.cuh"' in includes["attention_ablate.cu"]
+    assert '#include "attention_fwd.cuh"' not in includes["attention_ablate.cu"]
+    assert "kRecompute) {" not in (kernel_lib.CSRC_DIR / "attention_bwd.cuh").read_text()
 
 
 @pytest.mark.parametrize("width,heads,seq,ok", [
@@ -440,22 +449,20 @@ def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsy
 
 
 def test_chip_smoke_design_timing_rehearses_on_the_plain_versions():
-    """The timing of kernels 5 and 6 beside their first design and the
-    library's call, rehearsed on the CPU: the turns are taken in order, the two
-    designs are held to the rounding bound, and no time is read off the card."""
+    """The timing of kernel 4 beside its first design, rehearsed on the CPU:
+    the turns are taken in order, the two designs are held to the rounding
+    bound, and no time is read off the card."""
     import math
 
     import chip_smoke as cs
 
     readings = cs.time_designs(CPU, "a rehearsal on the CPU", shape=(2, 9, 3 * H * D), rounds=5,
                                iters=1)
-    assert set(readings) == {"packed_attention_fwd", "packed_attention_bwd"}
-    assert list(readings["packed_attention_fwd"]) == ["new", "first", "library"]
-    assert list(readings["packed_attention_bwd"]) == ["new", "first"]  # no backward off the card
-    for got in readings.values():
-        for times in got.values():
-            assert len(times) == 5 and all(math.isnan(x) for x in times)
-    assert cs.DESIGN_ROUNDS >= 5
+    assert set(readings) == {"attention_bwd_saved_db"}
+    assert list(readings["attention_bwd_saved_db"]) == ["new", "first"]  # no library call
+    for times in readings["attention_bwd_saved_db"].values():
+        assert len(times) == 5 and all(math.isnan(x) for x in times)
+    assert cs.DESIGN_ROUNDS >= 5 and cs.QKV_SHAPE == (192, 129, 2304)
 
 
 # ---------------------------------------------------------------------------

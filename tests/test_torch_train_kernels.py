@@ -93,6 +93,115 @@ def test_saved_probs_backward_plain_matches_pallas_kernel(b, s, c, h, with_db):
     assert not np.asarray(want)[:, s:].any()  # the TPU's padded rows carry nothing
 
 
+# bf16 on both sides with the same rounding points (dS once, then dq, dk, dv):
+# the two differ only where an f32 sum taken in another order lands on the
+# other side of a bf16 rounding.  chip_smoke.py holds kernel 4 to this mean on
+# the card; here the plain version it is held against meets it against the
+# Pallas kernel, and the misrounded control does not.
+ROUNDING_CASES = [(4, 9, 128, 2), (8, 13, 128, 2)]
+
+
+def _bf16_saved_inputs(b, s, c, h, seed):
+    """_bwd_inputs with the probs as a bf16 forward saves them."""
+    qkv, probs, do = _bwd_inputs(b, s, c, h, seed)
+    bf = lambda a: t(a).to(torch.bfloat16)
+    return bf(qkv), bf(probs), bf(do)
+
+
+def _pallas_saved_db_bf16(qkv, probs, do, h, scale):
+    """_packed_bwd_saved_db in interpret mode on the same bf16 values."""
+    s = qkv.shape[1]
+    s_pad = -(-s // 8) * 8
+    pad = lambda a: jnp.asarray(np.pad(n(a.float()), ((0, 0), (0, s_pad - s), (0, 0))),
+                                jnp.bfloat16)
+    jprobs = jnp.asarray(port_to_jax_probs(n(probs.float()), s_pad), jnp.bfloat16)
+    dqkv, db = _packed_bwd_saved_db(h, scale, pad(qkv), jprobs, pad(do), interpret=True)
+    return t(np.asarray(dqkv, np.float32)[:, :s]), np.asarray(db)
+
+
+@pytest.mark.parametrize("b,s,c,h", ROUNDING_CASES)
+def test_saved_probs_backward_plain_rounds_where_the_pallas_kernel_rounds_bf16(b, s, c, h):
+    import chip_smoke as cs
+
+    qkv, probs, do = _bf16_saved_inputs(b, s, c, h, seed=b + s)
+    scale = (c // h) ** -0.5
+    want, want_db = _pallas_saved_db_bf16(qkv, probs, do, h, scale)
+    got, got_db = pa.attention_bwd_saved_db(qkv, probs, do, num_heads=h, scale=scale)
+    assert got.dtype == torch.bfloat16 and got_db.dtype == torch.float32
+    assert cs.mean_err(got, want) <= cs.ROUNDING_MEAN_TOL
+    # db sums the rounded dqkv: a flipped rounding moves one term by a bf16 ulp.
+    np.testing.assert_allclose(n(got_db), want_db, rtol=0,
+                               atol=cs.DB_REL * float(np.abs(want_db).max()))
+
+
+@pytest.mark.parametrize("b,s,c,h", ROUNDING_CASES)
+def test_misrounded_control_of_kernel_4_fails_the_rounding_bound(b, s, c, h):
+    """The control of chip_smoke.py's phase 5, dS left in f32 for the dQ and
+    dK products, is further than ROUNDING_MEAN_TOL from the plain version (and
+    from the Pallas kernel), so the bound can tell where a kernel rounds; dv,
+    which no dS enters, is the plain version's."""
+    import chip_smoke as cs
+
+    qkv, probs, do = _bf16_saved_inputs(b, s, c, h, seed=b + s)
+    kw = dict(num_heads=h, scale=(c // h) ** -0.5)
+    plain = pa.attention_bwd_saved_plain(qkv, probs, do, with_db=False, **kw)
+    wrong = cs._misrounded_saved_bwd(qkv, probs, do, **kw)
+    want, _ = _pallas_saved_db_bf16(qkv, probs, do, h, kw["scale"])
+    assert wrong.shape == plain.shape and wrong.dtype == plain.dtype == torch.bfloat16
+    assert cs.mean_err(wrong, plain) > 10 * cs.ROUNDING_MEAN_TOL
+    assert cs.mean_err(wrong, want) > 10 * cs.ROUNDING_MEAN_TOL
+    assert torch.equal(wrong[..., 2 * c:], plain[..., 2 * c:])
+
+
+SAVED_EDGES = [(2, 144, 2), (2, 16, 2), (3, 1, 2), (2, 40, 2), (2, 77, 3)]  # (batch, S, heads)
+
+
+def test_chip_smoke_train_kernel_phase_checks_kernel_4_at_the_edges(capsys):
+    """Phase 5 of chip_smoke.py on the CPU, where each wrapper is its plain
+    version: kernel 4 is held at a main shape with its control and at the
+    edges of its tiling, as packed qkv of phase 9's edge sizes, with dqkv and
+    db compared over two runs and kernel 7 against kernel 4 at each."""
+    import chip_smoke as cs
+
+    edges = [(b, s, 3 * heads * 64) for b, s, heads in SAVED_EDGES]
+    errors = cs.phase_train_kernels(CPU, shapes=((4, 9, 128),), edges=edges)
+    assert errors == {"fused_attention_block_train": 0.0, "attention_bwd_saved_db": 0.0,
+                      "attention_bwd_saved": 0.0}
+    out = capsys.readouterr().out
+    for shape in [(4, 9, 384)] + [e for e in edges if e[1] > 1]:
+        assert f"kernel 4 dqkv {shape}: control with dS left in f32" in out
+    for shape in [(4, 9, 384)] + edges:
+        assert f"kernel 4 dqkv {shape}: vs plain bf16 max 0.000e+00" in out
+        assert (f"kernel 4 {shape}: dqkv and db bit-identical over two runs; kernel 7's dqkv "
+                f"bitwise equal to kernel 4's") in out
+    assert out.count("control with dS left in f32") == 5  # over one key nothing is rounded
+    assert cs.SAVED_EDGE_SHAPES == tuple((b, s, 3 * h * d) for b, s, h, d in cs.FLASH_EDGE_SHAPES)
+
+
+def test_first_design_of_kernel_4_is_reached_by_no_module():
+    """The first design of kernel 4 stays callable for the timing that holds
+    it beside the kernel in use: on CPU tensors the wrapper is the plain
+    version, bit for bit, counting no launch; off the CPU it raises without a
+    card; and no module of the package routes to it."""
+    import demo2_tpu_torch
+    from pathlib import Path
+
+    qkv, probs, do = (t(a) for a in _bwd_inputs(2, 9, 128, 2, seed=5))
+    kw = dict(num_heads=2, scale=0.125)
+    for a, w in zip(pa.attention_bwd_saved_db_first(qkv, probs, do, **kw),
+                    pa.attention_bwd_saved_db(qkv, probs, do, **kw)):
+        assert torch.equal(a, w)
+    assert pa.attention_bwd_saved_db_first.launches == 0
+    meta = [x.to("meta", torch.bfloat16) for x in (qkv, probs, do)]
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.attention_bwd_saved_db_first(*meta, **kw)
+    package = Path(demo2_tpu_torch.__file__).parent
+    users = {p.name for p in package.rglob("*.py")
+             if "attention_bwd_saved_db_first" in p.read_text()}
+    assert users - {"kernel_lib.py"} == {"packed_attention.py"}  # kernel_lib: the C signature
+    assert not hasattr(pa, "attention_bwd_saved_first")  # kernel 7 is kernel 4's template, db off
+
+
 @pytest.mark.parametrize("b,s,c,h", [(4, 9, 32, 2), (12, 9, 32, 4)])
 def test_function_grads_match_fused_bwd_and_reference_autodiff(b, s, c, h):
     x, lns, lnb, wqkv, bqkv, wout, bout = _attn_inputs(b, s, c, seed=3 * b + s)
