@@ -18,8 +18,15 @@ requests and train steps against the plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
      versions, kernel build time and ptxas register / smem / spill lines;
-  2. eval kernels (1, 2) vs their plain versions, at x (192, 129, 768) and
-     at batch 1 (3, 129, 768), tolerance asserted;
+  2. the block kernels (1, 2, 2's training form, 3; their GEMMs on wgmma,
+     gemm_sm90.cuh) at the edges of the GEMM's tiling, x (3, 129, 768),
+     (5, 77, 768), (1, 1, 768), (8, 129, 384), (8, 129, 512) and the flagship's
+     (192, 129, 768): 1 and 2 against their plain bf16 versions, 3 and 2-train
+     as phases 5 and 18 hold them, 3 and 2-train within a mean of 1.5e-4 of the
+     output's mean size of the plain versions that round alike, a bound that
+     misrounded controls on the same inputs fail (the out-projection's residual
+     in f32, fc2's in bf16, p rounded after PV, h rounded before the bias), 1
+     and 2 bitwise equal to 3's and 2-train's outputs;
   5. training kernels at the same shapes: the training forward (3) with its
      residuals and probs, the saved-probs backward with db (4) and without
      (7, bitwise equal to 4's dqkv), and the autograd Function's 7 grads, each
@@ -47,9 +54,11 @@ requests and train steps against the plain path.  Phases:
      shape, finiteness, unit norm, 12 launches of kernels 1 and 2 per
      forward (and of no other kernel), cosine >= 0.999 to the plain path,
      match() and CMC / mAP;
-  4. serving timing (printed): kernels 1 and 2 vs plain with TFLOP/s,
-     extractor batch-1 latency and batch-64 throughput on both paths, peak
-     memory, a profile of one batch-64 request;
+  4. serving timing (printed): kernels 1 and 2 vs plain with TFLOP/s, their
+     four GEMMs alone (profiler device time inside the kernels' own launches)
+     beside torch.addmm at the same shapes, extractor batch-1 latency and
+     batch-64 throughput on both paths, peak memory, a profile of one batch-64
+     request;
   6. training: a device cache of synthetic 256x128 images, 171 ids x 8; the
      step-1 gradients of both paths (cosine >= 0.999 whole, >= 0.99 per
      block's ln_1 / in_proj / out_proj); 20 Adam (bf16 moments) steps of PK
@@ -63,12 +72,9 @@ requests and train steps against the plain path.  Phases:
      1 and 2 at eval, 3 and 4 in training), mAP in (0, 1], the best
      checkpoint saved and reloaded;
   8. training timing (printed): kernels 3, 4 and 7 vs plain with TFLOP/s;
-     kernel 4 beside its first design in turns (new, first; six rounds of 20
-     launches), the median and the spread of each, the two designs' dqkv
-     within a mean of 1e-5 of each other, and the host's time for one call of
-     each design, read in the same turns; the train step in ms and img/s on
-     both paths in turns, peak memory, a profile of one train step on each
-     path;
+     the GEMMs of 3 and 2's training form alone beside torch.addmm; the train
+     step in ms and img/s on both paths in turns, peak memory, a profile of one
+     train step on each path;
   10. the head-major route: attention_core(implementation="pallas") and a
      MultiHeadAttention cross-attention of equal lengths, forward and
      backward, each launching kernels 9 and 10 once, cosine >= 0.999 to the
@@ -110,9 +116,11 @@ requests and train steps against the plain path.  Phases:
      db within 1e-3 of their largest; each output no further from an f64
      computation than 1.5 x the plain version; all three bit-identical over
      two runs.  The MLP's training form (2) vs its plain version: out as
-     phase 2, the hidden h within one bf16 ulp.  The ablation kernel's (13)
-     five cases vs their plain versions at (192, 136, 2304) and (8, 136,
-     2304), within two bf16 ulps and a mean of 1e-5 of their mean size;
+     phase 2, the hidden h within one bf16 ulp, at most 0.2% of it
+     differing, which h rounded before the bias (a control) exceeds.  The
+     ablation kernel's (13) five cases vs their plain versions at (192, 136,
+     2304) and (8, 136, 2304), within two bf16 ulps and a mean of 1e-5 of
+     their mean size;
   19. the block backward through the kernel-8 route at x (192, 129, 768): the
      seven grads against the kernel-4 route's (cosine >= 0.9999, dx within
      phase 2's bounds), launching kernel 3 once, kernel 8 once, kernel 4 never;
@@ -302,7 +310,7 @@ def block_inputs(shape, device, seed):
 def kernel_cases(x, attn, mlp):
     from demo2_tpu_torch.ops import fused_block as fb
 
-    attn_kw = dict(num_heads=HEADS, scale=(x.shape[-1] // HEADS) ** -0.5)
+    attn_kw = dict(num_heads=x.shape[-1] // 64, scale=64 ** -0.5)  # heads of 64
     return {
         "fused_attention_block": (
             lambda: fb.fused_attention_block(x, **attn, **attn_kw),
@@ -325,34 +333,101 @@ def exact_products() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def phase_kernels(device) -> dict:
+# The shapes of the block kernels' checks: M = B x S not a multiple of the
+# GEMM's 128-row tile ((3, 129), (5, 77), one row), the widths 384 and 512 of
+# heads of 64 (T2T's), whose qkv, fc1 and out-proj widths are not multiples of
+# 256 (and at 512 not of the 192-column tile either), and the flagship shape,
+# which gives each block of the persistent GEMM many tiles.
+BLOCK_EDGE_SHAPES = ((3, 129, 768), (5, 77, 768), (1, 1, 768), (8, 129, 384), (8, 129, 512),
+                     FLAGSHIP)
+# Kernels 3 and 2 (training form) round where attention_block_train_plain and
+# mlp_block_train_plain round, so the two differ only where an f32 sum taken in
+# another order lands on the other side of a bf16 rounding: on an H100 a mean
+# of 1e-8 to 8e-5 of the output's mean size (the most at kernel 3's out, whose
+# residual sum reads every such move of attn).  Rounding at a neighbouring
+# point (the out-projection's residual added in f32, fc2's in bf16, p rounded
+# after PV, h rounded before the bias) moves 4e-4 to 2e-3 of it.  The bound
+# sits between; kernels 1 and 2 equal the training forms' outputs bit for bit.
+BLOCK_ROUNDING_REL = 1.5e-4
+
+
+def check_rounding(what, got, same, control=None) -> None:
+    """`got` within a mean of BLOCK_ROUNDING_REL of mean |same| of `same`, the
+    plain version that rounds where the kernel does; `control` (a plain
+    version rounding at another point, on the same inputs) beyond it."""
+    size = same.float().abs().mean().item()
+    d = mean_err(got, same)
+    line = (f"[kernel] {what}: vs the plain version rounding alike mean {d:.3e} ({d / size:.2e} "
+            f"of mean |plain| {size:.3e})")
+    require(d <= BLOCK_ROUNDING_REL * size,
+            f"{what}: mean abs {d} > {BLOCK_ROUNDING_REL} of {size}: the kernel rounds where "
+            f"its plain version does not")
+    if control is not None:
+        dc = mean_err(control, same)
+        line += f"; misrounded control {dc:.3e} ({dc / size:.2e})"
+        require(dc > BLOCK_ROUNDING_REL * size,
+                f"{what}: the misrounded control is within {BLOCK_ROUNDING_REL} of the plain "
+                f"version ({dc}), so the bound cannot tell where a kernel rounds")
+    log(line)
+
+
+def check_eval_kernel(name, kernel, plain, weights, x, shape):
+    """Kernel 1 or 2 against its plain bf16 version and an f32 run of it;
+    returns (the kernel's output, max abs error)."""
+    got = kernel()
+    yk = got.float()
+    yp = plain(x, weights).float()
+    y32 = plain(x.float(), {k: v.float() for k, v in weights.items()})
+    sync()
+    d = (yk - yp).abs()
+    max_abs, mean_abs = d.max().item(), d.mean().item()
+    k32 = (yk - y32).abs()
+    p32 = (yp - y32).abs()
+    log(f"[kernel] {name} {tuple(shape)}: vs plain bf16 max {max_abs:.3e} "
+        f"mean {mean_abs:.3e}; vs plain f32: kernel max {k32.max().item():.3e} "
+        f"mean {k32.mean().item():.3e}, plain bf16 max {p32.max().item():.3e} "
+        f"mean {p32.mean().item():.3e}")
+    require(bool(torch.isfinite(yk).all()), f"{name} {shape}: non-finite output")
+    require(max_abs <= MAX_ABS_TOL, f"{name} {shape}: max abs {max_abs} > {MAX_ABS_TOL}")
+    require(mean_abs <= MEAN_ABS_TOL, f"{name} {shape}: mean abs {mean_abs} > {MEAN_ABS_TOL}")
+    require(k32.mean().item() <= F32_MEAN_RATIO * p32.mean().item(),
+            f"{name} {shape}: less accurate against f32 than the plain bf16 path")
+    return got, max_abs
+
+
+def phase_kernels(device, shapes=BLOCK_EDGE_SHAPES) -> dict:
+    """The block kernels at `shapes`: 1 and 2 against their plain bf16
+    versions (phase 2's bounds), 3 with its residuals and probs (phase 5's
+    bounds) and 2's training form with h (phase 18's), 3 and 2-train also
+    within BLOCK_ROUNDING_REL of the plain versions that round alike, each
+    beside misrounded controls that fail that bound, and 1 and 2 bitwise
+    equal to 3's and 2-train's outputs.  Returns name -> max abs error at the
+    flagship shape."""
     exact_products()
     errors = {}
-    for shape in (FLAGSHIP, BATCH1):
+    for shape in shapes:
         x, attn, mlp = block_inputs(shape, device, seed=1)
+        eval_out = {}
         for name, (kernel, plain, weights) in kernel_cases(x, attn, mlp).items():
-            yk = kernel().float()
-            yp = plain(x, weights).float()
-            y32 = plain(x.float(), {k: v.float() for k, v in weights.items()})
-            torch.cuda.synchronize()
-            d = (yk - yp).abs()
-            max_abs, mean_abs = d.max().item(), d.mean().item()
-            k32 = (yk - y32).abs()
-            p32 = (yp - y32).abs()
-            log(f"[kernel] {name} {tuple(shape)}: vs plain bf16 max {max_abs:.3e} "
-                f"mean {mean_abs:.3e}; vs plain f32: kernel max {k32.max().item():.3e} "
-                f"mean {k32.mean().item():.3e}, plain bf16 max {p32.max().item():.3e} "
-                f"mean {p32.mean().item():.3e}")
-            require(bool(torch.isfinite(yk).all()), f"{name} {shape}: non-finite output")
-            require(max_abs <= MAX_ABS_TOL, f"{name} {shape}: max abs {max_abs} > {MAX_ABS_TOL}")
-            require(mean_abs <= MEAN_ABS_TOL,
-                    f"{name} {shape}: mean abs {mean_abs} > {MEAN_ABS_TOL}")
-            require(k32.mean().item() <= F32_MEAN_RATIO * p32.mean().item(),
-                    f"{name} {shape}: less accurate against f32 than the plain bf16 path")
+            eval_out[name], max_abs = check_eval_kernel(name, kernel, plain, weights, x, shape)
             if shape == FLAGSHIP:
                 errors[name] = max_abs
+        kw = dict(num_heads=shape[-1] // 64, scale=64 ** -0.5)
+        train = check_train_forward(x, {k: v.float() for k, v in attn.items()}, shape, kw)
+        mlp_out = check_mlp_train(device, shape)["out"]
+        pairs = (("kernel 1", "kernel 3", eval_out["fused_attention_block"], train["residuals"][0]),
+                 ("kernel 2", "kernel 2 (training form)", eval_out["fused_mlp_block"], mlp_out))
+        for a, b, ya, yb in pairs:
+            if REHEARSAL:  # the plain versions of 1 and 2 round as the plain path does
+                log(f"[rehearsal] {a} {tuple(shape)}: bitwise equality to {b} on the card only")
+            else:
+                require(torch.equal(ya, yb), f"{a} {shape}: output not bitwise equal to {b}'s")
+                log(f"[kernel] {a} {tuple(shape)}: output bitwise equal to {b}'s")
     log(f"[kernel] tolerance: max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}, "
-        f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's: ok")
+        f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's; 3 and 2-train within "
+        f"a mean of {BLOCK_ROUNDING_REL} of mean |plain| of the plain version rounding alike "
+        f"(every misrounded control beyond it), 1 and 2 bitwise 3 and 2-train, at {len(shapes)} "
+        f"shapes: ok")
     return errors
 
 
@@ -558,12 +633,77 @@ def time_kernels(cases: dict, card) -> dict:
     return times
 
 
+# The products of the block kernels (gemm_sm90.cuh), each under its epilogue's
+# name in the kernel's symbol: (its rows of x, the block kernel that launches
+# it, the epilogue, N and K in units of the width).
+BLOCK_GEMMS = {"fused_attention_block": (("qkv", "BiasEpilogue", 3, 1),
+                                         ("out-proj", "BiasResidualBf16Epilogue", 1, 1)),
+               "fused_attention_block_train": (("qkv", "BiasEpilogue", 3, 1),
+                                               ("out-proj", "BiasResidualBf16Epilogue", 1, 1)),
+               "fused_mlp_block": (("fc1", "BiasQuickGeluEpilogue", 4, 1),
+                                   ("fc2", "BiasResidualF32Epilogue", 1, 4)),
+               "fused_mlp_block_train": (("fc1 with h", "BiasQuickGeluHiddenEpilogue", 4, 1),
+                                         ("fc2", "BiasResidualF32Epilogue", 1, 4))}
+
+
+def device_ms(fn, iters=10) -> dict:
+    """Device time of each kernel that `iters` calls of `fn` launch, by name
+    (torch.profiler / CUPTI), in ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def time_block_gemms(device, card, names, shape=FLAGSHIP) -> dict:
+    """Each GEMM of the block kernels `names` alone, read off the profiler
+    inside the kernel's own launches at x of `shape`, beside one torch.addmm
+    (cuBLAS) on bf16 operands of the same shape, bias included; the port
+    never calls the latter.  Returns (kernel, product) -> (ms, addmm ms)."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    x, attn, mlp = block_inputs(shape, device, seed=1)
+    kw = dict(num_heads=shape[-1] // 64, scale=64 ** -0.5)
+    calls = {"fused_attention_block": lambda: fb.fused_attention_block(x, **attn, **kw),
+             "fused_attention_block_train": lambda: fb.fused_attention_block_train(x, **attn, **kw),
+             "fused_mlp_block": lambda: fb.fused_mlp_block(x, **mlp),
+             "fused_mlp_block_train": lambda: fb.fused_mlp_block_train(x, **mlp)}
+    b, s, c = shape
+    m = b * s
+    g = torch.Generator().manual_seed(3)
+    got = {}
+    for name in names:
+        kernels = device_ms(calls[name])
+        for product, epilogue, n_mult, k_mult in BLOCK_GEMMS[name]:
+            n, k = n_mult * c, k_mult * c
+            ms = sum(t for key, t in kernels.items() if f"::{epilogue}>" in key)
+            a = torch.randn(m, k, generator=g).to(device, torch.bfloat16)
+            w = (torch.randn(n, k, generator=g) * k ** -0.5).to(device, torch.bfloat16)
+            bias = torch.randn(n, generator=g).to(device, torch.bfloat16)
+            lib_ms = sum(device_ms(lambda: torch.addmm(bias, a, w.t())).values())
+            rate = lambda t: 2 * m * n * k / t / 1e9
+            log(f"[gemm] {name} {product} ({m} x {k}) @ ({k} x {n}): {ms:.4f} ms "
+                f"({rate(ms):.1f} TFLOP/s); torch.addmm {lib_ms:.4f} ms ({rate(lib_ms):.1f} "
+                f"TFLOP/s) ({card})")
+            require(ms > 0, f"{name}: no device time under gemm_sm90_kernel<{epilogue}>")
+            got[(name, product)] = (ms, lib_ms)
+    return got
+
+
 def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
     x, attn, mlp = block_inputs(FLAGSHIP, device, seed=1)
     times = time_kernels({
         name: timed(kernel, lambda plain_fn=plain_fn, weights=weights: plain_fn(x, weights),
                     block_flops(name, FLAGSHIP), FLAGSHIP, [x, *weights.values()])
         for name, (kernel, plain_fn, weights) in kernel_cases(x, attn, mlp).items()}, card)
+    time_block_gemms(device, card, ("fused_attention_block", "fused_mlp_block"))
     time_extractor(device, card, cfg, model, plain_cfg, plain)
     return times
 
@@ -689,9 +829,27 @@ def check_train_forward(x, p, shape, kw) -> dict:
     require(dp <= PROBS_MAX_ABS, f"kernel 3 probs {shape}: max abs {dp} > {PROBS_MAX_ABS}")
     require(row <= PROBS_ROW_SUM, f"kernel 3 probs {shape}: a row sums {row} away from 1")
     require(pad == 0.0, f"kernel 3 probs {shape}: non-zero columns past S")
+    out_control, attn_control = _misrounded_attention_block(x, w, plain, kw)
+    check_rounding(f"kernel 3 out {tuple(shape)}", got[0], plain[0], out_control)
+    check_rounding(f"kernel 3 qkv {tuple(shape)}", got[1], plain[1])
+    check_rounding(f"kernel 3 attn {tuple(shape)}", got[2], plain[2],
+                   attn_control if s > 1 else None)  # over one key nothing is rounded
     return {"max_abs": max((yk.float() - yp.float()).abs().max().item()
                            for yk, yp in zip(got[:3], plain[:3])),
             "residuals": got}
+
+
+def _misrounded_attention_block(x, w, plain, kw):
+    """Kernel 3's out with the out-projection's residual added in f32 (fc2's
+    rounding), and its attn with p rounded after PV (kernel 5's), from the
+    plain version's own qkv and attn."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+
+    _, qkv, attn, _ = plain
+    c = x.shape[-1]
+    y = fb._mm_f32(attn.reshape(-1, c), w["wout"].t()) + w["bout"].float()
+    out = (x.float() + y.reshape(x.shape)).to(x.dtype)
+    return out, pa.packed_self_attention_plain(qkv, kw["num_heads"], kw["scale"])
 
 
 def saved_probs_inputs(shape, device, seed):
@@ -1099,84 +1257,12 @@ def train_kernel_flops(name: str, shape) -> int:
     return 8 * b * s * s * c  # dV, dP, dQ, dK
 
 
-DESIGN_ROUNDS = 6  # turns of (new, first design), 20 launches each
 QKV_SHAPE = (192, 129, 2304)  # the flagship's packed qkv (3B, S, 3C) at batch 64
 
 
 def spread(xs) -> str:
     """median [min .. max] of a list of readings."""
     return f"{float(np.median(xs)):.4f} [{min(xs):.4f} .. {max(xs):.4f}]"
-
-
-def run_untimed(fn, iters) -> float:
-    """A rehearsal's stand-in for cuda_ms: one call, and no time for it."""
-    fn()
-    return math.nan
-
-
-def host_us(fn, iters=100) -> float:
-    """The host's time for one call of `fn`, in microseconds: the clock around
-    `iters` calls that wait for nothing (the launch queue holds them), between
-    two synchronisations."""
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    seconds = time.perf_counter() - t0
-    sync()
-    return seconds * 1e6 / iters
-
-
-def time_designs(device, card, shape=QKV_SHAPE, rounds=DESIGN_ROUNDS, iters=20) -> dict:
-    """Kernel 4 beside its first design on the same inputs, in turns (new,
-    first, new, first, ...): the median and the spread of each over `rounds`
-    readings of `iters` launches, beside the bound and the TFLOP/s by the
-    counted operations, and the host's time for one call of each design, read
-    in the same turns (the new one encodes its tensor maps at every launch).
-    No one library call computes the function.  The first design's dqkv must
-    sit within ROUNDING_MEAN_TOL of the new one's and its db within DB_REL.
-    The *_first wrapper is reached from here only.  Returns name -> {new,
-    first}: the lists of readings."""
-    from demo2_tpu_torch.ops import packed_attention as pa
-
-    b, s, c3 = shape
-    kw = dict(num_heads=c3 // 3 // 64, scale=64 ** -0.5)
-    inputs = saved_probs_inputs(shape, device, seed=7)
-    name = "attention_bwd_saved_db"
-    turns = {"new": lambda: pa.attention_bwd_saved_db(*inputs, **kw),
-             "first": lambda: pa.attention_bwd_saved_db_first(*inputs, **kw)}
-    (dqkv, db), (dqkv_first, db_first) = turns["new"](), turns["first"]()
-    diff = mean_err(dqkv, dqkv_first)
-    db_diff, db_scale = (db - db_first).abs().max().item(), db.abs().max().item()
-    log(f"[designs] {name}: first design vs new: dqkv mean abs {diff:.3e}, db max abs "
-        f"{db_diff:.3e} (max |db| {db_scale:.3e})")
-    require(diff <= ROUNDING_MEAN_TOL,
-            f"{name}: the two designs' dqkv differ by {diff} > {ROUNDING_MEAN_TOL}")
-    require(db_diff <= DB_REL * db_scale, f"{name}: the two designs' db differ by {db_diff}")
-    timer = cuda_ms if device.type == "cuda" else run_untimed
-    got = {which: [] for which in turns}
-    host = {which: [] for which in turns}
-    for _ in range(rounds):
-        for which, fn in turns.items():
-            got[which].append(timer(fn, iters))
-        if device.type == "cuda":
-            for which, fn in turns.items():
-                host[which].append(host_us(fn))
-    flops = train_kernel_flops(name, (b, s, c3 // 3))
-    moved = tensor_bytes(inputs) + tensor_bytes((dqkv, db))
-    bound_ms, bound_by = roofline(flops, BF16_PEAK_TFLOPS, moved)
-    new_ms = float(np.median(got["new"]))
-    rate = ("not timed off the card" if math.isnan(new_ms)
-            else f"{flops / new_ms / 1e9:.1f} TFLOP/s")
-    log(f"[designs] {name} x{shape}, {rounds} turns of {iters} launches, ms as median "
-        f"[min .. max]: new {spread(got['new'])} ({rate} by the {flops / 1e9:.1f} GFLOP "
-        f"counted), first design {spread(got['first'])}, library call none; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB moved) ({card})")
-    if device.type == "cuda":
-        log(f"[designs] {name}: host time of one call through the wrapper, {rounds} turns, "
-            f"us as median [min .. max]: new {spread(host['new'])}, first design "
-            f"{spread(host['first'])} ({card})")
-    return {name: got}
 
 
 def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler) -> dict:
@@ -1203,7 +1289,7 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
     times = time_kernels({name: timed(kern, plain_fn, train_kernel_flops(name, FLAGSHIP),
                                       FLAGSHIP, inputs)
                           for name, (kern, plain_fn, inputs) in cases.items()}, card)
-    time_designs(device, card)
+    time_block_gemms(device, card, ("fused_attention_block_train", "fused_mlp_block_train"))
     time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler)
     return times
 
@@ -1327,6 +1413,25 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
                                 lambda *x: fa.flash_attention_bwd_plain(*x, scale=scale),
                                 (q, k, v, dof), 10 * fb_ * fs * fs * fh * fd, flash_lib[1]),
     }
+
+
+def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
+                  flash_shape=FLASH_SHAPES[0], seed=7) -> dict:
+    """Kernels 1, 2, 2-train, 3, 5, 6, 9 and 10 on fixed inputs, as
+    tools/compare_trees.py times them: name -> one call of the kernel's
+    wrapper.  Only the wrappers' public signatures are used, so the same
+    cases run against the package of any checkout of the port."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    x, attn, mlp = block_inputs(block_shape, device, seed)
+    kw = dict(num_heads=block_shape[-1] // 64, scale=64 ** -0.5)
+    cases = {"fused_attention_block": lambda: fb.fused_attention_block(x, **attn, **kw),
+             "fused_mlp_block": lambda: fb.fused_mlp_block(x, **mlp),
+             "fused_attention_block_train": lambda: fb.fused_attention_block_train(x, **attn, **kw),
+             "fused_mlp_block_train": lambda: fb.fused_mlp_block_train(x, **mlp)}
+    attention = attention_kernel_cases(device, packed_shape, flash_shape, seed)
+    cases.update({name: case[0] for name, case in attention.items()})
+    return cases
 
 
 def _bf16(t):
@@ -1962,7 +2067,7 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8)
 
 
-def check_mlp_train(device, shape) -> float:
+def check_mlp_train(device, shape) -> dict:
     from demo2_tpu_torch.ops import fused_block as fb
 
     x, _, mlp = block_inputs(shape, device, seed=1)
@@ -1990,7 +2095,30 @@ def check_mlp_train(device, shape) -> float:
             f"{what}: h more than one bf16 ulp (+ {HIDDEN_FLOOR}) from the plain's")
     require((dh > 0).float().mean().item() <= HIDDEN_DIFFER_SHARE,
             f"{what}: more than {HIDDEN_DIFFER_SHARE} of h differs from the plain's")
-    return d.max().item()
+    out_control, h_control = _misrounded_mlp(x, mlp)
+    check_rounding(f"{what} out", out, p_out, out_control)
+    differ = ((h_control.float() - p_h.float()).abs() > 0).float().mean().item()
+    log(f"[new-kernel] {what}: control with h rounded before the bias: {differ:.2e} of h "
+        f"differs from the plain's")
+    require(differ > HIDDEN_DIFFER_SHARE,
+            f"{what}: the misrounded h differs in no more than {HIDDEN_DIFFER_SHARE} of its "
+            f"elements, so the bound cannot tell where a kernel rounds")
+    return {"max_abs": d.max().item(), "out": out}
+
+
+def _misrounded_mlp(x, mlp):
+    """Kernel 2's out with fc2's residual added in bf16 (the out-projection's
+    rounding), and h rounded once before the bias and again after it."""
+    from demo2_tpu_torch.ops import fused_block as fb
+
+    c = x.shape[-1]
+    t = fb._layernorm_f32(x, mlp["ln_weight"], mlp["ln_bias"]).to(x.dtype).reshape(-1, c)
+    product = fb._mm_f32(t, mlp["w1"].t())
+    hf = product + mlp["b1"].float()
+    g = (hf * torch.sigmoid(1.702 * hf)).to(x.dtype)
+    y = (fb._mm_f32(g, mlp["w2"].t()) + mlp["b2"].float()).to(x.dtype)
+    h = (product.to(x.dtype).float() + mlp["b1"].float()).to(x.dtype)
+    return x + y.reshape(x.shape), h
 
 
 def ablate_input(shape, device, seed=23, std=0.5):
@@ -2034,7 +2162,8 @@ def phase_new_kernels(device, qkv_shapes=QKV_SHAPES, ablate_shapes=ABLATE_SHAPES
     for shape in qkv_shapes:
         errors.setdefault("attention_bwd_fused_dw", check_fused_dw(device, shape))
         b, s, c3 = shape
-        errors.setdefault("fused_mlp_block_train", check_mlp_train(device, (b, s, c3 // 3)))
+        errors.setdefault("fused_mlp_block_train",
+                          check_mlp_train(device, (b, s, c3 // 3))["max_abs"])
     for shape in ablate_shapes:
         errors.setdefault("attention_ablate", check_ablate(device, shape))
     log(f"[new-kernel] tolerances: kernel 8 dt max abs <= {MAX_ABS_TOL}, mean abs <= "

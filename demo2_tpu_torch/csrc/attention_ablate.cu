@@ -26,7 +26,8 @@
 // difference between two cases is the work one of them leaves out, in the
 // kernel the port runs.  (Until the tool moved here its cases kept the first
 // design's tiling, one 128-thread block per 16 query rows with the scores in
-// shared memory; attention_fwd.cuh records what it read there.)  The cases
+// shared memory, which read 0.3205 ms: loads and store 0.0756, QK^T 0.0627,
+// PV 0.1038, softmax 0.0784, one after another between barriers.)  The cases
 // overlap inside a block as the forward's stages do, so their differences say
 // what each stage adds to the stream, not what it would take alone.
 //

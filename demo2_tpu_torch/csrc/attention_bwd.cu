@@ -17,12 +17,6 @@
 // task order into a (B, 3C) f32 buffer, and a second small kernel adds the B
 // partials in a fixed order.  No atomics, so db does not vary from run to run.
 //
-// The first design (attention_bwd_kernel<Probs::kSaved, true> of
-// attention_bwd.cuh: one block per (head, sample), dK / dV accumulators and dP,
-// dS in shared memory) stays reachable through demo2_attention_bwd_saved_db_first,
-// which nothing in the package routes to: chip_smoke.py times the two designs
-// in turns.
-//
 // Layouts: qkv (B*S, 3C) bf16, q | k | v, each head-major (H, 64) inside its
 // C slice; dO (B*S, C) bf16; probs (B, H, S, S16) bf16 with S16 = S rounded up
 // to 16 and zero columns >= S (demo2_tpu_torch/ops/packed_attention.py, the
@@ -107,23 +101,4 @@ extern "C" int demo2_attention_bwd_saved(const void* qkv, const void* probs, con
   return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
                                               width, heads, scale,
                                               static_cast<cudaStream_t>(stream)));
-}
-
-// The first design of kernel 4, for the timing that holds the two side by side.
-extern "C" int demo2_attention_bwd_saved_db_first(const void* qkv, const void* probs,
-                                                  const void* dout, void* dqkv,
-                                                  void* db_partial, void* db, int batch,
-                                                  int seq, int width, int heads, float scale,
-                                                  void* stream) {
-  using namespace demo2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(qkv);
-  bf16* dx = static_cast<bf16*>(dqkv);
-  const HeadLayout packed = packed_layout(seq, width);
-  cudaError_t err = launch_attention_bwd<Probs::kSaved, true>(
-      x, x + width, x + 2 * width, packed, static_cast<const bf16*>(dout),
-      rows_layout(seq, width), static_cast<const bf16*>(probs), dx, dx + width, dx + 2 * width,
-      packed, static_cast<float*>(db_partial), batch, seq, heads, scale, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_db(db_partial, db, batch, width, st));
 }

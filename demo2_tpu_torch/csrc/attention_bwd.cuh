@@ -1,30 +1,24 @@
 // The first design of the attention backward from saved probabilities: the
-// attention part of kernel 8 (attention_bwd_fused_dw.cu, kOnChip) and the one
-// entry of attention_bwd.cu that keeps the first design of kernel 4 callable
-// for the timing beside the kernel in use (demo2_attention_bwd_saved_db_first).
-// Kernels 4 and 7 themselves, like 6 and 10, run on attention_regs_bwd.cuh.
+// attention part of kernel 8 (attention_bwd_fused_dw.cu).  Kernels 4 and 7,
+// like 6 and 10, run on attention_regs_bwd.cuh.
 // Per (sample, head), from bf16 q, k, v, dO and the forward's saved bf16 P:
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P))   (f32, from
 //   dP and P, not through dO.O), rounded to bf16 once;  dQ = dS K * scale;
 //   dK = dS^T Q * scale;  dq, dk, dv rounded to bf16.
-// Where P comes from and where it is rounded is the Probs mode, a template
-// parameter of both designs, listed at the enum below; this file carries
-// Probs::kSaved alone.
-// With kDb (the first design of kernel 4) the f32 column sums of the rounded
-// dq, dk, dv of the (sample, head) go to db_partial (B, 3C), which
-// attention_bwd.cu adds up over B in a fixed order: no atomics.
-// With kOnChip (kernel 8, attention_bwd_fused_dw.cu) the rounded
-// dq, dk, dv never leave the SM: they stay in shared memory as bf16 tiles
-// (rows >= S zero) for the products that follow in the same block.
+// Where P comes from and where it is rounded is the Probs mode, listed at the
+// enum below; this file carries Probs::kSaved alone.  The rounded dq, dk, dv
+// never leave the SM: they stay in shared memory as bf16 tiles (rows >= S
+// zero) for the products that follow in the same block (kernel 8's dt, dW_qkv
+// and db_qkv).
 //
-// Layouts: q, k, v through HeadLayout `in`, dO through `dol`, dq, dk, dv
-// through `outl` (attention_fwd.cuh); probs (B, H, S, S16) bf16, S16 = S
-// rounded up to 16, zero columns >= S (demo2_tpu_torch/ops/packed_attention.py,
-// the one definition of that layout).
+// Layouts: q, k, v through HeadLayout `in`, dO through `dol`
+// (attention_fwd.cuh); probs (B, H, S, S16) bf16, S16 = S rounded up to 16,
+// zero columns >= S (demo2_tpu_torch/ops/packed_attention.py, the one
+// definition of that layout).
 //
-// Design: one 256-thread block (8 warps) per (head, sample).  Q, K, V and dO
-// of the head (<= 144 x 64 bf16 each) and f32 dK / dV accumulators live in
-// shared memory (176-195 KB of the SM's 227 KB, so one block per SM); the
+// Design: the whole 256-thread block (8 warps) carries one (head, sample).  Q,
+// K, V and dO of the head (<= 144 x 64 bf16 each) and f32 dK / dV accumulators
+// live in shared memory (~197 KB with the dq tile, so one block per SM); the
 // queries are walked in 16-row tiles.  dK and dV sum over every query row,
 // so keeping the whole sequence in one block needs no second pass over the
 // queries.  Per tile: the saved P rows -> dP (wmma) -> dS on CUDA cores, one
@@ -32,14 +26,14 @@
 // from and stored to shared memory) and dQ = dS K (wmma) -> bf16 rows of dq.
 //
 // What bounds it on an H100: at the ViT-B shape (B = 192, S = 129, 12 heads
-// of 64) the kernel reads q, k, v and dO (152 MB; the saved probs another 86
-// MB) and writes dq, dk, dv (114 MB): ~0.1 ms at the card's 3.35 TB/s.  Its
-// 2 x 4 x 129 x 144 x 64 FLOP per (sample, head), ~22 GFLOP in all, run
-// through simple wmma tiles with one block per SM; five block barriers a query
-// tile, 72 accumulator tiles loaded and stored on each, four of eight warps
-// idle in the dQ product and the db sums walked row by row hold it at ten times
-// that (1.01 ms): the shared-memory traffic of those tiles, not device memory,
-// bounds this design.  attention_regs_bwd.cuh keeps all of it in registers.
+// of 64) the attention reads q, k, v and dO (152 MB; the saved probs another
+// 86 MB): ~0.07 ms at the card's 3.35 TB/s.  Its 2 x 4 x 129 x 144 x 64 FLOP
+// per (sample, head), ~22 GFLOP in all, run through simple wmma tiles with one
+// block per SM; five block barriers a query tile and 72 accumulator tiles
+// loaded and stored on each held kernel 4's first design, this tile with its
+// outputs written out, at ten times that (1.01 ms): the shared-memory traffic
+// of those tiles, not device memory, bounds this design.
+// attention_regs_bwd.cuh keeps all of it in registers.
 
 #pragma once
 
@@ -67,9 +61,9 @@ constexpr int kFTileElems = kBwdQTile * kLdF;
 // Where P comes from and where the backward rounds, and which header
 // instantiates the mode:
 //   kSaved (packed_attention.py::_bwd_saved(_db)_kernel; kernels 4 and 7 on
-//       attention_regs_bwd.cuh, kernel 8 and kernel 4's first design on this
-//       file): P is the forward's saved bf16 p; dS uses that bf16 p and is
-//       rounded to bf16 before the dQ / dK products;
+//       attention_regs_bwd.cuh, kernel 8 on this file): P is the forward's
+//       saved bf16 p; dS uses that bf16 p and is rounded to bf16 before the
+//       dQ / dK products;
 //   kRecompute (packed_attention.py::_bwd_kernel; kernel 6,
 //       attention_regs_bwd.cuh only): p is
 //       recomputed from Q and K in f32 (exp(s - max) / (sum + 1e-30)); dV
@@ -80,37 +74,25 @@ constexpr int kFTileElems = kBwdQTile * kLdF;
 enum class Probs { kSaved, kRecompute, kRecomputeF32 };
 
 // Shared memory of one block: Q, K, V, dO; dK, dV; the P and dS tiles; the
-// f32 tile; [on chip] the bf16 dq of the head.  `mode` is Probs::kSaved.
-__host__ __device__ constexpr int bwd_smem_bytes(Probs mode, bool on_chip = false) {
-  return 4 * kHeadElems * 2 + 2 * kAccElems * 4 + 2 * kPTileElems * 2 + kFTileElems * 4 +
-         (on_chip ? kHeadElems * 2 : 0);
-}
-static_assert(bwd_smem_bytes(Probs::kSaved) == 180480, "the footprint of kernel 4's first design");
-static_assert(bwd_smem_bytes(Probs::kSaved, true) <= 232448,
-              "the block must fit one SM's shared memory");
+// f32 tile; the bf16 dq of the head.
+constexpr int kBwdDqOffset =
+    4 * kHeadElems * 2 + 2 * kAccElems * 4 + 2 * kPTileElems * 2 + kFTileElems * 4;
+constexpr int kBwdSmemBytes = kBwdDqOffset + kHeadElems * 2;
+static_assert(kBwdSmemBytes <= 232448, "the block must fit one SM's shared memory");
 static_assert((kHeadElems * 2) % 128 == 0 && (kAccElems * 4) % 128 == 0 &&
                   (kPTileElems * 2) % 128 == 0 && (kFTileElems * 4) % 128 == 0,
               "wmma needs 32-byte aligned tiles");
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The backward of one (sample b, head h) by the whole block.  With kOnChip
-// nothing is written to dq / dk / dv: on return (after a block barrier) the
-// bf16 dq, dk and dv of the head, rows < S16 and rows >= S zero, lie in
-// shared memory at bwd_dq_tile(), the Q region and the K region, each
-// [row * kLdH + d]; every other region is free.
-template <Probs kMode, bool kDb, bool kOnChip>
+// The backward of one (sample b, head h) by the whole block.  Nothing is
+// written to device memory: on return (after a block barrier) the bf16 dq, dk
+// and dv of the head, rows < S16 and rows >= S zero, lie in shared memory at
+// bwd_dq_tile(), the Q region and the K region, each [row * kLdH + d]; every
+// other region is free.
 __device__ __forceinline__ void attention_bwd_head(
     unsigned char* bwd_smem, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, HeadLayout in, const bf16* __restrict__ dout, HeadLayout dol,
-    const bf16* __restrict__ probs, bf16* __restrict__ dq, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, HeadLayout outl, float* __restrict__ db_partial, int S, float scale,
-    int h, int b, int heads) {
+    const bf16* __restrict__ probs, int S, float scale, int h, int b, int heads) {
   using namespace nvcuda;
-  static_assert(kMode == Probs::kSaved, "recomputed probabilities: attention_regs_bwd.cuh");
-  static_assert(!(kOnChip && kDb), "kernel 8 sums db itself");
   bf16* q_s = reinterpret_cast<bf16*>(bwd_smem);
   bf16* k_s = q_s + kHeadElems;
   bf16* v_s = k_s + kHeadElems;
@@ -120,8 +102,7 @@ __device__ __forceinline__ void attention_bwd_head(
   bf16* p_s = reinterpret_cast<bf16*>(dv_s + kAccElems);
   bf16* ds_s = p_s + kPTileElems;
   float* f_s = reinterpret_cast<float*>(ds_s + kPTileElems);
-  constexpr int kDqOffset = bwd_smem_bytes(kMode);
-  bf16* dq_s = reinterpret_cast<bf16*>(bwd_smem + kDqOffset);          // kOnChip
+  bf16* dq_s = reinterpret_cast<bf16*>(bwd_smem + kBwdDqOffset);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -129,7 +110,6 @@ __device__ __forceinline__ void attention_bwd_head(
   const int s_pad = (S + 15) & ~15;
   const size_t src = in.at(b, h);
   const size_t do_src = dol.at(b, h);
-  const size_t dst = outl.at(b, h);
   const bf16* p_src = probs + (static_cast<size_t>(b) * heads + h) * S * s_pad;
 
   // Q, K, V, dO of the head, rows >= S zero; dK = dV = 0.
@@ -153,7 +133,6 @@ __device__ __forceinline__ void attention_bwd_head(
     dk_s[i] = 0.f;
     dv_s[i] = 0.f;
   }
-  float dq_sum = 0.f;  // kDb: thread tid < 64 sums dq column tid
   __syncthreads();
 
   const int vecs = s_pad / 8;
@@ -236,45 +215,22 @@ __device__ __forceinline__ void attention_bwd_head(
     }
     __syncthreads();
 
-    // 6. dq rows < S, scaled and rounded to bf16; with db, the rounded values
-    //    go back to f_s for the column sums (rows >= S as zeros).
+    // 6. dq rows, scaled and rounded to bf16, rows >= S zero.
     if (tid < kBwdQTile * 8) {
       const int r = tid >> 3;
       const int c = (tid & 7) * 8;
       float f[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) f[e] = f_s[r * kLdF + c + e] * scale;
-      if (q0 + r < S) {
-        const uint4 u = pack8(f);
-        if (kOnChip) {
-          *reinterpret_cast<uint4*>(&dq_s[(q0 + r) * kLdH + c]) = u;
-        } else {
-          *reinterpret_cast<uint4*>(dq + dst + static_cast<size_t>(q0 + r) * outl.row + c) = u;
-        }
-        if (kDb) unpack8(u, f);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = 0.f;
-        if (kOnChip) *reinterpret_cast<uint4*>(&dq_s[(q0 + r) * kLdH + c]) = zero;
-      }
-      if (kDb) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f_s[r * kLdF + c + e] = f[e];
-      }
-    }
-    if (kDb) {
-      __syncthreads();
-      if (tid < kHeadDim) {
-        for (int r = 0; r < kBwdQTile; ++r) dq_sum += f_s[r * kLdF + tid];
-      }
+      *reinterpret_cast<uint4*>(&dq_s[(q0 + r) * kLdH + c]) = q0 + r < S ? pack8(f) : zero;
     }
     __syncthreads();
   }
 
-  // dk (scaled) and dv rows < S, rounded to bf16.  On chip: all S16 rows (the
-  // accumulators' rows >= S are zero), into the Q and K regions, which the
-  // loop above no longer reads.
-  for (int i = tid; i < (kOnChip ? s_pad : S) * 8; i += kBwdThreads) {
+  // dk (scaled) and dv, all S16 rows (the accumulators' rows >= S are zero),
+  // rounded to bf16 into the Q and K regions, which the loop above no longer
+  // reads.
+  for (int i = tid; i < s_pad * 8; i += kBwdThreads) {
     const int r = i >> 3;
     const int c = (i & 7) * 8;
     float fk[8], fv[8];
@@ -283,69 +239,15 @@ __device__ __forceinline__ void attention_bwd_head(
       fk[e] = dk_s[r * kLdAcc + c + e] * scale;
       fv[e] = dv_s[r * kLdAcc + c + e];
     }
-    if (kOnChip) {
-      *reinterpret_cast<uint4*>(&q_s[r * kLdH + c]) = pack8(fk);
-      *reinterpret_cast<uint4*>(&k_s[r * kLdH + c]) = pack8(fv);
-    } else {
-      const size_t row = dst + static_cast<size_t>(r) * outl.row + c;
-      *reinterpret_cast<uint4*>(dk + row) = pack8(fk);
-      *reinterpret_cast<uint4*>(dv + row) = pack8(fv);
-    }
+    *reinterpret_cast<uint4*>(&q_s[r * kLdH + c]) = pack8(fk);
+    *reinterpret_cast<uint4*>(&k_s[r * kLdH + c]) = pack8(fv);
   }
-  if (kOnChip) __syncthreads();
-
-  if (kDb) {
-    // Column sums of the rounded dq, dk, dv of this (head, sample), rows in
-    // order: threads 0-63 take dq and dk column tid, threads 64-127 dv.
-    const int C = heads * kHeadDim;
-    float* part = db_partial + static_cast<size_t>(b) * 3 * C + h * kHeadDim;
-    if (tid < kHeadDim) {
-      float dk_sum = 0.f;
-      for (int r = 0; r < S; ++r) dk_sum += round_bf16(dk_s[r * kLdAcc + tid] * scale);
-      part[tid] = dq_sum;
-      part[C + tid] = dk_sum;
-    } else if (tid < 2 * kHeadDim) {
-      const int c = tid - kHeadDim;
-      float dv_sum = 0.f;
-      for (int r = 0; r < S; ++r) dv_sum += round_bf16(dv_s[r * kLdAcc + c]);
-      part[2 * C + c] = dv_sum;
-    }
-  }
+  __syncthreads();
 }
 
-// Where attention_bwd_head<Probs::kSaved, false, true> leaves the head's dq.
+// Where attention_bwd_head leaves the head's dq.
 __device__ __forceinline__ bf16* bwd_dq_tile(unsigned char* bwd_smem) {
-  constexpr int kDqOffset = bwd_smem_bytes(Probs::kSaved);
-  return reinterpret_cast<bf16*>(bwd_smem + kDqOffset);
-}
-
-// One block per (head, sample).
-template <Probs kMode, bool kDb>
-__global__ void __launch_bounds__(kBwdThreads)
-attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, HeadLayout in, const bf16* __restrict__ dout,
-                     HeadLayout dol, const bf16* __restrict__ probs, bf16* __restrict__ dq,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, HeadLayout outl,
-                     float* __restrict__ db_partial, int S, float scale) {
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  attention_bwd_head<kMode, kDb, false>(bwd_smem, q, k, v, in, dout, dol, probs, dq, dk, dv,
-                                        outl, db_partial, S, scale, blockIdx.x, blockIdx.y,
-                                        gridDim.x);
-}
-
-template <Probs kMode, bool kDb>
-cudaError_t launch_attention_bwd(const bf16* q, const bf16* k, const bf16* v, HeadLayout in,
-                                 const bf16* dout, HeadLayout dol, const bf16* probs, bf16* dq,
-                                 bf16* dk, bf16* dv, HeadLayout outl, float* db_partial,
-                                 int batch, int seq, int heads, float scale, cudaStream_t st) {
-  auto kernel = attention_bwd_kernel<kMode, kDb>;
-  constexpr int smem = bwd_smem_bytes(kMode);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(heads, batch), kBwdThreads, smem, st>>>(q, k, v, in, dout, dol, probs, dq, dk,
-                                                         dv, outl, db_partial, seq, scale);
-  return cudaGetLastError();
+  return reinterpret_cast<bf16*>(bwd_smem + kBwdDqOffset);
 }
 
 }  // namespace

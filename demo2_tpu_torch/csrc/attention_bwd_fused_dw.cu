@@ -22,7 +22,7 @@
 //
 //   * grid (heads, groups); block (h, g) walks the samples g, g + groups, ...
 //     in order.  Per sample it runs the attention backward of the head
-//     (attention_bwd_head, kOnChip), then from the three bf16 tiles in shared
+//     (attention_bwd_head), then from the three bf16 tiles in shared
 //     memory
 //       - adds their column sums to a register (db of its head, its samples);
 //       - writes dqkv_h W_h, the head's share of dt, to dt_partial[h, b]
@@ -51,7 +51,6 @@
 namespace demo2 {
 namespace {
 
-constexpr int kFusedSmemBytes = bwd_smem_bytes(Probs::kSaved, true);
 constexpr int kSections = 3;               // dq, dk, dv
 constexpr int kDwCols = 64;                // columns of t per shared-memory chunk
 constexpr int kRowTiles = kMaxSeq / 16;    // at most 9 tiles of 16 sequence rows
@@ -86,9 +85,8 @@ attention_bwd_fused_dw_kernel(const bf16* __restrict__ qkv, const bf16* __restri
   float db_sum = 0.f;  // thread tid < 192: column tid % 64 of section tid / 64
 
   for (int b = g; b < B; b += groups) {
-    attention_bwd_head<Probs::kSaved, false, true>(
-        bwd_smem, qkv, qkv + C, qkv + 2 * C, packed, dout, rows, probs, nullptr, nullptr,
-        nullptr, packed, nullptr, S, scale, h, b, heads);
+    attention_bwd_head(bwd_smem, qkv, qkv + C, qkv + 2 * C, packed, dout, rows, probs, S, scale,
+                       h, b, heads);
 
     // db: the column sums of the rounded dq, dk, dv, rows in order.
     if (tid < kSections * kHeadDim) {
@@ -245,12 +243,12 @@ extern "C" int demo2_attention_bwd_fused_dw(const void* qkv, const void* probs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_fused_dw_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kFusedSmemBytes);
+                                         kBwdSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* dtp = static_cast<float*>(dt_partial);
   float* dwp = static_cast<float*>(dw_partial);
   float* dbp = static_cast<float*>(db_partial);
-  attention_bwd_fused_dw_kernel<<<dim3(heads, groups), kBwdThreads, kFusedSmemBytes, st>>>(
+  attention_bwd_fused_dw_kernel<<<dim3(heads, groups), kBwdThreads, kBwdSmemBytes, st>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs),
       static_cast<const bf16*>(dout), static_cast<const bf16*>(t),
       static_cast<const bf16*>(wqkv), dtp, dwp, dbp, batch, seq, width, scale);

@@ -659,7 +659,7 @@ cudaError_t launch_attention_regs_bwd(const bf16* q, const bf16* k, const bf16* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
-  err = regs_grid(batch * heads, &grid);
+  err = persistent_grid(batch * heads, &grid);
   if (err != cudaSuccess) return err;
   CUtensorMap maps[4];
   const bf16* bases[4] = {q, k, v, dout};

@@ -1,5 +1,5 @@
 // The register-resident attention forward: the second design of the attention
-// forward tile.  Two kernels are instantiated from it, one per rounding mode:
+// forward tile.  Kernels are instantiated from it in each rounding mode:
 //   Softmax::kF32         flash_attention.cu, kernel 9: replaces the Pallas
 //       kernel demo2_tpu/ops/flash_attention.py::_fwd_kernel.  p stays f32 for
 //       the PV product (a bf16 hi / lo split, two tensor-core products into one
@@ -7,20 +7,28 @@
 //   Softmax::kNormAfterPV packed_attention.cu, kernel 5: replaces
 //       demo2_tpu/ops/packed_attention.py::_fwd_kernel.  The UNnormalised exp
 //       is rounded to bf16 once for the PV product and the f32 result is
-//       multiplied by 1 / (sum + 1e-30), where sum adds the unrounded exps.
+//       multiplied by 1 / (sum + 1e-30), where sum adds the unrounded exps;
+//   Softmax::kNormBeforePV fused_attention_block.cu, the attention of kernels
+//       1 and 3 (demo2_tpu/ops/fused_block.py::_fwd_kernel_infer and
+//       ::_fwd_kernel, their _fwd_kernel_core): p = exp(s - max) / (sum +
+//       1e-30) in f32, rounded to bf16 once for the PV product.  Kernel 3's
+//       form (kSaveProbs) also stores those bf16 p rows, the same registers
+//       through the same rounding, to probs (B, H, S, S16), columns >= S zero:
+//       the layout kernel 4 reads.
 // The ablation tool (attention_ablate.cu, kernel 13) instantiates
 // kNormAfterPV a few more times, with parts of a task's work left out (the
-// Ablate forms, listed at the enum below).  Softmax::kNormBeforePV (kernels 1
-// and 3) stays on the first design, attention_fwd.cuh.  Per (sample, head),
+// Ablate forms, listed at the enum below).  Per (sample, head),
 //   o = softmax(q k^T * scale) v,
 // with the scores in f32.
 //
 // What bounds the work on an H100: at 192 samples x 129 rows x 12 heads of 64
 // the kernel must move 152 MB (0.045 ms at 3.35 TB/s) and counts 9.8 GFLOP;
 // with the split it executes 18.3 GFLOP, 0.02 ms at the tensor cores' peak,
-// without it 12.2.  So bytes bound it, and the first design (attention_fwd.cuh)
-// missed that bound by 7-8x because it read every head's K and V nine times and
-// passed scores and probabilities through shared memory between barriers.
+// without it 12.2 (kernel 3 writes another 85.6 MB of probabilities: 0.071
+// ms).  So bytes bound it, and the first design (128-thread wmma blocks, since
+// deleted) missed that bound by 7-8x because it read every head's K and V nine
+// times and passed scores and probabilities through shared memory between
+// barriers.
 //
 // The design:
 //   * A (sample, head) is an item: its Q, K and V (<= 144 x 64 bf16 each) are
@@ -85,15 +93,18 @@
 // separates kernels 5 and 9 from their bound is how the tiles arrive, not what
 // a task computes.
 //
+// Kernels 1 and 3 (kNormBeforePV) on the packed qkv (192, 129, 2304) of the
+// flagship's blocks: 0.104 ms inside kernel 1 and 0.126 inside kernel 3, whose
+// 85.6 MB of probabilities add 0.022 (H100, profiler device time; the first
+// design, 128-thread wmma blocks, took 0.34).
+//
 // Resources (nvcc 12.9, -Xptxas -v, sm_90a), all 221,264 bytes of dynamic
 // shared memory, one block of sixteen warps on an SM: kF32 128 registers (the
-// cap of four warps a sub-core), kNormAfterPV 127, neither spills; the
-// ablation forms 128 (kNoSoftmax), 72 (kScoresOnly) and 48 (kSliceOnly).
+// cap of four warps a sub-core), kNormAfterPV 127, kNormBeforePV 128 with and
+// without the probabilities, none spills; the ablation forms 128
+// (kNoSoftmax), 72 (kScoresOnly) and 48 (kSliceOnly).
 
 #pragma once
-
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up at run time
-#include <dlfcn.h>
 
 #include "attention_fwd.cuh"
 #include "gemm.cuh"
@@ -139,8 +150,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "r"(a));
 }
 
-// mma_16816 of gemm.cuh without `volatile`: a pure function of its operands,
-// so the compiler may interleave independent accumulator chains.
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate; without
+// `volatile`, a pure function of its operands, so the compiler may interleave
+// independent accumulator chains.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -149,11 +161,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two f32 values as one register of two bf16 (x in the low half), and what
-// the rounding left out as a second one: x = hi + lo up to 2^-18 |x|.
-__device__ __forceinline__ uint32_t pack_bf16x2(float x, float y) {
-  return bf16_bits(x) | (bf16_bits(y) << 16);
-}
+// Two f32 values as one register of two bf16 (pack_bf16x2, gemm.cuh), and
+// what the rounding left out as a second one: x = hi + lo up to 2^-18 |x|.
 __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
   const bf16 xh = __float2bfloat16_rn(x);
   const bf16 yh = __float2bfloat16_rn(y);
@@ -179,42 +188,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // ---- mbarriers and TMA tile copies (the ring of items in shared memory) ------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// One arrival that also announces `bytes` of copies to come.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait until the barrier's phase of parity `parity` has completed (its n-th
-// completion has parity n & 1, n from 0).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// Orders this thread's shared-memory accesses before later TMA copies.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // A parity wait tells two phases of an mbarrier apart, no more: asked for a
 // phase two ahead of the barrier's it returns at once.  A warp's consecutive
 // tasks can lie several items apart (sixteen, where an item is one task), so
@@ -243,22 +216,10 @@ __device__ __forceinline__ void tma_load_head(bf16* dst, const CUtensorMap* map,
 
 // A 4-d tensor map (d, head, row, sample) over a head-split bf16 tensor, its
 // box all S16 rows of one head of one sample, 128-byte swizzled.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 inline cudaError_t head_tensor_map(CUtensorMap* map, const bf16* base, HeadLayout l, int batch,
                                    int seq, int heads) {
-  // libcuda's encoder, looked up in the loaded libcuda at the first call, so
-  // that the library itself links the CUDA runtime only.
-  static EncodeTiledFn encode = nullptr;
-  if (encode == nullptr) {
-    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    void* fn = libcuda != nullptr ? dlsym(libcuda, "cuTensorMapEncodeTiled") : nullptr;
-    if (fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(l.head) * sizeof(bf16),
@@ -399,6 +360,66 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kRegsCols8][4], int pair
   }
 }
 
+// Kernels 1 and 3's softmax (Softmax::kNormBeforePV) of the warp's 16 x S16
+// raw scores, in registers, in the operations of _fwd_kernel_core and its
+// plain version: s * scale, exp(s - max) by the accurate expf, p = e / (sum +
+// 1e-30).  The quotient is the IEEE one's fast path: q = e r with r the
+// row's correctly rounded 1 / (sum + 1e-30), then one fma correction, which
+// rounds correctly here (no quotient is subnormal or overflows) and, unlike
+// the division operator, leaves no slow-path branch between the row's
+// elements.  Their p is rounded to bf16 for PV and saved for the backward, so
+// an f32 ulp here moves a bf16 p now and then, and such moves change training:
+// the token selection after the backbone (SDTPS's top-k) turns them into
+// jumps of the loss.  With the exp2 / reciprocal form of softmax_rows the
+// flagship's first train-step loss read 1.3e-3 off the plain path's, and the
+// 18th jumped to 2.84 among losses of 2.56-2.60, enough to undo
+// chip_smoke.py's check that the loss falls over 20 steps.
+__device__ __forceinline__ void softmax_rows_exact(float (&s)[kRegsCols8][4], int pairs,
+                                                   int keys, float scale, int lane) {
+  const int tq = lane & 3;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < kRegsCols8; ++nt) {
+    if (nt < 2 * pairs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = nt * 8 + 2 * tq + (e & 1) < keys ? s[nt][e] * scale : -INFINITY;
+      }
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+    }
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kRegsCols8; ++nt) {
+    if (nt < 2 * pairs) {
+      s[nt][0] = expf(s[nt][0] - m0);
+      s[nt][1] = expf(s[nt][1] - m0);
+      s[nt][2] = expf(s[nt][2] - m1);
+      s[nt][3] = expf(s[nt][3] - m1);
+      sum0 += s[nt][0] + s[nt][1];
+      sum1 += s[nt][2] + s[nt][3];
+    }
+  }
+  const float d0 = quad_sum(sum0) + 1e-30f, d1 = quad_sum(sum1) + 1e-30f;
+  const float r0 = 1.f / d0, r1 = 1.f / d1;
+  auto quotient = [](float e, float d, float r) {
+    const float q = e * r;
+    return fmaf(fmaf(-q, d, e), r, q);
+  };
+#pragma unroll
+  for (int nt = 0; nt < kRegsCols8; ++nt) {
+    if (nt < 2 * pairs) {
+      s[nt][0] = quotient(s[nt][0], d0, r0);
+      s[nt][1] = quotient(s[nt][1], d0, r0);
+      s[nt][2] = quotient(s[nt][2], d1, r1);
+      s[nt][3] = quotient(s[nt][3], d1, r1);
+    }
+  }
+}
+
 // The warp's 16 x 64 f32 tile (accumulator layout), times `mul`, rounded to
 // bf16 once, through the 16 swizzled rows at `stage` (the warp's own, starting
 // on a multiple of 8 rows) to rows row0 .. row0 + 15 < S of dst (row stride
@@ -426,6 +447,30 @@ __device__ __forceinline__ void store_tile(const float (&o)[kRegsDim8][4], float
   }
 }
 
+// Kernel 3's saved probabilities: the warp's 16 x S16 normalised p
+// (accumulator layout, 0 in columns >= keys), each rounded to bf16 by the
+// very pack_bf16x2 of the same register that product_regs feeds to PV, to
+// rows 0 .. min(16, rows) - 1 of dst (row stride S16, the probs layout of
+// ops/packed_attention.py): 4 bytes a thread, two rows of 16 bytes a quad.
+__device__ __forceinline__ void store_probs(const float (&p)[kRegsCols8][4], bf16* dst,
+                                            int s_pad, int rows, int pairs, int lane) {
+  const int g = lane >> 2;
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < kRegsCols8; ++nt) {
+    if (nt < 2 * pairs) {
+      if (g < rows) {
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(g) * s_pad + nt * 8 + col) =
+            pack_bf16x2(p[nt][0], p[nt][1]);
+      }
+      if (g + 8 < rows) {
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(g + 8) * s_pad + nt * 8 + col) =
+            pack_bf16x2(p[nt][2], p[nt][3]);
+      }
+    }
+  }
+}
+
 // ---- the kernel ----------------------------------------------------------------
 
 // What a task leaves out, for the ablation tool (tools/bench_kernel_ablate.py's
@@ -448,15 +493,17 @@ __device__ __forceinline__ int block_items(int items) {
 // Persistent, and a stream of tasks inside the block: task u is tile u %
 // pairs of the block's item u / pairs, and warp w takes tasks w, w + 16, ...
 // `keys` <= S is the number of valid keys.
-template <Softmax kMode, Ablate kAblate = Ablate::kNone>
+template <Softmax kMode, Ablate kAblate = Ablate::kNone, bool kSaveProbs = false>
 __global__ void __launch_bounds__(kRegsThreads, 1)
 attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
-                          HeadLayout ol, int S, int keys, int heads, int items, float scale) {
-  static_assert(kMode != Softmax::kNormBeforePV, "kernels 1 and 3 stay on attention_fwd.cuh");
+                          HeadLayout ol, int S, int keys, int heads, int items, float scale,
+                          bf16* __restrict__ probs) {
   static_assert(kAblate == Ablate::kNone || kMode == Softmax::kNormAfterPV,
                 "the ablation forms are forms of kernel 5");
+  static_assert(!kSaveProbs || kMode == Softmax::kNormBeforePV,
+                "kernel 3 alone saves its probabilities");
   constexpr bool kLoadV = kAblate != Ablate::kScoresOnly;
   constexpr bool kSplit = kMode == Softmax::kF32;
   constexpr bool kNormFirst = kMode != Softmax::kNormAfterPV;
@@ -565,7 +612,15 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       float s[kRegsCols8][4];
       product_rows(s, q_s, tile * 16, k_s, pairs, lane);
       float m0, m1, rinv0, rinv1;
-      softmax_rows<kNormFirst>(s, pairs, keys, c, lane, m0, m1, rinv0, rinv1);
+      if constexpr (kMode == Softmax::kNormBeforePV) {
+        softmax_rows_exact(s, pairs, keys, scale, lane);
+      } else {
+        softmax_rows<kNormFirst>(s, pairs, keys, c, lane, m0, m1, rinv0, rinv1);
+      }
+      if constexpr (kSaveProbs) {
+        store_probs(s, probs + (static_cast<size_t>(item) * S + tile * 16) * s_pad, s_pad,
+                    S - tile * 16, pairs, lane);
+      }
       float o[kRegsDim8][4];
 #pragma unroll
       for (int nt = 0; nt < kRegsDim8; ++nt)
@@ -603,27 +658,18 @@ attention_regs_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// One block an SM of the current device, or one an item where those are fewer.
-inline cudaError_t regs_grid(int items, int* grid) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *grid = items < sms ? items : sms;
-  return cudaSuccess;
-}
-
-template <Softmax kMode, Ablate kAblate = Ablate::kNone>
+// `probs` (B, H, S, S16): kSaveProbs only.
+template <Softmax kMode, Ablate kAblate = Ablate::kNone, bool kSaveProbs = false>
 cudaError_t launch_attention_regs_fwd(const bf16* q, const bf16* k, const bf16* v, HeadLayout in,
                                       bf16* out, HeadLayout ol, int batch, int seq, int heads,
-                                      float scale, cudaStream_t st, int keys = -1) {
-  auto kernel = attention_regs_fwd_kernel<kMode, kAblate>;
+                                      float scale, cudaStream_t st, int keys = -1,
+                                      bf16* probs = nullptr) {
+  auto kernel = attention_regs_fwd_kernel<kMode, kAblate, kSaveProbs>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kRegsFwdSmemBytes);
   if (err != cudaSuccess) return err;
   int grid = 0;
-  err = regs_grid(batch * heads, &grid);
+  err = persistent_grid(batch * heads, &grid);
   if (err != cudaSuccess) return err;
   CUtensorMap maps[3];
   const bf16* bases[3] = {q, k, v};
@@ -633,7 +679,7 @@ cudaError_t launch_attention_regs_fwd(const bf16* q, const bf16* k, const bf16* 
   }
   kernel<<<grid, kRegsThreads, kRegsFwdSmemBytes, st>>>(maps[0], maps[1], maps[2], out, ol, seq,
                                                          keys < 0 ? seq : keys, heads,
-                                                         batch * heads, scale);
+                                                         batch * heads, scale, probs);
   return cudaGetLastError();
 }
 

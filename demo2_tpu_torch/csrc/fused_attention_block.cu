@@ -2,8 +2,8 @@
 // eval and, with its training residuals, in training.
 //
 // Replaces the Pallas kernels demo2_tpu/ops/fused_block.py::_fwd_kernel_infer
-// (eval, reached through _fused_infer_impl) and ::_fwd_kernel (training,
-// reached through _fused_fwd_impl), with their numerics:
+// (eval, kernel 1, reached through _fused_infer_impl) and ::_fwd_kernel
+// (training, kernel 3, reached through _fused_fwd_impl), with their numerics:
 //   * LN1 statistics in f32 (centered two-pass variance), t rounded to bf16;
 //   * qkv = bf16(t @ Wqkv^T + bqkv) with f32 accumulation and f32 bias;
 //   * scores in f32, keys >= S masked (here: never visited), softmax in f32
@@ -13,29 +13,29 @@
 // The training entry also keeps qkv and attn (which the eval entry writes as
 // scratch) and stores the bf16 p of every (sample, head) in the probs layout
 // of demo2_tpu_torch/ops/packed_attention.py: (B, H, S, S16), S16 = S rounded
-// up to 16, columns >= S zero.  That is the layout attention_bwd.cuh reads.
+// up to 16, columns >= S zero.  That is the layout kernel 4 reads.  Kernel 1
+// is kernel 3 without those stores.
 //
 // Design: four launches on the caller's stream.
-//   1. layernorm_kernel: t = LN1(x) in bf16, once per row;
-//   2. gemm_bf16_kernel with a bias epilogue -> qkv (M, 3C);
-//   3. attention_fwd_kernel<Softmax::kNormBeforePV> (attention_fwd.cuh):
-//      one 128-thread block per (query tile of 16 rows, head, sample), K
-//      then V of the head in shared memory, QK^T and PV on the tensor cores
-//      (wmma), the softmax on CUDA cores;
-//   4. gemm_bf16_kernel with a bias + bf16-residual epilogue -> out.
+//   1. layernorm_kernel (gemm.cuh): t = LN1(x) in bf16, once per row;
+//   2. gemm_sm90_kernel (gemm_sm90.cuh) with a bias epilogue -> qkv (M, 3C);
+//   3. attention_regs_fwd_kernel<Softmax::kNormBeforePV> (attention_regs_fwd.cuh)
+//      on the packed qkv, kernel 5's tile and task stream in kernel 1's
+//      rounding mode; kernel 3's form also stores the probabilities;
+//   4. gemm_sm90_kernel with a bias + bf16-residual epilogue -> out.
 //
 // What bounds it on an H100: at the flagship shape (M = 192 x 129 rows,
-// C = 768, 12 heads of 64) the two projections are 2 x 24768 x 768 x
-// (3 x 768 + 768) ~ 0.12 TFLOP of bf16 tensor-core work, far above the card's
-// ~295 FLOP/byte ridge, so the GEMMs are compute-bound; attention itself is
-// ~10 GFLOP on 33 KB of K/V per (sample, head) and is bound by the shared-
-// memory traffic of the simple wmma tiles.  What the TPU kept in VMEM, t and
-// attn (38 MB each) and qkv (114 MB), here pass through device memory:
-// fusing steps 1-4 so that none of them leaves the SM is the first thing a
-// later PR does.
+// C = 768, 12 heads of 64) the two projections are 116.9 GFLOP and attention
+// 9.8, 0.128 ms at the 989 TFLOP/s bf16 peak; what must move, x, the weights
+// and out (and for kernel 3 qkv, attn and the 85.6 MB of probs), takes less:
+// operations bound it.  The GEMMs run on wgmma fed by TMA (gemm_sm90.cuh), the
+// attention with scores and probabilities in registers
+// (attention_regs_fwd.cuh).  What the TPU kept in VMEM, t and attn (38 MB
+// each) and qkv (114 MB), pass through device memory here: four launches
+// rather than one.
 
-#include "attention_fwd.cuh"
-#include "gemm.cuh"
+#include "attention_regs_fwd.cuh"
+#include "gemm_sm90.cuh"
 
 namespace demo2 {
 namespace {
@@ -50,21 +50,20 @@ cudaError_t attention_block(const bf16* x, const float* ln_scale, const float* l
   cudaError_t err = launch_layernorm(x, ln_scale, ln_bias, t, rows, width, st);
   if (err != cudaSuccess) return err;
 
-  err = launch_gemm(t, wqkv, rows, 3 * width, width, BiasEpilogue{qkv, bqkv, 3 * width}, st);
+  err = launch_gemm_sm90<BiasEpilogue>(t, wqkv, bqkv, qkv, nullptr, rows, 3 * width, width, st);
   if (err != cudaSuccess) return err;
 
   const HeadLayout in = packed_layout(seq, width), ol = rows_layout(seq, width);
   err = probs != nullptr
-            ? launch_attention_fwd<Softmax::kNormBeforePV, true>(
-                  qkv, qkv + width, qkv + 2 * width, in, attn, ol, probs, batch, seq, heads,
-                  scale, st)
-            : launch_attention_fwd<Softmax::kNormBeforePV, false>(
-                  qkv, qkv + width, qkv + 2 * width, in, attn, ol, nullptr, batch, seq, heads,
-                  scale, st);
+            ? launch_attention_regs_fwd<Softmax::kNormBeforePV, Ablate::kNone, true>(
+                  qkv, qkv + width, qkv + 2 * width, in, attn, ol, batch, seq, heads, scale, st,
+                  seq, probs)
+            : launch_attention_regs_fwd<Softmax::kNormBeforePV>(
+                  qkv, qkv + width, qkv + 2 * width, in, attn, ol, batch, seq, heads, scale, st);
   if (err != cudaSuccess) return err;
 
-  return launch_gemm(attn, wout, rows, width, width,
-                     BiasResidualBf16Epilogue{out, bout, x, width}, st);
+  return launch_gemm_sm90<BiasResidualBf16Epilogue>(attn, wout, bout, out, x, rows, width, width,
+                                                    st);
 }
 
 }  // namespace
@@ -112,7 +111,7 @@ extern "C" int demo2_fused_attention_block_train(const void* x, const void* ln_s
       width, heads, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// Compile-time limits of every attention tile (kernels 1, 3-7, 9 and 10),
+// Compile-time limits of every attention tile (kernels 1, 3-10, 13),
 // which the Python wrappers check before launching.
 extern "C" int demo2_attention_head_dim() { return demo2::kHeadDim; }
 extern "C" int demo2_attention_max_seq() { return demo2::kMaxSeq; }

@@ -2,7 +2,8 @@
 // eval and, with the pre-GELU hidden as a second output, in training.
 //
 // Replaces the Pallas kernel demo2_tpu/ops/fused_block.py::_mlp_kernel
-// (reached through _fused_mlp_fwd_impl / fused_mlp_block), with its numerics:
+// (kernel 2, reached through _fused_mlp_fwd_impl / fused_mlp_block), with its
+// numerics:
 //   * LN2 statistics in f32 (centered two-pass variance), t rounded to bf16;
 //   * h = t @ W1^T + b1 in f32; g = bf16(h * sigmoid(1.702 h)) from f32 h;
 //   * y = g @ W2^T + b2 in f32; out = bf16(f32(x) + y)  (residual in f32).
@@ -11,21 +12,22 @@
 // (fused_block.py::_fused_mlp_bwd).  Here that is the training entry's,
 // demo2_fused_mlp_block_train; the eval entry does not write it.
 //
-// Design: three launches on the caller's stream, all from gemm.cuh:
-//   1. layernorm_kernel: t = LN2(x) in bf16, once per row;
-//   2. gemm_bf16_kernel with a bias + QuickGELU epilogue -> g (M, 4C) bf16
-//      [training: the epilogue stores bf16(h) beside g, both from the same
-//      f32 accumulator];
-//   3. gemm_bf16_kernel with a bias + f32-residual epilogue -> out.
+// Design: three launches on the caller's stream.
+//   1. layernorm_kernel (gemm.cuh): t = LN2(x) in bf16, once per row;
+//   2. gemm_sm90_kernel (gemm_sm90.cuh) with a bias + QuickGELU epilogue ->
+//      g (M, 4C) bf16 [training: the epilogue stores bf16(h) beside g, both
+//      from the same f32 accumulators];
+//   3. gemm_sm90_kernel with a bias + f32-residual epilogue -> out.
 //
-// What bounds it on an H100: 2 x 2 x M x C x 4C = 0.23 TFLOP at the flagship
-// shape (M = 24768 rows, C = 768), compute-bound on the tensor cores.  The
-// (M, 4C) hidden g (152 MB at batch 64) and t (38 MB), which the TPU kept in
-// VMEM, pass through device memory; keeping g on chip (a back-to-back GEMM
-// over 4C in slices) is later work.  The training form writes h, another 152
-// MB, which is its output and part of its bound.
+// What bounds it on an H100: 2 x 2 x M x C x 4C = 233.7 GFLOP at the flagship
+// shape (M = 24,768 rows, C = 768), 0.236 ms at the 989 TFLOP/s bf16 peak;
+// the bytes it must move (x, the weights, out; the training form's h, 152 MB)
+// take 0.03-0.08 ms: the tensor cores bound it, and the GEMMs run on wgmma fed
+// by TMA (gemm_sm90.cuh).  The (M, 4C) hidden g (152 MB at batch 64) and t
+// (38 MB), which the TPU kept in VMEM, pass through device memory; keeping g
+// on chip (a back-to-back GEMM over 4C in slices) is later work.
 
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace demo2 {
 namespace {
@@ -44,16 +46,16 @@ cudaError_t mlp_block(const void* x, const void* ln_scale, const void* ln_bias, 
   if (err != cudaSuccess) return err;
 
   const bf16* w1b = static_cast<const bf16*>(w1);
-  err = h == nullptr
-            ? launch_gemm(tb, w1b, rows, hidden, width, BiasQuickGeluEpilogue{gb, b1f, hidden}, st)
-            : launch_gemm(tb, w1b, rows, hidden, width,
-                          BiasQuickGeluHiddenEpilogue{gb, static_cast<bf16*>(h), b1f, hidden}, st);
+  err = h == nullptr ? launch_gemm_sm90<BiasQuickGeluEpilogue>(tb, w1b, b1f, gb, nullptr, rows,
+                                                               hidden, width, st)
+                     : launch_gemm_sm90<BiasQuickGeluHiddenEpilogue>(
+                           tb, w1b, b1f, gb, static_cast<bf16*>(h), rows, hidden, width, st);
   if (err != cudaSuccess) return err;
 
-  return launch_gemm(gb, static_cast<const bf16*>(w2), rows, width, hidden,
-                     BiasResidualF32Epilogue{static_cast<bf16*>(out),
-                                             static_cast<const float*>(b2), xb, width},
-                     st);
+  return launch_gemm_sm90<BiasResidualF32Epilogue>(gb, static_cast<const bf16*>(w2),
+                                                   static_cast<const float*>(b2),
+                                                   static_cast<bf16*>(out), xb, rows, width,
+                                                   hidden, st);
 }
 
 }  // namespace

@@ -27,8 +27,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
            "attention_bwd_fused_dw.cu", "packed_attention.cu", "flash_attention.cu",
            "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
-HEADERS = ("gemm.cuh", "attention_fwd.cuh", "attention_bwd.cuh", "attention_regs_fwd.cuh",
-           "attention_regs_bwd.cuh")
+HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_bwd.cuh",
+           "attention_regs_fwd.cuh", "attention_regs_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +41,6 @@ _SIGNATURES = {
     "demo2_fused_attention_block": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_fused_attention_block_train": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
-    "demo2_attention_bwd_saved_db_first": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_fused_dw": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],

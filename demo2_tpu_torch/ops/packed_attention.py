@@ -17,9 +17,7 @@ saved-probs layout.
       replaces the Pallas kernel packed_attention.py::_bwd_saved_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved);
       both on the same register-resident backward, reading the saved
-      probabilities in place of recomputing them; the first design of the
-      former stays callable as attention_bwd_saved_db_first for the timing that
-      holds the two side by side, and no route reaches it;
+      probabilities in place of recomputing them;
   attention_bwd_fused_dw: the saved-probs backward with dqkv kept on chip and
       contracted at once into dt, the f32 dW_qkv and the f32 db_qkv
       replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
@@ -147,14 +145,14 @@ def _check_inputs(qkv, probs, do, num_heads, what):
     return kl, b, s, c
 
 
-def _launch_saved_db(wrapper, entry: str, qkv, probs, do, num_heads, scale):
-    """The C entry `entry` of the saved-probs backward with db on CUDA or CPU
-    tensors, counted on `wrapper`.  The (B, 3C) f32 partial sums, one row a
+def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
+    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors, the plain
+    version on CPU tensors.  The (B, 3C) f32 partial sums of db, one row a
     sample, are scratch allocated here."""
     if qkv.device.type == "cpu":
         return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
                                          with_db=True)
-    what = wrapper.__name__
+    what = "attention_bwd_saved_db"
     kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, what)
     dqkv = torch.empty_like(qkv)
     db = torch.empty((3 * c,), device=qkv.device, dtype=torch.float32)
@@ -162,36 +160,17 @@ def _launch_saved_db(wrapper, entry: str, qkv, probs, do, num_heads, scale):
     if qkv.numel() == 0:
         return dqkv, db.zero_()
     with torch.cuda.device(qkv.device):
-        err = getattr(kl.lib, entry)(
+        err = kl.lib.demo2_attention_bwd_saved_db(
             qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
             partial.data_ptr(), db.data_ptr(), b, s, c, num_heads, float(scale),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, what)
-    wrapper.launches += 1
+    attention_bwd_saved_db.launches += 1
     return dqkv, db
 
 
-def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
-    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    return _launch_saved_db(attention_bwd_saved_db, "demo2_attention_bwd_saved_db", qkv, probs,
-                            do, num_heads, scale)
-
-
 attention_bwd_saved_db.launches = 0
-
-
-def attention_bwd_saved_db_first(qkv, probs, do, *, num_heads: int, scale: float):
-    """attention_bwd_saved_db through the first design of the kernel (one block
-    per (head, sample), dK / dV accumulators and dS in shared memory).  Nothing
-    in the package routes here: chip_smoke.py times it beside the kernel in
-    use."""
-    return _launch_saved_db(attention_bwd_saved_db_first, "demo2_attention_bwd_saved_db_first",
-                            qkv, probs, do, num_heads, scale)
-
-
-attention_bwd_saved_db_first.launches = 0
 
 
 def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):

@@ -1,16 +1,20 @@
-"""Time the attention kernels of several checkouts on one card, in turns.
+"""Time the port's kernels in several checkouts on one card, in turns.
 
     python3 -m demo2_tpu_torch.tools.compare_trees parent/ . . parent/
 
 Each argument is the root of a checkout (one that holds chip_smoke.py and
 demo2_tpu_torch/).  One process per argument, in the order given, each in its
 own checkout, so each builds and loads its own kernels: two commits are read
-on the same card within one call, as parent, change, change, parent.  Every
-process prints one line: for kernels 5, 6, 9 and 10 at qkv (192, 129, 2304)
-and (192, 129, 12, 64), the median [min .. max] in ms of six rounds of 20
+on the same card within one call, as parent, change, change, parent.  The
+cases are the same in every process: this checkout's
+chip_smoke.py::compare_cases, which calls only the kernels' public wrappers,
+run against the package of the checkout under test.  Every process prints
+one line: for the block kernels 1, 2, 2's training form and 3 at x (192, 129,
+768) and the attention kernels 5, 6, 9 and 10 at qkv (192, 129, 2304) and
+(192, 129, 12, 64), the median [min .. max] in ms of six rounds of 20
 launches by CUDA events, taken kernel by kernel in turns, with the card's
-name and power limit.  Two readings of one checkout say how far two processes
-differ before two checkouts are compared.
+name and power limit.  Two readings of one checkout say how far two
+processes differ before two checkouts are compared.
 """
 
 from __future__ import annotations
@@ -21,20 +25,23 @@ from pathlib import Path
 
 ROUNDS = 6
 TREE_SECONDS = 900  # one checkout's build and turns; a hung process fails the comparison
+CHIP_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"  # the cases' source
 CHILD = f"""
-import os, sys
-sys.path.insert(0, os.getcwd())
+import importlib.util, os, sys
+sys.path.insert(0, os.getcwd())  # the package of the checkout under test
 import torch
-import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(CHIP_SMOKE)!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 if not torch.cuda.is_available():
     raise SystemExit("compare_trees needs a CUDA device")
 device = torch.device("cuda", 0)
 cs.exact_products()
-cases = cs.attention_kernel_cases(device, cs.PACKED_SHAPES[0], cs.FLASH_SHAPES[0], seed=7)
+cases = cs.compare_cases(device)
 got = {{name: [] for name in cases}}
 for _ in range({ROUNDS}):
-    for name, case in cases.items():
-        got[name].append(cs.cuda_ms(case[0], 20))
+    for name, call in cases.items():
+        got[name].append(cs.cuda_ms(call, 20))
 times = ", ".join(f"{{name}} {{cs.spread(ms)}}" for name, ms in got.items())
 print(f"{{os.getcwd()}}: {{times}} ms ({{cs.card_line()}})", flush=True)
 """

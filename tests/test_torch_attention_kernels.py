@@ -289,25 +289,26 @@ def test_every_cuda_source_is_part_of_the_build():
                             ("packed_attention.cu", ("demo2_packed_attention",
                                                      "demo2_packed_attention_bwd")),
                             ("attention_bwd.cu", ("demo2_attention_bwd_saved_db",
-                                                  "demo2_attention_bwd_saved",
-                                                  "demo2_attention_bwd_saved_db_first")),
+                                                  "demo2_attention_bwd_saved")),
                             ("attention_ablate.cu", ("demo2_attention_ablate",))):
         text = (kernel_lib.CSRC_DIR / source).read_text()
         for entry in entries:
             assert entry in kernel_lib._SIGNATURES
             assert f'extern "C" int {entry}(' in text
-    # One first design is kept, kernel 4's; every signature has its C entry.
-    assert [e for e in kernel_lib._SIGNATURES if "first" in e] == [
-        "demo2_attention_bwd_saved_db_first"]
+    # No first design is kept; every signature has its C entry.
+    assert not [e for e in kernel_lib._SIGNATURES if "first" in e]
     sources = "".join((kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES)
     assert all(f" {entry}(" in sources for entry in kernel_lib._SIGNATURES)
-    # The register-resident headers carry the packed, head-major, saved-probs
-    # and ablation kernels; the first design's stay for kernels 1, 3 and 8.
+    # The register-resident headers carry every attention kernel but kernel
+    # 8's, the Hopper GEMM the block kernels' products.
     includes = {src: (kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES}
     for src in ("packed_attention.cu", "flash_attention.cu", "attention_bwd.cu"):
         assert '#include "attention_regs_bwd.cuh"' in includes[src]
-    assert '#include "attention_regs_fwd.cuh"' in includes["attention_ablate.cu"]
-    assert '#include "attention_fwd.cuh"' not in includes["attention_ablate.cu"]
+    for src in ("attention_ablate.cu", "fused_attention_block.cu"):
+        assert '#include "attention_regs_fwd.cuh"' in includes[src]
+    for src in ("fused_attention_block.cu", "fused_mlp_block.cu"):
+        assert '#include "gemm_sm90.cuh"' in includes[src]
+    assert '#include "attention_bwd.cuh"' in includes["attention_bwd_fused_dw.cu"]
     assert "kRecompute) {" not in (kernel_lib.CSRC_DIR / "attention_bwd.cuh").read_text()
 
 
@@ -448,21 +449,60 @@ def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsy
         (48, 144, 2304), (192, 16, 2304), (192, 1, 2304), (64, 40, 1152), (5, 77, 576)]
 
 
-def test_chip_smoke_design_timing_rehearses_on_the_plain_versions():
-    """The timing of kernel 4 beside its first design, rehearsed on the CPU:
-    the turns are taken in order, the two designs are held to the rounding
-    bound, and no time is read off the card."""
-    import math
+REMOVED_DESIGNS = ["demo2_attention_bwd_saved_db_first", "attention_bwd_saved_db_first",
+                   "time_designs", "attention_fwd_kernel", "launch_attention_fwd",
+                   "gemm_bf16_kernel", "launch_gemm"]
 
+
+@pytest.mark.parametrize("name", REMOVED_DESIGNS)
+def test_removed_designs_are_gone(name):
+    """Kernel 4's first design (its C entry, its wrapper and the timing that
+    held it beside the kernel in use), the first attention forward of kernels
+    1 and 3 and the Ampere GEMM of the block kernels have no trace left: no
+    source of the package and nothing in chip_smoke.py names them."""
+    import re
+    from pathlib import Path
+
+    import demo2_tpu_torch
+
+    package = Path(demo2_tpu_torch.__file__).parent
+    files = [p for p in package.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(package.parent / "chip_smoke.py")
+    word = re.compile(rf"\b{name}\b")
+    assert len(files) > 20 and not [p.name for p in files if word.search(p.read_text())]
+
+
+BLOCK_EDGES = [(3, 9, 128), (1, 1, 128), (2, 5, 192)]
+
+
+def test_chip_smoke_block_kernel_phase_rehearses_on_the_plain_versions(capsys, monkeypatch):
+    """Phase 2 of chip_smoke.py, the block kernels at the edges of the GEMM's
+    tiling, rehearsed on the CPU at small stand-ins, where each wrapper is its
+    plain version: every kernel is held at every shape, kernel 3's out and
+    attn and 2-train's out and h beside misrounded controls that fail their
+    bound, and no time is read off the card."""
     import chip_smoke as cs
 
-    readings = cs.time_designs(CPU, "a rehearsal on the CPU", shape=(2, 9, 3 * H * D), rounds=5,
-                               iters=1)
-    assert set(readings) == {"attention_bwd_saved_db"}
-    assert list(readings["attention_bwd_saved_db"]) == ["new", "first"]  # no library call
-    for times in readings["attention_bwd_saved_db"].values():
-        assert len(times) == 5 and all(math.isnan(x) for x in times)
-    assert cs.DESIGN_ROUNDS >= 5 and cs.QKV_SHAPE == (192, 129, 2304)
+    def no_timing(*a, **k):
+        raise AssertionError("the check phase read a time")
+
+    monkeypatch.setattr(cs, "REHEARSAL", True)
+    monkeypatch.setattr(cs, "cuda_ms", no_timing)
+    assert cs.phase_kernels(CPU, shapes=BLOCK_EDGES) == {}  # errors: the flagship shape's
+    out = capsys.readouterr().out
+    for shape in BLOCK_EDGES:
+        for name in ("fused_attention_block", "fused_mlp_block"):
+            assert f"[kernel] {name} {shape}: vs plain bf16 max 0.000e+00" in out
+        assert f"kernel 3 probs ({shape[0]}, {shape[2] // 64}, {shape[1]}, 16)" in out
+        assert (f"kernel 3 out {shape}: vs the plain version rounding alike mean 0.000e+00"
+                in out)
+        assert f"kernel 2 (training form) {shape} out: vs the plain version rounding" in out
+        assert f"kernel 2 (training form) {shape}: control with h rounded before the bias" in out
+        assert f"[rehearsal] kernel 1 {shape}: bitwise equality to kernel 3" in out
+    # out and attn of 3, out of 2-train: no attn control over one key
+    assert out.count("; misrounded control") == 3 * len(BLOCK_EDGES) - 1
+    assert cs.BLOCK_EDGE_SHAPES == ((3, 129, 768), (5, 77, 768), (1, 1, 768), (8, 129, 384),
+                                    (8, 129, 512), (192, 129, 768))
 
 
 # ---------------------------------------------------------------------------

@@ -178,30 +178,6 @@ def test_chip_smoke_train_kernel_phase_checks_kernel_4_at_the_edges(capsys):
     assert cs.SAVED_EDGE_SHAPES == tuple((b, s, 3 * h * d) for b, s, h, d in cs.FLASH_EDGE_SHAPES)
 
 
-def test_first_design_of_kernel_4_is_reached_by_no_module():
-    """The first design of kernel 4 stays callable for the timing that holds
-    it beside the kernel in use: on CPU tensors the wrapper is the plain
-    version, bit for bit, counting no launch; off the CPU it raises without a
-    card; and no module of the package routes to it."""
-    import demo2_tpu_torch
-    from pathlib import Path
-
-    qkv, probs, do = (t(a) for a in _bwd_inputs(2, 9, 128, 2, seed=5))
-    kw = dict(num_heads=2, scale=0.125)
-    for a, w in zip(pa.attention_bwd_saved_db_first(qkv, probs, do, **kw),
-                    pa.attention_bwd_saved_db(qkv, probs, do, **kw)):
-        assert torch.equal(a, w)
-    assert pa.attention_bwd_saved_db_first.launches == 0
-    meta = [x.to("meta", torch.bfloat16) for x in (qkv, probs, do)]
-    with pytest.raises(ValueError, match="CUDA"):
-        pa.attention_bwd_saved_db_first(*meta, **kw)
-    package = Path(demo2_tpu_torch.__file__).parent
-    users = {p.name for p in package.rglob("*.py")
-             if "attention_bwd_saved_db_first" in p.read_text()}
-    assert users - {"kernel_lib.py"} == {"packed_attention.py"}  # kernel_lib: the C signature
-    assert not hasattr(pa, "attention_bwd_saved_first")  # kernel 7 is kernel 4's template, db off
-
-
 @pytest.mark.parametrize("b,s,c,h", [(4, 9, 32, 2), (12, 9, 32, 4)])
 def test_function_grads_match_fused_bwd_and_reference_autodiff(b, s, c, h):
     x, lns, lnb, wqkv, bqkv, wout, bout = _attn_inputs(b, s, c, seed=3 * b + s)
