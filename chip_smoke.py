@@ -92,10 +92,13 @@ requests and train steps against the plain path.  Phases:
      (387, 768) bf16 and at (387, 768) f32: dx within phase 2's bounds,
      dweight / dbias within 1e-3 of their largest, each no further from an
      f64 computation than 1.5 x the plain version, all three outputs
-     bit-identical over two runs; the Jaccard min-sum (12) vs its plain
-     version on the re-ranking weights of 1,600 queries among 4,800 clustered
-     features, at phase 16's 80 among 320 and at a ragged 70 x 333: max abs
-     <= 1e-6, bit-identical runs;
+     bit-identical over two runs; the Jaccard min-sum (12) on the re-ranking
+     weights of 1,600 queries among 4,800 clustered features, at phase 16's
+     80 among 320 and at a ragged 70 x 333, each at k2 = 15, at k2 = 1 and on
+     uniform weights, and at JACCARD_EDGES: bitwise equal to the ascending-k
+     sum (jaccard_min_sum_ordered), which a descending-k control fails, max
+     abs <= 1e-6 from its plain version (1e-5 where rows are full),
+     bit-identical runs; negative inputs computed with the same bits;
   15. training with PALLAS_LN_BWD: phase 6 on the flagship kernel path with
      the flag on, each step launching kernels 3, 4 and 11 12 times and no
      other; step-1 gradient cosine to the plain model >= 0.999 whole and per
@@ -107,7 +110,9 @@ requests and train steps against the plain path.  Phases:
      of, and CMC / mAP equal to, the same calls with the kernel swapped for
      its plain version;
   17. timing (printed): kernels 11 (beside aten's native_layer_norm_backward)
-     and 12 vs plain, re_ranking as a whole at 1,600 / 3,200, the train step
+     and 12 vs plain (12 on V at k2 = 15, k2 = 1 and uniform, beside the
+     min-sum through torch.cdist(p=1), with its byte bound and the dense
+     sum's operations), re_ranking as a whole at 1,600 / 3,200, the train step
      with and without PALLAS_LN_BWD in turns, a profile of one step of each;
   18. the fused-dW backward (8) vs its plain version at qkv (192, 129, 2304)
      and (3, 129, 2304): dt within phase 2's bounds and within a mean of 1e-4
@@ -654,12 +659,17 @@ def device_ms(fn, iters=10) -> dict:
 
     fn()
     sync()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        sync()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for attempt in range(2):  # CUPTI has once handed back no device event at all
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        got = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if sum(got.values()) > 0:
+            return got
+        log(f"[profile] no device time recorded (attempt {attempt + 1}): profiling again")
+    return got
 
 
 def time_block_gemms(device, card, names, shape=FLAGSHIP) -> dict:
@@ -1416,12 +1426,14 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
 
 
 def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
-                  flash_shape=FLASH_SHAPES[0], seed=7) -> dict:
-    """Kernels 1, 2, 2-train, 3, 5, 6, 9 and 10 on fixed inputs, as
-    tools/compare_trees.py times them: name -> one call of the kernel's
-    wrapper.  Only the wrappers' public signatures are used, so the same
-    cases run against the package of any checkout of the port."""
+                  flash_shape=FLASH_SHAPES[0], jaccard_size=None, seed=7) -> dict:
+    """Kernels 1, 2, 2-train, 3, 5, 6, 9, 10 and 12 (at JACCARD_SIZES[0] on
+    the clustered weights) on fixed inputs, as tools/compare_trees.py times
+    them: name -> one call of the kernel's wrapper.  Only the wrappers'
+    public signatures are used, so the same cases run against the package of
+    any checkout of the port."""
     from demo2_tpu_torch.ops import fused_block as fb
+    from demo2_tpu_torch.utils import reranking as rr
 
     x, attn, mlp = block_inputs(block_shape, device, seed)
     kw = dict(num_heads=block_shape[-1] // 64, scale=64 ** -0.5)
@@ -1431,6 +1443,8 @@ def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
              "fused_mlp_block_train": lambda: fb.fused_mlp_block_train(x, **mlp)}
     attention = attention_kernel_cases(device, packed_shape, flash_shape, seed)
     cases.update({name: case[0] for name, case in attention.items()})
+    vq, v = rerank_weights(*(jaccard_size or JACCARD_SIZES[0]), device)
+    cases["jaccard_min_sum"] = lambda: rr.jaccard_min_sum(vq, v)
     return cases
 
 
@@ -1662,6 +1676,15 @@ F32_ROUNDING_FLOOR = 1e-6
 # (queries, gallery): n = 4,800 at dataset scale, phase 16's eval, a ragged 333
 JACCARD_SIZES = ((1600, 3200), (80, 240), (70, 263))
 JACCARD_TOL = 1e-6     # values lie in [0, 1]; the two sum 4,800 f32 terms in different orders
+# Where every one of the 4,800 terms is non-zero (uniform weights, full edge
+# rows), the ascending sum of ~0.67 takes 4,800 roundings against the plain
+# version's tree: 3.9e-6 apart on uniform weights at 1,600 x 4,800 (phase 14
+# on an H100).
+JACCARD_DENSE_TOL = 1e-5
+# (queries, gallery, depth) of kernel 12's edges: one query row over four
+# gallery tiles (512 rows each) and an odd depth, one gallery row, depth 7,
+# depth that is no multiple of 4 over three tiles (edge_weights' rows).
+JACCARD_EDGES = ((1, 1, 7), (1, 1537, 4801), (37, 1, 333), (5, 1100, 4802))
 
 
 def ln_bwd_inputs(shape, device, seed, dtype=torch.bfloat16):
@@ -1748,41 +1771,131 @@ def clustered_features(nq, ng, device, seed, dim=1536, per_id=24):
     return f[:nq].to(device), f[nq:].to(device)
 
 
-def rerank_weights(nq, ng, device, seed=17):
+def rerank_weights(nq, ng, device, seed=17, k2=15):
     """The min-sum's operands as re_ranking gives them: Vq (nq, n), V (n, n)."""
     from demo2_tpu_torch.utils import reranking as rr
 
     qf, gf = clustered_features(nq, ng, device, seed)
-    v, _ = rr.reciprocal_weights(qf, gf, 50, 15)
+    v, _ = rr.reciprocal_weights(qf, gf, 50, k2)
     return v[:nq].contiguous(), v.contiguous()
 
 
-def phase_jaccard_kernel(device, sizes=JACCARD_SIZES) -> dict:
-    """Kernel 12 against its plain version on the re-ranking weights of
-    clustered features.  Returns its max abs error at the first size."""
+def uniform_weights(nq, ng, device, seed=19):
+    """Weights with no zero: Vq (nq, n), V (n, n), uniform in [1e-3, 1 + 1e-3)
+    before each row is scaled to sum 1."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.rand(nq + ng, nq + ng, generator=g) + 1e-3
+    v = (v / v.sum(1, keepdim=True)).to(device)
+    return v[:nq].contiguous(), v
+
+
+def edge_weights(nq, ng, depth, device, seed=5):
+    """Vq (nq, depth) and Vg (ng, depth) whose row r is all non-zero, 5%
+    non-zero or all zero as r % 3 is 0, 1 or 2; each non-zero row sums to 1."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rows(count):
+        kind = torch.arange(count)[:, None] % 3
+        v = torch.rand(count, depth, generator=g) + 1e-3
+        v = v * ((kind == 0) | ((kind == 1) & (torch.rand(count, depth, generator=g) < 0.05)))
+        return (v / v.sum(1, keepdim=True).clamp(min=1e-12)).to(device)
+
+    return rows(nq), rows(ng)
+
+
+def density(v) -> float:
+    return 100 * (v != 0).float().mean().item()
+
+
+def check_min_sum(min_sum, vq, vg, what, bitwise, tol=JACCARD_TOL) -> float:
+    """One case of phase_jaccard_kernel; returns the max abs error against
+    the plain version."""
     from demo2_tpu_torch.utils import reranking as rr
 
+    got, again = min_sum(vq, vg), min_sum(vq, vg)
+    ordered = rr.jaccard_min_sum_ordered(vq, vg)
+    plain = rr.jaccard_min_sum_plain(vq, vg)
+    control = rr.jaccard_min_sum_ordered(vq.flip(1), vg.flip(1))  # descending k
+    sync()
+    d = (got - plain).abs().max().item()
+    equal, control_equal = torch.equal(got, ordered), torch.equal(control, ordered)
+    log(f"[jaccard] kernel 12 {what}: Vq {tuple(vq.shape)} ({density(vq):.2f}% non-zero) x Vg "
+        f"{tuple(vg.shape)} ({density(vg):.2f}%): bitwise equal to the ascending sum {equal} "
+        f"(the descending-k control {control_equal}, {(control != ordered).sum().item()} of "
+        f"{ordered.numel()} outputs differ); vs plain max abs {d:.3e}; values in "
+        f"[{got.min().item():.3e}, {got.max().item():.6f}]")
+    require(got.shape == (vq.shape[0], vg.shape[0]) and bool(torch.isfinite(got).all()),
+            f"kernel 12 {what}: shape {tuple(got.shape)} or non-finite")
+    require(not control_equal, f"kernel 12 {what}: the descending-k control passes the "
+                               "bitwise check")
+    if bitwise:
+        require(equal, f"kernel 12 {what}: {(got != ordered).sum().item()} outputs differ in "
+                       "their bits from the ascending sum")
+    require(d <= tol, f"kernel 12 {what}: max abs {d} > {tol}")
+    require(got.min().item() >= 0.0 and got.max().item() <= 1.0 + tol,
+            f"kernel 12 {what}: a min-sum of unit-sum rows outside [0, 1]")
+    require(torch.equal(got, again), f"kernel 12 {what}: two runs differ")
+    return d
+
+
+def phase_jaccard_kernel(device, sizes=JACCARD_SIZES, edges=JACCARD_EDGES, min_sum=None) -> dict:
+    """Kernel 12 (or `min_sum`) bitwise equal to the ascending-k sum, which a
+    descending-k control must fail, within JACCARD_TOL of its plain version
+    and bit-identical over two runs: on the re-ranking weights of clustered
+    features at k2 = 15 and k2 = 1 and on uniform weights at every size, and
+    on edge_weights at every edge; then negative inputs, which the kernel
+    sums densely with the same bits.  On the CPU the wrapper is the plain version, which sums
+    in another order: the bitwise check only logs there unless `min_sum` is
+    given.  Returns the max abs error at the first size."""
+    from demo2_tpu_torch.utils import reranking as rr
+
+    bitwise = device.type == "cuda" or min_sum is not None
+    min_sum = min_sum or rr.jaccard_min_sum
     errors = {}
     for nq, ng in sizes:
-        vq, v = rerank_weights(nq, ng, device)
-        got = rr.jaccard_min_sum(vq, v)
-        again = rr.jaccard_min_sum(vq, v)
-        want = rr.jaccard_min_sum_plain(vq, v)
+        for name, weights, tol in (
+                ("k2=15", lambda: rerank_weights(nq, ng, device), JACCARD_TOL),
+                ("k2=1", lambda: rerank_weights(nq, ng, device, k2=1), JACCARD_TOL),
+                ("uniform", lambda: uniform_weights(nq, ng, device), JACCARD_DENSE_TOL)):
+            d = check_min_sum(min_sum, *weights(), f"{nq} x {nq + ng} {name}", bitwise, tol)
+            errors.setdefault("jaccard_min_sum", d)
+    for nq, ng, depth in edges:
+        check_min_sum(min_sum, *edge_weights(nq, ng, depth, device), f"edge {nq} x {ng} x "
+                      f"{depth}", bitwise, JACCARD_DENSE_TOL)
+    for side in (0, 1):  # negative values in Vq, then in Vg: the kernel's dense form
+        ops = list(edge_weights(3, 1100, 65, device))
+        ops[side] = ops[side].clone()
+        ops[side][1, 7], ops[side][2, 3] = -0.5, -1e-3
+        got = rr.jaccard_min_sum(*ops)
+        want = rr.jaccard_min_sum_ordered(*ops)
         sync()
-        d = (got - want).abs().max().item()
-        density = (v > 0).float().mean().item()
-        log(f"[jaccard] kernel 12 Vq {tuple(vq.shape)} x V {tuple(v.shape)} (V {100 * density:.2f}% "
-            f"non-zero): vs plain max abs {d:.3e}; values in [{got.min().item():.3e}, "
-            f"{got.max().item():.6f}]")
-        require(got.shape == (nq, nq + ng) and bool(torch.isfinite(got).all()),
-                f"kernel 12 {nq} x {nq + ng}: shape {tuple(got.shape)} or non-finite")
-        require(d <= JACCARD_TOL, f"kernel 12 {nq} x {nq + ng}: max abs {d} > {JACCARD_TOL}")
-        require(got.min().item() >= 0.0 and got.max().item() <= 1.0 + JACCARD_TOL,
-                f"kernel 12 {nq} x {nq + ng}: a min-sum of unit-sum rows outside [0, 1]")
-        require(torch.equal(got, again), f"kernel 12 {nq} x {nq + ng}: two runs differ")
-        errors.setdefault("jaccard_min_sum", d)
-    log(f"[jaccard] tolerance: max abs <= {JACCARD_TOL}, bit-identical reruns: ok")
+        what = f"[jaccard] kernel 12 with negative values in {('Vq', 'Vg')[side]}"
+        d = (got - rr.jaccard_min_sum_plain(*ops)).abs().max().item()
+        log(f"{what}: computed, bitwise equal to the ascending sum {torch.equal(got, want)}, "
+            f"vs plain max abs {d:.3e}")
+        require(d <= JACCARD_TOL, f"{what}: max abs {d} from the plain version")
+        if device.type == "cuda":
+            require(torch.equal(got, want), f"{what}: differs in its bits from the ascending sum")
+    log(f"[jaccard] tolerance: bitwise equal to the ascending-k sum"
+        f"{'' if bitwise else ' (logged only: the plain version on the CPU)'}, max abs from "
+        f"the plain version <= {JACCARD_TOL} ({JACCARD_DENSE_TOL} where rows are full), "
+        f"bit-identical reruns: ok")
     return errors
+
+
+def jaccard_timing(vq, v):
+    """timed(...) of kernel 12 on Vq, V: two operations for each (i, j, k)
+    where both operands are non-zero, beside its plain version and the
+    identity min(a, b) = (a + b - |a - b|) / 2 through torch.cdist(p=1)."""
+    from demo2_tpu_torch.utils import reranking as rr
+
+    pairs = int(((vq != 0).sum(0).double() * (v != 0).sum(0).double()).sum().item())
+    return timed(lambda: rr.jaccard_min_sum(vq, v), lambda: rr.jaccard_min_sum_plain(vq, v),
+                 2 * pairs, (tuple(vq.shape), tuple(v.shape)), [vq, v],
+                 library=lambda: (vq.sum(1)[:, None] + v.sum(1)[None, :]
+                                  - torch.cdist(vq, v, p=1)) / 2,
+                 peak=F32_PEAK_TFLOPS, iters=10, plain_iters=2,
+                 moved=tensor_bytes([vq, v]) + 4 * vq.shape[0] * v.shape[0])
 
 
 # ---------------------------------------------------------------- phase 15
@@ -1897,7 +2010,9 @@ def phase_rerank_eval(device, model, train_cache) -> dict:
 def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sampler) -> dict:
     """Kernels 11 and 12 against their plain versions (11 also beside
     aten's native_layer_norm_backward, which reads the statistics the forward
-    saved), re_ranking as a whole with the kernel and with its plain version,
+    saved; 12 on V of three densities, beside the min-sum through
+    torch.cdist(p=1), with its byte bound, the dense sum's and this V's
+    operations), re_ranking as a whole with the kernel and with its plain version,
     and the train step with and without PALLAS_LN_BWD, each pair in turns,
     with a profile of one step of each."""
     from demo2_tpu_torch.ops import norm
@@ -1910,7 +2025,10 @@ def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sa
     rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
     wb, bb = w.to(x.dtype), torch.zeros_like(w).to(x.dtype)
     nq, ng = JACCARD_SIZES[0]
-    vq, v = rerank_weights(nq, ng, device)
+    jaccard = {f"jaccard_min_sum{name}": jaccard_timing(*weights)
+               for name, weights in (("", rerank_weights(nq, ng, device)),
+                                     (" k2=1", rerank_weights(nq, ng, device, k2=1)),
+                                     (" uniform", uniform_weights(nq, ng, device)))}
     times = time_kernels({
         "layernorm_bwd": timed(
             lambda: norm.layernorm_bwd(x, dy, w, LN_EPS),
@@ -1919,11 +2037,20 @@ def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sa
             library=lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [shape[1]], mean, rstd, wb, bb, [True, True, True]),
             peak=F32_PEAK_TFLOPS),
-        "jaccard_min_sum": timed(
-            lambda: rr.jaccard_min_sum(vq, v), lambda: rr.jaccard_min_sum_plain(vq, v),
-            2 * vq.shape[0] * v.shape[0] * v.shape[1], (tuple(vq.shape), tuple(v.shape)),
-            [vq, v], peak=F32_PEAK_TFLOPS, iters=10, plain_iters=2),
+        **jaccard,
     }, card)
+    for name, case in jaccard.items():
+        vq, v = case["inputs"]
+        dense_ms = roofline(2 * vq.shape[0] * v.numel(), F32_PEAK_TFLOPS, 0)[0]
+        log(f"[time] {name}: bounds {roofline(0, F32_PEAK_TFLOPS, case['moved'])[0]:.4f} ms "
+            f"by bytes, {dense_ms:.4f} ms by the dense sum's operations, "
+            f"{roofline(case['flops'], F32_PEAK_TFLOPS, 0)[0]:.6f} ms by this V's (Vq "
+            f"{density(vq):.2f}%, V {density(v):.2f}% non-zero); kernel "
+            f"{times[name]['ms']:.4f} ms ({card})")
+        split = device_ms(case["kernel"], iters=1 if density(v) > 50 else 10)
+        log(f"[time] {name}, device time by launch: " + ", ".join(
+            f"{key.split('::')[-1].split('(')[0]} {ms:.4f}" for key, ms in split.items())
+            + f" ms ({card})")
 
     qf, gf = clustered_features(nq, ng, device, seed=17)
     kernel = rr.jaccard_min_sum

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
-    "demo2_jaccard_min_sum": [_P] * 3 + [_I] * 3 + [_P],
+    "demo2_jaccard_min_sum": [_P] * 4 + [_I] * 3 + [_P],
+    "demo2_jaccard_tile": [],
     "demo2_attention_ablate": [_P] * 2 + [_I] * 6 + [_P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],

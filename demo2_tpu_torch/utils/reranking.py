@@ -3,7 +3,9 @@
 
   jaccard_min_sum: out[i, j] = sum_k min(vq[i, k], vg[j, k])
       replaces the Pallas kernel reranking.py::_jaccard_kernel
-      (csrc/jaccard_min_sum.cu, demo2_jaccard_min_sum).
+      (csrc/jaccard_min_sum.cu, demo2_jaccard_min_sum): a sum over the
+      non-zeros of the non-negative weights with the bits of the dense
+      ascending sum, `jaccard_min_sum_ordered`.
 
 `re_ranking` follows `re_ranking_device` step by step: the k-reciprocal sets
 are boolean rank masks, the 2/3-overlap expansion is one mask product, and
@@ -55,10 +57,19 @@ def jaccard_min_sum_plain(vq: torch.Tensor, vg: torch.Tensor, block_q: int = 64,
     return out
 
 
+def jaccard_min_sum_ordered(vq: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
+    """The min-sum in f32 in ascending k from +0.0, one add per k: the bits
+    the kernel gives.  vq (nq, K), vg (ng, K) -> (nq, ng)."""
+    acc = torch.zeros((vq.shape[0], vg.shape[0]), dtype=vq.dtype, device=vq.device)
+    for k in range(vq.shape[1]):
+        acc = acc + torch.minimum(vq[:, k, None], vg[None, :, k])
+    return acc
+
+
 def jaccard_min_sum(vq: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
     """out[i, j] = sum_k min(vq[i, k], vg[j, k]), f32 vq (nq, K) and vg
-    (ng, K) -> (nq, ng): the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    (ng, K) -> (nq, ng): the kernel on CUDA tensors (with the bits of
+    `jaccard_min_sum_ordered`), the plain version on CPU tensors."""
     if vq.device.type == "cpu":
         return jaccard_min_sum_plain(vq, vg)
     if vq.device.type != "cuda":
@@ -73,9 +84,16 @@ def jaccard_min_sum(vq: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
     if depth == 0:
         return out.zero_()
     kl = kernel_library()
+    tiles = -(-ng // kl.lib.demo2_jaccard_tile())
+    # The compacted rows of vq and columns of vg as (index, value) pairs in
+    # slots of fixed size, their counts and the negative-input flag (the C
+    # entry's layout).
+    pairs = 2 * (nq + tiles * kl.lib.demo2_jaccard_tile()) * depth
+    scratch = torch.empty(pairs + nq + tiles * depth + 1, dtype=torch.int32,
+                          device=vq.device)
     with torch.cuda.device(vq.device):
         err = kl.lib.demo2_jaccard_min_sum(
-            vq.data_ptr(), vg.data_ptr(), out.data_ptr(), nq, ng, depth,
+            vq.data_ptr(), vg.data_ptr(), out.data_ptr(), scratch.data_ptr(), nq, ng, depth,
             torch.cuda.current_stream(vq.device).cuda_stream,
         )
     check(err, "jaccard_min_sum")

@@ -451,15 +451,16 @@ def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsy
 
 REMOVED_DESIGNS = ["demo2_attention_bwd_saved_db_first", "attention_bwd_saved_db_first",
                    "time_designs", "attention_fwd_kernel", "launch_attention_fwd",
-                   "gemm_bf16_kernel", "launch_gemm"]
+                   "gemm_bf16_kernel", "launch_gemm", "jaccard_min_sum_kernel"]
 
 
 @pytest.mark.parametrize("name", REMOVED_DESIGNS)
 def test_removed_designs_are_gone(name):
     """Kernel 4's first design (its C entry, its wrapper and the timing that
     held it beside the kernel in use), the first attention forward of kernels
-    1 and 3 and the Ampere GEMM of the block kernels have no trace left: no
-    source of the package and nothing in chip_smoke.py names them."""
+    1 and 3, the Ampere GEMM of the block kernels and kernel 12's dense
+    register-tiled sum have no trace left: no source of the package and
+    nothing in chip_smoke.py names them."""
     import re
     from pathlib import Path
 

@@ -3,7 +3,9 @@
 On the CPU the wrapper of kernel 12 takes its plain PyTorch version, the
 blocked broadcast-min-sum; that is held here against a direct numpy double
 loop and against the fori_loop branch of re_ranking_device, which is the one
-JAX reaches on the CPU.  re_ranking, the evaluator with re-ranking and with
+JAX reaches on the CPU.  The kernel's bits are the ascending-k f32 sum,
+`jaccard_min_sum_ordered`, held against a numpy float32 loop and against a
+numpy model of the kernel's sum over the non-zeros.  re_ranking, the evaluator with re-ranking and with
 the MSVR310 scene protocol, save_rank_list and run_eval / do_inference are
 each held against their JAX counterparts on inputs made by numpy from a seed.
 """
@@ -69,16 +71,99 @@ def test_min_sum_plain_matches_a_numpy_double_loop(nq, ng, depth):
     np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-5)  # f32 sums of `depth` terms
 
 
-@pytest.mark.parametrize("nq,ng", [(23, 74), (64, 256)], ids=["ragged", "whole_tiles"])
-def test_min_sum_plain_matches_the_fori_loop_branch_of_jax(nq, ng):
-    """With lambda 0 re_ranking_device returns 1 - m / (2 - m) of its blocked
-    min-sum m alone; the port's V through the plain min-sum must give it."""
+def _fori_loop_case(nq, ng):
+    """re_ranking_device's result at lambda 0 (1 - m / (2 - m) of its
+    blocked min-sum m alone) and the port's V of the same features."""
     f, _ = _clustered(nq, ng, seed=3)
     want = np.asarray(re_ranking_device(jnp.asarray(f[:nq]), jnp.asarray(f[nq:]), 8, 3, 0.0))
     v, _ = rr.reciprocal_weights(t(f[:nq]), t(f[nq:]), 8, 3)
+    return want, v
+
+
+@pytest.mark.parametrize("nq,ng", [(23, 74), (64, 256)], ids=["ragged", "whole_tiles"])
+def test_min_sum_plain_matches_the_fori_loop_branch_of_jax(nq, ng):
+    """The port's V through the plain min-sum must give re_ranking_device's
+    result at lambda 0."""
+    want, v = _fori_loop_case(nq, ng)
     m = rr.jaccard_min_sum_plain(v[:nq].contiguous(), v)
     assert m.min() >= 0 and m.max() <= 1 + 1e-6  # rows of V sum to 1
     np.testing.assert_allclose(n(1.0 - m / (2.0 - m))[:, nq:], want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("nq,ng", [(23, 74), (64, 256)], ids=["ragged", "whole_tiles"])
+def test_min_sum_ordered_matches_the_fori_loop_branch_of_jax(nq, ng):
+    """The kernel's bits, the ascending sum, give re_ranking_device's result
+    at lambda 0 within the plain version's 1e-6."""
+    want, v = _fori_loop_case(nq, ng)
+    m = rr.jaccard_min_sum_ordered(v[:nq].contiguous(), v)
+    assert m.min() >= 0 and m.max() <= 1 + 1e-6
+    np.testing.assert_allclose(n(1.0 - m / (2.0 - m))[:, nq:], want, rtol=0, atol=1e-6)
+
+
+def _ascending_f32(vq, vg):
+    """The min-sum as a numpy float32 loop: one add per k, ascending, from +0.0."""
+    acc = np.zeros((vq.shape[0], vg.shape[0]), np.float32)
+    for k in range(vq.shape[1]):
+        acc = acc + np.minimum(vq[:, k, None], vg[None, :, k])
+    return acc
+
+
+def _over_nonzeros(vq, vg):
+    """Kernel 12's sum: ascending k from +0.0, adding only where both
+    operands are non-zero (numpy float32)."""
+    acc = np.zeros((vq.shape[0], vg.shape[0]), np.float32)
+    for k in range(vq.shape[1]):
+        a, b = vq[:, k, None], vg[None, :, k]
+        acc = np.where((a != 0) & (b != 0), acc + np.minimum(a, b), acc)
+    return acc
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("nq,ng,depth", [(7, 13, 29), (70, 333, 333), (65, 257, 40)])
+def test_min_sum_ordered_is_the_float32_ascending_loop_bit_for_bit(nq, ng, depth):
+    rng = np.random.default_rng(depth)
+    vq = rng.standard_normal((nq, depth)).astype(np.float32)
+    vg = rng.standard_normal((ng, depth)).astype(np.float32)
+    got = rr.jaccard_min_sum_ordered(t(vq), t(vg))
+    assert got.shape == (nq, ng) and got.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(n(got)), _bits(_ascending_f32(vq, vg)))
+
+
+def _nonnegative_weights(case):
+    """Vq, Vg (numpy f32): re-ranking weights of clustered features at k2 =
+    15 or 1, or rows that are all zero, all non-zero or 5% non-zero."""
+    if case.startswith("k2="):
+        f, _ = _clustered(23, 74, seed=8)
+        v, _ = rr.reciprocal_weights(t(f[:23]), t(f[23:]), 20, int(case[3:]))
+        return n(v[:23]), n(v)
+    rng = np.random.default_rng(2)
+
+    def rows(count, depth=301):
+        kind = np.arange(count)[:, None] % 3  # full, 5%, zero
+        v = rng.random((count, depth)) + 1e-3
+        v = v * ((kind == 0) | ((kind == 1) & (rng.random((count, depth)) < 0.05)))
+        return (v / np.maximum(v.sum(1, keepdims=True), 1e-12)).astype(np.float32)
+
+    return rows(17), rows(40)
+
+
+@pytest.mark.parametrize("case", ["k2=15", "k2=1", "zero_and_full_rows"])
+def test_sum_over_the_nonzeros_has_the_bits_of_the_dense_ascending_sum(case):
+    """For non-negative inputs every skipped term is a zero, and a zero added
+    to an f32 partial sum that starts at +0.0 changes no bit: the kernel's
+    sum over the non-zeros equals the dense ascending sum bit for bit, where
+    the descending sum does not."""
+    vq, vg = _nonnegative_weights(case)
+    assert (vq >= 0).all() and (vg >= 0).all() and 0 < (vg != 0).mean() < 1
+    if case == "zero_and_full_rows":
+        assert not vq[2].any() and vq[0].all() and vg[3].all() and not vg[5].any()
+    want = n(rr.jaccard_min_sum_ordered(t(vq), t(vg)))
+    np.testing.assert_array_equal(_bits(_over_nonzeros(vq, vg)), _bits(want))
+    descending = _ascending_f32(vq[:, ::-1], vg[:, ::-1])
+    assert not np.array_equal(_bits(descending), _bits(want))
 
 
 def test_min_sum_never_falls_back_off_the_cpu_and_counts_no_cpu_launch():
@@ -376,13 +461,44 @@ def test_do_train_evaluates_with_re_ranking(eval_setup, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+# Small stand-ins of chip_smoke.JACCARD_EDGES: one query row over several
+# gallery rows, one gallery row, depth 7, depth that is no multiple of 4.
+SMALL_JACCARD_EDGES = ((1, 1, 7), (1, 97, 301), (37, 1, 333), (5, 60, 130))
+
+
 def test_chip_smoke_jaccard_phase_passes_on_the_plain_version():
     import chip_smoke as cs
 
-    assert cs.phase_jaccard_kernel(CPU, sizes=((40, 120), (7, 90))) == {"jaccard_min_sum": 0.0}
+    assert cs.phase_jaccard_kernel(CPU, sizes=((40, 120), (7, 90)),
+                                   edges=SMALL_JACCARD_EDGES) == {"jaccard_min_sum": 0.0}
     vq, v = cs.rerank_weights(12, 60, CPU)
     assert vq.shape == (12, 72) and v.shape == (72, 72)
     np.testing.assert_allclose(n(v.sum(1)), 1.0, atol=1e-5)
+
+
+def test_chip_smoke_jaccard_phase_rehearses_its_bitwise_checks(capsys):
+    """The jaccard phase on a numpy model of kernel 12 (the sum over the
+    non-zeros): every density and edge is bitwise equal to the ascending sum,
+    the descending-k control fails at each, the negative inputs are computed;
+    the plain version, which sums in another order, fails the bitwise
+    check."""
+    import chip_smoke as cs
+
+    def kernel_model(vq, vg):
+        return t(_over_nonzeros(n(vq), n(vg)))
+
+    cs.phase_jaccard_kernel(CPU, sizes=((40, 120),), edges=SMALL_JACCARD_EDGES,
+                            min_sum=kernel_model)
+    out = capsys.readouterr().out
+    for what in ("40 x 160 k2=15", "40 x 160 k2=1", "40 x 160 uniform") + tuple(
+            f"edge {a} x {b} x {c}" for a, b, c in SMALL_JACCARD_EDGES):
+        line = next(x for x in out.splitlines() if f"kernel 12 {what}:" in x)
+        assert "bitwise equal to the ascending sum True (the descending-k control False" in line
+    assert "uniform: Vq (40, 160) (100.00% non-zero)" in out
+    assert out.count("with negative values in V") == 2
+    with pytest.raises(RuntimeError, match="differ in their bits"):
+        cs.phase_jaccard_kernel(CPU, sizes=((40, 120),), edges=(),
+                                min_sum=rr.jaccard_min_sum_plain)
 
 
 def test_chip_smoke_rerank_eval_phase_runs_on_the_cpu(monkeypatch):
