@@ -114,11 +114,15 @@ requests and train steps against the plain path.  Phases:
      min-sum through torch.cdist(p=1), with its byte bound and the dense
      sum's operations), re_ranking as a whole at 1,600 / 3,200, the train step
      with and without PALLAS_LN_BWD in turns, a profile of one step of each;
-  18. the fused-dW backward (8) vs its plain version at qkv (192, 129, 2304)
-     and (3, 129, 2304): dt within phase 2's bounds and within a mean of 1e-4
-     of its mean size of the plain version, a bound that the same contraction
-     of the unrounded dq, dk, dv (a control on the same inputs) fails; dW and
-     db within 1e-3 of their largest; each output no further from an f64
+  18. the fused-dW backward (8: kernel 4's backward into a bf16 dqkv, then dt
+     and dW on the block GEMM, gemm_sm90.cuh, with MN-major operands) vs its
+     plain version at qkv (192, 129, 2304) and (3, 129, 2304), at kernel 4's
+     edge shapes of phase 5, at (8, 129, 1536) (width 512) and at
+     (24, 129, 2304) (two slices of dW's K): dt within phase 2's bounds and
+     within a mean of 1e-4 of its mean size of the plain version, a bound that
+     the same contraction of the unrounded dq, dk, dv (a control on the same
+     inputs, wherever there is more than one key) fails; dW and db within 1e-3
+     of their largest; each output no further from an f64
      computation than 1.5 x the plain version; all three bit-identical over
      two runs.  The MLP's training form (2) vs its plain version: out as
      phase 2, the hidden h within one bf16 ulp, at most 0.2% of it
@@ -128,13 +132,15 @@ requests and train steps against the plain path.  Phases:
      their mean size;
   19. the block backward through the kernel-8 route at x (192, 129, 768): the
      seven grads against the kernel-4 route's (cosine >= 0.9999, dx within
-     phase 2's bounds), launching kernel 3 once, kernel 8 once, kernel 4 never;
+     phase 2's bounds, bqkv bitwise equal: kernel 8's db is kernel 4's),
+     launching kernel 3 once, kernel 8 once, kernel 4 never;
   20. training with FUSED_MLP_TRAIN: phase 6 on the flagship kernel path with
      the flag on, each step launching kernels 3, 4 and the training form of 2
      12 times and no other; step-1 gradient cosine to the plain model >= 0.999
      whole and per block (ln_2, mlp.c_fc and mlp.c_proj among the groups);
      then one do_train epoch with eval (kernels 1 and 2 at eval);
   21. timing (printed): kernel 8 beside kernel 4 + the two torch.mm it fuses,
+     and each of its launches by the profiler beside that stage's bound,
      2's training form beside the unfused MLP's forward, the ablation tool's
      five cases (full h=12 beside scaled_dot_product_attention, and no
      slower than it), the train
@@ -156,6 +162,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -571,6 +578,20 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters=50, warmup=3) -> float:
+    """Host time to enqueue one call of `fn` (no synchronize inside the loop):
+    above the device time, the host sets a call's pace."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * seconds / iters
+
+
 def alternate(plain_fn, kernel_fn):
     """plain, kernel, kernel, plain; the mean of each pair."""
     p1, k1, k2, p2 = plain_fn(), kernel_fn(), kernel_fn(), plain_fn()
@@ -659,7 +680,7 @@ def device_ms(fn, iters=10) -> dict:
 
     fn()
     sync()
-    for attempt in range(2):  # CUPTI has once handed back no device event at all
+    for attempt in range(4):  # CUPTI now and then hands back no device event at all
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -675,8 +696,10 @@ def device_ms(fn, iters=10) -> dict:
 def time_block_gemms(device, card, names, shape=FLAGSHIP) -> dict:
     """Each GEMM of the block kernels `names` alone, read off the profiler
     inside the kernel's own launches at x of `shape`, beside one torch.addmm
-    (cuBLAS) on bf16 operands of the same shape, bias included; the port
-    never calls the latter.  Returns (kernel, product) -> (ms, addmm ms)."""
+    (cuBLAS) on bf16 operands of the same shape, bias included, by CUDA
+    events (the profiler has handed back no device event for it in some
+    calls); the port never calls the latter.  Returns (kernel, product) ->
+    (ms, addmm ms)."""
     from demo2_tpu_torch.ops import fused_block as fb
 
     x, attn, mlp = block_inputs(shape, device, seed=1)
@@ -693,16 +716,16 @@ def time_block_gemms(device, card, names, shape=FLAGSHIP) -> dict:
         kernels = device_ms(calls[name])
         for product, epilogue, n_mult, k_mult in BLOCK_GEMMS[name]:
             n, k = n_mult * c, k_mult * c
-            ms = sum(t for key, t in kernels.items() if f"::{epilogue}>" in key)
+            ms = sum(t for key, t in kernels.items() if re.search(f"::{epilogue}[,>]", key))
+            require(ms > 0, f"{name}: no device time under gemm_sm90_kernel<{epilogue}, ...>")
             a = torch.randn(m, k, generator=g).to(device, torch.bfloat16)
             w = (torch.randn(n, k, generator=g) * k ** -0.5).to(device, torch.bfloat16)
             bias = torch.randn(n, generator=g).to(device, torch.bfloat16)
-            lib_ms = sum(device_ms(lambda: torch.addmm(bias, a, w.t())).values())
+            lib_ms = cuda_ms(lambda: torch.addmm(bias, a, w.t()))  # one kernel a call
             rate = lambda t: 2 * m * n * k / t / 1e9
             log(f"[gemm] {name} {product} ({m} x {k}) @ ({k} x {n}): {ms:.4f} ms "
                 f"({rate(ms):.1f} TFLOP/s); torch.addmm {lib_ms:.4f} ms ({rate(lib_ms):.1f} "
                 f"TFLOP/s) ({card})")
-            require(ms > 0, f"{name}: no device time under gemm_sm90_kernel<{epilogue}>")
             got[(name, product)] = (ms, lib_ms)
     return got
 
@@ -1426,13 +1449,14 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
 
 
 def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
-                  flash_shape=FLASH_SHAPES[0], jaccard_size=None, seed=7) -> dict:
-    """Kernels 1, 2, 2-train, 3, 5, 6, 9, 10 and 12 (at JACCARD_SIZES[0] on
-    the clustered weights) on fixed inputs, as tools/compare_trees.py times
-    them: name -> one call of the kernel's wrapper.  Only the wrappers'
-    public signatures are used, so the same cases run against the package of
-    any checkout of the port."""
-    from demo2_tpu_torch.ops import fused_block as fb
+                  flash_shape=FLASH_SHAPES[0], jaccard_size=None, qkv_shape=None,
+                  seed=7) -> dict:
+    """Kernels 1, 2, 2-train, 3, 5, 6, 9, 10, 12 (at JACCARD_SIZES[0] on the
+    clustered weights) and 8, 4 and 7 (at QKV_SHAPES[0]) on fixed inputs, as
+    tools/compare_trees.py times them: name -> one call of the kernel's
+    wrapper.  Only the wrappers' public signatures are used, so the same
+    cases run against the package of any checkout of the port."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
     from demo2_tpu_torch.utils import reranking as rr
 
     x, attn, mlp = block_inputs(block_shape, device, seed)
@@ -1445,6 +1469,10 @@ def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
     cases.update({name: case[0] for name, case in attention.items()})
     vq, v = rerank_weights(*(jaccard_size or JACCARD_SIZES[0]), device)
     cases["jaccard_min_sum"] = lambda: rr.jaccard_min_sum(vq, v)
+    dw_inputs, dw_kw = fused_dw_inputs(qkv_shape or QKV_SHAPES[0], device, seed)
+    cases["attention_bwd_fused_dw"] = lambda: pa.attention_bwd_fused_dw(*dw_inputs, **dw_kw)
+    cases["attention_bwd_saved_db"] = lambda: pa.attention_bwd_saved_db(*dw_inputs[:3], **dw_kw)
+    cases["attention_bwd_saved"] = lambda: pa.attention_bwd_saved(*dw_inputs[:3], **dw_kw)
     return cases
 
 
@@ -2080,6 +2108,11 @@ def phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache, sa
 
 
 QKV_SHAPES = (QKV_SHAPE, (3, 129, 2304))                  # kernel 8's qkv (3B, S, 3C)
+# Kernel 8 also at the edges of its three stages: kernel 4's (SAVED_EDGE_SHAPES),
+# width 512 (C = 512 is no multiple of the GEMM's 192 columns; 1,032 rows, one
+# slice of dW's K with a ragged end) and 3,096 rows (two slices of dW's K, the
+# second ragged).
+FUSED_DW_EDGE_SHAPES = SAVED_EDGE_SHAPES + ((8, 129, 1536), (24, 129, 2304))
 ABLATE_SHAPES = ((192, 136, 2304), (8, 136, 2304))     # the tool's qkv, and a small batch
 DT_COS_MIN = 0.9999
 # Kernel 8's dt follows two stacked bf16 roundings (dS, then dq / dk / dv) and a
@@ -2144,7 +2177,10 @@ def misrounded_fused_dw(qkv, probs, do, t, w, *, num_heads, scale):
     return (dqkv.reshape(-1, 3 * c) @ w.float()).to(qkv.dtype).reshape(do.shape)
 
 
-def check_fused_dw(device, shape) -> float:
+def check_fused_dw(device, shape, control: bool = True) -> float:
+    """Kernel 8 against its plain version and f64 at qkv `shape`, and the
+    misrounded control beside it (not over one key, where dS is exactly zero
+    and nothing is rounded)."""
     from demo2_tpu_torch.ops import packed_attention as pa
 
     inputs, kw = fused_dw_inputs(shape, device, seed=19)
@@ -2169,14 +2205,14 @@ def check_fused_dw(device, shape) -> float:
         if name == "dt":
             dw_ = mean_err(wrong, yp)
             log(f"[new-kernel] {what} dt: control contracting the unrounded dq, dk, dv: vs "
-                f"plain mean {dw_:.3e} ({dw_ / size:.3e} of mean |dt|)")
+                f"plain mean {dw_:.3e} ({dw_ / size:.3e} of mean |dt|), held to it {control}")
             require(yk.dtype == torch.bfloat16, f"{what} dt: dtype {yk.dtype}")
             require(d.max().item() <= MAX_ABS_TOL, f"{what} dt: max abs {d.max().item()}")
             require(d.mean().item() <= MEAN_ABS_TOL, f"{what} dt: mean abs {d.mean().item()}")
             require(d.mean().item() <= FUSED_DW_ROUNDING_REL * size,
                     f"{what} dt: mean abs {d.mean().item()} > {FUSED_DW_ROUNDING_REL} of mean "
                     f"|dt| {size}: the kernel rounds where its plain version does not")
-            require(dw_ > FUSED_DW_ROUNDING_REL * size,
+            require(not control or dw_ > FUSED_DW_ROUNDING_REL * size,
                     f"{what} dt: the misrounded control is within {FUSED_DW_ROUNDING_REL} of "
                     f"the plain version, so the bound cannot tell where a kernel rounds")
         else:
@@ -2280,10 +2316,11 @@ def check_ablate(device, shape) -> float:
     return worst
 
 
-def phase_new_kernels(device, qkv_shapes=QKV_SHAPES, ablate_shapes=ABLATE_SHAPES) -> dict:
+def phase_new_kernels(device, qkv_shapes=QKV_SHAPES, ablate_shapes=ABLATE_SHAPES,
+                      fused_dw_edges=FUSED_DW_EDGE_SHAPES) -> dict:
     """Kernel 8, the training form of kernel 2 and kernel 13's five cases
-    against their plain versions.  Returns name -> max abs error at the first
-    shape."""
+    against their plain versions; kernel 8 also at `fused_dw_edges`.
+    Returns name -> max abs error at the first shape."""
     exact_products()
     errors = {}
     for shape in qkv_shapes:
@@ -2291,6 +2328,8 @@ def phase_new_kernels(device, qkv_shapes=QKV_SHAPES, ablate_shapes=ABLATE_SHAPES
         b, s, c3 = shape
         errors.setdefault("fused_mlp_block_train",
                           check_mlp_train(device, (b, s, c3 // 3))["max_abs"])
+    for shape in fused_dw_edges:
+        check_fused_dw(device, shape, control=shape[1] > 1)
     for shape in ablate_shapes:
         errors.setdefault("attention_ablate", check_ablate(device, shape))
     log(f"[new-kernel] tolerances: kernel 8 dt max abs <= {MAX_ABS_TOL}, mean abs <= "
@@ -2327,6 +2366,12 @@ def phase_block_backward(device, shape=FLAGSHIP) -> dict:
                                            attention_bwd_fused_dw=1), "[block-bwd] kernel-8 route")
     via_4 = fb.attention_block_backward(*saved, **kw, fused_dw=False)
     sync()
+    # Kernel 8's db is kernel 4's own: the same instantiation and the same
+    # fixed-order sum of its per-sample partials.
+    same_db = torch.equal(via_8[4], via_4[4])
+    log(f"[block-bwd] grad bqkv: kernel-8 route bitwise equal to the kernel-4 route {same_db}")
+    require(same_db or REHEARSAL, "[block-bwd] grad bqkv: the kernel-8 route's differs in its bits "
+            "from the kernel-4 route's")
     for name, a, r in zip(("x", "ln_weight", "ln_bias", "wqkv", "bqkv", "wout", "bout"),
                           via_8, via_4):
         cos = cosine(a.float(), r.float())
@@ -2378,6 +2423,7 @@ def phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg, model, cache, 
     sep_ms = (cuda_ms(separate) + cuda_ms(separate)) / 2
     log(f"[time] kernel 4 + the two torch.mm that kernel 8 fuses (dt = dqkv W, dW = dqkv^T t; "
         f"dqkv through device memory) x{shape}: {sep_ms:.4f} ms ({card})")
+    time_fused_dw_stages(inputs, kw, card)
 
     x, _, mlp = block_inputs((b, s, c), device, seed=1)
     bf = {k: v.to(torch.bfloat16) for k, v in mlp.items()}
@@ -2443,6 +2489,53 @@ def phase_mlp_train_timing(device, card, mlp_cfg, mlp_model, cfg, model, cache, 
     return times, tool_launches
 
 
+def time_fused_dw_stages(inputs, kw, card) -> dict:
+    """Kernel 8's launches by the profiler, each beside its own bound (the
+    larger of its operations over the bf16 peak and the bytes it must move
+    over the memory rate); their sum beside the function's bound.  Returns
+    stage -> ms, each stage under a part of its kernel's name."""
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    qkv, probs, do, t, w = inputs
+    b, s, c3 = qkv.shape
+    c, m = c3 // 3, b * s
+    slices = -(-m // pa.DW_SLICE_ROWS)
+    product = 2 * m * c3 * c  # each of dt = dqkv W and dW = dqkv^T t
+    partials = 4 * slices * c3 * c if slices > 1 else 0
+    stages = {  # part of the kernel's name: (what it computes, operations, bytes)
+        "attention_regs_bwd_kernel": ("1. kernel 4: dqkv and db's per-sample partials",
+                                      8 * b * s * s * c,
+                                      tensor_bytes((qkv, probs, do, qkv)) + 4 * b * c3),
+        "db_reduce_kernel": ("1. db: the samples' partials added in order", 0,
+                             4 * (b + 1) * c3),
+        "RoundEpilogue": ("2. dt = bf16(dqkv W) over K = 3C", product,
+                          tensor_bytes((qkv, w, do))),
+        "F32Epilogue": ("3. dW = dqkv^T t, the f32 partials of K's slices", product,
+                        tensor_bytes((qkv, t)) + (partials or 4 * c3 * c)),
+        "sum_slices_kernel": ("3. dW: the slices' partials added in order", 0,
+                              partials + 4 * c3 * c if partials else 0),
+    }
+    call = lambda: pa.attention_bwd_fused_dw(*inputs, **kw)
+    kernels = device_ms(call)
+    got, floor = {}, 0.0
+    for part, (what, ops, moved) in stages.items():
+        ms = sum(v for key, v in kernels.items() if part in key)
+        stage_bound = roofline(ops, BF16_PEAK_TFLOPS, moved)[0]
+        got[part] = ms
+        floor += stage_bound
+        log(f"[time] kernel 8 stage {what}: {ms:.4f} ms, its bound {stage_bound:.4f} ms ({card})")
+        require(ms > 0 or (part == "sum_slices_kernel" and slices == 1),
+                f"kernel 8: no device time under {part}")
+    other = sum(kernels.values()) - sum(got.values())
+    bound, by = roofline(8 * b * s * s * c + 2 * product, BF16_PEAK_TFLOPS,
+                         tensor_bytes(inputs) + tensor_bytes((do,)) + 4 * (c3 * c + c3))
+    log(f"[time] kernel 8 x{tuple(qkv.shape)}: its launches {sum(got.values()):.4f} ms (other "
+        f"device time {other:.4f}); the stages' bounds add to {floor:.4f} ms, the function's "
+        f"bound {bound:.4f} ms by {by}; CUDA events {cuda_ms(call):.4f} ms a call, the host's "
+        f"enqueue {host_ms(call):.4f} ({card})")
+    return got
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -2467,7 +2560,7 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                         "demo2_tpu/utils/reranking.py:23"),
     "fused_mlp_block_train": ("demo2_tpu_torch/csrc/fused_mlp_block.cu",
                               "demo2_tpu/ops/fused_block.py:369"),
-    "attention_bwd_fused_dw": ("demo2_tpu_torch/csrc/attention_bwd_fused_dw.cu",
+    "attention_bwd_fused_dw": ("demo2_tpu_torch/csrc/attention_bwd.cu",
                                "demo2_tpu/ops/packed_attention.py:377"),
     "attention_ablate": ("demo2_tpu_torch/csrc/attention_ablate.cu",
                          "tools/bench_kernel_ablate.py:25"),

@@ -21,8 +21,46 @@
 // C slice; dO (B*S, C) bf16; probs (B, H, S, S16) bf16 with S16 = S rounded up
 // to 16 and zero columns >= S (demo2_tpu_torch/ops/packed_attention.py, the
 // one definition of that layout; fused_attention_block.cu writes it).
+//
+// Kernel 8, the attention backward fused with the backward of the qkv
+// projection, replaces the Pallas kernel demo2_tpu/ops/packed_attention.py::
+// _bwd_fused_dw_kernel (reached through _packed_bwd_fused_dw), with its
+// numerics: dq, dk, dv as kernel 4 computes them, rounded to bf16, and only
+// then contracted (W and dW in torch's Linear layout (3C, C), t (B*S, C) the
+// projection's input):
+//   dt[row, :] = bf16(sum over the 3C columns of dqkv[row, j] W[j, :]),  the
+//                f32 sum over the whole 3C rounded once;
+//   dW[j, :]   = sum over the B*S rows of dqkv[row, j] t[row, :]         (f32);
+//   db[j]      = sum over the B*S rows of dqkv[row, j]                   (f32).
+// The TPU kept an (8 samples x S, 3C) dqkv block in 100 MiB of VMEM and walked
+// the batch in order, carrying dW from one grid step to the next.  On an H100
+// neither sum fits an SM: dt sums over the heads (a sample's 144 x 768 f32 is
+// 442 KB), dW over all B*S rows (7 MB of f32 at ViT-B).  The first design
+// kept one head's dqkv in shared memory and paid with ~4.7 GB of f32 partial
+// sums (dt's 1 GB per head written and read, dW's per sample through L2); it
+// took 4.50 ms at qkv (192, 129, 2304).  Here dqkv goes through device memory
+// once, in bf16 (114 MB at that shape: written once, read twice), in three
+// stages on the caller's stream, each a kernel of this library:
+//   1. kernel 4's instantiation (launch_saved<true>): dqkv into scratch and
+//      db's per-sample partials, then db_reduce_kernel, so kernel 8's db is
+//      kernel 4's bit for bit;
+//   2. dt = dqkv W on gemm_sm90.cuh: A K-major, W MN-major (read as it lies,
+//      no transposed copy), RoundEpilogue: the whole K = 3C in one f32
+//      accumulator, rounded to bf16 once, no split;
+//   3. dW = dqkv^T t on gemm_sm90.cuh, both operands MN-major, K = B*S cut
+//      into slices of `slice_rows` rows (a fixed number, chosen from the
+//      shape by the wrapper), each (slice, tile) storing its f32 partial
+//      (F32Epilogue), then sum_slices_kernel adds the partials in slice order.
+// Every sum is taken in a fixed order, no atomics: reruns are bit-identical.
+// What bounds it on an H100: at qkv (192, 129, 2304) the function must move
+// qkv, probs, dO, t and W in and dt, dW and db out (~325 MB, 0.10 ms at 3.35
+// TB/s) and count 8 B H S^2 D + 4 (B S) C 3C = 1.95e11 operations, 0.197 ms at
+// the 989 TFLOP/s bf16 peak: operations.  The stages' own floor is the sum of
+// their bounds: 0.105 ms (stage 1, bytes) + 0.089 + 0.089 (the two products,
+// 87.7 GFLOP each) = 0.28 ms, plus the slice sum's bytes.
 
 #include "attention_regs_bwd.cuh"
+#include "gemm_sm90.cuh"
 
 namespace demo2 {
 namespace {
@@ -73,6 +111,55 @@ cudaError_t launch_saved(const void* qkv, const void* probs, const void* dout, v
       st, static_cast<const bf16*>(probs), static_cast<float*>(db_partial));
 }
 
+// out[i] = sum over s of partial[s, i], s in order; four values a thread.
+__global__ void sum_slices_kernel(const float4* __restrict__ partial, float4* __restrict__ out,
+                                  int slices, size_t n4) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 acc = partial[i];
+  for (int s = 1; s < slices; ++s) {
+    const float4 v = partial[static_cast<size_t>(s) * n4 + i];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  out[i] = acc;
+}
+
+// Kernel 8's three stages (the header comment above).
+cudaError_t fused_dw(const void* qkv, const void* probs, const void* dout, const void* t,
+                     const void* wqkv, void* dt, void* dwqkv, void* dbqkv, void* dqkv,
+                     void* db_partial, void* dw_partial, int batch, int seq, int width,
+                     int heads, int slice_rows, float scale, cudaStream_t st) {
+  if (slice_rows <= 0 || slice_rows % kGemmBK != 0 || width % 8 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
+                                       heads, scale, st);
+  if (err != cudaSuccess) return err;
+  err = reduce_db(db_partial, dbqkv, batch, width, st);
+  if (err != cudaSuccess) return err;
+
+  const int rows = batch * seq;
+  const bf16* d = static_cast<const bf16*>(dqkv);
+  err = launch_gemm_sm90<RoundEpilogue, Major::kK, Major::kMN>(
+      d, static_cast<const bf16*>(wqkv), nullptr, static_cast<bf16*>(dt), nullptr, rows, width,
+      3 * width, st);
+  if (err != cudaSuccess) return err;
+
+  const int slices = (rows + slice_rows - 1) / slice_rows;
+  float* dw = static_cast<float*>(dwqkv);
+  err = launch_gemm_sm90<F32Epilogue, Major::kMN, Major::kMN>(
+      d, static_cast<const bf16*>(t), nullptr, nullptr, nullptr, 3 * width, width, rows, st,
+      slices == 1 ? dw : static_cast<float*>(dw_partial), slice_rows);
+  if (err != cudaSuccess || slices == 1) return err;
+  const size_t n4 = static_cast<size_t>(3) * width * width / 4;
+  sum_slices_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float4*>(dw_partial), reinterpret_cast<float4*>(dw), slices, n4);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace demo2
 
@@ -101,4 +188,19 @@ extern "C" int demo2_attention_bwd_saved(const void* qkv, const void* probs, con
   return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
                                               width, heads, scale,
                                               static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel 8: t (B*S, C) and wqkv (3C, C) bf16 inputs besides; dt (B*S, C) bf16,
+// dwqkv (3C, C) and dbqkv (3C,) f32 outputs; dqkv (B*S, 3C) bf16, db_partial
+// (B, 3C) f32 and, where B*S > slice_rows (a multiple of 64), dw_partial
+// (ceil(B*S / slice_rows), 3C, C) f32 scratch.
+extern "C" int demo2_attention_bwd_fused_dw(const void* qkv, const void* probs,
+                                            const void* dout, const void* t, const void* wqkv,
+                                            void* dt, void* dwqkv, void* dbqkv, void* dqkv,
+                                            void* db_partial, void* dw_partial, int batch,
+                                            int seq, int width, int heads, int slice_rows,
+                                            float scale, void* stream) {
+  return static_cast<int>(demo2::fused_dw(qkv, probs, dout, t, wqkv, dt, dwqkv, dbqkv, dqkv,
+                                          db_partial, dw_partial, batch, seq, width, heads,
+                                          slice_rows, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -2,8 +2,8 @@
 // the tiles take, the strided head-split layout (HeadLayout) with its two
 // packed forms, and the Softmax modes, the points where each Pallas forward
 // rounds.  The tiles themselves are attention_regs_fwd.cuh (kernels 1, 3, 5,
-// 9 and 13), attention_regs_bwd.cuh (4, 6, 7 and 10) and attention_bwd.cuh
-// (kernel 8).
+// 9 and 13) and attention_regs_bwd.cuh (4, 6, 7 and 10, and 8's attention
+// part).
 //
 // The scores are f32 (bf16 q and k on the tensor cores, f32 accumulation,
 // then * scale) and keys >= S are never visited (the Pallas kernels mask them

@@ -14,8 +14,9 @@
 //       probs (B, H, S, S16); dS is computed in f32 from that bf16 P and
 //       rounded to bf16 once; with kDb the f32 column sums of the rounded dq,
 //       dk, dv go to db_partial (B, 3C).
-// Kernel 8 (attention_bwd_fused_dw.cu) stays on the first design,
-// attention_bwd.cuh.  Per (sample, head), from bf16 q, k, v and dO,
+// Kernel 8 (attention_bwd.cu, demo2_attention_bwd_fused_dw) runs kernel 4's
+// instantiation, then contracts its dqkv on gemm_sm90.cuh.  Per (sample,
+// head), from bf16 q, k, v and dO,
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P))  (from dP and
 //   P, not through dO . O);  dQ = dS K * scale;  dK = dS^T Q * scale,
 // the outputs rounded to bf16 once.
@@ -23,8 +24,9 @@
 // What bounds the work on an H100: at 192 samples x 129 rows x 12 heads of 64
 // the recomputing kernels must move 266 MB (0.080 ms at 3.35 TB/s) and count
 // 24.5 GFLOP; the saved-probs kernels also read 86 MB of P (352 MB, 0.105 ms)
-// and count 19.6 GFLOP.  The first design (attention_bwd.cuh) took 10-17x
-// that: one block per SM walked nine query tiles with five or six block
+// and count 19.6 GFLOP.  The first design (a shared-memory header, deleted
+// since) took 10-17x that: one block per SM walked nine query tiles with five
+// or six block
 // barriers each, kept the dK / dV accumulators in shared memory (72 tiles
 // loaded and stored per query tile) and passed S, P, dP and dS through shared
 // memory.
@@ -155,11 +157,21 @@
 
 #pragma once
 
-#include "attention_bwd.cuh"
 #include "attention_regs_fwd.cuh"
 
 namespace demo2 {
 namespace {
+
+// Where P comes from and where the backward rounds:
+//   kSaved (packed_attention.py::_bwd_saved(_db)_kernel, kernels 4 and 7, and
+//       the attention part of kernel 8): P is the forward's saved bf16 p; dS
+//       uses that bf16 p and is rounded to bf16 before the dQ / dK products;
+//   kRecompute (packed_attention.py::_bwd_kernel, kernel 6): p is recomputed
+//       from Q and K in f32 (exp(s - max) / (sum + 1e-30)); dV takes bf16(p),
+//       dS takes the f32 p and is rounded to bf16 before the dQ / dK products;
+//   kRecomputeF32 (flash_attention.py::_bwd_kernel, kernel 10): f32
+//       throughout.
+enum class Probs { kSaved, kRecompute, kRecomputeF32 };
 
 // kRegsBwdRing x [Q | K | V | dO], [kSaved: kRegsBwdRing x P], the statistics
 // per ring slot (m / rinv / delta; kSaved: delta alone), three mbarriers per

@@ -3,10 +3,11 @@
 // products of the ViT block kernels (fused_attention_block.cu: kernels 1 and
 // 3; fused_mlp_block.cu: kernel 2 in both forms), which replace the Pallas
 // kernels demo2_tpu/ops/fused_block.py::_fwd_kernel_infer, ::_fwd_kernel and
-// ::_mlp_kernel.  A is row-major (M, K), W row-major (N, K): torch's Linear
-// layout (out, in), K-major, the layout wgmma takes for B, so no transpose.
-// The epilogue (below) takes the f32 accumulators of two neighbouring columns
-// of one row and rounds where the Pallas kernel rounds.
+// ::_mlp_kernel, and for kernel 8's two products (attention_bwd.cu, below).
+// For the block kernels A is row-major (M, K), W row-major (N, K): torch's
+// Linear layout (out, in), K-major, the layout wgmma takes for B without its
+// transpose bit.  The epilogue (below) takes the f32 accumulators of two
+// neighbouring columns of one row and rounds where the Pallas kernel rounds.
 //
 // What bounds it on an H100: at the flagship shape (M = 192 x 129 = 24,768
 // rows, C = 768) the products are qkv 87.7 GFLOP (0.089 ms at the 989 TFLOP/s
@@ -63,6 +64,34 @@
 // memory (4 bytes a thread in stripes of eight rows, the bias and residual
 // read between the stores) made a K = 768 tile's epilogue longer than its
 // products: hence the staging tile and the TMA stores.
+//
+// Kernel 8's two products (attention_bwd.cu) run on the same kernel with
+// other operand forms, chosen by two template parameters whose defaults are
+// the K-major forms above:
+//   * dt = dqkv W: A is dqkv (B*S, 3C), K-major; B is W (3C, C) in torch's
+//     Linear layout, that is (K, N) with N contiguous: MN-major.  The epilogue
+//     rounds the f32 sum over the whole K = 3C to bf16 once, with no bias
+//     (RoundEpilogue).
+//   * dW = dqkv^T t: A is dqkv read as its transpose, (K = B*S, M = 3C) with M
+//     contiguous, and B is t (K = B*S, N = C) with N contiguous: both
+//     MN-major.  The output has only (3C / 128) x (C / 192) tiles (72 at
+//     ViT-B), so K is cut into slices of a fixed number of rows and a work
+//     unit is a (slice, tile) pair; each unit stores its f32 sums straight
+//     from the accumulators to its own (3C, C) partial (F32Epilogue), and a
+//     second pass adds the partials in slice order.  The slices depend on the
+//     shape alone, so the bits do not depend on the card's SM count.
+// An MN-major operand comes in as boxes of 64 M (or N) x 64 K: 64 rows, one a
+// K index, of 128 bytes under the same 128-byte swizzle (two boxes for A's 128
+// rows, three for W's 192 columns), 40 KB a slice as before.  In the wgmma
+// descriptor the 8-row K groups are 1,024 bytes apart (SBO) and the 64-wide
+// boxes 8,192 bytes (LBO); a 16-deep K step is 16 rows further (2,048 bytes,
+// where the K-major form steps 32 bytes along a row), and the instruction's
+// transpose bit for that operand is set.  The transpose bit names which
+// storage dimension is contiguous, not a mathematical transpose.
+// TMA's rule for every map: the contiguous dimension of each operand and of
+// the output a multiple of 8 (16-byte row strides); the other dimension is
+// free, its ragged edge the copy engine's zero fill (K, for the MN-major
+// operands) or clipped on store (the output's rows).
 // Resources (nvcc 12.9, -Xptxas -v, sm_90a): 168 registers at entry (the
 // launch bound of 384 threads; the consumers raise theirs to 232 with
 // setmaxnreg), no spills but in the training form's fc1 (128-byte stack, 124
@@ -101,12 +130,14 @@ static_assert(kGemmBN == 192 && kGemmBN % kGemmBox == 0 && kGemmBox == kGemmBK,
 // row, their bias pair b (added in f32 by every epilogue) and, for kResidual,
 // the residual pair r (two bf16 in a register, the lower column in the low
 // half) to the two bf16 of the output, rounded where the Pallas kernel rounds.
-// kHidden also writes the pre-GELU hidden, hidden().
-enum class Aux { kNone, kResidual, kHidden };
+// kHidden also writes the pre-GELU hidden, hidden().  kF32 stores the f32
+// accumulators themselves, with no staging tile (F32Epilogue).
+enum class Aux { kNone, kResidual, kHidden, kF32 };
 
 // out = bf16(acc + bias): the qkv projection.
 struct BiasEpilogue {
   static constexpr Aux kAux = Aux::kNone;
+  static constexpr bool kBias = true;
   __device__ static uint32_t out(float a0, float a1, float2 b, uint32_t) {
     return pack_bf16x2(a0 + b.x, a1 + b.y);
   }
@@ -130,6 +161,7 @@ __device__ __forceinline__ float quick_gelu(float h) {
 // h = acc + bias (f32); out = bf16(h * sigmoid(1.702 h)): fc1 at eval.
 struct BiasQuickGeluEpilogue {
   static constexpr Aux kAux = Aux::kNone;
+  static constexpr bool kBias = true;
   __device__ static uint32_t out(float a0, float a1, float2 b, uint32_t) {
     return pack_bf16x2(quick_gelu(a0 + b.x), quick_gelu(a1 + b.y));
   }
@@ -139,6 +171,7 @@ struct BiasQuickGeluEpilogue {
 // taken from the f32 h (fused_block.py::_mlp_kernel, which training reads).
 struct BiasQuickGeluHiddenEpilogue {
   static constexpr Aux kAux = Aux::kHidden;
+  static constexpr bool kBias = true;
   __device__ static uint32_t hidden(float a0, float a1, float2 b) {
     return pack_bf16x2(a0 + b.x, a1 + b.y);
   }
@@ -151,6 +184,7 @@ struct BiasQuickGeluHiddenEpilogue {
 // residual added in bf16.
 struct BiasResidualBf16Epilogue {
   static constexpr Aux kAux = Aux::kResidual;
+  static constexpr bool kBias = true;
   __device__ static uint32_t out(float a0, float a1, float2 b, uint32_t r) {
     const float y0 = __bfloat162float(__float2bfloat16_rn(a0 + b.x));
     const float y1 = __bfloat162float(__float2bfloat16_rn(a1 + b.y));
@@ -161,13 +195,33 @@ struct BiasResidualBf16Epilogue {
 // out = bf16(resid + (acc + bias)): fc2, the residual added in f32.
 struct BiasResidualF32Epilogue {
   static constexpr Aux kAux = Aux::kResidual;
+  static constexpr bool kBias = true;
   __device__ static uint32_t out(float a0, float a1, float2 b, uint32_t r) {
     return pack_bf16x2(__uint_as_float(r << 16) + (a0 + b.x),
                        __uint_as_float(r & 0xffff0000u) + (a1 + b.y));
   }
 };
 
+// out = bf16(acc), no bias: kernel 8's dt, its f32 sum over K rounded once.
+struct RoundEpilogue {
+  static constexpr Aux kAux = Aux::kNone;
+  static constexpr bool kBias = false;
+  __device__ static uint32_t out(float a0, float a1, float2, uint32_t) {
+    return pack_bf16x2(a0, a1);
+  }
+};
+
+// The f32 sums as they are, to the work unit's own partial: kernel 8's dW.
+struct F32Epilogue {
+  static constexpr Aux kAux = Aux::kF32;
+  static constexpr bool kBias = false;
+};
+
 // ---- wgmma, TMA -----------------------------------------------------------------
+
+// Which storage dimension of an operand is contiguous: K (A (M, K); W (N, K),
+// torch's Linear layout) or M / N (A stored as (K, M), W as (K, N)).
+enum class Major { kK, kMN };
 
 // The shared-memory descriptor of a K-major tile of 128-byte rows under the
 // 128-byte swizzle, starting on 1024 bytes: 8-row groups 1,024 bytes apart
@@ -177,6 +231,22 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
+
+// The descriptor of an MN-major tile: boxes of 64 rows (K) x 128 bytes (64
+// M or N) under the 128-byte swizzle, kGemmBoxBytes apart (LBO: the next 64
+// of M or N), starting on 1024 bytes; 8-row K groups 1,024 bytes apart (SBO).
+// The K step kk of a slice is 16 rows further: the descriptor + 128 kk.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (uint64_t{kGemmBoxBytes >> 4} << 16) | (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+template <Major kMajor>
+__device__ __forceinline__ uint64_t operand_desc(const void* tile) {
+  return kMajor == Major::kK ? wgmma_desc(tile) : wgmma_desc_mn(tile);
+}
+// How far a 16-deep K step moves an operand's descriptor (16-byte units).
+template <Major kMajor>
+constexpr int kDescStep = kMajor == Major::kK ? 2 : 16 * 128 / 16;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -196,7 +266,9 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[kGemmAcc]) {
 }
 
 // d (64 x 192, the warpgroup's accumulator layout) (+)= A (64 x 16) B^T with
-// A and B (192 x 16) K-major in shared memory; `accumulate` 0 overwrites d.
+// A and B (192 x 16) in shared memory, each K-major or, with its transpose
+// bit (kTransA, kTransB), MN-major; `accumulate` 0 overwrites d.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[kGemmAcc], uint64_t desc_a,
                                                  uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -213,7 +285,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[kGemmAcc], uint64_t 
       "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
       "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
       "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 0;\n"
+      "}, %96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -231,7 +303,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[kGemmAcc], uint64_t 
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // The box at (x: column, y: row) of a 2-d tensor map to the swizzled tile at
@@ -284,8 +356,9 @@ __device__ __forceinline__ void stage_pairs(unsigned char* tile, const float (&d
 #pragma unroll
   for (int i = 0; i < kGemmBN / 8; ++i) {
     const int c = i * 8 + 2 * (lane & 3);
-    const float2 b = n0 + c < N ? __ldg(reinterpret_cast<const float2*>(bias + n0 + c))
-                                : make_float2(0.f, 0.f);
+    const float2 b = Epilogue::kBias && n0 + c < N
+                         ? __ldg(reinterpret_cast<const float2*>(bias + n0 + c))
+                         : make_float2(0.f, 0.f);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t* slot = staged_pair(tile, r0 + 8 * h, c);
@@ -315,13 +388,60 @@ __device__ __forceinline__ void store_staged(unsigned char* tile, const CUtensor
   }
 }
 
-template <class Epilogue>
+// One consumer thread's f32 pairs (rows r and r + 8 of the output, columns
+// n0 + 8 i + 2 (lane % 4) and the next) straight to out (M, N): a quad writes
+// 32 consecutive bytes, a whole sector; rows >= M and columns >= N are not
+// written.
+__device__ __forceinline__ void store_f32_pairs(float* out, const float (&d)[kGemmAcc], int r,
+                                                int n0, int M, int N, int lane) {
+#pragma unroll
+  for (int i = 0; i < kGemmBN / 8; ++i) {
+    const int c = n0 + i * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h < M && c < N) {
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r + 8 * h) * N + c) =
+            make_float2(d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// A's slice kt of the tile at row (or column, MN-major) m0 into a_s, W's at n0
+// into w_s, both counted on `bar`.
+template <Major kMajorA, Major kMajorW>
+__device__ __forceinline__ void load_slice(unsigned char* a_s, unsigned char* w_s,
+                                           const CUtensorMap* a_map, const CUtensorMap* w_map,
+                                           int k, int m0, int n0, uint64_t* bar) {
+  if constexpr (kMajorA == Major::kK) {
+    tma_load_2d(a_s, a_map, k, m0, bar);
+  } else {
+#pragma unroll
+    for (int box = 0; box < kGemmBM / kGemmBox; ++box) {
+      tma_load_2d(a_s + box * kGemmBoxBytes, a_map, m0 + box * kGemmBox, k, bar);
+    }
+  }
+  if constexpr (kMajorW == Major::kK) {
+    tma_load_2d(w_s, w_map, k, n0, bar);
+  } else {
+#pragma unroll
+    for (int box = 0; box < kGemmBN / kGemmBox; ++box) {
+      tma_load_2d(w_s + box * kGemmBoxBytes, w_map, n0 + box * kGemmBox, k, bar);
+    }
+  }
+}
+
+// Work unit u of `units` = tiles x splits: output tile u % tiles over the K
+// slices of split u / tiles, split_slices of them (the last split fewer).
+// Only Aux::kF32 splits K; every other epilogue's unit is its tile, over all
+// of K, with the unit arithmetic folded away at compile time.
+template <class Epilogue, Major kMajorA, Major kMajorW>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap w_map,
                  const __grid_constant__ CUtensorMap out_map,
                  const __grid_constant__ CUtensorMap aux_map, const float* __restrict__ bias,
-                 int M, int N, int K) {
+                 float* __restrict__ out_f32, int M, int N, int K, int split_slices) {
   // [ring: stages x (A | W)] [staging: 2 x 64 x 192] [full] [empty] [aux]
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(gemm_smem + kGemmRingBytes + 2 * kGemmOutTile);
@@ -330,6 +450,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
   const int n_tiles = (N + kGemmBN - 1) / kGemmBN;
   const int tiles = (M + kGemmBM - 1) / kGemmBM * n_tiles;
   const int slices = (K + kGemmBK - 1) / kGemmBK;
+  constexpr bool kSplit = Epilogue::kAux == Aux::kF32;
+  const int units = kSplit ? tiles * ((slices + split_slices - 1) / split_slices) : tiles;
   const int warpgroup = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -348,15 +470,18 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t round = 0;  // parity of the ring's pass
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+        const int tile = kSplit ? unit % tiles : unit;
         const int m0 = tile / n_tiles * kGemmBM;
         const int n0 = tile % n_tiles * kGemmBN;
-        for (int kt = 0; kt < slices; ++kt) {
+        const int kt0 = kSplit ? unit / tiles * split_slices : 0;
+        const int kt1 = kSplit ? min(slices, kt0 + split_slices) : slices;
+        for (int kt = kt0; kt < kt1; ++kt) {
           mbar_wait(empty + stage, round ^ 1);  // the pass before released the slot
           unsigned char* a_s = gemm_smem + stage * kGemmStageBytes;
           mbar_arrive_expect(full + stage, kGemmStageBytes);
-          tma_load_2d(a_s, &a_map, kt * kGemmBK, m0, full + stage);
-          tma_load_2d(a_s + kGemmATile, &w_map, kt * kGemmBK, n0, full + stage);
+          load_slice<kMajorA, kMajorW>(a_s, a_s + kGemmATile, &a_map, &w_map, kt * kGemmBK, m0,
+                                       n0, full + stage);
           if (++stage == kGemmStages) {
             stage = 0;
             round ^= 1;
@@ -375,24 +500,31 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
     uint32_t round = 0;
     uint32_t aux_round = 0;
     float d[kGemmAcc];
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+      const int tile = kSplit ? unit % tiles : unit;
       const int m0 = tile / n_tiles * kGemmBM;
       const int n0 = tile % n_tiles * kGemmBN;
+      const int kt0 = kSplit ? unit / tiles * split_slices : 0;
+      const int kt1 = kSplit ? min(slices, kt0 + split_slices) : slices;
       const int row0 = m0 + half * 64;
       int held = 0;  // the slot whose products are in flight
       fence_accumulators(d);
-      for (int kt = 0; kt < slices; ++kt) {
+      for (int kt = kt0; kt < kt1; ++kt) {
         mbar_wait(full + stage, round);
         const unsigned char* a_s = gemm_smem + stage * kGemmStageBytes;
-        const uint64_t desc_a = wgmma_desc(a_s + half * 64 * kGemmBK * sizeof(bf16));
-        const uint64_t desc_w = wgmma_desc(a_s + kGemmATile);
+        // The warpgroup's 64 rows of A: the second half of a K-major tile,
+        // the second box of an MN-major one, 8 KB in either form.
+        const uint64_t desc_a = operand_desc<kMajorA>(a_s + half * kGemmBoxBytes);
+        const uint64_t desc_w = operand_desc<kMajorW>(a_s + kGemmATile);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-          wgmma_m64n192k16(d, desc_a + 2 * kk, desc_w + 2 * kk, kt > 0 || kk > 0);
+          wgmma_m64n192k16<kMajorA == Major::kMN, kMajorW == Major::kMN>(
+              d, desc_a + kDescStep<kMajorA> * kk, desc_w + kDescStep<kMajorW> * kk,
+              kt > kt0 || kk > 0);
         }
         wgmma_commit();
-        if (kt > 0) {  // the slice before has been read: release its slot
+        if (kt > kt0) {  // the slice before has been read: release its slot
           wgmma_wait<1>();
           if (lane == 0) mbar_arrive(empty + held);
         }
@@ -421,21 +553,26 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
       if (lane == 0) mbar_arrive(empty + held);
 
       const int r0 = warp * 16 + (lane >> 2);
-      if constexpr (Epilogue::kAux == Aux::kResidual) {
-        mbar_wait(aux_full + half, aux_round);
-        aux_round ^= 1;
+      if constexpr (Epilogue::kAux == Aux::kF32) {  // the split's own partial
+        store_f32_pairs(out_f32 + static_cast<size_t>(unit / tiles) * M * N, d, row0 + r0, n0, M,
+                        N, lane);
       } else {
-        if (leader) bulk_wait_read();  // the last tile's stores have read the staging tile
-        warpgroup_sync(half);
+        if constexpr (Epilogue::kAux == Aux::kResidual) {
+          mbar_wait(aux_full + half, aux_round);
+          aux_round ^= 1;
+        } else {
+          if (leader) bulk_wait_read();  // the last tile's stores have read the staging tile
+          warpgroup_sync(half);
+        }
+        if constexpr (Epilogue::kAux == Aux::kHidden) {
+          stage_pairs<Epilogue, true>(staging, d, bias, n0, N, r0, lane);
+          store_staged(staging, &aux_map, n0, row0, half, leader);
+          if (leader) bulk_wait_read();
+          warpgroup_sync(half);
+        }
+        stage_pairs<Epilogue, false>(staging, d, bias, n0, N, r0, lane);
+        store_staged(staging, &out_map, n0, row0, half, leader);
       }
-      if constexpr (Epilogue::kAux == Aux::kHidden) {
-        stage_pairs<Epilogue, true>(staging, d, bias, n0, N, r0, lane);
-        store_staged(staging, &aux_map, n0, row0, half, leader);
-        if (leader) bulk_wait_read();
-        warpgroup_sync(half);
-      }
-      stage_pairs<Epilogue, false>(staging, d, bias, n0, N, r0, lane);
-      store_staged(staging, &out_map, n0, row0, half, leader);
     }
     if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
   }
@@ -460,30 +597,48 @@ inline cudaError_t gemm_tensor_map(CUtensorMap* map, const bf16* base, int rows,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// out = epilogue(A W^T + bias) on `st`: A (M, K), W (N, K), out (M, N), K and
-// N multiples of 8.  `aux` is the residual (M, N) for Aux::kResidual, the
-// hidden output (M, N) for Aux::kHidden, else unused.
-template <class Epilogue>
+// The tensor map of an operand: K-major (rows, K) with boxes of 64 K x `rows`
+// rows of the tile, or MN-major (K, rows) with boxes of 64 x 64.
+template <Major kMajor>
+cudaError_t operand_tensor_map(CUtensorMap* map, const bf16* base, int rows, int K,
+                               int tile_rows) {
+  return kMajor == Major::kK ? gemm_tensor_map(map, base, rows, K, tile_rows)
+                             : gemm_tensor_map(map, base, K, rows, kGemmBox);
+}
+
+// out = epilogue(A W^T + bias) on `st`: A (M, K) [MN-major: stored (K, M)], W
+// (N, K) [MN-major: stored (K, N)], out (M, N); the contiguous dimension of
+// each a multiple of 8.  `aux` is the residual (M, N) for Aux::kResidual, the
+// hidden output (M, N) for Aux::kHidden, else unused.  Aux::kF32 writes no
+// `out`: split s of K (rows s * split_rows .., split_rows a multiple of 64, 0
+// for one split) stores its f32 sums to out_f32 + s * M * N.
+template <class Epilogue, Major kMajorA = Major::kK, Major kMajorW = Major::kK>
 cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, const float* bias, bf16* out,
-                             const bf16* aux, int M, int N, int K, cudaStream_t st) {
-  auto kernel = gemm_sm90_kernel<Epilogue>;
+                             const bf16* aux, int M, int N, int K, cudaStream_t st,
+                             float* out_f32 = nullptr, int split_rows = 0) {
+  auto kernel = gemm_sm90_kernel<Epilogue, kMajorA, kMajorW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kGemmSmemBytes);
   if (err != cudaSuccess) return err;
-  CUtensorMap a_map, w_map, out_map, aux_map;
-  err = gemm_tensor_map(&a_map, A, M, K, kGemmBM);
+  CUtensorMap a_map, w_map, out_map{}, aux_map{};
+  err = operand_tensor_map<kMajorA>(&a_map, A, M, K, kGemmBM);
   if (err != cudaSuccess) return err;
-  err = gemm_tensor_map(&w_map, W, N, K, kGemmBN);
+  err = operand_tensor_map<kMajorW>(&w_map, W, N, K, kGemmBN);
   if (err != cudaSuccess) return err;
-  err = gemm_tensor_map(&out_map, out, M, N, kGemmBox);
-  if (err != cudaSuccess) return err;
-  err = gemm_tensor_map(&aux_map, Epilogue::kAux == Aux::kNone ? out : aux, M, N, kGemmBox);
-  if (err != cudaSuccess) return err;
+  if constexpr (Epilogue::kAux != Aux::kF32) {
+    err = gemm_tensor_map(&out_map, out, M, N, kGemmBox);
+    if (err != cudaSuccess) return err;
+    err = gemm_tensor_map(&aux_map, Epilogue::kAux == Aux::kNone ? out : aux, M, N, kGemmBox);
+    if (err != cudaSuccess) return err;
+  }
+  const int slices = (K + kGemmBK - 1) / kGemmBK;
+  const int split_slices = split_rows == 0 ? slices : split_rows / kGemmBK;
+  const int tiles = (M + kGemmBM - 1) / kGemmBM * ((N + kGemmBN - 1) / kGemmBN);
   int grid = 0;
-  err = persistent_grid((M + kGemmBM - 1) / kGemmBM * ((N + kGemmBN - 1) / kGemmBN), &grid);
+  err = persistent_grid(tiles * ((slices + split_slices - 1) / split_slices), &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kGemmThreads, kGemmSmemBytes, st>>>(a_map, w_map, out_map, aux_map, bias, M, N,
-                                                      K);
+  kernel<<<grid, kGemmThreads, kGemmSmemBytes, st>>>(a_map, w_map, out_map, aux_map, bias,
+                                                      out_f32, M, N, K, split_slices);
   return cudaGetLastError();
 }
 

@@ -328,8 +328,8 @@ def attention_block_backward(x, qkv, attn, probs, lnw, lnb, wqkv_c, wout_c, g, *
     Its middle is the saved-probs attention backward, then dt = dqkv W and
     dW_qkv = dqkv^T t as two products (kernel 4 on CUDA; kernel 7 where db
     is not needed).  With `fused_dw` it is the fused-dW backward instead
-    (kernel 8 on CUDA), which contracts dqkv on chip into dt, dW_qkv and
-    db_qkv and always computes all three."""
+    (kernel 8 on CUDA: kernel 4's backward, then dt and dW_qkv on its own
+    GEMM, no torch product), which always computes all three."""
     need_x, need_lnw, need_lnb, need_wqkv, need_bqkv, need_wout, need_bout = needs
     b, s, c = x.shape
     g = g.contiguous()

@@ -25,10 +25,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
-           "attention_bwd_fused_dw.cu", "packed_attention.cu", "flash_attention.cu",
-           "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
-HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_bwd.cuh",
-           "attention_regs_fwd.cuh", "attention_regs_bwd.cuh")
+           "packed_attention.cu", "flash_attention.cu", "layernorm_bwd.cu",
+           "jaccard_min_sum.cu", "attention_ablate.cu")
+HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_regs_fwd.cuh",
+           "attention_regs_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

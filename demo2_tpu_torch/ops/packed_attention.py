@@ -18,10 +18,12 @@ saved-probs layout.
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved);
       both on the same register-resident backward, reading the saved
       probabilities in place of recomputing them;
-  attention_bwd_fused_dw: the saved-probs backward with dqkv kept on chip and
-      contracted at once into dt, the f32 dW_qkv and the f32 db_qkv
+  attention_bwd_fused_dw: the saved-probs backward with dqkv contracted at
+      once into dt, the f32 dW_qkv and the f32 db_qkv
       replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
-      (csrc/attention_bwd_fused_dw.cu, demo2_attention_bwd_fused_dw).
+      (csrc/attention_bwd.cu, demo2_attention_bwd_fused_dw): kernel 4's
+      backward into a bf16 dqkv scratch, then dt and dW on the wgmma GEMM
+      of csrc/gemm_sm90.cuh.
 
 `packed_self_attention` is the entry of the ImageNet ViT's blocks and of
 MultiHeadAttention's packed route: with grad enabled and a qkv that requires
@@ -32,7 +34,7 @@ does.
 
 The probs layout, written by the training forward (ops/fused_block.py and
 csrc/fused_attention_block.cu) and read by the saved-probs backward here and
-in csrc/attention_regs_bwd.cuh and attention_bwd.cuh: (B, H, S, S16) in the
+in csrc/attention_regs_bwd.cuh: (B, H, S, S16) in the
 compute dtype, S16 = S rounded up to 16, row (b, h, i) the normalised
 probabilities of query i over the keys, zero in the columns >= S.  Unlike the TPU's head-concat layout it
 depends on no block-size policy, so the forward and the backward cannot
@@ -211,18 +213,19 @@ def attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, *, num_heads: int, sca
     return (dqkv @ wqkv.float()).to(dt).reshape(b, s, c3 // 3), dw, dqkv.sum(0)
 
 
-def _dw_groups(device, batch: int, num_heads: int) -> int:
-    """Sample groups of kernel 8's grid (heads, groups): one block per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(batch, sms // num_heads))
+# Rows of dqkv (the K of dW = dqkv^T t) in one slice of kernel 8's dW
+# product: 36 K steps of 64 a work unit.  At 192 x 129 rows that is 11 slices,
+# 11 x 72 output tiles = 792 units, six whole rounds of an H100's 132 SMs.
+# The slices follow from the shape alone, so dW's bits do not depend on the card.
+DW_SLICE_ROWS = 2304
 
 
 def attention_bwd_fused_dw(qkv, probs, do, t, wqkv, *, num_heads: int, scale: float):
     """(dt (B, S, C), dwqkv (3C, C) f32, dbqkv (3C,) f32) as
     attention_bwd_fused_dw_plain returns them: the kernel on CUDA tensors, the
-    plain version on CPU tensors.  The kernel's f32 partial sums of dt (per
-    head) and of dW and db (per group of samples) are scratch allocated here;
-    no copy of dqkv is."""
+    plain version on CPU tensors.  The kernel's scratch is allocated here:
+    dqkv (B*S, 3C) bf16, kernel 4's per-sample db partials (B, 3C) f32 and,
+    where B*S > DW_SLICE_ROWS, the f32 dW partials of the row slices."""
     if qkv.device.type == "cpu":
         return attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, num_heads=num_heads,
                                             scale=scale)
@@ -235,15 +238,15 @@ def attention_bwd_fused_dw(qkv, probs, do, t, wqkv, *, num_heads: int, scale: fl
     db = torch.empty((3 * c,), device=dev, dtype=f32)
     if qkv.numel() == 0:
         return dt, dw.zero_(), db.zero_()
-    groups = _dw_groups(dev, b, num_heads)
-    dt_partial = torch.empty((num_heads, b, probs_cols(s), c), device=dev, dtype=f32)
-    dw_partial = torch.empty((groups, 3 * c, c), device=dev, dtype=f32)
-    db_partial = torch.empty((groups, 3 * c), device=dev, dtype=f32)
+    slices = -(-(b * s) // DW_SLICE_ROWS)
+    dqkv = torch.empty_like(qkv)
+    db_partial = torch.empty((b, 3 * c), device=dev, dtype=f32)
+    dw_partial = torch.empty((slices, 3 * c, c), device=dev, dtype=f32) if slices > 1 else dw
     with torch.cuda.device(dev):
         err = kl.lib.demo2_attention_bwd_fused_dw(
             qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), t.data_ptr(), wqkv.data_ptr(),
-            dt.data_ptr(), dw.data_ptr(), db.data_ptr(), dt_partial.data_ptr(),
-            dw_partial.data_ptr(), db_partial.data_ptr(), b, s, c, num_heads, groups,
+            dt.data_ptr(), dw.data_ptr(), db.data_ptr(), dqkv.data_ptr(),
+            db_partial.data_ptr(), dw_partial.data_ptr(), b, s, c, num_heads, DW_SLICE_ROWS,
             float(scale), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(err, "attention_bwd_fused_dw")

@@ -11,9 +11,9 @@ chip_smoke.py::compare_cases, which calls only the kernels' public wrappers,
 run against the package of the checkout under test.  Every process prints
 one line: for the block kernels 1, 2, 2's training form and 3 at x (192, 129,
 768), the attention kernels 5, 6, 9 and 10 at qkv (192, 129, 2304) and
-(192, 129, 12, 64), and the re-ranking min-sum 12 on the weights of 1,600
-queries among 4,800 clustered features, the median [min .. max] in ms of six
-rounds of 20
+(192, 129, 12, 64), the re-ranking min-sum 12 on the weights of 1,600
+queries among 4,800 clustered features and the saved-probs backwards 8, 4
+and 7 at qkv (192, 129, 2304), the median [min .. max] in ms of six rounds of 20
 launches by CUDA events, taken kernel by kernel in turns, with the card's
 name and power limit.  Two readings of one checkout say how far two
 processes differ before two checkouts are compared.

@@ -299,17 +299,22 @@ def test_every_cuda_source_is_part_of_the_build():
     assert not [e for e in kernel_lib._SIGNATURES if "first" in e]
     sources = "".join((kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES)
     assert all(f" {entry}(" in sources for entry in kernel_lib._SIGNATURES)
-    # The register-resident headers carry every attention kernel but kernel
-    # 8's, the Hopper GEMM the block kernels' products.
+    # The register-resident headers carry every attention kernel, the Hopper
+    # GEMM the block kernels' products and kernel 8's; kernel 8 lives beside
+    # kernels 4 and 7, whose instantiation it runs, and the first design's
+    # header is gone.
     includes = {src: (kernel_lib.CSRC_DIR / src).read_text() for src in kernel_lib.SOURCES}
     for src in ("packed_attention.cu", "flash_attention.cu", "attention_bwd.cu"):
         assert '#include "attention_regs_bwd.cuh"' in includes[src]
     for src in ("attention_ablate.cu", "fused_attention_block.cu"):
         assert '#include "attention_regs_fwd.cuh"' in includes[src]
-    for src in ("fused_attention_block.cu", "fused_mlp_block.cu"):
+    for src in ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu"):
         assert '#include "gemm_sm90.cuh"' in includes[src]
-    assert '#include "attention_bwd.cuh"' in includes["attention_bwd_fused_dw.cu"]
-    assert "kRecompute) {" not in (kernel_lib.CSRC_DIR / "attention_bwd.cuh").read_text()
+    assert 'extern "C" int demo2_attention_bwd_fused_dw(' in includes["attention_bwd.cu"]
+    assert "attention_bwd.cuh" not in kernel_lib.HEADERS
+    assert not (kernel_lib.CSRC_DIR / "attention_bwd.cuh").exists()
+    assert not [src for src in on_disk if '#include "attention_bwd.cuh"' in
+                (kernel_lib.CSRC_DIR / src).read_text()]
 
 
 @pytest.mark.parametrize("width,heads,seq,ok", [
@@ -451,16 +456,21 @@ def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsy
 
 REMOVED_DESIGNS = ["demo2_attention_bwd_saved_db_first", "attention_bwd_saved_db_first",
                    "time_designs", "attention_fwd_kernel", "launch_attention_fwd",
-                   "gemm_bf16_kernel", "launch_gemm", "jaccard_min_sum_kernel"]
+                   "gemm_bf16_kernel", "launch_gemm", "jaccard_min_sum_kernel",
+                   "attention_bwd_head", "bwd_dq_tile", "kBwdSmemBytes",
+                   "attention_bwd_fused_dw_kernel", "fused_dw_reduce_dt_kernel",
+                   "fused_dw_reduce_groups_kernel", "dt_partial", "_dw_groups"]
 
 
 @pytest.mark.parametrize("name", REMOVED_DESIGNS)
 def test_removed_designs_are_gone(name):
     """Kernel 4's first design (its C entry, its wrapper and the timing that
     held it beside the kernel in use), the first attention forward of kernels
-    1 and 3, the Ampere GEMM of the block kernels and kernel 12's dense
-    register-tiled sum have no trace left: no source of the package and
-    nothing in chip_smoke.py names them."""
+    1 and 3, the Ampere GEMM of the block kernels, kernel 12's dense
+    register-tiled sum and kernel 8's first design (its shared-memory
+    attention, its per-head dt partials, its per-group dW partials and the
+    wrapper's grid of groups) have no trace left: no source of the package
+    and nothing in chip_smoke.py names them."""
     import re
     from pathlib import Path
 

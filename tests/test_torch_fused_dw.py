@@ -197,3 +197,89 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     qkv, probs, do, tt, w = _bf16_inputs(2, 5, seed=0)
     pa.attention_bwd_fused_dw(qkv, probs, do, tt, w, num_heads=H, scale=SCALE)
     assert pa.attention_bwd_fused_dw.launches == before
+
+
+def test_plain_version_contracts_kernel_4s_plain_dqkv():
+    """Kernel 8 on the card is kernel 4's backward, then two products of its
+    dqkv: the plain versions say the same.  db equals kernel 4's db up to the
+    f32 summation order; dt is kernel 4's dqkv times W in f32, rounded once,
+    bit for bit."""
+    qkv, probs, do, tt, w = _bf16_inputs(6, 11, seed=5)
+    kw = dict(num_heads=H, scale=SCALE)
+    dt, dw, db = pa.attention_bwd_fused_dw_plain(qkv, probs, do, tt, w, **kw)
+    dqkv, db4 = pa.attention_bwd_saved_plain(qkv, probs, do, with_db=True, **kw)
+    d = dqkv.reshape(-1, 3 * C).float()
+    assert torch.equal(dt, (d @ w.float()).to(torch.bfloat16).reshape(dt.shape))
+    np.testing.assert_allclose(n(db), n(db4), rtol=0, atol=1e-6 * np.abs(n(db4)).max())
+    np.testing.assert_allclose(n(dw), n(d.t() @ tt.reshape(-1, C).float()), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("slice_rows", [64, 128, 192])
+def test_dw_summed_over_row_slices_in_order_matches_the_plain_version(slice_rows):
+    """Kernel 8 cuts dW's K (the B*S rows of dqkv) into slices of a fixed
+    number of rows, a multiple of the GEMM's 64-deep step, and adds the f32
+    partials in slice order: up to the f32 summation order, that is the plain
+    version's dqkv^T t, the last slice ragged or not."""
+    qkv, probs, do, tt, w = _bf16_inputs(23, 11, seed=6)  # 253 rows
+    kw = dict(num_heads=H, scale=SCALE)
+    d = pa.attention_bwd_saved_plain(qkv, probs, do, with_db=False, **kw).reshape(-1, 3 * C)
+    d, tm = d.float(), tt.reshape(-1, C).float()
+    partials = [d[r:r + slice_rows].t() @ tm[r:r + slice_rows]
+                for r in range(0, d.shape[0], slice_rows)]
+    assert len(partials) == -(-d.shape[0] // slice_rows) > 1
+    dw = partials[0]
+    for p in partials[1:]:
+        dw = dw + p
+    want = pa.attention_bwd_fused_dw_plain(qkv, probs, do, tt, w, **kw)[1]
+    np.testing.assert_allclose(n(dw), n(want), rtol=0, atol=1e-5 * np.abs(n(want)).max())
+
+
+def test_dw_slices_fill_whole_rounds_of_the_card_at_the_flagship_shape():
+    """At qkv (192, 129, 2304) the slices of DW_SLICE_ROWS rows are 11, and
+    with the 18 x 4 output tiles of 128 x 192 they are 792 work units: six
+    whole rounds of an H100's 132 SMs, each unit 36 steps of 64 rows."""
+    assert pa.DW_SLICE_ROWS % 64 == 0
+    slices = -(-(192 * 129) // pa.DW_SLICE_ROWS)
+    tiles = (2304 // 128) * (768 // 192)
+    assert (slices, slices * tiles, slices * tiles % 132) == (11, 792, 0)
+    assert pa.DW_SLICE_ROWS // 64 == 36
+
+
+# Small stand-ins of chip_smoke.FUSED_DW_EDGE_SHAPES: a tile of 16 keys, one
+# key (no control: dS is exactly zero), 3 heads, a width of 5 heads (no
+# multiple of the GEMM's 192 columns), a long ragged batch.
+SMALL_FUSED_DW_EDGES = ((3, 16, 384), (4, 1, 384), (2, 40, 576), (3, 9, 960), (5, 33, 384))
+
+
+def test_chip_smoke_fused_dw_phase_passes_on_the_plain_version(capsys):
+    """Phase 18's kernel-8 checks rehearsed on the CPU, where the wrapper is
+    its plain version: every edge is held, and at every shape with more than
+    one key the misrounded control fails the rounding bound at this width."""
+    import chip_smoke as cs
+
+    errors = cs.phase_new_kernels(torch.device("cpu"), qkv_shapes=((4, 9, 384),),
+                                  ablate_shapes=(), fused_dw_edges=SMALL_FUSED_DW_EDGES)
+    assert errors == {"attention_bwd_fused_dw": 0.0, "fused_mlp_block_train": 0.0}
+    out = capsys.readouterr().out
+    for shape in ((4, 9, 384),) + SMALL_FUSED_DW_EDGES:
+        line = next(x for x in out.splitlines()
+                    if f"kernel 8 {shape} dt: control contracting" in x)
+        assert line.endswith(f"held to it {shape[1] > 1}")
+        assert f"kernel 8 {shape}: dt, dW and db bit-identical over two runs" in out
+    assert set(cs.SAVED_EDGE_SHAPES) < set(cs.FUSED_DW_EDGE_SHAPES)
+    assert (8, 129, 1536) in cs.FUSED_DW_EDGE_SHAPES
+
+
+def test_chip_smoke_block_backward_phase_rehearses_on_the_cpu(capsys, monkeypatch):
+    """Phase 19 on the plain versions: the kernel-8 route's seven grads
+    against the kernel-4 route's, bqkv compared in its bits; the launch check
+    only logs."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "REHEARSAL", True)
+    launches = cs.phase_block_backward(torch.device("cpu"), shape=(4, 9, 128))
+    assert launches == cs.launch_dict()
+    out = capsys.readouterr().out
+    assert "[block-bwd] grad bqkv: kernel-8 route bitwise equal to the kernel-4 route" in out
+    for name in ("x", "ln_weight", "ln_bias", "wqkv", "bqkv", "wout", "bout"):
+        assert f"[block-bwd] grad {name} " in out
