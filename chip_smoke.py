@@ -13,7 +13,10 @@ and a trainer, the head-major attention route, the flagship's training with
 the one-pass LayerNorm backward (TPU.PALLAS_LN_BWD) and its re-ranked
 evaluation (TEST.RE_RANKING, the MSVR310 scene protocol), the block backward
 with the fused-dW kernel in its middle, the flagship's training with the fused
-MLP (TPU.FUSED_MLP_TRAIN) and the attention ablation tool, and times kernels,
+MLP (TPU.FUSED_MLP_TRAIN) and the attention ablation tool, drives DeMo's own
+model (configs/RGBNT201/DeMo.yml: HDM + ATMoE beside the globals' head, at
+full width) as a server, an evaluator at each return_pattern and a trainer,
+and six more DeMo branches of configs/ at two blocks, and times kernels,
 requests and train steps against the plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
@@ -145,7 +148,24 @@ requests and train steps against the plain path.  Phases:
      five cases (full h=12 beside scaled_dot_product_attention, and no
      slower than it), the train
      step with and without FUSED_MLP_TRAIN in turns with the peak memory of
-     each, a profile of one step of each.
+     each, a profile of one step of each;
+  22. DeMo.yml (its keys from YAML_KEYS, apply_flagship's production flags,
+     171 ids, 6 cameras, PK 8 x 8; HDM 8 heads of 64, ATMoE HEAD 4): phase 3
+     on it (12 launches of kernels 1 and 2 a forward, cosine >= 0.999 to the
+     plain path at N = 1, 64, 100 under miss "None" and "nt"); run_eval at
+     return_pattern 1, 2, 3 with widths 1,536 / 3,584 / 5,120 (3C / 7C /
+     10C at C = 512), pattern 3 = [2, 1], mAP in (0, 1]; phase 6 on it (12
+     launches of kernels 3 and 4 a step; HDM's parameters, ATMoE's
+     expert_kernel and its two BatchNorms' running statistics changed); a
+     do_train epoch logging patterns 1, 2 and 3;
+  23. timing (printed): the DeMo.yml train step and batch-64 request beside
+     the flagship's in turns, with a profile of each (device busy), and
+     HDM + ATMoE alone at batch 64, eval forward and forward + backward;
+  24. the Baseline, DeMo_SDTPS, DeMo_DGAF (v3, and v1 with GLOBAL_LOCAL),
+     DeMo_SDTPS_shared, DeMo_optimized and MSVR310's DeMo.yml (128x256, the
+     scene protocol with its rank list) at two blocks: one train step (2
+     launches of kernels 3 and 4) and one run_eval (2 of kernels 1 and 2 a
+     forward) each.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -474,6 +494,70 @@ def vit_cfg(fused: bool, **overrides):
                         **overrides)
 
 
+# The configs/ files of the DeMo branches that phases 22-24 drive, as
+# merge_from_list opts: the card's machine has no PyYAML.
+# tests/test_torch_package.py pins each equal to Config.merge_from_file of its
+# file.
+_YAML_MODEL = ["MODEL.TRANSFORMER_TYPE", "ViT-B-16", "MODEL.STRIDE_SIZE", [16, 16],
+               "MODEL.SIE_CAMERA", True, "MODEL.SIE_COE", 1.0, "MODEL.DIRECT", 1,
+               "MODEL.ID_LOSS_WEIGHT", 0.25, "MODEL.TRIPLET_LOSS_WEIGHT", 1.0]
+_YAML_REST = ["INPUT.SIZE_TRAIN", [256, 128], "INPUT.SIZE_TEST", [256, 128], "INPUT.PROB", 0.5,
+              "INPUT.RE_PROB", 0.5, "INPUT.PADDING", 10, "DATALOADER.SAMPLER", "softmax_triplet",
+              "DATALOADER.NUM_INSTANCE", 8, "DATALOADER.NUM_WORKERS", 4,
+              "DATASETS.NAMES", "RGBNT201", "DATASETS.ROOT_DIR", "./data",
+              "SOLVER.BASE_LR", 0.00035, "SOLVER.WARMUP_ITERS", 10, "SOLVER.MAX_EPOCHS", 50,
+              "SOLVER.STEPS", [30, 40], "SOLVER.GAMMA", 0.1, "SOLVER.OPTIMIZER_NAME", "Adam",
+              "SOLVER.IMS_PER_BATCH", 64, "SOLVER.EVAL_PERIOD", 1, "TEST.IMS_PER_BATCH", 128,
+              "TEST.RE_RANKING", "no", "TEST.NECK_FEAT", "before", "TEST.FEAT_NORM", "yes",
+              "TEST.MISS", "None", "OUTPUT_DIR", "./output"]
+_YAML_SDTPS = ["MODEL.USE_SDTPS", True, "MODEL.SDTPS_SPARSE_RATIO", 0.7,
+               "MODEL.SDTPS_CROSS_ATTN_TYPE", "attention"]
+_YAML_DGAF = ["MODEL.USE_DGAF", True, "MODEL.DGAF_VERSION", "v3"]
+_YAML_DEMO = _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", True, "MODEL.HDM", True, "MODEL.ATM", True,
+                            "MODEL.HEAD", 4]
+YAML_KEYS = {
+    "RGBNT201/DeMo.yml": _YAML_DEMO + _YAML_REST,
+    "MSVR310/DeMo.yml": _YAML_DEMO + _YAML_REST + [
+        "INPUT.SIZE_TRAIN", [128, 256], "INPUT.SIZE_TEST", [128, 256], "DATASETS.NAMES",
+        "MSVR310"],
+    "RGBNT201/Baseline.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", False] + _YAML_REST,
+    "RGBNT201/DeMo_SDTPS.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", False] + _YAML_SDTPS + [
+        "MODEL.SDTPS_CROSS_ATTN_HEADS", 4, "MODEL.SDTPS_LOSS_WEIGHT", 2.0] + _YAML_REST,
+    "RGBNT201/DeMo_DGAF.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", False] + _YAML_DGAF + [
+        "MODEL.DGAF_NUM_HEADS", 8] + _YAML_REST,
+    "RGBNT201/DeMo_SDTPS_shared.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", False] + _YAML_SDTPS
+    + ["MODEL.SDTPS_SHARE_CROSS_ATTN", True] + _YAML_DGAF + _YAML_REST,
+    "RGBNT201/DeMo_optimized.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", True] + _YAML_SDTPS + [
+        "MODEL.SDTPS_LOSS_WEIGHT", 2.0] + _YAML_DGAF + ["MODEL.DGAF_NUM_HEADS", 8] + _YAML_REST,
+}
+
+
+def yaml_cfg(path: str, fused: bool, **overrides):
+    """The keys of configs/`path` (YAML_KEYS) with apply_flagship's production
+    flags (bf16 compute, the block kernels when `fused`, bf16 Adam moments,
+    the device cache) and none of its MODEL keys; `overrides` as
+    SECTION__KEY=value."""
+    from demo2_tpu_torch.config import get_cfg_defaults
+    from demo2_tpu_torch.config.presets import apply_tiny
+
+    cfg = get_cfg_defaults().merge_from_list(YAML_KEYS[path])
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.TPU.USE_FLASH_ATTENTION = fused
+    cfg.TPU.BF16_MOMENTS = cfg.TPU.BF16_SECOND_MOMENT = True
+    cfg.TPU.DATA_CACHE = "device"
+    if REHEARSAL:
+        apply_tiny(cfg)
+    for key, value in overrides.items():
+        section, name = key.split("__")
+        setattr(getattr(cfg, section), name, value)
+    return cfg.freeze()
+
+
+def demo_cfg(fused: bool, **overrides):
+    """configs/RGBNT201/DeMo.yml: HDM + ATMoE beside the three globals' head."""
+    return yaml_cfg("RGBNT201/DeMo.yml", fused, **overrides)
+
+
 def build_models(device, make_cfg=flagship_cfg):
     """The kernel-path model (random weights from seed 0) and the plain-path
     model with the same weights."""
@@ -741,9 +825,11 @@ def phase_timing(device, card, cfg, model, plain_cfg, plain) -> dict:
     return times
 
 
-def time_extractor(device, card, cfg, model, plain_cfg, plain, label: str = "") -> None:
-    """Extractor batch-1 latency and batch-64 throughput on both paths, peak
-    memory, a profile of one batch-64 request on each path."""
+def time_extractor(device, card, cfg, model, plain_cfg, plain, label: str = "",
+                   names=("kernel path", "plain path")) -> None:
+    """Extractor batch-1 latency and batch-64 throughput on both paths
+    (`names`), peak memory of the first, a profile of one batch-64 request
+    on each."""
     from demo2_tpu_torch.serving import FeatureExtractor
 
     images, cams = request_images(64, cfg, seed=3)
@@ -769,20 +855,21 @@ def time_extractor(device, card, cfg, model, plain_cfg, plain, label: str = "") 
         return 64 * reps / (time.perf_counter() - t0)
 
     k_lat, p_lat = alternate(lambda: latency_ms(plain, plain_cfg), lambda: latency_ms(model, cfg))
-    log(f"[time] {label}extractor batch-1 latency (median of 20): kernel path {k_lat:.3f} ms, "
-        f"plain path {p_lat:.3f} ms ({card})")
+    log(f"[time] {label}extractor batch-1 latency (median of 20): {names[0]} {k_lat:.3f} ms, "
+        f"{names[1]} {p_lat:.3f} ms ({card})")
     k_tp, p_tp = alternate(lambda: throughput(plain, plain_cfg), lambda: throughput(model, cfg))
-    log(f"[time] {label}extractor batch-64: kernel path {k_tp:.1f} img/s, plain path "
-        f"{p_tp:.1f} img/s, host arrays in and out included ({card})")
+    log(f"[time] {label}extractor batch-64: {names[0]} {k_tp:.1f} img/s "
+        f"({64e3 / k_tp:.2f} ms a request), {names[1]} {p_tp:.1f} img/s ({64e3 / p_tp:.2f} ms), "
+        f"host arrays in and out included ({card})")
     torch.cuda.reset_peak_memory_stats()
     throughput(model, cfg, reps=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[time] {label}peak device memory, kernel path at batch 64: {peak:.2f} GiB ({card})")
+    log(f"[time] {label}peak device memory, {names[0]} at batch 64: {peak:.2f} GiB ({card})")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     log(f"[time] after timing: clocks.sm, power.draw, power.limit, temp = {smi}")
-    for path, m, c in (("kernel path", model, cfg), ("plain path", plain, plain_cfg)):
+    for path, m, c in ((names[0], model, cfg), (names[1], plain, plain_cfg)):
         fx = FeatureExtractor(c, m, device=device, batch_size=64)
         profile(f"{label}{path}, one batch-64 request", lambda: fx.extract(images, cams), card)
 
@@ -1249,7 +1336,9 @@ def phase_do_train(device, model, cache, sampler, make_cfg=flagship_cfg, per_ste
     layers = num_blocks(model)
     bs = cfg.SOLVER.IMS_PER_BATCH
     steps = len(sampler.epoch_indices(1)) // bs
-    evals = math.ceil(len(val_samples) / cfg.TEST.IMS_PER_BATCH)
+    # With HDM / ATMoE each eval runs return_pattern 1, 2 and 3.
+    patterns = 3 if cfg.MODEL.HDM or cfg.MODEL.ATM else 1
+    evals = patterns * math.ceil(len(val_samples) / cfg.TEST.IMS_PER_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/ckpt"
         state = create_train_state(cfg, model, len(sampler) // bs)
@@ -1263,6 +1352,11 @@ def phase_do_train(device, model, cache, sampler, make_cfg=flagship_cfg, per_ste
         log(f"[do_train] 1 epoch, {entry['steps']} steps + eval of {len(val_samples)} samples "
             f"in {wall:.1f} s: loss {entry['loss']:.4f}, acc {entry['acc']:.3f}, mAP "
             f"{entry['mAP']:.4f}, Rank-1 {entry['Rank-1']:.3f}; launches {launches}")
+        if patterns > 1:
+            log(f"[do_train] mAP by return_pattern: 1 (ori) {entry['mAP@1']:.4f}, 2 (moe) "
+                f"{entry['mAP@2']:.4f}, 3 (both, decides the best) {entry['mAP']:.4f}")
+            require(all(0.0 < entry[k] <= 1.0 for k in ("mAP@1", "mAP@2")),
+                    f"mAP of patterns 1 and 2: {entry}")
         want = launch_dict(fused_attention_block=layers * evals,
                            fused_mlp_block=layers * evals,
                            fused_attention_block_train=layers * steps,
@@ -2536,6 +2630,206 @@ def time_fused_dw_stages(inputs, kw, card) -> dict:
     return got
 
 
+# ---------------------------------------------------------------- phase 22
+
+
+def pattern_widths(model) -> dict:
+    """The embedding's width at each return_pattern of an HDM + ATMoE model."""
+    c = model.feat_dim
+    return {1: 3 * c, 2: 7 * c, 3: 10 * c}
+
+
+def phase_demo_eval(device, cfg, model, train_cache) -> None:
+    """run_eval at return_pattern 1, 2 and 3 over an eval cache cut from the
+    training images: each pattern's embedding width, pattern 3 equal to
+    [pattern 2, pattern 1], kernels 1 and 2 launched once per block and
+    forward and no other kernel, mAP in (0, 1]."""
+    from demo2_tpu_torch.engine.eval import eval_step, miss_mask, run_eval
+
+    val, nq = eval_cache_from(train_cache, cfg)
+    layers = num_blocks(model)
+    forwards = math.ceil(val.images.shape[0] / cfg.TEST.IMS_PER_BATCH)
+    idx = torch.arange(8, device=device)
+    images, _, camids = val.batch(idx)
+    feats = {}
+    for pattern, width in pattern_widths(model).items():
+        feats[pattern] = eval_step(model, images, camids, miss_mask("None", device=device),
+                                   val.viewids[idx], pattern)
+        require(feats[pattern].shape == (8, width) and bool(torch.isfinite(feats[pattern]).all()),
+                f"pattern {pattern}: embedding {tuple(feats[pattern].shape)}, expected width "
+                f"{width}, or not finite")
+        before = counts()
+        cmc, m_ap = run_eval(cfg, model, val, nq, pattern)
+        sync()
+        require_launches({k: v - before[k] for k, v in counts().items()},
+                         launch_dict(fused_attention_block=layers * forwards,
+                                     fused_mlp_block=layers * forwards),
+                         f"[demo-eval] run_eval return_pattern {pattern}")
+        require(0.0 < m_ap <= 1.0, f"pattern {pattern}: mAP {m_ap}")
+        log(f"[demo-eval] run_eval return_pattern {pattern}: embedding width {width}, "
+            f"{nq} queries, mAP {m_ap:.4f}, Rank-1 {cmc[0]:.3f}")
+    both = torch.cat([feats[2], feats[1]], dim=1)
+    require(torch.allclose(feats[3], both, rtol=1e-5, atol=1e-5),
+            f"pattern 3 is not [moe, ori]: {(feats[3] - both).abs().max().item()}")
+
+
+FUSION_KEYS = ("general_fusion.hdm.", "general_fusion.moe.expert_kernel",
+               "general_fusion.moe.expert_bn.running_", "general_fusion.moe.linear_re_bn.running_")
+
+
+def phase_demo(device, card, flag_cfg, flag_model, cache, sampler) -> None:
+    """configs/RGBNT201/DeMo.yml at full width, the kernel path and the plain
+    path with the same weights: serving through FeatureExtractor (phase 3's
+    checks), run_eval at each return_pattern, training (phase 6's checks,
+    HDM's parameters, ATMoE's experts and both of its BatchNorms' statistics
+    among what must change), do_train with its pattern loop, then phase 23's
+    timing beside the flagship."""
+    cfg, model, plain_cfg, plain = build_models(device, demo_cfg)
+    layers = num_blocks(model)
+    log(f"[demo] configs/RGBNT201/DeMo.yml: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, HDM {model.feat_dim // 64} heads of 64, ATMoE HEAD {cfg.MODEL.HEAD}, "
+        f"branches {list(model.branch_heads)}, embedding widths by pattern "
+        f"{pattern_widths(model)}")
+    phase_slice(device, cfg, model, plain_cfg, plain,
+                launch_dict(fused_attention_block=layers, fused_mlp_block=layers),
+                label="demo-slice")
+    phase_demo_eval(device, cfg, model, cache)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()
+              if k.startswith(FUSION_KEYS)}
+    phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                launch_dict(fused_attention_block_train=layers, attention_bwd_saved_db=layers),
+                label="demo-train")
+    after = model.state_dict()
+    moved = {k: (after[k].float() - v.float()).abs().max().item() for k, v in before.items()}
+    log(f"[demo-train] largest change over the 20 steps: {moved}")
+    require(len(moved) == 10 and all(d > 0 for d in moved.values()),
+            f"HDM / ATMoE tensors the steps did not change: {moved}")
+    phase_do_train(device, model, cache, sampler, demo_cfg)
+    phase_demo_timing(device, card, cfg, model, plain, flag_cfg, flag_model, cache, sampler)
+
+
+# ---------------------------------------------------------------- phase 23
+
+
+def phase_demo_timing(device, card, cfg, model, plain, flag_cfg, flag_model, cache,
+                      sampler) -> None:
+    """DeMo.yml's train step and request beside the flagship's, in turns (the
+    host clock, and the profiler's device busy time of one of each); HDM +
+    ATMoE alone at batch 64 (the plain model's copy: its BatchNorm statistics
+    move), at eval and in training."""
+    names = ("DeMo.yml", "flagship")
+    time_train_step(device, card, cfg, model, flag_cfg, flag_model, cache, sampler,
+                    label="DeMo.yml vs flagship: ", names=names)
+    time_extractor(device, card, cfg, model, flag_cfg, flag_model, label="DeMo.yml vs flagship: ",
+                   names=names)
+    images, cams = request_images(64, cfg, seed=6)
+    with torch.no_grad():
+        patches, globals_ = plain.backbone(torch.from_numpy(images).to(device, plain.dtype),
+                                           torch.from_numpy(cams).to(device))
+    fusion = plain.general_fusion
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = (patches.requires_grad_(True), globals_.requires_grad_(True))
+
+    def eval_fusion():
+        with torch.inference_mode():
+            fusion(patches, globals_)
+
+    def train_fusion():
+        fusion(*x, True, gen).float().square().mean().backward()
+
+    for what, fn in (("eval forward", eval_fusion), ("training forward + backward", train_fusion)):
+        busy = sum(device_ms(fn).values())
+        log(f"[time] HDM + ATMoE alone, batch 64 ({tuple(patches.shape)} patches), {what}: "
+            f"device busy {busy:.4f} ms (profiler), {cuda_ms(fn):.4f} ms (CUDA events) ({card})")
+    fusion.zero_grad(set_to_none=True)
+
+
+# ---------------------------------------------------------------- phase 24
+
+
+BRANCH_DEPTH = 2
+BRANCH_CASES = (  # (label, configs/ file, overrides)
+    ("Baseline", "RGBNT201/Baseline.yml", {}),
+    ("SDTPS, branch 2", "RGBNT201/DeMo_SDTPS.yml", {}),
+    ("DGAF v3, branch 3", "RGBNT201/DeMo_DGAF.yml", {}),
+    ("DGAF v1 + GLOBAL_LOCAL, branch 3", "RGBNT201/DeMo_DGAF.yml",
+     {"MODEL__DGAF_VERSION": "v1", "MODEL__GLOBAL_LOCAL": True}),
+    ("shared SDTPS + DGAF", "RGBNT201/DeMo_SDTPS_shared.yml", {}),
+    ("optimized", "RGBNT201/DeMo_optimized.yml", {}),
+    ("MSVR310 DeMo.yml, scene protocol", "MSVR310/DeMo.yml", {}),
+)
+
+
+def phase_branches(device) -> None:
+    """Each BRANCH_CASES model at BRANCH_DEPTH blocks, kernels on: one train
+    step through build_train_step (a finite loss; kernels 3 and 4 once per
+    block, no other kernel) and one run_eval (embeddings of the model's
+    width; kernels 1 and 2 once per block and forward, no other; mAP in
+    (0, 1]; MSVR310 under the scene protocol, writing its rank list file)."""
+    import tempfile
+
+    from demo2_tpu_torch.data.datasets import SyntheticTriModal
+    from demo2_tpu_torch.data.device_cache import DeviceCache
+    from demo2_tpu_torch.data.sampler import RandomIdentitySampler
+    from demo2_tpu_torch.engine.eval import eval_step, miss_mask, run_eval
+    from demo2_tpu_torch.engine.state import create_train_state
+    from demo2_tpu_torch.engine.train import build_train_step
+    from demo2_tpu_torch.models import make_model
+
+    data = {}
+    for label, path, overrides in BRANCH_CASES:
+        cfg = yaml_cfg(path, True, TPU__BACKBONE_DEPTH=BRANCH_DEPTH, **overrides)
+        size, bs = tuple(cfg.INPUT.SIZE_TRAIN), cfg.SOLVER.IMS_PER_BATCH
+        if size not in data:
+            ds = SyntheticTriModal(num_pids=16, num_cams=CAMERA_NUM, imgs_per_pid=8,
+                                   image_size=size, seed=2)
+            val_ds = SyntheticTriModal(num_pids=8, num_cams=CAMERA_NUM, imgs_per_pid=4,
+                                       image_size=size, seed=3)
+            val_samples = val_ds.query + val_ds.gallery
+            data[size] = (
+                ds, DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True,
+                                            cfg=cfg, device=device),
+                DeviceCache.from_arrays(val_ds.render_all(val_samples), val_samples,
+                                        train=False, cfg=cfg, device=device),
+                len(val_ds.query),
+                RandomIdentitySampler(ds.train, bs, cfg.DATALOADER.NUM_INSTANCE,
+                                      seed=cfg.SOLVER.SEED))
+        ds, train, val, nq, sampler = data[size]
+        model = make_model(cfg, ds.num_train_pids, CAMERA_NUM, device=device,
+                           generator=torch.Generator().manual_seed(3))
+        step = build_train_step(cfg, model, create_train_state(cfg, model, len(sampler) // bs),
+                                train)
+        idx = torch.from_numpy(sampler.epoch_indices(1)[:bs]).to(device)
+        reset_counts()
+        loss = step(idx)["loss"].item()
+        require_launches(counts(), launch_dict(fused_attention_block_train=BRANCH_DEPTH,
+                                               attention_bwd_saved_db=BRANCH_DEPTH),
+                         f"[branches] {label}: train step")
+        require(math.isfinite(loss), f"{label}: loss {loss}")
+        images, _, camids = val.batch(torch.arange(4, device=device))
+        emb = eval_step(model, images, camids, miss_mask("None", device=device))
+        require(emb.shape == (4, model.embed_dim) and bool(torch.isfinite(emb).all()),
+                f"{label}: embedding {tuple(emb.shape)}, width {model.embed_dim}")
+        scene = cfg.DATASETS.NAMES == "MSVR310"
+        forwards = math.ceil(val.images.shape[0] / cfg.TEST.IMS_PER_BATCH)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            cmc, m_ap = run_eval(cfg, model, val, nq,
+                                 rank_list_path=f"{tmp}/re.txt" if scene else None)
+            require_launches(counts(), launch_dict(fused_attention_block=BRANCH_DEPTH * forwards,
+                                                   fused_mlp_block=BRANCH_DEPTH * forwards),
+                             f"[branches] {label}: run_eval")
+            if scene:
+                with open(f"{tmp}/re.txt") as f:
+                    require(f.read().startswith("rank list file"), "no MSVR310 rank list")
+        require(0.0 < m_ap <= 1.0, f"{label}: mAP {m_ap}")
+        protocol = ", scene protocol, rank list written" if scene else ""
+        log(f"[branches] {label} ({path}, {BRANCH_DEPTH} blocks, {size[0]}x{size[1]}): branches "
+            f"{list(model.branch_heads)}, step-1 loss {loss:.4f}, embedding width "
+            f"{model.embed_dim}, mAP {m_ap:.4f}{protocol}")
+        del model, step
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -2597,6 +2891,12 @@ def main() -> None:
     launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model, plain)
     phase_do_train(device, model, cache, sampler)
     times.update(phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
+
+    # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
+    # at full width, timed beside the flagship; the other DeMo branches of
+    # configs/ at reduced depth.
+    phase_demo(device, card, cfg, model, cache, sampler)
+    phase_branches(device)
 
     # The flagship with PALLAS_LN_BWD (kernel 11 beside 3 and 4), its
     # re-ranked eval (kernel 12 beside 1 and 2), their timing.

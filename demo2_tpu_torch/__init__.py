@@ -1,8 +1,10 @@
 """demo2_tpu_torch: the PyTorch / CUDA port of demo2_tpu.
 
-The package mirrors demo2_tpu's module paths.  Of DeMo (SDTPS + DGAF v3), on
-CLIP ViT-B/16 (the flagship) or the ImageNet ViT family, these paths are
-ported: serving (the eval forward, the embedding extractor, the retrieval
+The package mirrors demo2_tpu's module paths.  Of DeMo, on CLIP ViT-B/16 or
+the ImageNet ViT family, in its branches (the flagship SDTPS + DGAF v3, the
+Baseline, SDTPS or DGAF alone, DGAF v1, and DeMo's own HDM + ATMoE fusion;
+config/yaml_loader.py loads the configs/ files that select them), these
+paths are ported: serving (the eval forward, the embedding extractor, the retrieval
 metrics), training (losses, optimizer, device-resident data cache with
 on-device augmentation, train step, epoch loop with eval and checkpoints,
 optionally with the one-pass LayerNorm backward, TPU.PALLAS_LN_BWD), and

@@ -6,8 +6,8 @@ package.  tests/test_torch_package.py asserts that both trees have the same
 fields and defaults, so one config object drives either package and
 `TPU.USE_FLASH_ATTENTION` / `TPU.COMPUTE_DTYPE` mean the same in both: in the
 port, USE_FLASH_ATTENTION selects the hand-written CUDA block kernels for
-CUDA tensors.  YAML loading (merge_from_file) stays with the JAX package
-until the port has its own CLI entry points.
+CUDA tensors.  `Config.merge_from_file` / `merge_from_list` load the YAML
+files under configs/ and CLI opts (config/yaml_loader.py).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 
 class FrozenError(AttributeError):
@@ -321,6 +321,19 @@ class Config:
     TEST: Any = field(default_factory=TestConfig)
     TPU: Any = field(default_factory=TPUConfig)
     OUTPUT_DIR: str = "./test"
+
+    # ---- yacs-compatible API (config/yaml_loader.py) ----
+    def merge_from_file(self, path: str):
+        from .yaml_loader import merge_yaml_file
+
+        merge_yaml_file(self, path)
+        return self
+
+    def merge_from_list(self, opts: List[Any]):
+        from .yaml_loader import merge_opts_list
+
+        merge_opts_list(self, opts)
+        return self
 
 
 def get_cfg_defaults() -> Config:

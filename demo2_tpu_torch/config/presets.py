@@ -1,7 +1,8 @@
 """Config presets, copied from demo2_tpu/config/presets.py.
 
 `apply_flagship` is the flagship recipe (DeMo SDTPS + DGAF v3 on CLIP
-ViT-B-16); `apply_tiny` the CPU-test shrink.  tests/test_torch_package.py
+ViT-B-16); `apply_tiny` the CPU-test shrink; `apply_overrides` the
+"SEC.KEY=value" strings of a --set option.  tests/test_torch_package.py
 asserts that each leaves the same tree as its JAX-package original.
 """
 
@@ -38,3 +39,24 @@ def apply_tiny(cfg) -> None:
     cfg.INPUT.SIZE_TEST = (64, 32)
     cfg.SOLVER.IMS_PER_BATCH = 16
     cfg.DATALOADER.NUM_INSTANCE = 2
+
+
+def apply_overrides(cfg, overrides, log=None) -> None:
+    """Apply "SEC.KEY=value" strings, each value coerced to the current
+    attribute's type (a bool accepts 1/true/yes/on, case-insensitive)."""
+    for ov in overrides:
+        path, _, raw = ov.partition("=")
+        sec, _, key = path.partition(".")
+        node = getattr(cfg, sec)
+        cur = getattr(node, key)
+        if isinstance(cur, bool):
+            val = raw.lower() in ("1", "true", "yes", "on")
+        elif isinstance(cur, int):
+            val = int(raw)
+        elif isinstance(cur, float):
+            val = float(raw)
+        else:
+            val = raw
+        setattr(node, key, val)
+        if log is not None:
+            log(f"override: {sec}.{key} = {val!r}")

@@ -44,18 +44,21 @@ def miss_mask(miss: str, *, device: torch.device) -> torch.Tensor:
 
 @torch.inference_mode()
 def eval_step(model, images: torch.Tensor, camids: torch.Tensor, mask: torch.Tensor,
-              viewids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The eval forward: the f32 embedding of a batch."""
-    return model(images, camids, viewids, mask, train=False)["embedding"]
+              viewids: Optional[torch.Tensor] = None, return_pattern: int = 3) -> torch.Tensor:
+    """The eval forward: the f32 embedding of a batch; `return_pattern`
+    picks the HDM + ATMoE model's embedding (1: ori, 2: moe, 3: both)."""
+    return model(images, camids, viewids, mask, train=False,
+                 return_pattern=return_pattern)["embedding"]
 
 
-def run_eval(cfg, model, cache, num_query: int,
+def run_eval(cfg, model, cache, num_query: int, return_pattern: int = 3,
              rank_list_path: Optional[str] = None) -> Tuple[np.ndarray, float]:
     """CMC and mAP of `model` over an eval DeviceCache holding the query
     samples then the gallery, in TEST.IMS_PER_BATCH batches, under the
-    TEST.MISS modality mask.  DATASETS.NAMES == "MSVR310" selects the scene
-    protocol (the cache's viewids carry the scene ids) and writes the rank
-    list to `rank_list_path`, by default `re.txt` as the reference does.
+    TEST.MISS modality mask, on the embedding of `return_pattern`.
+    DATASETS.NAMES == "MSVR310" selects the scene protocol (the cache's
+    viewids carry the scene ids) and writes the rank list to
+    `rank_list_path`, by default `re.txt` as the reference does.
     The ranking runs on the cache's device, or on the CPU when
     TPU.EVAL_ON_DEVICE is off."""
     if cache.train:
@@ -72,7 +75,7 @@ def run_eval(cfg, model, cache, num_query: int,
         idx = torch.arange(start, min(start + bs, n), device=dev)
         images, pids, camids = cache.batch(idx)
         views = cache.viewids[idx]
-        feat = eval_step(model, images, camids, mask, views)
+        feat = eval_step(model, images, camids, mask, views, return_pattern)
         evaluator.update(feat.cpu().numpy(), pids.cpu().numpy(), camids.cpu().numpy(),
                          views.cpu().numpy() if scene_protocol else None)
     if rank_list_path is None and scene_protocol:
@@ -80,10 +83,10 @@ def run_eval(cfg, model, cache, num_query: int,
     return evaluator.compute(rank_list_path=rank_list_path)
 
 
-def do_inference(cfg, model, cache, num_query: int,
+def do_inference(cfg, model, cache, num_query: int, return_pattern: int = 3,
                  rank_list_path: Optional[str] = None) -> Tuple[np.ndarray, float]:
     """run_eval with the reference's result lines (processor.py::do_inference)."""
-    cmc, m_ap = run_eval(cfg, model, cache, num_query, rank_list_path)
+    cmc, m_ap = run_eval(cfg, model, cache, num_query, return_pattern, rank_list_path)
     logger.info("Validation Results")
     logger.info("mAP: %.1f%%", m_ap * 100)
     for r in (1, 5, 10):

@@ -30,12 +30,16 @@ logger = logging.getLogger("DeMo")
 def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
                    viewids=None):
     """The training forward (BatchNorm statistics updated), the weighted
-    branch losses and their gradients: (loss, acc, {name: f32 grad})."""
+    branch losses plus the auxiliary losses (the one named 'lif' at
+    MODEL.LIF_LOSS_WEIGHT, any other at 1) and their gradients: (loss, acc,
+    {name: f32 grad})."""
     out = model(images.to(model.dtype), camids, viewids, None, train=True,
                 generator=generator)
     branches = out["branches"]
     weights = branch_weights(cfg, branches)
     total = sum(weights[n] * loss_fn(logits, feat, pids) for n, (logits, feat) in branches.items())
+    for name, value in out["aux_loss"].items():
+        total = total + (cfg.MODEL.LIF_LOSS_WEIGHT if name == "lif" else 1.0) * value
     first_logits = next(iter(branches.values()))[0]
     acc = (first_logits.argmax(-1) == pids).float().mean()
     names, params = zip(*model.named_parameters())
@@ -73,8 +77,10 @@ def do_train(cfg: Config, state: TrainState, train_cache: DeviceCache, sampler,
              checkpoint_dir: Optional[str] = None):
     """The epoch loop from the state's step to SOLVER.MAX_EPOCHS: a log line
     every LOG_PERIOD steps, eval every EVAL_PERIOD epochs, a checkpoint every
-    CHECKPOINT_PERIOD epochs and at each best mAP (in `<dir>_best`).
-    Returns (state, best); state.history gets one entry per epoch."""
+    CHECKPOINT_PERIOD epochs and at each best mAP (in `<dir>_best`).  With
+    MODEL.HDM or MODEL.ATM each eval runs return_pattern 1 and 2 (logged)
+    before 3, which decides the best mAP.  Returns (state, best);
+    state.history gets one entry per epoch."""
     from ..utils.checkpoint import save_checkpoint
     from .eval import run_eval
 
@@ -110,6 +116,11 @@ def do_train(cfg: Config, state: TrainState, train_cache: DeviceCache, sampler,
         if checkpoint_dir and s.CHECKPOINT_PERIOD and epoch % s.CHECKPOINT_PERIOD == 0:
             save_checkpoint(checkpoint_dir, state)
         if val_cache is not None and epoch % s.EVAL_PERIOD == 0:
+            for pattern in (1, 2) if cfg.MODEL.HDM or cfg.MODEL.ATM else ():
+                cmc, m_ap = run_eval(cfg, state.model, val_cache, num_query, pattern)
+                entry[f"mAP@{pattern}"] = m_ap
+                logger.info("Validation Results - Epoch: %d, return_pattern %d, mAP: %.1f%%, "
+                            "Rank-1: %.1f%%", epoch, pattern, 100 * m_ap, 100 * cmc[0])
             cmc, m_ap = run_eval(cfg, state.model, val_cache, num_query)
             entry["mAP"], entry["Rank-1"] = m_ap, float(cmc[0])
             logger.info("Validation Results - Epoch: %d, mAP: %.1f%%, Rank-1: %.1f%%", epoch,

@@ -1,11 +1,21 @@
-"""DeMo, the flagship branch: backbone (CLIP ViT-B/16 or the ImageNet ViT
-family) -> SDTPS -> DGAF v3 -> BNNeck head (demo2_tpu/models/demo.py::DeMo,
-branch 4 with the SDTPS selector, make_model.py:872-962 of the reference), at
-eval and in training.
+"""DeMo (demo2_tpu/models/demo.py::DeMo): the backbone (CLIP ViT-B/16 or
+the ImageNet ViT family) and its four branches, selected by MODEL.USE_SDTPS
+and MODEL.USE_DGAF as the JAX package selects them:
+  1. neither: the Baseline, a head on the three globals (configs/*/Baseline.yml);
+  2. SDTPS alone: the token mean or, with MODEL.GLOBAL_LOCAL, GlobalLocalFuse
+     of SDTPS's output (DeMo_SDTPS.yml);
+  3. DGAF alone: DGAF v3 over the patches or v1 over the (global-local
+     fused) globals (DeMo_DGAF.yml);
+  4. SDTPS + DGAF, the flagship (DeMo_SDTPS_DGAF.yml);
+and, with MODEL.HDM or MODEL.ATM, the 'moe' branch of HDM + ATMoE beside
+them (DeMo.yml), whose `return_pattern` picks the eval embedding: 1 the
+three globals (3C), 2 the moe feature (7C), 3 both ([moe, ori], 10C).
+At eval and in training.
 
 The output contract is the JAX package's: {"branches": {name: (logits,
-feat)}, "embedding": f32 (B, 3C), "aux_loss": {}}.  Every configuration
-outside the ported slices raises NotImplementedError naming its ROADMAP item.
+feat)} in the JAX package's order, "embedding": f32, "aux_loss": {}}.  Every
+configuration outside the ported slices raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,8 +27,9 @@ from torch import nn
 
 from .. import not_ported
 from ..config.defaults import Config, feat_dim_for
-from .dgaf import DualGatedAdaptiveFusionV3
-from .heads import ClassifierHead
+from .dgaf import DualGatedAdaptiveFusionV3, DualGatedPostFusion
+from .hdm_atmoe import GeneralFusion
+from .heads import ClassifierHead, GlobalLocalFuse
 from .pife import PIFE
 from .sdtps import MultiModalSDTPS
 
@@ -27,24 +38,24 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
 
 
+def token_selector(cfg: Config) -> Optional[str]:
+    """MODEL.USE_FRCA's tri-state (demo2_tpu/models/demo.py::_token_selector):
+    True selects FRCA, None follows USE_SDTPS, False selects neither."""
+    m = cfg.MODEL
+    if m.USE_FRCA is True:
+        return "frca"
+    return "sdtps" if m.USE_FRCA is None and m.USE_SDTPS else None
+
+
 def check_slice(cfg: Config) -> None:
     """Raise for every configuration the port does not cover yet."""
     m = cfg.MODEL
     if m.ARCH in ("DeMo_Parallel", "DeMoBeiyong"):
         raise not_ported(f"MODEL.ARCH={m.ARCH!r}", "other DeMo branches and assemblies")
-    selector_is_sdtps = m.USE_FRCA is None and m.USE_SDTPS
-    if not (selector_is_sdtps and m.USE_DGAF and m.DGAF_VERSION == "v3"):
-        raise not_ported(
-            "DeMo without the SDTPS selector + DGAF v3 branch "
-            f"(USE_FRCA={m.USE_FRCA}, USE_SDTPS={m.USE_SDTPS}, USE_DGAF={m.USE_DGAF}, "
-            f"DGAF_VERSION={m.DGAF_VERSION!r})",
-            "other DeMo branches and assemblies",
-        )
+    if token_selector(cfg) == "frca":
+        raise not_ported("MODEL.USE_FRCA=True (the FRCA selector)",
+                         "other DeMo branches and assemblies (models/frca.py)")
     for flag, item in (
-        ("HDM", "other DeMo branches and assemblies"),
-        ("ATM", "other DeMo branches and assemblies"),
-        ("GLOBAL_LOCAL", "other DeMo branches and assemblies"),
-        ("SDTPS_SHARE_CROSS_ATTN", "other DeMo branches and assemblies"),
         ("FROZEN", "the rest of the modules (LoRA / FROZEN)"),
         ("ADAPTER", "the rest of the modules (ADAPTER)"),
         ("PROMPT", "the rest of the modules (PROMPT)"),
@@ -126,44 +137,94 @@ class DeMo(nn.Module):
                 f"TRANSFORMER_TYPE {m.TRANSFORMER_TYPE!r}: the backbone gives "
                 f"{self.backbone.feat_dim}-wide tokens, DeMo's modules take feat_dim_for's "
                 f"{self.feat_dim}")
-        self.sdtps = MultiModalSDTPS(
-            self.feat_dim,
-            sparse_ratio=m.SDTPS_SPARSE_RATIO,
-            use_cross_attn=m.SDTPS_CROSS_ATTN_TYPE == "attention",
-            dtype=dtype,
-            **kw,
-        )
-        self.dgaf = DualGatedAdaptiveFusionV3(
-            self.feat_dim, tau=m.DGAF_TAU, init_alpha=m.DGAF_INIT_ALPHA,
-            num_heads=m.DGAF_NUM_HEADS, dtype=dtype, **kw,
-        )
-        self.head_dgaf = ClassifierHead(3 * self.feat_dim, num_classes, **kw)
+        self.selector = token_selector(cfg)
+        self.use_dgaf = bool(m.USE_DGAF)
+        self.use_moe = bool(m.HDM or m.ATM)
+        c = self.feat_dim
+        if self.selector == "sdtps":
+            self.sdtps = MultiModalSDTPS(
+                c, sparse_ratio=m.SDTPS_SPARSE_RATIO,
+                use_cross_attn=m.SDTPS_CROSS_ATTN_TYPE == "attention",
+                share_cross_attn_weights=m.SDTPS_SHARE_CROSS_ATTN, dtype=dtype, **kw)
+        v3 = m.DGAF_VERSION == "v3"
+        if self.use_dgaf and self.selector and not v3 and not m.GLOBAL_LOCAL:
+            raise ValueError("DGAF V1 requires GLOBAL_LOCAL=True")  # as the JAX DeMo raises
+        # GlobalLocalFuse feeds branch 2, and DGAF v1 in branches 3 and 4.
+        self.global_local = bool(m.GLOBAL_LOCAL) and (
+            bool(self.selector) and not self.use_dgaf or self.use_dgaf and not v3)
+        if self.global_local:
+            self.gl_fuse = GlobalLocalFuse(c, dtype=dtype, **kw)
+        if self.use_dgaf:
+            dgaf_kw = dict(tau=m.DGAF_TAU, init_alpha=m.DGAF_INIT_ALPHA, dtype=dtype, **kw)
+            self.dgaf = (DualGatedAdaptiveFusionV3(c, num_heads=m.DGAF_NUM_HEADS, **dgaf_kw)
+                         if v3 else DualGatedPostFusion(c, **dgaf_kw))
+        if self.use_moe:
+            self.general_fusion = GeneralFusion(c, use_atm=m.ATM, head=m.HEAD, dtype=dtype, **kw)
+
+        # The branches in the JAX package's order, each with its head: the
+        # selected branch's, the per-modality ones (DIRECT 0), the moe pair.
+        self.main = "dgaf" if self.use_dgaf else self.selector or ("ori" if self.direct else None)
+        self.branch_heads = {self.main: self.main} if self.main else {}
         if not self.direct:
-            for nm in ("r", "n", "t"):
-                setattr(self, f"head_{nm}", ClassifierHead(self.feat_dim, num_classes, **kw))
+            self.branch_heads.update({f"ori_{nm}": nm for nm in ("r", "n", "t")})
+        if self.use_moe:
+            self.branch_heads["moe"] = "moe"
+            if self.direct:
+                self.branch_heads.setdefault("ori", "ori")
+        for branch, name in self.branch_heads.items():
+            width = c if branch.startswith("ori_") else 7 * c if name == "moe" else 3 * c
+            setattr(self, f"head_{name}", ClassifierHead(width, num_classes, **kw))
 
     @property
     def embed_dim(self) -> int:
-        return 3 * self.feat_dim
+        """The embedding's width at return_pattern 3, FeatureExtractor's."""
+        return (10 if self.use_moe else 3) * self.feat_dim
 
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
                 view_label: Optional[torch.Tensor] = None,
                 modality_mask: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                return_pattern: int = 3) -> Dict[str, Any]:
         """images (B, 3, H, W, 3), cam_label and view_label (B,), modality_mask
-        (3,) or (B, 3).  `train` selects batch statistics in the BNNecks,
+        (3,) or (B, 3).  `train` selects batch statistics in the BatchNorms,
         dropout and drop path (drawn from `generator`) and the training
-        kernels of the backbone.  The JAX model's return_pattern acts only on
-        a branch not ported yet (the 'moe' embedding)."""
+        kernels of the backbone.  `return_pattern` picks the moe branch's
+        embedding (1: ori, 2: moe, 3: [moe, ori]); without it, the embedding
+        is the branch's feature."""
         if train and self.train_error is not None:
             raise self.train_error
         patches, globals_ = self.backbone(images.to(self.dtype), cam_label, view_label,
                                           modality_mask, train, generator)
-        enh, _ = self.sdtps(patches, globals_, train, generator)
-        dgaf_feat = self.dgaf(enh)
-        branches = {"dgaf": (self.head_dgaf(dgaf_feat, train), dgaf_feat)}
-        if not self.direct:
-            for i, nm in enumerate(("r", "n", "t")):
-                head = getattr(self, f"head_{nm}")
-                branches[f"ori_{nm}"] = (head(globals_[i], train), globals_[i])
-        return {"branches": branches, "embedding": dgaf_feat.float(), "aux_loss": {}}
+        ori_feat = torch.cat(list(globals_), dim=-1)
+        moe_feat = (self.general_fusion(patches, globals_, train, generator)
+                    if self.use_moe else None)
+        enh = self.sdtps(patches, globals_, train, generator)[0] if self.selector else patches
+        if self.use_dgaf:  # branches 3 and 4
+            feat = self._apply_dgaf_v3_or_v1(enh, globals_)
+        elif self.selector:  # branch 2
+            final = self.gl_fuse(enh, globals_) if self.global_local else enh.mean(2)
+            feat = torch.cat(list(final), dim=-1)
+        else:  # branch 1, the Baseline
+            feat = ori_feat
+        feats = {self.main: feat, "ori": ori_feat, "ori_r": globals_[0], "ori_n": globals_[1],
+                 "ori_t": globals_[2], "moe": moe_feat}
+        if not self.use_moe:
+            embedding = feat
+        elif return_pattern == 1:
+            embedding = ori_feat
+        elif return_pattern == 2:
+            embedding = moe_feat
+        else:
+            embedding = torch.cat([moe_feat, ori_feat], dim=-1)
+        branches = {branch: (getattr(self, f"head_{name}")(feats[branch], train), feats[branch])
+                    for branch, name in self.branch_heads.items()}
+        return {"branches": branches, "embedding": embedding.float(), "aux_loss": {}}
+
+    def _apply_dgaf_v3_or_v1(self, enh: torch.Tensor, globals_: torch.Tensor) -> torch.Tensor:
+        """DGAF v3 pools the (SDTPS-enhanced) tokens; v1 takes their
+        GlobalLocalFuse, or the globals where GLOBAL_LOCAL is off (branch 3
+        only: beside SDTPS v1 needs it, and the constructor raises JAX's
+        ValueError)."""
+        if isinstance(self.dgaf, DualGatedAdaptiveFusionV3):
+            return self.dgaf(enh)
+        return self.dgaf(self.gl_fuse(enh, globals_) if self.global_local else globals_)

@@ -1,6 +1,7 @@
-"""DGAF v3: attention pooling + dual-gated adaptive fusion
+"""DGAF v1 and v3: dual-gated adaptive fusion, v3 behind an attention pool
 (demo2_tpu/models/dgaf.py: AttentionPool, _DualGateCore, _Enhance,
-DualGatedAdaptiveFusionV3).  Entropies, gates and softmaxes run in f32.
+DualGatedPostFusion, DualGatedAdaptiveFusionV3).  Entropies, gates and
+softmaxes run in f32.
 """
 
 from __future__ import annotations
@@ -61,6 +62,23 @@ class _Enhance(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln(self.fc(x))
+
+
+class DualGatedPostFusion(nn.Module):
+    """DGAF v1: (3, B, C) features -> (B, 3C)."""
+
+    def __init__(self, feat_dim: int, *, tau: float, init_alpha: float,
+                 dtype: torch.dtype, device: torch.device, generator: torch.Generator,
+                 num_modalities: int = 3):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.core = _DualGateCore(feat_dim, num_modalities, tau=tau, init_alpha=init_alpha,
+                                  **kw)
+        self.modal_enhance = _Enhance(feat_dim, **kw)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        enh = self.modal_enhance(self.core(h).to(h.dtype))
+        return torch.cat(list(h + enh[None].to(h.dtype)), dim=-1)
 
 
 class AttentionPool(nn.Module):

@@ -3,7 +3,10 @@
 All 9 (modality, guide) pairs are scored by stacked einsums over parameters
 with leading (3, 3) axes; the quantile threshold + sigmoid soft mask keeps
 shapes static.  SDTPS_CROSS_ATTN_TYPE='attention' adds the projected
-cross-attention logits to the cosine scores; 'cosine' uses the cosines alone.
+cross-attention logits to the cosine scores; 'cosine' uses the cosines alone.  With
+`share_cross_attn_weights` (MODEL.SDTPS_SHARE_CROSS_ATTN) each modality keeps
+one projection for its three guides: the parameters are (3, 1, C, C) and
+broadcast to (3, 3, C, C).
 In training the modality-weight MLPs' dropout draws from the caller's
 torch.Generator (flax's 'dropout' rng in the JAX package: the two give
 different draws from one seed).
@@ -72,21 +75,23 @@ class ModalWeightMLP(nn.Module):
 
 class MultiModalSDTPS(nn.Module):
     def __init__(self, embed_dim: int, *, sparse_ratio: float, use_cross_attn: bool,
-                 dtype: torch.dtype, device: torch.device, generator: torch.Generator):
+                 dtype: torch.dtype, device: torch.device, generator: torch.Generator,
+                 share_cross_attn_weights: bool = False):
         super().__init__()
         c, m = embed_dim, 3
         self.sparse_ratio = sparse_ratio
         self.use_cross_attn = use_cross_attn
         self.dtype = dtype
         if use_cross_attn:
-            # flax xavier_uniform on (3, 3, C, C): the leading axes count as
-            # receptive field, so fan_in = fan_out = 9 C.
-            xavier = uniform_init(math.sqrt(6.0 / (2 * m * m * c)))
+            # flax xavier_uniform on (3, 3, C, C) or (3, 1, C, C): the leading
+            # axes count as receptive field, so fan_in = fan_out = 9 C or 3 C.
+            lead = (m, 1) if share_cross_attn_weights else (m, m)
+            xavier = uniform_init(math.sqrt(6.0 / (2 * lead[0] * lead[1] * c)))
             for name in ("q", "k"):
                 setattr(self, f"{name}_proj_kernel",
-                        make_param((m, m, c, c), xavier, generator=generator, device=device))
+                        make_param((*lead, c, c), xavier, generator=generator, device=device))
                 setattr(self, f"{name}_proj_bias",
-                        make_param((m, m, c), zeros_init, generator=generator, device=device))
+                        make_param((*lead, c), zeros_init, generator=generator, device=device))
         self.modal_weight_mlp = nn.ModuleList(
             ModalWeightMLP(m * c, dtype=dtype, device=device, generator=generator)
             for _ in range(m)
@@ -112,6 +117,7 @@ class MultiModalSDTPS(nn.Module):
             cd = self.dtype
             wq, bq, wk, bk = (cached_cast(self, name, cd) for name in (
                 "q_proj_kernel", "q_proj_bias", "k_proj_kernel", "k_proj_bias"))
+            wq, bq, wk, bk = (w.expand(m, m, *w.shape[2:]) for w in (wq, bq, wk, bk))
             # q[m, g] projects guide g's global; k[m, g] projects modality m's patches.
             q = torch.einsum("gbc,mgcd->mgbd", globals_.to(cd), wq) + bq[:, :, None, :]
             k = torch.einsum("mbnc,mgcd->mgbnd", patches.to(cd), wk) + bk[:, :, None, None, :]

@@ -7,7 +7,10 @@ The inverse of demo2_tpu/utils/converters.py's layout rules (`_t`, `_conv`):
   * LayerNorm / BatchNorm `scale` becomes `weight`; batch_stats `mean` /
     `var` become the `running_mean` / `running_var` buffers;
   * cv_embed, class_embedding, positional_embedding, proj, the DGAF queries
-    and alpha, and SDTPS's stacked (3, 3, C, C) q/k kernels stay as they are.
+    and alpha, SDTPS's stacked (3, 3, C, C) or shared (3, 1, C, C) q/k
+    kernels, GlobalLocalFuse's stacked (3, 2C, C) kernel and LayerNorm
+    (`ln_scale`, `ln_bias`), HDM's stacked (7, ...) set tokens and
+    projections and ATMoE's expert kernel and bias stay as they are.
 Module names map one to one, with `resblocks_3` -> `resblocks.3`,
 `blocks_3` -> `blocks.3` (the ImageNet ViT), `modal_weight_mlp_0` ->
 `modal_weight_mlp.0`, and TorchLinear's inner `Dense_0` dropped; the
@@ -67,8 +70,8 @@ def _leaf(collection: str, name: str, value: np.ndarray) -> Tuple[str, np.ndarra
             return "weight", value.T
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
-        raise ValueError(f"kernel of rank {value.ndim} has no port layout")
-    if name == "in_proj_kernel":
+        return name, value  # a stacked kernel (GlobalLocalFuse)
+    if name == "in_proj_kernel" and value.ndim == 2:
         return "in_proj_weight", value.T
     if name == "scale":
         return "weight", value

@@ -1,5 +1,6 @@
-"""The port as a package: it imports without JAX, its config is the JAX
-package's config, and configurations outside the ported slices raise."""
+"""The port as a package: it imports without JAX or PyYAML, its config is
+the JAX package's config (the YAML files under configs/, CLI opts and --set
+overrides merge alike), and configurations outside the ported slices raise."""
 
 import dataclasses
 import os
@@ -7,9 +8,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
+import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import demo2_tpu.config as jcfg
 import demo2_tpu.config.presets as jpresets
 from demo2_tpu.engine.eval import MISS_MASKS as J_MISS_MASKS
@@ -21,10 +25,16 @@ from demo2_tpu_torch.models import make_model
 from torch_port_helpers import CPU, generator
 
 REPO = Path(__file__).resolve().parent.parent
+CONFIG_FILES = sorted(str(p.relative_to(REPO / "configs")) for p in REPO.glob("configs/*/*.yml"))
+# The files whose model the port does not build yet (FRCA, SACR, LIF, DeMo_Parallel).
+REFUSED_FILES = {"RGBNT201/DeMo_FRCA_DGAF.yml", "RGBNT201/DeMo_LIF.yml",
+                 "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF.yml",
+                 "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF_v2.yml", "RGBNT201/DeMo_Parallel.yml",
+                 "RGBNT201/DeMo_SACR_SDTPS.yml", "RGBNT201/DeMo_SACR_SDTPS_LIF.yml"}
 
 _BLOCKED_IMPORT = """
 import sys
-for name in ("jax", "flax", "demo2_tpu"):
+for name in ("jax", "flax", "demo2_tpu", "yaml"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, pkgutil
 import demo2_tpu_torch
@@ -32,8 +42,11 @@ for m in pkgutil.walk_packages(demo2_tpu_torch.__path__, "demo2_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_list", "engine.eval",
-             "tools.bench_kernel_ablate"):
+             "tools.bench_kernel_ablate", "config.yaml_loader", "models.hdm_atmoe"):
     assert "demo2_tpu_torch." + name in sys.modules, name
+cfg = demo2_tpu_torch.config.get_cfg_defaults()
+cfg.merge_from_list(chip_smoke.YAML_KEYS["RGBNT201/DeMo.yml"])  # needs no PyYAML
+assert cfg.MODEL.HDM and cfg.MODEL.HEAD == 4
 """
 
 
@@ -62,6 +75,67 @@ def test_config_is_the_jax_packages_config(preset):
     assert trees[0] == trees[1]
 
 
+def _from_file(cfg_mod, path):
+    return _tree(cfg_mod.get_cfg_defaults().merge_from_file(str(REPO / "configs" / path)))
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES)
+def test_yaml_file_gives_the_jax_packages_tree(path):
+    assert len(CONFIG_FILES) == 21
+    tree = _from_file(tcfg, path)
+    assert tree == _from_file(jcfg, path)
+    assert tree != _tree(tcfg.get_cfg_defaults())
+
+
+def test_merge_from_list_and_apply_overrides_match_jax():
+    opts = ["MODEL.HDM", "True", "MODEL.USE_FRCA", "None", "MODEL.HEAD", 4,
+            "MODEL.SDTPS_SPARSE_RATIO", "0.7", "MODEL.STRIDE_SIZE", "(12, 12)",
+            "INPUT.SIZE_TRAIN", [128, 256], "TEST.MISS", "None", "MODEL.DGAF_VERSION", "v1",
+            "SOLVER.BASE_LR", 1, "OUTPUT_DIR", "./out"]
+    sets = ["MODEL.ATM=yes", "MODEL.GLOBAL_LOCAL=0", "SOLVER.IMS_PER_BATCH=32",
+            "SOLVER.MARGIN=0.5", "TEST.MISS=nt", "MODEL.TRANSFORMER_TYPE=ViT-B-16"]
+    trees = []
+    for cfg_mod, presets in ((jcfg, jpresets), (tcfg, tpresets)):
+        cfg = cfg_mod.get_cfg_defaults().merge_from_list(opts)
+        presets.apply_overrides(cfg, sets)
+        trees.append(_tree(cfg))
+    assert trees[0] == trees[1]
+    m = trees[1]["MODEL"]
+    assert m["HDM"] is True and m["USE_FRCA"] is None and m["STRIDE_SIZE"] == (12, 12)
+    assert m["ATM"] is True and m["GLOBAL_LOCAL"] is False and trees[1]["TEST"]["MISS"] == "nt"
+    for bad in (["MODEL.HDM"], ["MODEL.HEAD", "four"], ["TPU.INT8_MLP", False]):
+        with pytest.raises((ValueError, TypeError)):
+            tcfg.get_cfg_defaults().merge_from_list(bad)
+    with pytest.raises(KeyError, match="NOT_A_KEY"):
+        from demo2_tpu_torch.config.yaml_loader import _merge_dict
+        _merge_dict(tcfg.get_cfg_defaults(), {"MODEL": {"NOT_A_KEY": 1}})
+
+
+@pytest.mark.parametrize("path", sorted(chip_smoke.YAML_KEYS))
+def test_chip_smoke_yaml_keys_are_the_files(path):
+    """chip_smoke.py sets these files' keys with merge_from_list: the card's
+    machine has no PyYAML."""
+    cfg = tcfg.get_cfg_defaults().merge_from_list(chip_smoke.YAML_KEYS[path])
+    assert _tree(cfg) == _from_file(tcfg, path)
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES)
+def test_the_port_builds_fourteen_of_the_yaml_files(path):
+    """The Baseline, DeMo (HDM + ATMoE), SDTPS, DGAF and SDTPS + DGAF files
+    build; FRCA, SACR, LIF and DeMo_Parallel raise naming their ROADMAP item."""
+    assert len(CONFIG_FILES) - len(REFUSED_FILES) == 14
+    cfg = tcfg.get_cfg_defaults().merge_from_file(str(REPO / "configs" / path))
+    tpresets.apply_tiny(cfg)
+    if path in REFUSED_FILES:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_model(cfg, 6, 4, device=CPU, generator=generator())
+    else:
+        model = make_model(cfg, 6, 4, device=CPU, generator=generator())
+        h, w = cfg.INPUT.SIZE_TEST
+        emb = model(torch.zeros(2, 3, h, w, 3), torch.zeros(2, dtype=torch.long))["embedding"]
+        assert emb.shape == (2, model.embed_dim)
+
+
 def test_miss_masks_are_the_jax_packages():
     assert MISS_MASKS == J_MISS_MASKS
     assert miss_mask("nt", device=CPU).tolist() == [1.0, 0.0, 0.0]
@@ -79,11 +153,8 @@ def _flagship_tiny():
 @pytest.mark.parametrize("section,key,value", [
     ("MODEL", "ARCH", "DeMo_Parallel"),
     ("MODEL", "ARCH", "DeMoBeiyong"),
-    ("MODEL", "USE_DGAF", False),
     ("MODEL", "USE_FRCA", True),
-    ("MODEL", "DGAF_VERSION", "v1"),
-    ("MODEL", "HDM", True),
-    ("MODEL", "GLOBAL_LOCAL", True),
+    ("MODEL", "SDTPS_VARIANT", "complete"),
     ("MODEL", "FROZEN", True),
     ("MODEL", "ADAPTER", True),
     ("MODEL", "PROMPT", True),
@@ -120,11 +191,17 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("TEST", "RE_RANKING", "yes"),
     ("DATASETS", "NAMES", "MSVR310"),
     ("TPU", "EVAL_ON_DEVICE", False),
+    ("MODEL", "USE_DGAF", False),
+    ("MODEL", "DGAF_VERSION", "v1"),
+    ("MODEL", "HDM", True),
+    ("MODEL", "GLOBAL_LOCAL", True),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
     refused: the fused MLP in training, the LayerNorm backward flag,
-    re-ranking, MSVR310's scene protocol, ranking off the device."""
+    re-ranking, MSVR310's scene protocol, ranking off the device, SDTPS
+    without DGAF, DGAF v1 (over GlobalLocalFuse, which it needs beside
+    SDTPS), the HDM + ATMoE branch, GLOBAL_LOCAL."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.engine.eval import run_eval
@@ -134,6 +211,8 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     setattr(getattr(cfg, section), key, value)
     if key == "FUSED_MLP_TRAIN":
         cfg.TPU.USE_FLASH_ATTENTION = True  # the flag acts on the fused blocks only
+    if key == "DGAF_VERSION":
+        cfg.MODEL.GLOBAL_LOCAL = True  # v1 beside SDTPS needs it (the next test)
     ds = SyntheticTriModal(num_pids=8, imgs_per_pid=4, image_size=tuple(cfg.INPUT.SIZE_TRAIN))
     model = make_model(cfg, 8, 4, device=CPU, generator=generator())
     train = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
@@ -146,6 +225,20 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     cmc, m_ap = run_eval(cfg, model, val, len(ds.query), rank_list_path=str(tmp_path / "re.txt"))
     assert cmc.shape == (len(ds.gallery),) and 0.0 < m_ap <= 1.0
     assert (tmp_path / "re.txt").read_text().startswith("rank list file")
+
+
+def test_dgaf_v1_beside_sdtps_without_global_local_raises_as_jax_does():
+    from demo2_tpu.models import make_model as j_make_model
+
+    cfg = _flagship_tiny()
+    cfg.MODEL.DGAF_VERSION = "v1"
+    h, w = cfg.INPUT.SIZE_TEST
+    with pytest.raises(ValueError, match="DGAF V1 requires GLOBAL_LOCAL"):
+        j_make_model(cfg, 6, 4).init({"params": jax.random.PRNGKey(0)},
+                                     np.zeros((2, 3, h, w, 3), np.float32),
+                                     np.zeros((2,), np.int32))
+    with pytest.raises(ValueError, match="DGAF V1 requires GLOBAL_LOCAL"):
+        make_model(cfg, 6, 4, device=CPU, generator=generator())
 
 
 def test_remat_backbone_on_the_imagenet_vit_raises_in_training():
