@@ -16,8 +16,11 @@ with the fused-dW kernel in its middle, the flagship's training with the fused
 MLP (TPU.FUSED_MLP_TRAIN) and the attention ablation tool, drives DeMo's own
 model (configs/RGBNT201/DeMo.yml: HDM + ATMoE beside the globals' head, at
 full width) as a server, an evaluator at each return_pattern and a trainer,
-and six more DeMo branches of configs/ at two blocks, and times kernels,
-requests and train steps against the plain path.  Phases:
+eleven more DeMo branches of configs/ at two blocks, and three more
+assemblies at full width (the DeMoBeiyong cascade of
+configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
+DeMo_FRCA_DGAF.yml), and times kernels, requests and train steps against the
+plain path.  Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
      versions, kernel build time and ptxas register / smem / spill lines;
@@ -163,9 +166,23 @@ requests and train steps against the plain path.  Phases:
      HDM + ATMoE alone at batch 64, eval forward and forward + backward;
   24. the Baseline, DeMo_SDTPS, DeMo_DGAF (v3, and v1 with GLOBAL_LOCAL),
      DeMo_SDTPS_shared, DeMo_optimized and MSVR310's DeMo.yml (128x256, the
-     scene protocol with its rank list) at two blocks: one train step (2
-     launches of kernels 3 and 4) and one run_eval (2 of kernels 1 and 2 a
-     forward) each.
+     scene protocol with its rank list) at two blocks, and
+     DeMo_SACR_SDTPS, DeMo_LIF, the two MultiModalSACR files and
+     SDTPSComplete (SDTPS_VARIANT "complete" on DeMo_SDTPS_DGAF.yml): one
+     train step (2 launches of kernels 3 and 4) and one run_eval (2 of
+     kernels 1 and 2 a forward) each;
+  25. DeMo_SACR_SDTPS_LIF.yml (DeMoLegacy: SACR, LIF, SDTPS, GLOBAL_LOCAL),
+     DeMo_Parallel.yml (nine heads, 9C) and DeMo_FRCA_DGAF.yml (FRCA, its six
+     directed cross-attentions, DGAF V3Multi, 6C) at full width as phase 22
+     builds DeMo.yml: phase 3 on each, run_eval at its width, the LIF loss
+     finite and in the step's loss, phase 6 on each (every tensor of its own
+     modules changed, BatchNorm statistics included), and FRCA's channel
+     spectrum on the card against numpy's f64 FFT, its phase at the real bins
+     0 or pi by the sign of the real part;
+  26. timing (printed): each of the three beside the flagship, train step and
+     batch-64 request in turns with a profile of each, and its own modules
+     alone at batch 64 (SACR's core, LIF's predictors and targets, FRCA with
+     its cross-attention, the nine heads), eval and forward + backward.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -494,8 +511,8 @@ def vit_cfg(fused: bool, **overrides):
                         **overrides)
 
 
-# The configs/ files of the DeMo branches that phases 22-24 drive, as
-# merge_from_list opts: the card's machine has no PyYAML.
+# The configs/ files of the DeMo branches and assemblies that phases 22-26
+# drive, as merge_from_list opts: the card's machine has no PyYAML.
 # tests/test_torch_package.py pins each equal to Config.merge_from_file of its
 # file.
 _YAML_MODEL = ["MODEL.TRANSFORMER_TYPE", "ViT-B-16", "MODEL.STRIDE_SIZE", [16, 16],
@@ -513,6 +530,9 @@ _YAML_REST = ["INPUT.SIZE_TRAIN", [256, 128], "INPUT.SIZE_TEST", [256, 128], "IN
 _YAML_SDTPS = ["MODEL.USE_SDTPS", True, "MODEL.SDTPS_SPARSE_RATIO", 0.7,
                "MODEL.SDTPS_CROSS_ATTN_TYPE", "attention"]
 _YAML_DGAF = ["MODEL.USE_DGAF", True, "MODEL.DGAF_VERSION", "v3"]
+_YAML_LEGACY = _YAML_MODEL + ["MODEL.ARCH", "DeMoBeiyong", "MODEL.GLOBAL_LOCAL", True]
+_YAML_SACR = ["MODEL.USE_SACR", True, "MODEL.SACR_DILATION_RATES", [2, 3, 4]]
+_YAML_LIF = ["MODEL.USE_LIF", True, "MODEL.LIF_BETA", 0.4, "MODEL.LIF_LOSS_WEIGHT", 0.1]
 _YAML_DEMO = _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", True, "MODEL.HDM", True, "MODEL.ATM", True,
                             "MODEL.HEAD", 4]
 YAML_KEYS = {
@@ -529,6 +549,30 @@ YAML_KEYS = {
     + ["MODEL.SDTPS_SHARE_CROSS_ATTN", True] + _YAML_DGAF + _YAML_REST,
     "RGBNT201/DeMo_optimized.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", True] + _YAML_SDTPS + [
         "MODEL.SDTPS_LOSS_WEIGHT", 2.0] + _YAML_DGAF + ["MODEL.DGAF_NUM_HEADS", 8] + _YAML_REST,
+    "RGBNT201/DeMo_SDTPS_DGAF.yml": _YAML_MODEL + ["MODEL.GLOBAL_LOCAL", False] + _YAML_SDTPS + [
+        "MODEL.SDTPS_CROSS_ATTN_HEADS", 4, "MODEL.SDTPS_LOSS_WEIGHT", 2.0] + _YAML_DGAF + [
+        "MODEL.DGAF_TAU", 1.0, "MODEL.DGAF_INIT_ALPHA", 0.5, "MODEL.DGAF_NUM_HEADS", 8]
+    + _YAML_REST,
+    "RGBNT201/DeMo_SACR_SDTPS.yml": _YAML_LEGACY + _YAML_SACR + _YAML_SDTPS + [
+        "MODEL.SDTPS_LOSS_WEIGHT", 2.0] + _YAML_REST,
+    "RGBNT201/DeMo_SACR_SDTPS_LIF.yml": _YAML_LEGACY + _YAML_SACR + _YAML_LIF + _YAML_SDTPS
+    + _YAML_REST,
+    "RGBNT201/DeMo_LIF.yml": _YAML_LEGACY + _YAML_LIF + _YAML_SDTPS + _YAML_REST,
+    "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF.yml": _YAML_MODEL + [
+        "MODEL.ARCH", "DeMoBeiyong", "MODEL.GLOBAL_LOCAL", False, "MODEL.USE_MULTIMODAL_SACR",
+        True, "MODEL.MULTIMODAL_SACR_VERSION", "v1"] + _YAML_SDTPS + _YAML_DGAF + _YAML_REST,
+    "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF_v2.yml": _YAML_MODEL + [
+        "MODEL.ARCH", "DeMoBeiyong", "MODEL.GLOBAL_LOCAL", False, "MODEL.USE_MULTIMODAL_SACR",
+        True, "MODEL.MULTIMODAL_SACR_VERSION", "v2"] + _YAML_SDTPS + _YAML_DGAF + _YAML_REST,
+    "RGBNT201/DeMo_Parallel.yml": _YAML_MODEL + [
+        "MODEL.ARCH", "DeMo_Parallel", "MODEL.GLOBAL_LOCAL", True, "MODEL.USE_SDTPS", True,
+        "MODEL.SDTPS_SPARSE_RATIO", 0.6, "MODEL.SDTPS_CROSS_ATTN_TYPE", "attention",
+        "MODEL.SDTPS_CROSS_ATTN_HEADS", 4, "MODEL.SDTPS_LOSS_WEIGHT", 1.0] + _YAML_DGAF + [
+        "MODEL.DGAF_LOSS_WEIGHT", 1.0, "MODEL.FUSED_LOSS_WEIGHT", 0.5] + _YAML_REST,
+    "RGBNT201/DeMo_FRCA_DGAF.yml": _YAML_MODEL + [
+        "MODEL.GLOBAL_LOCAL", False, "MODEL.USE_FRCA", True, "MODEL.FRCA_NEGATIVE_SLOPE", 0.1,
+        "MODEL.FRCA_USE_CROSS_ATTN", True, "MODEL.FRCA_CROSS_ATTN_HEADS", 8] + _YAML_DGAF
+    + _YAML_REST,
 }
 
 
@@ -1164,12 +1208,22 @@ def block_groups(model):
     return "backbone.base.blocks.{}.", ("attn.qkv.", "attn.proj.")
 
 
+def grads_cosine(gk: dict, gp: dict, prefix: str = "") -> float:
+    """The cosine of two gradient dicts over the tensors whose name starts
+    with `prefix`."""
+    keys = [k for k in gk if k.startswith(prefix)]
+    return cosine(torch.cat([gk[k].flatten() for k in keys]),
+                  torch.cat([gp[k].flatten() for k in keys]))
+
+
 def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train",
-                      extra_groups=(), block_min=None) -> None:
-    """Gradients of the first step on the kernel and the plain path: the
-    same weights, batch and draws (the generator seeded alike, so that
-    augmentation, dropout and drop path agree).  `extra_groups` are further
-    per-block parameter groups to hold, `block_min` their cosine bound."""
+                      extra_groups=(), block_min=None, required=True) -> None:
+    """Gradients of the first step on the kernel and the plain path, whole
+    and per block.  `extra_groups` are further per-block parameter groups to
+    hold, `block_min` their cosine bound; with `required` False the cosines
+    are printed only (check_backbone_grads holds the kernels then).  Both
+    paths take the same weights, batch and draws (the generator seeded
+    alike, so that augmentation, dropout and drop path agree)."""
     block_min = GRAD_COS_BLOCK if block_min is None else block_min
     from demo2_tpu_torch.engine.train import loss_and_grads
     from demo2_tpu_torch.losses.losses import make_loss_fn
@@ -1184,21 +1238,66 @@ def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train",
         log(f"[{label}] step-1 loss, {'kernel' if c is cfg else 'plain'} path: "
             f"{loss.item():.6f}")
     gk, gp = grads
-    whole = cosine(torch.cat([gk[k].flatten() for k in gk]), torch.cat([gp[k].flatten() for k in gk]))
-    worst = (1.0, "")
+    whole = grads_cosine(gk, gp)
     prefix, groups = block_groups(model)
     groups = groups + tuple(extra_groups)
-    for i in range(num_blocks(model)):
-        pre = prefix.format(i)
-        for group in groups:
-            keys = [k for k in gk if k.startswith(pre + group)]
-            c = cosine(torch.cat([gk[k].flatten() for k in keys]),
-                       torch.cat([gp[k].flatten() for k in keys]))
-            worst = min(worst, (c, pre + group))
+    worst = min((grads_cosine(gk, gp, prefix.format(i) + group), prefix.format(i) + group)
+                for i in range(num_blocks(model)) for group in groups)
     log(f"[{label}] step-1 gradient cosine, kernel vs plain path: whole model {whole:.6f}; "
-        f"lowest block {' / '.join(groups)} {worst[0]:.6f} ({worst[1]})")
-    require(whole >= GRAD_COS_MODEL, f"step-1 gradient cosine {whole} < {GRAD_COS_MODEL}")
-    require(worst[0] >= block_min, f"{worst[1]} gradient cosine {worst[0]} < {block_min}")
+        f"lowest block {' / '.join(groups)} {worst[0]:.6f} ({worst[1]})"
+        + ("" if required else " (printed, not held)"))
+    if required:
+        require(whole >= GRAD_COS_MODEL, f"step-1 gradient cosine {whole} < {GRAD_COS_MODEL}")
+        require(worst[0] >= block_min, f"{worst[1]} gradient cosine {worst[0]} < {block_min}")
+
+
+def check_backbone_grads(cfg, model, plain_cfg, plain, cache, idx, label) -> None:
+    """The backbone's step-1 parameter gradients on the kernel and the plain
+    path from one upstream gradient: the kernel path's gradient of the whole
+    step's loss at the backbone's output (patches and globals), run back
+    through each path's backbone on the same batch and draws.  Held whole
+    (GRAD_COS_MODEL) and per block (GRAD_COS_BLOCK): this isolates the
+    kernels from a head whose input gradient is ill-conditioned."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses.losses import make_loss_fn
+
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    upstream = {}
+
+    def keep(module, args, out):
+        for i, t in enumerate(out):
+            t.register_hook(lambda g, i=i: upstream.__setitem__(i, g))
+
+    gen = torch.Generator(device=cache.images.device).manual_seed(cfg.SOLVER.SEED)
+    images, pids, camids = cache.batch(idx, gen)
+    handle = model.backbone.register_forward_hook(keep)
+    try:
+        loss_and_grads(cfg, model, make_loss_fn(cfg, NUM_CLASSES), images, pids, camids, gen)
+    finally:
+        handle.remove()
+    model.load_state_dict(init)  # undo the heads' BatchNorm updates
+    grads = []
+    for m in (model, plain):
+        gen = torch.Generator(device=cache.images.device).manual_seed(cfg.SOLVER.SEED)
+        images, pids, camids = cache.batch(idx, gen)
+        out = m.backbone(images.to(m.dtype), camids, None, None, True, gen)
+        names, params = zip(*[(k, p) for k, p in m.named_parameters()
+                              if k.startswith("backbone.")])
+        g = torch.autograd.grad(out, params, grad_outputs=(upstream[0], upstream[1]),
+                                allow_unused=True)
+        grads.append({k: torch.zeros_like(p) if x is None else x
+                      for k, p, x in zip(names, params, g)})
+    gk, gp = grads
+    whole = grads_cosine(gk, gp)
+    prefix, groups = block_groups(model)
+    worst = min((grads_cosine(gk, gp, prefix.format(i) + grp), prefix.format(i) + grp)
+                for i in range(num_blocks(model)) for grp in groups)
+    log(f"[{label}] backbone step-1 gradient cosine from one upstream gradient, kernel vs "
+        f"plain path: whole backbone {whole:.6f}; lowest block {' / '.join(groups)} "
+        f"{worst[0]:.6f} ({worst[1]})")
+    require(whole >= GRAD_COS_MODEL, f"backbone gradient cosine {whole} < {GRAD_COS_MODEL}")
+    require(worst[0] >= GRAD_COS_BLOCK, f"{worst[1]} gradient cosine {worst[0]} < "
+            f"{GRAD_COS_BLOCK}")
 
 
 def train_steps(cfg, model, cache, order, steps, per_step=None):
@@ -1221,16 +1320,25 @@ def train_steps(cfg, model, cache, order, steps, per_step=None):
 
 
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
-                label: str = "train", extra_groups=(), block_min=None) -> dict:
+                label: str = "train", extra_groups=(), block_min=None,
+                whole_model: bool = True) -> dict:
     """TRAIN_STEPS steps through build_train_step, each launching
     `per_step_want` (all fourteen kernels' counts), against the plain path.
-    Returns the launches of the steps."""
+    Without `whole_model` the step-1 gradient and the losses of the two
+    paths are printed only, and the backbone's gradient from one upstream
+    gradient is held (check_backbone_grads).  Returns the launches of the
+    steps."""
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     plain.load_state_dict(init)
-    check_step1_grads(cfg, model, plain_cfg, plain, cache,
-                      torch.from_numpy(order[:bs]).to(device), label, extra_groups, block_min)
+    idx = torch.from_numpy(order[:bs]).to(device)
+    check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label, extra_groups, block_min,
+                      required=whole_model)
+    if not whole_model:
+        model.load_state_dict(init)
+        plain.load_state_dict(init)
+        check_backbone_grads(cfg, model, plain_cfg, plain, cache, idx, label)
     model.load_state_dict(init)  # undo the BatchNorm updates of the check
     plain.load_state_dict(init)
 
@@ -1261,8 +1369,10 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
     plain_losses = train_steps(plain_cfg, plain, cache, order, PLAIN_STEPS)
     rel = [abs(k - p) / abs(p) for k, p in zip(losses, plain_losses)]
     log(f"[{label}] plain path losses: {' '.join(f'{x:.4f}' for x in plain_losses)}; "
-        f"largest relative difference {max(rel):.4%}")
-    require(max(rel) <= LOSS_REL, f"kernel vs plain loss differ by {max(rel):.4%}")
+        f"largest relative difference {max(rel):.4%}"
+        + ("" if whole_model else " (printed, not held)"))
+    if whole_model:
+        require(max(rel) <= LOSS_REL, f"kernel vs plain loss differ by {max(rel):.4%}")
     return launches
 
 
@@ -2757,6 +2867,13 @@ BRANCH_CASES = (  # (label, configs/ file, overrides)
     ("shared SDTPS + DGAF", "RGBNT201/DeMo_SDTPS_shared.yml", {}),
     ("optimized", "RGBNT201/DeMo_optimized.yml", {}),
     ("MSVR310 DeMo.yml, scene protocol", "MSVR310/DeMo.yml", {}),
+    ("SACR + SDTPS, DeMoBeiyong", "RGBNT201/DeMo_SACR_SDTPS.yml", {}),
+    ("LIF + SDTPS, DeMoBeiyong", "RGBNT201/DeMo_LIF.yml", {}),
+    ("MultiModalSACR v1 + SDTPS + DGAF, DeMoBeiyong",
+     "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF.yml", {}),
+    ("MultiModalSACR v2 + SDTPS + DGAF, DeMoBeiyong",
+     "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF_v2.yml", {}),
+    ("SDTPSComplete + DGAF", "RGBNT201/DeMo_SDTPS_DGAF.yml", {"MODEL__SDTPS_VARIANT": "complete"}),
 )
 
 
@@ -2830,6 +2947,230 @@ def phase_branches(device) -> None:
         del model, step
 
 
+# ---------------------------------------------------------------- phase 25
+
+
+# (label, configs/ file, the state-dict prefixes of its own modules, whether
+# the whole model's step-1 gradient and its losses are held to the plain
+# path's).  DeMo_Parallel's are not: its sdtps_* branches take SDTPS's
+# masked token mean straight to the losses, and SDTPS's gradient with
+# respect to its input is ill-conditioned at random weights: 0.4% of noise
+# on the input turns it by a cosine of 0.844 in f32, in the port and the JAX
+# package alike, DGAF v3's by 0.99999 (tests/test_torch_parallel_frca.py::
+# test_sdtps_input_gradient_is_ill_conditioned_in_both_packages).  So the
+# bf16 rounding that separates the two paths' backbone outputs turns the
+# whole model's step-1 gradient by a cosine of 0.87 on the card, and the
+# trajectories part by 4-6% within ten steps.  Its backbone is held from one
+# upstream gradient instead (check_backbone_grads); both readings are
+# printed.
+ASSEMBLY_CASES = (
+    ("legacy", "RGBNT201/DeMo_SACR_SDTPS_LIF.yml", ("sacr.", "lif.", "sdtps.", "gl_fuse."), True),
+    ("parallel", "RGBNT201/DeMo_Parallel.yml", ("sdtps.", "dgaf.", "gl_fuse.", "head_"), False),
+    ("frca", "RGBNT201/DeMo_FRCA_DGAF.yml", ("frca_", "dgaf."), True),
+)
+SPECTRUM_REL = 1e-5  # the card's f32 spectrum vs numpy's f64, of its largest bin
+
+
+def assembly_cfg(path: str):
+    return lambda fused, **overrides: yaml_cfg(path, fused, **overrides)
+
+
+def phase_assembly_eval(device, cfg, model, train_cache, label: str) -> None:
+    """run_eval at the model's embedding width: kernels 1 and 2 once per
+    block and forward and no other kernel, mAP in (0, 1]."""
+    from demo2_tpu_torch.engine.eval import eval_step, miss_mask, run_eval
+
+    val, nq = eval_cache_from(train_cache, cfg)
+    layers = num_blocks(model)
+    forwards = math.ceil(val.images.shape[0] / cfg.TEST.IMS_PER_BATCH)
+    images, _, camids = val.batch(torch.arange(8, device=device))
+    emb = eval_step(model, images, camids, miss_mask("None", device=device))
+    require(emb.shape == (8, model.embed_dim) and bool(torch.isfinite(emb).all()),
+            f"[{label}] embedding {tuple(emb.shape)}, expected width {model.embed_dim}")
+    reset_counts()
+    cmc, m_ap = run_eval(cfg, model, val, nq)
+    sync()
+    require_launches(counts(), launch_dict(fused_attention_block=layers * forwards,
+                                           fused_mlp_block=layers * forwards),
+                     f"[{label}] run_eval")
+    require(0.0 < m_ap <= 1.0, f"[{label}] mAP {m_ap}")
+    log(f"[{label}] run_eval: embedding width {model.embed_dim}, {nq} queries, mAP {m_ap:.4f}, "
+        f"Rank-1 {cmc[0]:.3f}")
+
+
+def check_lif_loss(device, cfg, model, cache, sampler, label: str) -> None:
+    """A training forward gives a finite, positive aux_loss['lif'], and the
+    step's loss is the branch losses plus LIF_LOSS_WEIGHT times it."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses.losses import branch_weights, make_loss_fn
+
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    idx = torch.from_numpy(sampler.epoch_indices(1)[:cfg.SOLVER.IMS_PER_BATCH]).to(device)
+    gen = torch.Generator(device=device).manual_seed(cfg.SOLVER.SEED)
+    images, pids, camids = cache.batch(idx, gen)
+    loss_fn = make_loss_fn(cfg, NUM_CLASSES)
+    with torch.no_grad():
+        out = model(images.to(model.dtype), camids, None, None, train=True,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    model.load_state_dict(init)
+    lif = out["aux_loss"]["lif"].item()
+    weights = branch_weights(cfg, out["branches"])
+    branch = sum(weights[k] * loss_fn(lg, f, pids) for k, (lg, f) in out["branches"].items())
+    loss = loss_and_grads(cfg, model, loss_fn, images, pids, camids,
+                          torch.Generator(device=device).manual_seed(1))[0].item()
+    model.load_state_dict(init)
+    want = branch.item() + cfg.MODEL.LIF_LOSS_WEIGHT * lif
+    log(f"[{label}] aux_loss['lif'] {lif:.6f}; step loss {loss:.6f} = branch losses "
+        f"{branch.item():.6f} + {cfg.MODEL.LIF_LOSS_WEIGHT} x lif ({want:.6f})")
+    require(math.isfinite(lif) and lif > 0, f"aux_loss['lif'] {lif}")
+    require(abs(loss - want) <= 1e-3 * abs(want), f"the step's loss {loss} is not {want}")
+
+
+def phase_frca_spectrum(device, cfg, model, label: str) -> None:
+    """FRCA's channel spectrum on the card (cuFFT) against numpy's f64 FFT of
+    the same descriptor on the host: within SPECTRUM_REL of its largest bin,
+    and at the real bins (DC, the even sizes' Nyquist rows and columns) the
+    phase 0 or pi by the sign of the real part.  Prints what cuFFT itself
+    leaves there."""
+    import torch.nn.functional as F
+
+    from demo2_tpu_torch.models.frca import _grid_dims, channel_spectrum, real_bins
+
+    images, cams = request_images(64, cfg, seed=7)
+    with torch.inference_mode():
+        patches, _ = model.backbone(torch.from_numpy(images).to(device, model.dtype),
+                                    torch.from_numpy(cams).to(device))
+        m, b, n, c = patches.shape
+        descs = [getattr(model, f"frca_{nm}").clc3(patches[i].reshape(b, *model.grid, c))
+                 .float().mean((1, 2)) for i, nm in enumerate(("rgb", "nir", "tir"))]
+        desc = torch.cat(descs)
+        hc, wc, pad = _grid_dims(c)
+        spec = channel_spectrum(desc).cpu().numpy()
+        raw = torch.fft.fft2(F.pad(desc, (0, pad)).reshape(-1, hc, wc)).cpu().numpy()
+    ref = np.fft.fft2(np.pad(desc.cpu().double().numpy(), ((0, 0), (0, pad)))
+                      .reshape(-1, hc, wc))
+    real = real_bins(hc, wc, torch.device("cpu")).numpy()
+    rel = float(np.abs(spec - ref).max() / np.abs(ref).max())
+    phase, want = np.angle(spec)[:, real], np.where(ref.real[:, real] < 0, np.float32(np.pi), 0.0)
+    negative = int((ref.real[:, real] < 0).sum())
+    raw_nonzero = int((raw.imag[:, real] != 0).sum())
+    raw_flips = int(((ref.real[:, real] < 0) & np.signbit(raw.imag[:, real])).sum())
+    log(f"[{label}] FRCA spectrum ({desc.shape[0]} descriptors on the {hc} x {wc} grid of "
+        f"C = {c}): card vs numpy f64 {rel:.3e} of the largest bin; {real.sum()} real bins a "
+        f"grid, {negative} of {phase.size} negative; torch.fft on the device leaves "
+        f"{raw_nonzero} non-zero imaginary parts there, {raw_flips} of the negative ones at "
+        f"-pi; numpy {int((ref.imag[:, real] != 0).sum())}")
+    require(rel <= SPECTRUM_REL, f"FRCA spectrum vs numpy: {rel} > {SPECTRUM_REL}")
+    require(np.array_equal(phase, want), "FRCA phase at the real bins is not 0 / pi by the "
+            "sign of numpy's real part")
+    require(np.allclose(np.abs(np.angle(ref)[:, real]), phase, atol=1e-6),
+            "FRCA phase at the real bins differs from numpy's beyond its sign")
+
+
+def phase_assemblies(device, card, flag_cfg, flag_model, cache, sampler,
+                     timing: bool = True) -> None:
+    """Each ASSEMBLY_CASES file at full width, the kernel path and the plain
+    path with the same weights: serving (phase 3's checks), run_eval at its
+    width, training (phase 6's checks; the assembly's own parameters and
+    BatchNorm statistics among what must change, the LIF loss in the step),
+    FRCA's spectrum on the card, then phase 26's timing beside the
+    flagship."""
+    for label, path, own, whole_model in ASSEMBLY_CASES:
+        cfg, model, plain_cfg, plain = build_models(device, assembly_cfg(path))
+        layers = num_blocks(model)
+        log(f"[{label}] configs/{path}: {type(model).__name__}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters, branches "
+            f"{list(model.branch_heads)}, embedding width {model.embed_dim}")
+        phase_slice(device, cfg, model, plain_cfg, plain,
+                    launch_dict(fused_attention_block=layers, fused_mlp_block=layers),
+                    label=f"{label}-slice")
+        phase_assembly_eval(device, cfg, model, cache, f"{label}-eval")
+        if cfg.MODEL.USE_LIF:
+            check_lif_loss(device, cfg, model, cache, sampler, f"{label}-train")
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()
+                  if k.startswith(own)}
+        phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                    launch_dict(fused_attention_block_train=layers, attention_bwd_saved_db=layers),
+                    label=f"{label}-train", whole_model=whole_model)
+        after = model.state_dict()
+        moved = {}
+        for k, v in before.items():
+            group = k.split(".")[0]
+            change = (after[k].float() - v.float()).abs().max().item()
+            moved[group] = max(moved.get(group, 0.0), change)
+        unmoved = [k for k, v in before.items() if torch.equal(after[k], v)]
+        log(f"[{label}-train] largest change of its own modules over the steps: {moved}")
+        require(not unmoved, f"[{label}] tensors the steps did not change: {unmoved}")
+        if hasattr(model, "frca_rgb"):
+            phase_frca_spectrum(device, cfg, model, f"{label}-frca")
+        if timing:
+            phase_assembly_timing(device, card, label, cfg, model, plain, flag_cfg, flag_model,
+                                  cache, sampler)
+        del model, plain
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 26
+
+
+def assembly_modules(model, patches, globals_, images):
+    """{name: fn(train)} of the assembly's own modules on one batch-64 input:
+    SACR's core, LIF's predictors and targets, FRCA with its cross-attention,
+    DeMoParallel's nine heads."""
+    from demo2_tpu_torch.models.lif import lif_loss
+
+    m, b, n, c = patches.shape
+    fns = {}
+    if hasattr(model, "sacr"):
+        grid = patches.reshape(m * b, *model.grid, c)
+        fns["SACR core"] = lambda train: model.sacr.core(grid, train)
+    if hasattr(model, "lif"):
+        def lif(train):
+            q = model.lif(images, train)
+            return lif_loss(q, images) if train else q
+        fns["LIF predictors + targets"] = lif
+    if hasattr(model, "frca_rgb"):
+        fns["FRCA x 3 + cross-attention + V3Multi"] = lambda train: model._frca_cross(
+            model._frca_stack(patches), train)
+    if len(model.branch_heads) == 9:
+        fns["nine heads"] = lambda train: torch.stack([
+            getattr(model, f"head_{name}")(globals_[0], train)
+            for name in model.branch_heads.values()])
+    return fns
+
+
+def phase_assembly_timing(device, card, label, cfg, model, plain, flag_cfg, flag_model, cache,
+                          sampler) -> None:
+    """The assembly's train step and batch-64 request beside the flagship's,
+    in turns, with a profile of each (device busy), and its own modules'
+    device time at batch 64 (the plain model's copies: their BatchNorm
+    statistics move), at eval and in training."""
+    names = (label, "flagship")
+    time_train_step(device, card, cfg, model, flag_cfg, flag_model, cache, sampler,
+                    label=f"{label} vs flagship: ", names=names)
+    time_extractor(device, card, cfg, model, flag_cfg, flag_model,
+                   label=f"{label} vs flagship: ", names=names)
+    images_np, cams = request_images(64, cfg, seed=6)
+    images = torch.from_numpy(images_np).to(device, plain.dtype)
+    with torch.no_grad():
+        patches, globals_ = plain.backbone(images, torch.from_numpy(cams).to(device))
+    patches.requires_grad_(True)
+    for name, fn in assembly_modules(plain, patches, globals_, images).items():
+        def eval_fn():
+            with torch.inference_mode():
+                fn(False)
+
+        def train_fn():
+            fn(True).float().square().mean().backward()
+
+        for what, f in (("eval forward", eval_fn), ("training forward + backward", train_fn)):
+            busy = sum(device_ms(f).values())
+            log(f"[time] {label}: {name} alone, batch 64, {what}: device busy {busy:.4f} ms "
+                f"(profiler), {cuda_ms(f):.4f} ms (CUDA events) ({card})")
+    plain.zero_grad(set_to_none=True)
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -2897,6 +3238,9 @@ def main() -> None:
     # configs/ at reduced depth.
     phase_demo(device, card, cfg, model, cache, sampler)
     phase_branches(device)
+    # The DeMoBeiyong cascade, DeMo_Parallel and FRCA at full width (kernels
+    # 1-4), each timed beside the flagship.
+    phase_assemblies(device, card, cfg, model, cache, sampler)
 
     # The flagship with PALLAS_LN_BWD (kernel 11 beside 3 and 4), its
     # re-ranked eval (kernel 12 beside 1 and 2), their timing.

@@ -5,7 +5,7 @@ batch-hard triplet, combined per branch by `make_loss_fn` and weighted by
 All reductions run in f32.  The batch-hard mining uses masked max / min, as
 the JAX package does: with the PK sampler's guarantee that every anchor has a
 positive and a negative, that equals the reference's boolean indexing.
-Center loss and DeMo_Parallel's branch weights are not ported yet.
+Center loss is not ported yet.
 """
 
 from __future__ import annotations
@@ -82,10 +82,21 @@ def make_loss_fn(cfg: Config, num_classes: int) -> Callable:
 def branch_weights(cfg: Config, branch_names: Iterable[str]) -> Dict[str, float]:
     """The reference engine's weighting: the FIRST (score, feat) pair is
     multiplied by SDTPS_LOSS_WEIGHT whenever USE_SDTPS is set, the dgaf pair
-    of the SDTPS + DGAF branch included (losses.py:174-176)."""
-    if cfg.MODEL.ARCH == "DeMo_Parallel":
-        raise not_ported("DeMo_Parallel's branch weights", "other DeMo branches and assemblies")
+    of the SDTPS + DGAF branch included (losses.py:174-176).  DeMo_Parallel
+    weighs each branch family by its SDTPS / DGAF / FUSED_LOSS_WEIGHT; with
+    MODEL.PARALLEL_LOSS_PARITY it takes the reference engine's rule, where
+    only the first pair, sdtps_rgb, carries SDTPS_LOSS_WEIGHT."""
     names = list(branch_names)
+    m = cfg.MODEL
+    if m.ARCH == "DeMo_Parallel":
+        if m.PARALLEL_LOSS_PARITY:
+            w = {n: 1.0 for n in names}
+            if m.USE_SDTPS and "sdtps_rgb" in w:
+                w["sdtps_rgb"] = m.SDTPS_LOSS_WEIGHT
+            return w
+        family = {"sdtps": m.SDTPS_LOSS_WEIGHT, "dgaf": m.DGAF_LOSS_WEIGHT,
+                  "fused": m.FUSED_LOSS_WEIGHT}
+        return {n: family.get(n.split("_")[0], 1.0) for n in names}
     w = {n: 1.0 for n in names}
     if cfg.MODEL.USE_SDTPS and names:
         w[names[0]] = cfg.MODEL.SDTPS_LOSS_WEIGHT

@@ -1,3 +1,3 @@
-from .demo import DeMo
+from .demo import DeMo, DeMoLegacy, DeMoParallel
 from .factory import make_model
 from .pife import PIFE

@@ -190,6 +190,31 @@ class TorchBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def choose_gn_groups(channels: int) -> int:
+    """The largest group count of 32, 16, 8, 4, 2 that divides C, else 1."""
+    return next((g for g in (32, 16, 8, 4, 2) if channels % g == 0), 1)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over (B, H, W, C), torch semantics: per-sample statistics of
+    each group, in f32."""
+
+    def __init__(self, num_groups: int, features: int, *, device: torch.device):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = make_param((features,), ones_init, generator=None, device=device)
+        self.bias = make_param((features,), zeros_init, generator=None, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        g = self.num_groups
+        xf = x.float().reshape(b, h, w, g, c // g)
+        mean = xf.mean((1, 2, 4), keepdim=True)
+        var = (xf - mean).square().mean((1, 2, 4), keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + EPS)).reshape(b, h, w, c)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
 class BNNeck(nn.Module):
     """Bias-free BatchNorm1d (the reference freezes the BN bias at zero)."""
 

@@ -3,14 +3,18 @@
 The inverse of demo2_tpu/utils/converters.py's layout rules (`_t`, `_conv`):
   * a Dense kernel (in, out) becomes a Linear weight (out, in);
   * `in_proj_kernel` (C, 3C) becomes `in_proj_weight` (3C, C);
-  * a conv kernel HWIO becomes OIHW;
+  * a conv kernel HWIO becomes OIHW (a depthwise (3, 3, 1, C) kernel the
+    grouped (C, 1, 3, 3) weight), and a 1-D conv kernel (K, I, O), ECA's
+    over the channel axis, the Conv1d weight (O, I, K) where the port has
+    one;
   * LayerNorm / BatchNorm `scale` becomes `weight`; batch_stats `mean` /
     `var` become the `running_mean` / `running_var` buffers;
   * cv_embed, class_embedding, positional_embedding, proj, the DGAF queries
     and alpha, SDTPS's stacked (3, 3, C, C) or shared (3, 1, C, C) q/k
     kernels, GlobalLocalFuse's stacked (3, 2C, C) kernel and LayerNorm
     (`ln_scale`, `ln_bias`), HDM's stacked (7, ...) set tokens and
-    projections and ATMoE's expert kernel and bias stay as they are.
+    projections, ATMoE's expert kernel and bias, SDTPSComplete's gate scales
+    and biases and MultiModalSACRv2's modal_embed stay as they are.
 Module names map one to one, with `resblocks_3` -> `resblocks.3`,
 `blocks_3` -> `blocks.3` (the ImageNet ViT), `modal_weight_mlp_0` ->
 `modal_weight_mlp.0`, and TorchLinear's inner `Dense_0` dropped; the
@@ -86,7 +90,11 @@ def _convert(variables: Mapping, target: Dict[str, torch.Tensor]) -> Dict[str, t
             raise ValueError(f"unexpected flax collection {collection!r}")
         for path, value in _flatten(tree):
             name, arr = _leaf(collection, path[-1], value)
-            key = ".".join(_module_path(path[:-1]) + [name])
+            module = _module_path(path[:-1])
+            key = ".".join(module + [name])
+            conv1d = ".".join(module + ["weight"])
+            if name == "kernel" and arr.ndim == 3 and key not in target and conv1d in target:
+                key, arr = conv1d, arr.transpose(2, 1, 0)
             if key not in target or key in out:
                 unconsumed.append("/".join((collection,) + path))
                 continue

@@ -26,11 +26,6 @@ from torch_port_helpers import CPU, generator
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG_FILES = sorted(str(p.relative_to(REPO / "configs")) for p in REPO.glob("configs/*/*.yml"))
-# The files whose model the port does not build yet (FRCA, SACR, LIF, DeMo_Parallel).
-REFUSED_FILES = {"RGBNT201/DeMo_FRCA_DGAF.yml", "RGBNT201/DeMo_LIF.yml",
-                 "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF.yml",
-                 "RGBNT201/DeMo_MultiModalSACR_SDTPS_DGAF_v2.yml", "RGBNT201/DeMo_Parallel.yml",
-                 "RGBNT201/DeMo_SACR_SDTPS.yml", "RGBNT201/DeMo_SACR_SDTPS_LIF.yml"}
 
 _BLOCKED_IMPORT = """
 import sys
@@ -42,11 +37,14 @@ for m in pkgutil.walk_packages(demo2_tpu_torch.__path__, "demo2_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_list", "engine.eval",
-             "tools.bench_kernel_ablate", "config.yaml_loader", "models.hdm_atmoe"):
+             "tools.bench_kernel_ablate", "config.yaml_loader", "models.hdm_atmoe", "models.sacr",
+             "models.lif", "models.frca", "models.sdtps_variants", "ops.conv"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 cfg = demo2_tpu_torch.config.get_cfg_defaults()
 cfg.merge_from_list(chip_smoke.YAML_KEYS["RGBNT201/DeMo.yml"])  # needs no PyYAML
 assert cfg.MODEL.HDM and cfg.MODEL.HEAD == 4
+from demo2_tpu_torch.models import DeMoLegacy, DeMoParallel
+assert DeMoLegacy and DeMoParallel
 """
 
 
@@ -121,19 +119,17 @@ def test_chip_smoke_yaml_keys_are_the_files(path):
 
 @pytest.mark.parametrize("path", CONFIG_FILES)
 def test_the_port_builds_fourteen_of_the_yaml_files(path):
-    """The Baseline, DeMo (HDM + ATMoE), SDTPS, DGAF and SDTPS + DGAF files
-    build; FRCA, SACR, LIF and DeMo_Parallel raise naming their ROADMAP item."""
-    assert len(CONFIG_FILES) - len(REFUSED_FILES) == 14
+    """All twenty-one files build (the name is the test's first slice's, of
+    fourteen): the Baseline, DeMo (HDM + ATMoE), SDTPS, DGAF and SDTPS +
+    DGAF files, and FRCA, SACR, LIF and DeMo_Parallel's."""
+    assert len(CONFIG_FILES) == 21
     cfg = tcfg.get_cfg_defaults().merge_from_file(str(REPO / "configs" / path))
     tpresets.apply_tiny(cfg)
-    if path in REFUSED_FILES:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(cfg, 6, 4, device=CPU, generator=generator())
-    else:
-        model = make_model(cfg, 6, 4, device=CPU, generator=generator())
-        h, w = cfg.INPUT.SIZE_TEST
-        emb = model(torch.zeros(2, 3, h, w, 3), torch.zeros(2, dtype=torch.long))["embedding"]
-        assert emb.shape == (2, model.embed_dim)
+    model = make_model(cfg, 6, 4, device=CPU, generator=generator())
+    h, w = cfg.INPUT.SIZE_TEST
+    emb = model(torch.zeros(2, 3, h, w, 3), torch.zeros(2, dtype=torch.long))["embedding"]
+    assert emb.shape == (2, model.embed_dim)
+    assert bool(torch.isfinite(emb).all())
 
 
 def test_miss_masks_are_the_jax_packages():
@@ -151,10 +147,6 @@ def _flagship_tiny():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("MODEL", "ARCH", "DeMo_Parallel"),
-    ("MODEL", "ARCH", "DeMoBeiyong"),
-    ("MODEL", "USE_FRCA", True),
-    ("MODEL", "SDTPS_VARIANT", "complete"),
     ("MODEL", "FROZEN", True),
     ("MODEL", "ADAPTER", True),
     ("MODEL", "PROMPT", True),
@@ -195,13 +187,19 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "DGAF_VERSION", "v1"),
     ("MODEL", "HDM", True),
     ("MODEL", "GLOBAL_LOCAL", True),
+    ("MODEL", "ARCH", "DeMo_Parallel"),
+    ("MODEL", "ARCH", "DeMoBeiyong"),
+    ("MODEL", "USE_FRCA", True),
+    ("MODEL", "SDTPS_VARIANT", "complete"),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
     refused: the fused MLP in training, the LayerNorm backward flag,
     re-ranking, MSVR310's scene protocol, ranking off the device, SDTPS
     without DGAF, DGAF v1 (over GlobalLocalFuse, which it needs beside
-    SDTPS), the HDM + ATMoE branch, GLOBAL_LOCAL."""
+    SDTPS), the HDM + ATMoE branch, GLOBAL_LOCAL, the nine-head
+    DeMoParallel, the DeMoBeiyong cascade (DeMoLegacy), the FRCA selector
+    and SDTPSComplete."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.engine.eval import run_eval

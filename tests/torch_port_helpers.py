@@ -87,3 +87,134 @@ def port_to_jax_probs(probs, s_pad):
     p[:, :, :s, :s] = probs[..., :s]
     p = p.reshape(b // bb, bb, h, s_pad, s_pad).transpose(0, 2, 1, 3, 4)
     return p.reshape(h * b, s_pad, s_pad)
+
+
+# ---------------------------------------------------------------------------
+# Module parity with batch statistics, and whole train steps, against JAX
+# ---------------------------------------------------------------------------
+
+BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -5)
+
+
+def apply_train(module, variables, *args, **kwargs):
+    """`module.apply` with the batch statistics mutable (a training call):
+    (output, updated batch_stats)."""
+    out, upd = jax.jit(functools.partial(module.apply, mutable=["batch_stats"],
+                                         rngs={"dropout": jax.random.PRNGKey(0)}, **kwargs))(
+        variables, *args)
+    return out, upd.get("batch_stats")
+
+
+def check_stats(port, variables, updated, tol) -> None:
+    """The port's BatchNorm buffers after a training forward against the
+    batch_stats JAX returned; each must have moved."""
+    want = convert_flax_variables({"params": variables["params"], "batch_stats": updated}, port)
+    before = convert_flax_variables(variables, port)
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert stats
+    sd = port.state_dict()
+    for k in stats:
+        assert not np.array_equal(n(sd[k]), n(before[k])), k
+        np.testing.assert_allclose(n(sd[k]), n(want[k]), err_msg=k, **tol)
+
+
+def assert_bf16_as_close_as_jax(got, want_bf16, ref_f32) -> None:
+    """A bf16 result held against the f32 forward of the same weights: the
+    port no further from it than the JAX package's bf16 result (batch
+    statistics over few samples magnify bf16 rounding, which the two round
+    at other points), and elementwise within the bf16 tolerance of JAX's
+    but for a handful of elements."""
+    got, want, ref = n(got), np.asarray(want_bf16, np.float32), np.asarray(ref_f32, np.float32)
+    err, jerr = np.abs(got - ref), np.abs(want - ref)
+    assert err.mean() <= 1.25 * jerr.mean() + 1e-6 and err.max() <= 2 * jerr.max() + 1e-6, (
+        err.mean(), jerr.mean(), err.max(), jerr.max())
+    far = np.abs(got - want) > BF16_TOL["atol"] + BF16_TOL["rtol"] * np.abs(want)
+    assert far.mean() < 1e-2, far.mean()
+
+
+def jax_train_case(cfg, num_classes: int, camera_num: int, seed: int = 8, batch: int = 16):
+    """One whole f32 train step of `cfg`'s JAX model from random variables:
+    a dict of the inputs, the variables, the loss with its auxiliary losses
+    (LIF_LOSS_WEIGHT on 'lif'), the aux values, the gradients, the state
+    after JAX's build_train_step and its metrics.  Callers turn flax's
+    dropout off."""
+    import types
+
+    import jax.numpy as jnp
+    from demo2_tpu.engine import create_train_state as j_create_train_state
+    from demo2_tpu.engine.train import build_train_step as j_build_train_step
+    from demo2_tpu.losses import losses as jl
+    from demo2_tpu.models import make_model as j_make_model
+
+    h, w = cfg.INPUT.SIZE_TRAIN
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch, 3, h, w, 3)).astype(np.float32)
+    pids = np.repeat(np.arange(batch // 2), 2).astype(np.int32)
+    cams = rng.integers(0, camera_num, batch).astype(np.int32)
+    jmodel = j_make_model(cfg, num_classes, camera_num)
+    variables = random_variables(jmodel, images[:2], cams[:2], train=False, seed=seed)
+    sample = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
+    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, 4)
+    jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
+                            opt_state=tx.init(variables["params"]))
+    jargs = (jnp.asarray(images), jnp.asarray(pids), jnp.asarray(cams), jnp.asarray(cams * 0))
+    loss_fn = jl.make_loss_fn(cfg, num_classes)
+
+    def j_loss(params):
+        out, _ = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                              jargs[0], jargs[2], jargs[3], None, train=True,
+                              rngs={"dropout": jax.random.PRNGKey(0),
+                                    "gumbel": jax.random.PRNGKey(1)}, mutable=["batch_stats"])
+        wts = jl.branch_weights(cfg, out["branches"].keys())
+        total = sum(wts[k] * loss_fn(lg, f, jargs[1]) for k, (lg, f) in out["branches"].items())
+        for name, value in out["aux_loss"].items():
+            total = total + (cfg.MODEL.LIF_LOSS_WEIGHT if name == "lif" else 1.0) * value
+        return total, out["aux_loss"]
+
+    (loss, aux), grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(variables["params"])
+    new_jstate, metrics = j_build_train_step(cfg, jmodel, tx, ctx, donate=False)(
+        jstate, *jargs, jax.random.PRNGKey(1))
+    return dict(images=images, pids=pids, cams=cams, variables=variables, loss=float(loss),
+                aux={k: float(v) for k, v in aux.items()}, grads=grads, state=new_jstate,
+                metrics=metrics)
+
+
+def check_train_step(cfg, port, case, num_classes: int) -> dict:
+    """The port's training forward, loss and gradients against `case`
+    (jax_train_case), then the BatchNorm statistics its forward updated
+    against those of JAX's step.  Returns the port's gradients."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses import losses as tl
+
+    np.testing.assert_allclose(float(case["metrics"]["loss"]), case["loss"], rtol=1e-6)
+    variables = case["variables"]
+    images, pids, cams = t(case["images"]), t(case["pids"]).long(), t(case["cams"]).long()
+    if case["aux"]:
+        with torch.no_grad():
+            aux = port(images, cams, None, None, train=True)["aux_loss"]
+        assert sorted(aux) == sorted(case["aux"])
+        for k, v in case["aux"].items():
+            np.testing.assert_allclose(n(aux[k]), v, rtol=1e-5, err_msg=k)
+        port.load_state_dict(convert_flax_variables(variables, port))  # undo the stats update
+    loss, acc, grads = loss_and_grads(cfg, port, tl.make_loss_fn(cfg, num_classes), images,
+                                      pids, cams, None)
+    np.testing.assert_allclose(n(loss), case["loss"], rtol=1e-5)
+    np.testing.assert_allclose(n(acc), float(case["metrics"]["acc"]))
+    want = convert_flax_variables({"params": case["grads"],
+                                   "batch_stats": variables["batch_stats"]}, port)
+    assert set(grads) == {k for k, _ in port.named_parameters()}
+    # Per tensor: 1e-4 of its largest element, and 1e-6 of the model's largest
+    # (some grads are zero up to f32 noise, e.g. a bias the BNNeck cancels).
+    top = max(np.abs(n(want[k])).max() for k in grads)
+    for k, g in grads.items():
+        wk = n(want[k])
+        np.testing.assert_allclose(n(g), wk, rtol=1e-3, atol=1e-4 * np.abs(wk).max() + 1e-6 * top,
+                                   err_msg=k)
+    stats = convert_flax_variables({"params": case["state"].params,
+                                    "batch_stats": case["state"].batch_stats}, port)
+    before = convert_flax_variables(variables, port)
+    for k, v in port.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            assert not np.array_equal(n(v), n(before[k])), k
+            np.testing.assert_allclose(n(v), n(stats[k]), err_msg=k, rtol=1e-5, atol=1e-5)
+    return grads
