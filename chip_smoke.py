@@ -19,8 +19,10 @@ full width) as a server, an evaluator at each return_pattern and a trainer,
 eleven more DeMo branches of configs/ at two blocks, and three more
 assemblies at full width (the DeMoBeiyong cascade of
 configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
-DeMo_FRCA_DGAF.yml), and times kernels, requests and train steps against the
-plain path.  Phases:
+DeMo_FRCA_DGAF.yml), trains and evaluates the flagship from a JPEG tree on
+disk through the port's CLIs (tools/train.py, tools/test.py), and times
+kernels, requests, the loader and train steps against the plain path.
+Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
      versions, kernel build time and ptxas register / smem / spill lines;
@@ -182,7 +184,26 @@ plain path.  Phases:
   26. timing (printed): each of the three beside the flagship, train step and
      batch-64 request in turns with a profile of each, and its own modules
      alone at batch 64 (SACR's core, LIF's predictors and targets, FRCA with
-     its cross-attention, the nine heads), eval and forward + backward.
+     its cross-attention, the nine heads), eval and forward + backward;
+  27. the input path from disk and the CLIs: the native loader built (its
+     decoder printed: libjpeg, or nvJPEG where libjpeg's header is missing,
+     as on the card's machine), an RGBNT201 tree of 960 JPEGs (32 train ids
+     and 8 test ids x 8, SyntheticTriModal's hard recipe at 288x144, quality
+     95) written by the port's JPEG writer; the train and eval caches that
+     build_device_cache decodes held against the sources resized by
+     F.interpolate (bicubic / bilinear, antialiased) within DECODE_MAX_U8 /
+     DECODE_MEAN_U8, which the sources shifted by one pixel fail;
+     tools/train.main on the flagship's keys (DeMo_SDTPS_DGAF.yml and
+     apply_flagship's flags), 2 epochs with an eval each, once with
+     TPU.DATA_CACHE host and once with device: 12 launches of kernels 3 and
+     4 a step and of 1 and 2 an eval forward, no other; finite losses; the
+     metrics file's six tags, the log, the best checkpoint; tools/test.main
+     on the latest and the best checkpoint reproducing the run's mAP and
+     Rank-1 exactly;
+  28. timing (printed): the native loader's images/s at 1, 2, 4 and 8
+     threads, and the batch-64 flagship train step fed by the host pipe
+     against the device cache in turns, each with the device busy share of a
+     profiled window of 4 steps.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -800,24 +821,29 @@ BLOCK_GEMMS = {"fused_attention_block": (("qkv", "BiasEpilogue", 3, 1),
                                          ("fc2", "BiasResidualF32Epilogue", 1, 4))}
 
 
-def device_ms(fn, iters=10) -> dict:
+def device_ms(fn, iters=10, expect=()) -> dict:
     """Device time of each kernel that `iters` calls of `fn` launch, by name
-    (torch.profiler / CUPTI), in ms per call."""
+    (torch.profiler / CUPTI), in ms per call.  Profiles again (up to four
+    times) while no event, or no event matching each regex of `expect`, has
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     sync()
-    for attempt in range(4):  # CUPTI now and then hands back no device event at all
+    for attempt in range(4):  # CUPTI now and then hands back no (or not every) device event
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             sync()
         got = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
-        if sum(got.values()) > 0:
+        missing = [x for x in expect
+                   if not sum(t for key, t in got.items() if re.search(x, key)) > 0]
+        if sum(got.values()) > 0 and not missing:
             return got
-        log(f"[profile] no device time recorded (attempt {attempt + 1}): profiling again")
+        log(f"[profile] no device time recorded for {missing or 'any kernel'} (attempt "
+            f"{attempt + 1}): profiling again")
     return got
 
 
@@ -841,7 +867,8 @@ def time_block_gemms(device, card, names, shape=FLAGSHIP) -> dict:
     g = torch.Generator().manual_seed(3)
     got = {}
     for name in names:
-        kernels = device_ms(calls[name])
+        kernels = device_ms(calls[name], expect=[f"::{epilogue}[,>]"
+                                                 for _, epilogue, _, _ in BLOCK_GEMMS[name]])
         for product, epilogue, n_mult, k_mult in BLOCK_GEMMS[name]:
             n, k = n_mult * c, k_mult * c
             ms = sum(t for key, t in kernels.items() if re.search(f"::{epilogue}[,>]", key))
@@ -918,9 +945,10 @@ def time_extractor(device, card, cfg, model, plain_cfg, plain, label: str = "",
         profile(f"{label}{path}, one batch-64 request", lambda: fx.extract(images, cams), card)
 
 
-def profile(label, fn, card, top=10) -> None:
+def profile(label, fn, card, top=10) -> tuple:
     """Where one call of `fn` spends its time: device time by kernel
-    (torch.profiler / CUPTI) against the host clock around the call."""
+    (torch.profiler / CUPTI) against the host clock around the call.
+    Returns (host wall ms, device busy ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -938,6 +966,7 @@ def profile(label, fn, card, top=10) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%), {len(rows)} device ops ({card})")
     for e in rows[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    return wall_ms, busy_ms
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3171,6 +3200,262 @@ def phase_assembly_timing(device, card, label, cfg, model, plain, flag_cfg, flag
     plain.zero_grad(set_to_none=True)
 
 
+# ---------------------------------------------------------------- phase 27
+
+
+# The decode check, in u8 levels: PIL against the native loader at eval
+# (max 8, mean 1.5: tests/test_data.py's bounds) plus the error of a quality-95
+# JPEG of phase 27's images resized to 256x128 (on the CPU with libjpeg, over
+# all 960: bicubic max 19, mean 2.115; bilinear 16, 1.617; held by
+# tests/test_torch_data.py).  The source shifted by one pixel reads a mean of
+# 20-27 and fails.
+PIL_NATIVE_MAX_U8, PIL_NATIVE_MEAN_U8 = 8.0, 1.5
+JPEG_Q95_MAX_U8, JPEG_Q95_MEAN_U8 = 20.0, 2.2
+DECODE_MAX_U8 = PIL_NATIVE_MAX_U8 + JPEG_Q95_MAX_U8
+DECODE_MEAN_U8 = PIL_NATIVE_MEAN_U8 + JPEG_Q95_MEAN_U8
+
+
+def resized_reference(src: torch.Tensor, size, mode: str) -> torch.Tensor:
+    """uint8 (..., H, W, 3) images resized to `size` by F.interpolate with
+    antialiasing ("bicubic" as TrainTransform, "bilinear" as EvalTransform),
+    rounded to u8 levels, as f32."""
+    lead = src.shape[:-3]
+    x = src.reshape(-1, *src.shape[-3:]).permute(0, 3, 1, 2).float()
+    y = torch.nn.functional.interpolate(x, size=tuple(size), mode=mode, antialias=True,
+                                        align_corners=False)
+    return y.round().clamp(0, 255).permute(0, 2, 3, 1).reshape(*lead, *size, 3)
+
+
+DATA_SRC = (288, 144)        # the source images' size, as tools/make_synthetic_jpegs.py
+DATA_IDS = (32, 8)           # train and test ids, 8 images each: 960 JPEGs
+DATA_IMGS = 8
+DATA_EPOCHS = 2
+
+
+def data_opts(root: str, out: str, data_cache: str) -> list:
+    """The command line of the flagship's training on the JPEG tree: the keys
+    of configs/RGBNT201/DeMo_SDTPS_DGAF.yml, apply_flagship's production
+    flags, 2 epochs with an eval and a checkpoint each."""
+    keys = YAML_KEYS["RGBNT201/DeMo_SDTPS_DGAF.yml"] + [
+        "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.USE_FLASH_ATTENTION", True,
+        "TPU.BF16_MOMENTS", True, "TPU.BF16_SECOND_MOMENT", True,
+        "DATASETS.NAMES", "RGBNT201", "DATASETS.ROOT_DIR", root, "SOLVER.MAX_EPOCHS", DATA_EPOCHS,
+        "SOLVER.EVAL_PERIOD", 1, "SOLVER.CHECKPOINT_PERIOD", 1, "SOLVER.LOG_PERIOD", 2,
+        "TPU.DATA_CACHE", data_cache, "OUTPUT_DIR", out]
+    if REHEARSAL:
+        keys += ["TPU.BACKBONE_DEPTH", 2, "TPU.BACKBONE_WIDTH", 64, "TPU.BACKBONE_HEADS", 2,
+                 "INPUT.SIZE_TRAIN", [64, 32], "INPUT.SIZE_TEST", [64, 32],
+                 "SOLVER.IMS_PER_BATCH", 16, "DATALOADER.NUM_INSTANCE", 2, "MODEL.DEVICE", "cpu"]
+    return [v if isinstance(v, str) else str(v) for v in keys]
+
+
+def write_jpeg_tree(root: str) -> dict:
+    """An RGBNT201 tree, <root>/RGBNT201/{train_171,test}/{RGB,NI,TI}/
+    <pid>_cam<k>_<j>.jpg as tools/make_synthetic_jpegs.py lays it out, of
+    SyntheticTriModal's hard recipe at DATA_SRC, written at quality 95 by the
+    port's JPEG writer (test support: no PIL needed).  Returns {RGB path:
+    the sample's (3, H, W, 3) uint8 source}."""
+    import os
+
+    from demo2_tpu_torch.data.datasets import SyntheticTriModal
+    from demo2_tpu_torch.data.native import write_jpeg
+
+    renderer = SyntheticTriModal(num_pids=max(DATA_IDS), num_cams=CAMERA_NUM, imgs_per_pid=1,
+                                 image_size=DATA_SRC, seed=0, hard=True)
+    sources = {}
+    for split, ids, tag in (("train_171", DATA_IDS[0], "train"), ("test", DATA_IDS[1], "test")):
+        dirs = [os.path.join(root, "RGBNT201", split, m) for m in ("RGB", "NI", "TI")]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        for pid in range(ids):
+            for j in range(DATA_IMGS):
+                imgs = renderer.render((tag, pid, j))
+                name = f"{pid:06d}_cam{(pid + j) % CAMERA_NUM + 1}_{j:03d}.jpg"
+                for d, img in zip(dirs, imgs):
+                    write_jpeg(os.path.join(d, name), img, quality=95)
+                sources[os.path.join(dirs[0], name)] = np.stack(imgs)
+    return sources
+
+
+def check_decode(device, pipe, sources, train: bool) -> None:
+    """build_device_cache's decode of `pipe` against the source arrays
+    resized on the device by F.interpolate with antialiasing, within
+    DECODE_MAX_U8 / DECODE_MEAN_U8; the source shifted by one pixel (a
+    control on the same cache) must fail them."""
+    from demo2_tpu_torch.data.device_cache import build_device_cache
+
+    cache = build_device_cache(pipe, device, train=train)
+    src = torch.from_numpy(np.stack([sources[s[0][0]] for s in pipe.samples])).to(device)
+    mode = "bicubic" if train else "bilinear"
+    errs = []
+    for shift in (0, 1):
+        want = resized_reference(torch.roll(src, shift, dims=3), cache.size, mode)
+        d = (cache.images.float() - want).abs()
+        errs.append((d.max().item(), d.mean().item()))
+    (mx, mean), (cmx, cmean) = errs
+    within = lambda m, a: m <= DECODE_MAX_U8 and a <= DECODE_MEAN_U8
+    log(f"[data] {'train' if train else 'eval'} cache {tuple(cache.images.shape)} decoded in "
+        f"{cache.decode_seconds:.2f} s against the sources resized ({mode}, antialiased): max "
+        f"{mx:.0f}, mean {mean:.4f} u8 levels (bounds {DECODE_MAX_U8:.0f}, "
+        f"{DECODE_MEAN_U8:.1f}); shifted by one pixel: max {cmx:.0f}, mean {cmean:.4f}")
+    require(within(mx, mean), f"decode error max {mx} / mean {mean} outside the bounds")
+    require(not within(cmx, cmean), "the shifted control passes the decode bounds")
+
+
+def phase_data(device, root: str) -> dict:
+    """Phase 27: the input path from disk and the CLIs.  Returns the
+    launches of the two training runs."""
+    import os
+
+    from demo2_tpu_torch.data import device_cache
+    from demo2_tpu_torch.data.loader import make_dataloader
+    from demo2_tpu_torch.data.native import native_library
+    from demo2_tpu_torch.tools import test as test_cli, train as train_cli
+    from demo2_tpu_torch.utils.metrics_log import load_metrics
+
+    nl = native_library()
+    require(nl.lib is not None, f"the native loader did not build: {nl.error}")
+    log(f"[data] native loader: {nl.decoder} decoder, {nl.path}")
+    device_cache.DECODE_CACHE_DIR = os.path.join(root, "decoded")  # nothing outside the tree
+    t0 = time.perf_counter()
+    sources = write_jpeg_tree(root)
+    log(f"[data] wrote {3 * len(sources)} JPEGs ({DATA_SRC[0]}x{DATA_SRC[1]}, quality 95) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cli_device = None if device.type == "cuda" else device  # the card by the CLIs' own rule
+    # The decode is checked at 256x128 (the bounds' size) in a rehearsal too.
+    cfg = train_cli.load_config("", data_opts(root, os.path.join(root, "check"), "device") + [
+        "INPUT.SIZE_TRAIN", "[256, 128]", "INPUT.SIZE_TEST", "[256, 128]"])
+    train_pipe, _, val_pipe, *_ = make_dataloader(cfg.freeze())
+    require(train_pipe.use_native and val_pipe.use_native,
+            "make_dataloader did not take the native loader for the JPEG tree")
+    check_decode(device, train_pipe, sources, train=True)
+    check_decode(device, val_pipe, sources, train=False)
+
+    cfg = train_cli.load_config("", data_opts(root, os.path.join(root, "check"), "host"))
+    _, sampler, val_pipe, *_ = make_dataloader(cfg.freeze())
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    steps = DATA_EPOCHS * (len(sampler) // bs)
+    evals = DATA_EPOCHS * math.ceil(len(val_pipe.samples) / cfg.TEST.IMS_PER_BATCH)
+    layers = 2 if REHEARSAL else 12
+    want = launch_dict(fused_attention_block=layers * evals, fused_mlp_block=layers * evals,
+                       fused_attention_block_train=layers * steps,
+                       attention_bwd_saved_db=layers * steps)
+    launches = {}
+    for data_cache in ("host", "device"):
+        out = os.path.join(root, f"run_{data_cache}")
+        opts = data_opts(root, out, data_cache)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, best = train_cli.main(["--exp_name", "smoke"] + opts, device=cli_device)
+        sync()
+        wall = time.perf_counter() - t0
+        launches[data_cache] = counts()
+        losses = [e["loss"] for e in state.history]
+        last = state.history[-1]
+        log(f"[data] tools/train.main, TPU.DATA_CACHE {data_cache}: {steps} steps of {bs} and "
+            f"{evals} eval forwards in {wall:.1f} s; losses by epoch {losses}; mAP "
+            f"{[e['mAP'] for e in state.history]}, Rank-1 {[e['Rank-1'] for e in state.history]}; "
+            f"launches {launches[data_cache]}")
+        require_launches(launches[data_cache], want, f"[data] tools/train.main ({data_cache})")
+        require(len(losses) == DATA_EPOCHS and all(math.isfinite(x) for x in losses),
+                f"losses {losses}")
+        tags = {r["tag"] for r in load_metrics(os.path.join(out, "smoke_metrics.jsonl"))}
+        require(tags == {"Train/Loss", "Train/Acc", "Train/LR", "Val/mAP", "Val/Rank-1",
+                         "Val_Best/mAP"}, f"metrics file tags {tags}")
+        logs = [f for f in os.listdir(out) if f.startswith("train_log_")]
+        best_dir = os.path.join(out, "checkpoints_best")
+        require(logs and os.path.isdir(best_dir) and os.listdir(best_dir),
+                f"log {logs} or best checkpoint missing")
+        for weights, (m_ap, r1) in (("checkpoints", (last["mAP"], last["Rank-1"])),
+                                    ("checkpoints_best", (best["mAP"], best["Rank-1"]))):
+            cmc, got = test_cli.main(opts + ["TEST.WEIGHT", os.path.join(out, weights)],
+                                     device=cli_device)
+            log(f"[data] tools/test.main on {weights}: mAP {got}, Rank-1 {cmc[0]} (the run's "
+                f"{m_ap}, {r1})")
+            require((got, float(cmc[0])) == (m_ap, r1),
+                    f"tools/test.main on {weights} gives mAP {got}, Rank-1 {cmc[0]}, the run "
+                    f"{m_ap}, {r1}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 28
+
+
+def phase_data_timing(device, card, root: str) -> None:
+    """Phase 28 (printed only): the native loader's decode rate over phase
+    27's train JPEGs by thread count, and the flagship's batch-64 train step
+    fed by the host pipe against the device cache, in turns, with the device
+    busy share of a profiled window of each."""
+    import os
+
+    from demo2_tpu_torch.data.device_cache import build_device_cache
+    from demo2_tpu_torch.data.loader import device_batches, make_dataloader
+    from demo2_tpu_torch.data.native import load_batch_native, sample_train_params
+    from demo2_tpu_torch.engine.state import create_train_state
+    from demo2_tpu_torch.engine.train import build_host_train_step, build_train_step
+    from demo2_tpu_torch.models import make_model
+    from demo2_tpu_torch.tools.train import load_config
+
+    cfg = load_config("", data_opts(root, os.path.join(root, "timing"), "host")).freeze()
+    train_pipe, sampler, *_ = make_dataloader(cfg)
+    h, w = cfg.INPUT.SIZE_TRAIN
+    paths = [p for s in train_pipe.samples for p in s[0]]
+    params = [sample_train_params(np.random.default_rng((0, i)), (h, w))
+              for i in range(len(paths))]
+    for threads in (1, 2, 4, 8):
+        load_batch_native(paths[:16], params[:16], h, w, cfg.INPUT.PIXEL_MEAN,
+                          cfg.INPUT.PIXEL_STD, num_threads=threads)
+        t0 = time.perf_counter()
+        load_batch_native(paths, params, h, w, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+                          num_threads=threads)
+        seconds = time.perf_counter() - t0
+        log(f"[data-time] native loader, {len(paths)} JPEGs {DATA_SRC[0]}x{DATA_SRC[1]} -> "
+            f"{h}x{w} with the train transform, {threads} threads: {seconds:.3f} s, "
+            f"{len(paths) / seconds:.1f} images/s ({card})")
+
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    model = make_model(cfg, DATA_IDS[0], CAMERA_NUM, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    cache = build_device_cache(train_pipe, device, train=True)
+    state = create_train_state(cfg, model, len(sampler) // bs)
+    cache_step = build_train_step(cfg, model, state, cache)
+    host_step = build_host_train_step(cfg, model, state, device)
+    order = torch.from_numpy(sampler.epoch_indices(1)).to(device)
+
+    def host_batches():
+        for epoch in range(1, 10**6):
+            yield from device_batches(train_pipe, sampler.epoch_indices(epoch), device,
+                                      seed=epoch)
+
+    batches = host_batches()
+    steppers = {"host pipe": lambda i: host_step(*next(batches)[1:]),
+                "device cache": lambda i: cache_step(order[(i % (len(order) // bs)) * bs:][:bs])}
+
+    def step_ms(which, reps=6):
+        run = steppers[which]
+        for i in range(2):
+            run(i)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            run(i)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    try:
+        turns = [(which, step_ms(which)) for which in ("host pipe", "device cache",
+                                                       "device cache", "host pipe")]
+        log(f"[data-time] flagship train step, batch {bs}, in turns: "
+            + ", ".join(f"{which} {ms:.2f} ms" for which, ms in turns) + f" ({card})")
+        for which in ("host pipe", "device cache"):
+            wall, busy = profile(f"train step of {bs} fed by the {which}, 4 steps",
+                                 lambda: [steppers[which](i) for i in range(4)], card, top=6)
+            log(f"[data-time] {which}: device busy {100 * busy / wall:.1f}% of 4 steps "
+                f"({busy:.2f} of {wall:.2f} ms) ({card})")
+    finally:
+        batches.close()  # stops the pipe's producer
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -3292,6 +3577,19 @@ def main() -> None:
                           label="vit-train")
     launches.update({k: trained[k] for k in ("packed_attention_fwd", "packed_attention_bwd")})
     times.update(phase_vit_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
+    del model, plain, cache
+    torch.cuda.empty_cache()
+
+    # The input path from disk: a JPEG tree written on the card's machine,
+    # the native loader, tools/train.main with the host pipe and with the
+    # decoded device cache (kernels 3, 4 in training, 1, 2 at eval),
+    # tools/test.main on the checkpoints; then the loader and the host-fed
+    # step timed.
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        phase_data(device, root)
+        phase_data_timing(device, card, root)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

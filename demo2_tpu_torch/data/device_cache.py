@@ -13,13 +13,19 @@ folds them.  The draws come from a torch.Generator: the same distributions
 as JAX's, not the same numbers; `apply_augment` takes the parameters and the
 noise as tensors, so a test can feed it JAX's.
 
-Decoding images from disk (PIL) waits with the dataset parsers (ROADMAP.md,
-port queue item 2): `DeviceCache.from_arrays` takes uint8 arrays in memory.
+`build_device_cache` fills it from a data pipe (data/loader.py): every image
+decoded and resized once, through the native loader or PIL, the decoded
+array kept on the host's disk keyed by the files' identity, so the next run
+skips the decode; `DeviceCache.from_arrays` takes uint8 arrays in memory.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import tempfile
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -130,6 +136,7 @@ class DeviceCache:
     flip_prob: float = 0.5
     padding: int = 10
     re_prob: float = 0.5
+    decode_seconds: float = 0.0  # the one-time decode of build_device_cache
 
     @classmethod
     def from_arrays(cls, images: np.ndarray, samples, *, train: bool, cfg,
@@ -161,3 +168,154 @@ class DeviceCache:
         else:
             images = normalize_batch(self.images[idx], self.mean, self.std)
         return images, self.pids[idx], self.camids[idx]
+
+
+# ---------------------------------------------------------------------------
+# Decode once, from a data pipe
+# ---------------------------------------------------------------------------
+
+# The decoded uint8 array is kept on the host's disk, keyed by the dataset's
+# file identity, so decoding is paid once per machine, not once per run.
+DECODE_CACHE_DIR = os.environ.get("DEMO2_DECODE_CACHE_DIR",
+                                  os.path.join(tempfile.gettempdir(), "d2t_torch_decode_cache"))
+# Size budget: a re-rendered dataset writes a fresh entry; the oldest entries
+# go past this many bytes.
+DECODE_CACHE_MAX_BYTES = int(os.environ.get("DEMO2_DECODE_CACHE_MAX_BYTES", 8 << 30))
+
+
+def _prune_decode_cache(keep: str) -> None:
+    """Evict the oldest .npy entries beyond DECODE_CACHE_MAX_BYTES (never
+    `keep`, the entry just written)."""
+    try:
+        entries = []
+        for name in os.listdir(DECODE_CACHE_DIR):
+            if not name.endswith(".npy"):
+                continue
+            path = os.path.join(DECODE_CACHE_DIR, name)
+            st = os.stat(path)
+            entries.append((st.st_mtime, st.st_size, path))
+        total = sum(size for _, size, _ in entries)
+        for _, size, path in sorted(entries):  # oldest first
+            if total <= DECODE_CACHE_MAX_BYTES:
+                break
+            if os.path.abspath(path) == os.path.abspath(keep):
+                continue
+            os.unlink(path)
+            total -= size
+    except OSError:
+        pass  # best-effort housekeeping
+
+
+def _decode_cache_key(pipe, train: bool) -> Optional[str]:
+    """A key over every sample's (path, size, mtime), the resize geometry,
+    the filter and the decoder; None for in-memory (synthetic) samples."""
+    h, w = pipe.transform.size
+    decoder = "pil"
+    if pipe.use_native:
+        from .native import native_library
+
+        decoder = native_library().decoder
+    hasher = hashlib.sha1(f"v1|{h}x{w}|train={train}|decoder={decoder}".encode())
+    try:
+        for ref, *_ in pipe.samples:
+            for path in [ref] if isinstance(ref, str) else list(ref):
+                if not isinstance(path, str):
+                    return None
+                st = os.stat(path)
+                hasher.update(f"{path}|{st.st_size}|{st.st_mtime_ns}".encode())
+    except (OSError, TypeError):
+        return None
+    return hasher.hexdigest()
+
+
+def _decode_all_cached(pipe, train: bool) -> np.ndarray:
+    """_decode_all, read back from DECODE_CACHE_DIR where this dataset was
+    decoded before (memory-mapped)."""
+    key = _decode_cache_key(pipe, train)
+    if key is None:
+        return _decode_all(pipe, train)
+    path = os.path.join(DECODE_CACHE_DIR, f"{key}.npy")
+    if os.path.exists(path):
+        try:
+            return np.load(path, mmap_mode="r")
+        except (OSError, ValueError):
+            pass  # a torn write of a crashed run: decode again
+    out = _decode_all(pipe, train)
+    try:
+        os.makedirs(DECODE_CACHE_DIR, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:  # np.save(path) would append .npy
+            np.save(f, out)
+        os.replace(tmp, path)
+        _prune_decode_cache(keep=path)
+    except OSError:
+        pass  # keeping it is best-effort; the decode stands
+    return out
+
+
+def _decode_all(pipe, train: bool) -> np.ndarray:
+    """Every sample decoded and resized once -> (N, 3, H, W, 3) uint8:
+    bicubic for a train cache (TrainTransform's filter), bilinear for eval
+    (EvalTransform's)."""
+    h, w = pipe.transform.size
+    n = len(pipe.samples)
+    out = np.empty((n, 3, h, w, 3), np.uint8)
+    if pipe.use_native:
+        # Identity params, mean 0 / std 1 -> [0, 1] floats -> uint8.
+        from .loader import STRIPS
+        from .native import INTERP_BILINEAR, INTERP_CUBIC, eval_params, load_batch_native
+
+        interp = INTERP_CUBIC if train else INTERP_BILINEAR
+        chunk = 256
+        for start in range(0, n, chunk):
+            stop = min(n, start + chunk)
+            paths, params = [], []
+            for i in range(start, stop):
+                ref = pipe.samples[i][0]
+                for path, strip in ([(ref, s) for s in STRIPS] if isinstance(ref, str)
+                                    else [(p, None) for p in ref]):
+                    paths.append(path)
+                    params.append(eval_params(strip, interp))
+            flat = load_batch_native(paths, params, h, w, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                                     num_threads=pipe.num_workers)
+            out[start:stop] = np.clip(np.round(flat.reshape(-1, 3, h, w, 3) * 255.0), 0,
+                                      255).astype(np.uint8)
+        return out
+
+    from PIL import Image
+
+    from .loader import read_image
+
+    interp = Image.BICUBIC if train else Image.BILINEAR
+
+    def one(i):
+        imgs = read_image(pipe.samples[i][0], pipe.dataset)
+        return np.stack([np.asarray(im.resize((w, h), interp), np.uint8) for im in imgs])
+
+    for i, arr in enumerate(pipe.pool.map(one, range(n))):
+        out[i] = arr
+    return out
+
+
+def build_device_cache(pipe, device: torch.device, train: Optional[bool] = None) -> DeviceCache:
+    """Decode the pipe's dataset once and park it on `device`; `train`
+    defaults to whether the pipe's transform is TrainTransform."""
+    from .transforms import TrainTransform
+
+    if train is None:
+        train = isinstance(pipe.transform, TrainTransform)
+    t0 = time.perf_counter()
+    images = _decode_all_cached(pipe, train)
+    decode_s = time.perf_counter() - t0
+    if not images.flags.writeable:  # the read-only memory map of a kept decode
+        images = np.array(images)
+    tf = pipe.transform
+    col = lambda i: torch.tensor([s[i] for s in pipe.samples], dtype=torch.int64, device=device)
+    return DeviceCache(
+        images=torch.from_numpy(np.ascontiguousarray(images)).to(device),
+        pids=col(1), camids=col(2), viewids=col(3), size=(tf.size[0], tf.size[1]),
+        mean=tuple(float(v) for v in np.asarray(tf.mean).ravel()),
+        std=tuple(float(v) for v in np.asarray(tf.std).ravel()), train=train,
+        flip_prob=getattr(tf, "flip_prob", 0.5), padding=getattr(tf, "padding", 10),
+        re_prob=getattr(tf, "re_prob", 0.5), decode_seconds=decode_s,
+    )

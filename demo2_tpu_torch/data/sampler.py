@@ -1,7 +1,8 @@
-"""PK identity sampler (demo2_tpu/data/sampler.py::RandomIdentitySampler):
-P ids x K instances per batch, identities with fewer than K images resampled
-with replacement.  numpy only, driven by (seed, epoch), so the port and the
-JAX package draw the same batches."""
+"""Batch samplers (demo2_tpu/data/sampler.py): RandomIdentitySampler, the
+PK sampler (P ids x K instances per batch, identities with fewer than K
+images resampled with replacement), and SequentialSampler.  numpy only,
+driven by (seed, epoch), so the port and the JAX package draw the same
+batches."""
 
 from __future__ import annotations
 
@@ -49,6 +50,24 @@ class RandomIdentitySampler:
                 if not batch_idxs_dict[pid]:
                     avai.remove(pid)
         return np.asarray(final, np.int64)
+
+    def __len__(self):
+        return self.length
+
+
+class SequentialSampler:
+    """DATALOADER.SAMPLER = 'softmax': the dataset in order every epoch, as
+    the reference's plain DataLoader (make_dataloader.py:234-239), the short
+    tail batch dropped, with RandomIdentitySampler's interface."""
+
+    def __init__(self, data_source: Sequence, batch_size: int):
+        self.batch_size = batch_size
+        n = len(data_source)
+        self.length = n - n % batch_size
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        del epoch  # the order does not change between epochs
+        return np.arange(self.length, dtype=np.int64)
 
     def __len__(self):
         return self.length

@@ -101,9 +101,6 @@ def train_slice_error(cfg: Config, model_only: bool = False):
     if t.NUM_DEVICES > 1:
         return not_ported(f"TPU.NUM_DEVICES={t.NUM_DEVICES}",
                           "the rest of the modules (parallel/ as DDP / NCCL)")
-    if t.DATA_CACHE != "device":
-        return not_ported(f"TPU.DATA_CACHE={t.DATA_CACHE!r} (the host loader)",
-                          "eval entry points and datasets")
     return None
 
 

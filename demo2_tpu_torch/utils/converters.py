@@ -28,14 +28,21 @@ the params and batch_stats (after any number of steps) into the model, and
 optax's Adam state (count, and mu / nu, trees shaped like the params) into
 the optimizer, under the same rules.
 
-`load_imagenet_vit_pretrained` loads a timm / TransReID ViT checkpoint into
-the port's ImageNetViT, as demo2_tpu/utils/converters.py::convert_imagenet_vit
-converts it for the JAX package: the positional embedding's square grid
-resized to the model's with torch's un-antialiased bilinear interpolation.
+Pretrained backbones (MODEL.PRETRAIN_PATH_T), as
+demo2_tpu/utils/converters.py converts them for the JAX package:
+`load_torch_state_dict` reads a .pth / .pt file (a torch.jit archive such as
+CLIP's, or a plain state dict read with weights_only=True);
+`convert_clip_visual` and `convert_imagenet_vit` map a CLIP visual tower or
+a timm / TransReID ViT onto the port's backbone names, the positional
+embedding's square grid resized to the model's with torch's un-antialiased
+bilinear interpolation; `merge_pretrained_backbone` copies them into a
+model's backbone.  `load_imagenet_vit_pretrained` loads a ViT checkpoint
+into an ImageNetViT, every block required.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from collections.abc import Mapping
 from typing import Dict, Iterator, Tuple
@@ -163,22 +170,60 @@ def resize_pos_embed_grid(pos: torch.Tensor, new_h: int, new_w: int) -> torch.Te
     return torch.cat([tok, grid.permute(0, 2, 3, 1).reshape(new_h * new_w, -1)], dim=0)
 
 
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The f32 tensors of a .pth / .pt file: a torch.jit archive (CLIP's
+    released weights), or a state dict, bare or under "model" /
+    "state_dict", read with weights_only=True."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").eval().state_dict()
+    except RuntimeError:  # not a TorchScript archive
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        for key in ("model", "state_dict"):
+            if isinstance(sd, dict) and key in sd:
+                sd = sd[key]
+    return {k: v.float() for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def _tensors(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in state_dict.items()}
+
+
+_CLIP_BLOCK_KEYS = ("attn.in_proj_weight", "attn.in_proj_bias", "attn.out_proj.weight",
+                    "attn.out_proj.bias", "ln_1.weight", "ln_1.bias", "ln_2.weight", "ln_2.bias",
+                    "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight", "mlp.c_proj.bias")
+
+
+def convert_clip_visual(state_dict: Mapping, new_h: int, new_w: int) -> Dict[str, torch.Tensor]:
+    """A CLIP visual tower's state dict (keys with or without "visual.")
+    under the port's CLIPVisionTransformer names, the positional embedding
+    resized to the (new_h, new_w) grid."""
+    sd = _tensors(state_dict)
+    pfx = "visual." if any(k.startswith("visual.") for k in sd) else ""
+    out = {k: sd[pfx + k] for k in ("conv1.weight", "class_embedding", "ln_pre.weight",
+                                    "ln_pre.bias", "ln_post.weight", "ln_post.bias", "proj")}
+    out["positional_embedding"] = resize_pos_embed_grid(sd[pfx + "positional_embedding"],
+                                                        new_h, new_w)
+    i = 0
+    while f"{pfx}transformer.resblocks.{i}.attn.in_proj_weight" in sd:
+        out.update({f"resblocks.{i}.{k}": sd[f"{pfx}transformer.resblocks.{i}.{k}"]
+                    for k in _CLIP_BLOCK_KEYS})
+        i += 1
+    return out
+
+
 _VIT_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
                    "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias", "mlp.fc1.weight",
                    "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
 
 
-def load_imagenet_vit_pretrained(model: nn.Module, state_dict: Mapping) -> list:
-    """Load a timm / TransReID ViT state dict (torch layouts: tensors or
-    arrays) into `model`, an ImageNetViT (models/vit.py), in place; the
-    counterpart of convert_imagenet_vit.  The patch conv, the final norm and
-    the qkv bias are taken where the checkpoint has them; cls_token,
-    pos_embed (resized to the model's grid) and every block are required.
-    The rest of the checkpoint (a classifier head) is not read, and the
-    model's SIE embedding keeps its values.  Returns the names loaded."""
-    sd = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in state_dict.items()}
+def convert_imagenet_vit(state_dict: Mapping, new_h: int, new_w: int) -> Dict[str, torch.Tensor]:
+    """A timm / TransReID ViT state dict under the port's ImageNetViT names:
+    the patch conv, the final norm and the qkv bias where the checkpoint has
+    them, cls_token, pos_embed (resized to the (new_h, new_w) grid) and every
+    block; the rest (a classifier head) is not read."""
+    sd = _tensors(state_dict)
     out = {"cls_token": sd["cls_token"],
-           "pos_embed": resize_pos_embed_grid(sd["pos_embed"][0], *model.grid)[None]}
+           "pos_embed": resize_pos_embed_grid(sd["pos_embed"][0], new_h, new_w)[None]}
     for src, dst in (("patch_embed.proj", "patch_embed_proj"), ("norm", "norm")):
         if f"{src}.weight" in sd:
             out[f"{dst}.weight"], out[f"{dst}.bias"] = sd[f"{src}.weight"], sd[f"{src}.bias"]
@@ -187,10 +232,58 @@ def load_imagenet_vit_pretrained(model: nn.Module, state_dict: Mapping) -> list:
         keys = _VIT_BLOCK_KEYS + (("attn.qkv.bias",) if f"blocks.{i}.attn.qkv.bias" in sd else ())
         out.update({f"blocks.{i}.{k}": sd[f"blocks.{i}.{k}"] for k in keys})
         i += 1
-    target = model.state_dict()
-    for key, value in out.items():
-        if key not in target or tuple(target[key].shape) != tuple(value.shape):
+    return out
+
+
+def _copy_into(module: nn.Module, tensors: Mapping, strict: bool) -> list:
+    """Copy `tensors` into `module`'s state in place: a shape mismatch
+    raises; a tensor with no place raises if `strict`, else it is dropped
+    with a warning.  Returns the names loaded."""
+    target = module.state_dict()
+    loaded, dropped = [], []
+    for key, value in tensors.items():
+        if key in target and tuple(target[key].shape) == tuple(value.shape):
+            target[key].copy_(value)
+            loaded.append(key)
+        elif key in target or strict:
             raise ValueError(f"checkpoint {key} {tuple(value.shape)} has no place in the model "
                              f"({tuple(target[key].shape) if key in target else 'no such tensor'})")
-        target[key].copy_(value)
-    return sorted(out)
+        else:
+            dropped.append(key)
+    if dropped:
+        # Name drift must be loud: a dropped tensor leaves its layer at random init.
+        logging.getLogger("DeMo").warning(
+            "merge_pretrained_backbone: %d converted tensors matched no model tensor and were "
+            "dropped (first: %s)", len(dropped), ", ".join(dropped[:5]))
+    return sorted(loaded)
+
+
+def merge_pretrained_backbone(model: nn.Module, backbone: Mapping) -> list:
+    """Copy converted backbone tensors (convert_clip_visual /
+    convert_imagenet_vit) into `model.backbone.base`, in place, as the JAX
+    package grafts them into params['backbone']['base']: a shape mismatch
+    raises, a tensor with no place is dropped with a warning.  Returns the
+    names loaded."""
+    return _copy_into(model.backbone.base, backbone, strict=False)
+
+
+def load_imagenet_vit_pretrained(model: nn.Module, state_dict: Mapping) -> list:
+    """Load a timm / TransReID ViT state dict (torch layouts: tensors or
+    arrays) into `model`, an ImageNetViT (models/vit.py), in place; every
+    converted tensor must have its place.  The model's SIE embedding keeps
+    its values.  Returns the names loaded."""
+    return _copy_into(model, convert_imagenet_vit(state_dict, *model.grid), strict=True)
+
+
+def load_pretrained_backbone(cfg, model: nn.Module, path: str) -> list:
+    """MODEL.PRETRAIN_PATH_T: the CLIP visual tower (ViT-B-16) or an
+    ImageNet ViT checkpoint at `path`, converted to the model's patch grid
+    (models/pife.py::patch_grid_for) and merged into its backbone."""
+    from ..models.pife import patch_grid_for
+
+    sd = load_torch_state_dict(path)
+    gh, gw = patch_grid_for(cfg.MODEL.TRANSFORMER_TYPE, tuple(cfg.INPUT.SIZE_TRAIN),
+                            tuple(cfg.MODEL.STRIDE_SIZE))
+    convert = convert_clip_visual if "ViT-B-16" in cfg.MODEL.TRANSFORMER_TYPE else \
+        convert_imagenet_vit
+    return merge_pretrained_backbone(model, convert(sd, gh, gw))

@@ -29,7 +29,7 @@ CONFIG_FILES = sorted(str(p.relative_to(REPO / "configs")) for p in REPO.glob("c
 
 _BLOCKED_IMPORT = """
 import sys
-for name in ("jax", "flax", "demo2_tpu", "yaml"):
+for name in ("jax", "flax", "demo2_tpu", "yaml", "PIL"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, pkgutil
 import demo2_tpu_torch
@@ -38,8 +38,14 @@ for m in pkgutil.walk_packages(demo2_tpu_torch.__path__, "demo2_tpu_torch."):
 import chip_smoke
 for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_list", "engine.eval",
              "tools.bench_kernel_ablate", "config.yaml_loader", "models.hdm_atmoe", "models.sacr",
-             "models.lif", "models.frca", "models.sdtps_variants", "ops.conv"):
+             "models.lif", "models.frca", "models.sdtps_variants", "ops.conv", "data.loader",
+             "data.native", "data.transforms", "data.datasets", "data.sampler", "utils.logger",
+             "utils.meter", "utils.iotools", "utils.metrics_log", "utils.converters",
+             "tools.train", "tools.test"):
     assert "demo2_tpu_torch." + name in sys.modules, name
+from demo2_tpu_torch.data.loader import pil_error
+assert pil_error().startswith("PIL does not import")
+assert "tensorboard" not in sys.modules
 cfg = demo2_tpu_torch.config.get_cfg_defaults()
 cfg.merge_from_list(chip_smoke.YAML_KEYS["RGBNT201/DeMo.yml"])  # needs no PyYAML
 assert cfg.MODEL.HDM and cfg.MODEL.HEAD == 4
@@ -191,6 +197,7 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "ARCH", "DeMoBeiyong"),
     ("MODEL", "USE_FRCA", True),
     ("MODEL", "SDTPS_VARIANT", "complete"),
+    ("TPU", "DATA_CACHE", "host"),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
@@ -198,12 +205,15 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     re-ranking, MSVR310's scene protocol, ranking off the device, SDTPS
     without DGAF, DGAF v1 (over GlobalLocalFuse, which it needs beside
     SDTPS), the HDM + ATMoE branch, GLOBAL_LOCAL, the nine-head
-    DeMoParallel, the DeMoBeiyong cascade (DeMoLegacy), the FRCA selector
-    and SDTPSComplete."""
+    DeMoParallel, the DeMoBeiyong cascade (DeMoLegacy), the FRCA selector,
+    SDTPSComplete, and the host loader (TPU.DATA_CACHE "host": the step and
+    the eval over data pipes)."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
+    from demo2_tpu_torch.data.loader import TriModalDataPipe, device_batches
+    from demo2_tpu_torch.data.transforms import EvalTransform, TrainTransform
     from demo2_tpu_torch.engine.eval import run_eval
-    from demo2_tpu_torch.engine.train import build_train_step
+    from demo2_tpu_torch.engine.train import build_host_train_step, build_train_step
 
     cfg = _flagship_tiny()
     setattr(getattr(cfg, section), key, value)
@@ -213,13 +223,23 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
         cfg.MODEL.GLOBAL_LOCAL = True  # v1 beside SDTPS needs it (the next test)
     ds = SyntheticTriModal(num_pids=8, imgs_per_pid=4, image_size=tuple(cfg.INPUT.SIZE_TRAIN))
     model = make_model(cfg, 8, 4, device=CPU, generator=generator())
-    train = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
-                                    device=CPU)
-    step = build_train_step(cfg, model, create_train_state(cfg, model, steps_per_epoch=4), train)
-    assert torch.isfinite(step(torch.arange(cfg.SOLVER.IMS_PER_BATCH))["loss"])
+    state = create_train_state(cfg, model, steps_per_epoch=4)
     val_samples = ds.query + ds.gallery
-    val = DeviceCache.from_arrays(ds.render_all(val_samples), val_samples, train=False, cfg=cfg,
-                                  device=CPU)
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    if key == "DATA_CACHE":
+        size = tuple(cfg.INPUT.SIZE_TRAIN)
+        pipe = TriModalDataPipe(ds.train, ds, TrainTransform(size=size), bs, num_workers=2)
+        (_, *batch), = device_batches(pipe, np.arange(bs), CPU)
+        assert torch.isfinite(build_host_train_step(cfg, model, state, CPU)(*batch)["loss"])
+        val = TriModalDataPipe(val_samples, ds, EvalTransform(size=size),
+                               cfg.TEST.IMS_PER_BATCH, num_workers=2)
+    else:
+        train = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
+                                        device=CPU)
+        step = build_train_step(cfg, model, state, train)
+        assert torch.isfinite(step(torch.arange(bs))["loss"])
+        val = DeviceCache.from_arrays(ds.render_all(val_samples), val_samples, train=False,
+                                      cfg=cfg, device=CPU)
     cmc, m_ap = run_eval(cfg, model, val, len(ds.query), rank_list_path=str(tmp_path / "re.txt"))
     assert cmc.shape == (len(ds.gallery),) and 0.0 < m_ap <= 1.0
     assert (tmp_path / "re.txt").read_text().startswith("rank list file")
