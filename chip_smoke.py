@@ -203,7 +203,19 @@ Phases:
   28. timing (printed): the native loader's images/s at 1, 2, 4 and 8
      threads, and the batch-64 flagship train step fed by the host pipe
      against the device cache in turns, each with the device busy share of a
-     profiled window of 4 steps.
+     profiled window of 4 steps;
+  29. the training knobs (run after phase 8, on its model and cache): one
+     step of the flagship with TPU.REMAT_BACKBONE and one without, from the
+     same weights, batch and draws: the loss and every gradient bit-equal
+     (a gradient that is not is named and held to a cosine of 0.99999),
+     kernel 3 launched 24 times and kernel 4 12 times (the wrappers' counts
+     and the profiler's), remat's peak memory below the other's, both steps
+     timed in turns; phase 6 on the flagship with METRIC_LOSS_TYPE
+     triplet_center and the timm cosine schedule (TPU.ENABLE_COSINE_SCHEDULE,
+     SOLVER.LR_SCHEDULER cosine), the centers moved for exactly the ids seen,
+     the lr the cosine recipe's; tools/quality_gate.main --report-only over 2
+     epochs of a tree of 16 ids x 8 at full width: its report with two evals,
+     kernels 3 and 4 12 times a step, 1 and 2 12 times an eval forward.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -1257,12 +1269,17 @@ def check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label="train",
     from demo2_tpu_torch.engine.train import loss_and_grads
     from demo2_tpu_torch.losses.losses import make_loss_fn
 
+    from demo2_tpu_torch.engine.state import create_train_state
+
     grads = []
     for c, m in ((cfg, model), (plain_cfg, plain)):
         gen = torch.Generator(device=cache.images.device).manual_seed(cfg.SOLVER.SEED)
         images, pids, camids = cache.batch(idx, gen)
+        # with center loss, the centers a train state starts from (seeded alike)
+        centers = (create_train_state(c, m, 1).centers
+                   if "center" in c.MODEL.METRIC_LOSS_TYPE else None)
         loss, _, g = loss_and_grads(c, m, make_loss_fn(c, NUM_CLASSES), images, pids, camids,
-                                    gen)
+                                    gen, centers=centers)
         grads.append(g)
         log(f"[{label}] step-1 loss, {'kernel' if c is cfg else 'plain'} path: "
             f"{loss.item():.6f}")
@@ -1329,14 +1346,17 @@ def check_backbone_grads(cfg, model, plain_cfg, plain, cache, idx, label) -> Non
             f"{GRAD_COS_BLOCK}")
 
 
-def train_steps(cfg, model, cache, order, steps, per_step=None):
+def train_steps(cfg, model, cache, order, steps, per_step=None, states=None):
     """`steps` optimizer steps through build_train_step; per_step(i, rose)
-    checks the kernel launches of each step.  Returns the losses."""
+    checks the kernel launches of each step; the train state is appended to
+    `states` where that is a list.  Returns the losses."""
     from demo2_tpu_torch.engine.state import create_train_state
     from demo2_tpu_torch.engine.train import build_train_step
 
     bs = cfg.SOLVER.IMS_PER_BATCH
     state = create_train_state(cfg, model, len(order) // bs)
+    if states is not None:
+        states.append(state)
     step = build_train_step(cfg, model, state, cache)
     idx = torch.from_numpy(order[: steps * bs].reshape(steps, bs)).to(cache.images.device)
     losses = []
@@ -1350,13 +1370,14 @@ def train_steps(cfg, model, cache, order, steps, per_step=None):
 
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
                 label: str = "train", extra_groups=(), block_min=None,
-                whole_model: bool = True) -> dict:
+                whole_model: bool = True, states=None) -> dict:
     """TRAIN_STEPS steps through build_train_step, each launching
     `per_step_want` (all fourteen kernels' counts), against the plain path.
     Without `whole_model` the step-1 gradient and the losses of the two
     paths are printed only, and the backbone's gradient from one upstream
-    gradient is held (check_backbone_grads).  Returns the launches of the
-    steps."""
+    gradient is held (check_backbone_grads).  The kernel path's train state
+    is appended to `states` where that is a list.  Returns the launches of
+    the steps."""
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1377,7 +1398,7 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
 
     reset_counts()
     t0 = time.perf_counter()
-    losses = train_steps(cfg, model, cache, order, TRAIN_STEPS, per_step)
+    losses = train_steps(cfg, model, cache, order, TRAIN_STEPS, per_step, states)
     wall = time.perf_counter() - t0
     launches = counts()
     log(f"[{label}] main path: {TRAIN_STEPS} steps of {bs} through build_train_step in "
@@ -3251,30 +3272,26 @@ def data_opts(root: str, out: str, data_cache: str) -> list:
 
 def write_jpeg_tree(root: str) -> dict:
     """An RGBNT201 tree, <root>/RGBNT201/{train_171,test}/{RGB,NI,TI}/
-    <pid>_cam<k>_<j>.jpg as tools/make_synthetic_jpegs.py lays it out, of
-    SyntheticTriModal's hard recipe at DATA_SRC, written at quality 95 by the
-    port's JPEG writer (test support: no PIL needed).  Returns {RGB path:
-    the sample's (3, H, W, 3) uint8 source}."""
+    <pid>_cam<k>_<j>.jpg, of SyntheticTriModal's hard recipe at DATA_SRC,
+    written at quality 95 by tools/make_synthetic_jpegs.py's generate with
+    the port's JPEG writer (no PIL needed).  Returns {RGB path: the sample's
+    (3, H, W, 3) uint8 source}."""
     import os
 
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
-    from demo2_tpu_torch.data.native import write_jpeg
+    from demo2_tpu_torch.tools.make_synthetic_jpegs import generate
 
+    generate(root, num_pids=DATA_IDS[0], imgs_per_pid=DATA_IMGS, test_pids=DATA_IDS[1],
+             test_imgs_per_pid=DATA_IMGS, num_cams=CAMERA_NUM, src_size=DATA_SRC,
+             writer="native")
     renderer = SyntheticTriModal(num_pids=max(DATA_IDS), num_cams=CAMERA_NUM, imgs_per_pid=1,
                                  image_size=DATA_SRC, seed=0, hard=True)
-    sources = {}
-    for split, ids, tag in (("train_171", DATA_IDS[0], "train"), ("test", DATA_IDS[1], "test")):
-        dirs = [os.path.join(root, "RGBNT201", split, m) for m in ("RGB", "NI", "TI")]
-        for d in dirs:
-            os.makedirs(d, exist_ok=True)
-        for pid in range(ids):
-            for j in range(DATA_IMGS):
-                imgs = renderer.render((tag, pid, j))
-                name = f"{pid:06d}_cam{(pid + j) % CAMERA_NUM + 1}_{j:03d}.jpg"
-                for d, img in zip(dirs, imgs):
-                    write_jpeg(os.path.join(d, name), img, quality=95)
-                sources[os.path.join(dirs[0], name)] = np.stack(imgs)
-    return sources
+    return {os.path.join(root, "RGBNT201", split, "RGB",
+                         f"{pid:06d}_cam{(pid + j) % CAMERA_NUM + 1}_{j:03d}.jpg"):
+            np.stack(renderer.render((tag, pid, j)))
+            for split, ids, tag in (("train_171", DATA_IDS[0], "train"),
+                                    ("test", DATA_IDS[1], "test"))
+            for pid in range(ids) for j in range(DATA_IMGS)}
 
 
 def check_decode(device, pipe, sources, train: bool) -> None:
@@ -3456,6 +3473,205 @@ def phase_data_timing(device, card, root: str) -> None:
         batches.close()  # stops the pipe's producer
 
 
+# ---------------------------------------------------------------- phase 29
+
+
+REMAT_GRAD_COS = 0.99999  # a gradient that remat does not give bit for bit
+KNOB_PHASE_BUDGET_S = 60.0
+
+
+def phase_remat(device, card, cfg, model, cache, sampler) -> dict:
+    """Phase 29, part 1: one training forward and backward of the flagship
+    at batch 64 with TPU.REMAT_BACKBONE and one without, from the same
+    weights, batch and draws.  The loss bit-equal, every gradient bit-equal
+    (where one is not: named, and held to a cosine of REMAT_GRAD_COS); with
+    remat kernel 3 launched twice a block (the forward, the recompute) and
+    kernel 4 once, by the wrappers' counts and by the profiler's count of
+    their attention launches; remat's peak memory lower.  Then both train
+    steps timed in turns.  Returns the remat step's launches."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses.losses import make_loss_fn
+    from demo2_tpu_torch.models import make_model
+
+    remat_cfg = flagship_cfg(True, TPU__REMAT_BACKBONE=True)
+    remat = make_model(remat_cfg, NUM_CLASSES, CAMERA_NUM, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.from_numpy(sampler.epoch_indices(1)[:bs]).to(device)
+    layers = num_blocks(model)
+
+    def step(c, m):
+        m.load_state_dict(init)
+        gen = torch.Generator(device=device).manual_seed(cfg.SOLVER.SEED)
+        images, pids, camids = cache.batch(idx, gen)
+        return loss_and_grads(c, m, make_loss_fn(c, NUM_CLASSES), images, pids, camids, gen)
+
+    card_memory = device.type == "cuda"
+    runs = {}
+    for label, c, m in (("no remat", cfg, model), ("remat", remat_cfg, remat)):
+        sync()
+        if card_memory:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() if card_memory else 0
+        reset_counts()
+        loss, _, grads = step(c, m)
+        sync()
+        runs[label] = dict(loss=loss.item(), grads={k: g.cpu() for k, g in grads.items()},
+                           peak=torch.cuda.max_memory_allocated() if card_memory else 0,
+                           resident=resident, launches=counts())
+        del loss, grads
+        log(f"[remat] {label}: step-1 loss {runs[label]['loss']:.6f}, peak device memory "
+            f"{runs[label]['peak'] / 2**30:.2f} GiB ({(runs[label]['peak'] - resident) / 2**30:.2f}"
+            f" above the {resident / 2**30:.2f} resident), launches {runs[label]['launches']} "
+            f"({card})")
+    plain_run, remat_run = runs["no remat"], runs["remat"]
+    require_launches(plain_run["launches"], launch_dict(fused_attention_block_train=layers,
+                                                        attention_bwd_saved_db=layers),
+                     "[remat] the step without remat")
+    require_launches(remat_run["launches"], launch_dict(fused_attention_block_train=2 * layers,
+                                                        attention_bwd_saved_db=layers),
+                     "[remat] the step with remat")
+    require(remat_run["loss"] == plain_run["loss"],
+            f"remat's loss {remat_run['loss']!r} != {plain_run['loss']!r}")
+    unequal = {k: cosine(g, plain_run["grads"][k]) for k, g in remat_run["grads"].items()
+               if not torch.equal(g, plain_run["grads"][k])}
+    log(f"[remat] loss bit-equal; {len(remat_run['grads']) - len(unequal)} of "
+        f"{len(remat_run['grads'])} gradients bit-equal"
+        + "".join(f"; {k} not, cosine {v:.8f}" for k, v in sorted(unequal.items())))
+    require(all(v >= REMAT_GRAD_COS for v in unequal.values()),
+            f"remat gradients below a cosine of {REMAT_GRAD_COS}: {unequal}")
+    require(remat_run["peak"] < plain_run["peak"] or not card_memory,
+            "remat's peak memory is not lower")
+    if not REHEARSAL:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        want = {"attention_regs_fwd_kernel": 2 * layers, "attention_regs_bwd_kernel": layers}
+        for attempt in range(4):  # CUPTI now and then drops events
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(remat_cfg, remat)
+                sync()
+            got = {name: sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA and name in e.key)
+                   for name in want}
+            if got == want:
+                break
+            log(f"[remat] profiler launches {got}, not {want} (attempt {attempt + 1})")
+        log(f"[remat] profiler, one remat step: kernel 3's attention launched "
+            f"{got['attention_regs_fwd_kernel']} times, kernel 4's "
+            f"{got['attention_regs_bwd_kernel']} ({card})")
+        require(got == want, f"profiler launches {got} != {want}")
+    del runs
+    if card_memory:
+        time_train_step(device, card, remat_cfg, remat, cfg, model, cache, sampler,
+                        label="remat: ", names=("remat", "no remat"), profiles=False)
+    model.load_state_dict(init)
+    return remat_run["launches"]
+
+
+def knobs_cfg(fused: bool, **overrides):
+    """The flagship with center loss and the timm cosine schedule."""
+    return flagship_cfg(fused, MODEL__METRIC_LOSS_TYPE="triplet_center",
+                        TPU__ENABLE_COSINE_SCHEDULE=True, SOLVER__LR_SCHEDULER="cosine",
+                        **overrides)
+
+
+def phase_knobs(device, cache, sampler) -> None:
+    """Phase 29, part 2: phase 6 on the flagship with METRIC_LOSS_TYPE
+    triplet_center and the cosine schedule (the step-1 gradients with the
+    center loss, 20 steps against the plain path), then the centers: moved
+    for the ids the steps saw, unmoved for the others, finite; the lr of
+    every step the cosine recipe's (timm_cosine_lr, in f32), not the
+    multistep rule's."""
+    from demo2_tpu_torch.losses.losses import CenterLossState
+    from demo2_tpu_torch.solver.optim import (make_lr_schedule, timm_cosine_lr,
+                                              warmup_multistep_lr)
+
+    cfg, model, plain_cfg, plain = build_models(device, knobs_cfg)
+    layers = num_blocks(model)
+    states = []
+    phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                launch_dict(fused_attention_block_train=layers, attention_bwd_saved_db=layers),
+                label="knob-train", states=states)
+    state = states[0]
+    s = cfg.SOLVER
+    start = CenterLossState.create(torch.Generator().manual_seed(s.SEED), NUM_CLASSES, 2048,
+                                   device).centers
+    bs = s.IMS_PER_BATCH
+    order = torch.from_numpy(sampler.epoch_indices(1)[: TRAIN_STEPS * bs]).to(device)
+    seen = torch.zeros(NUM_CLASSES, dtype=torch.bool, device=device)
+    seen[cache.pids[order]] = True
+    moved = (state.centers != start).any(1)
+    log(f"[knob-train] centers: {int(moved.sum())} of {NUM_CLASSES} rows moved, "
+        f"{int(seen.sum())} ids seen; largest move "
+        f"{(state.centers - start).abs().max().item():.6f}")
+    require(bool(torch.isfinite(state.centers).all()), "non-finite centers")
+    require(torch.equal(moved, seen), "the centers that moved are not the ids the steps saw")
+    spe = len(sampler.epoch_indices(1)) // bs
+    rule = timm_cosine_lr(s.BASE_LR, t_initial=s.MAX_EPOCHS, lr_min=0.001 * s.BASE_LR,
+                          decay_rate=0.1, warmup_t=s.WARMUP_ITERS,
+                          warmup_lr_init=0.1 * s.BASE_LR, cycle_limit=1,
+                          noise_range_t=(0, s.MAX_EPOCHS))
+    multistep = warmup_multistep_lr(s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR,
+                                    s.WARMUP_ITERS, s.WARMUP_METHOD)
+    steps = range(state.step + 2 * spe)
+    lrs = [state.schedule(i) for i in steps]
+    want = [float(np.float32(rule(1 + i // spe))) for i in steps]
+    log(f"[knob-train] lr by epoch: {sorted(set(lrs), key=lrs.index)} after {state.step} steps")
+    require(state.step == TRAIN_STEPS, f"{state.step} optimizer steps")
+    require(lrs == want and lrs == [make_lr_schedule(cfg, spe)(i) for i in steps],
+            "the schedule is not the cosine recipe's")
+    require(lrs != [float(np.float32(multistep(1 + i // spe))) for i in steps],
+            "the schedule is the multistep rule's")
+
+
+def phase_gate(device, root: str) -> None:
+    """Phase 29, part 3: the quality gate's mechanics, quality_gate.main
+    with --report-only over 2 epochs of a small tree (16 ids x 8, 8 test
+    ids) at full width: the report written with two evals in [0, 1] and
+    finite losses; kernels 3 and 4 launched 12 times a step, 1 and 2 12
+    times an eval forward, no other."""
+    import json as json_
+    import os
+
+    from demo2_tpu_torch.data import device_cache
+    from demo2_tpu_torch.data.loader import make_dataloader
+    from demo2_tpu_torch.tools import quality_gate
+
+    device_cache.DECODE_CACHE_DIR = os.path.join(root, "decoded")  # nothing outside the tree
+    report = os.path.join(root, "gate.json")
+    argv = ["--report-only", "--epochs", "2", "--pids", "16", "--imgs-per-pid", "8",
+            "--test-pids", "8", "--root", os.path.join(root, "gate"), "--report", report]
+    if REHEARSAL:
+        argv.append("--tiny")
+    reset_counts()
+    t0 = time.perf_counter()
+    code = quality_gate.main(argv, device=None if device.type == "cuda" else device)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    rec = json_.load(open(report))
+    log(f"[gate] quality_gate.main {' '.join(argv[:9])}: exit {code} in {wall:.1f} s; mAP "
+        f"{rec['mAP_trajectory']}, losses {rec['loss_trajectory']}, checks {rec['checks']}; "
+        f"launches {launches}")
+    require(code == 0, f"quality_gate.main returned {code}")
+    require(len(rec["mAP_trajectory"]) == 2 and all(0 <= m <= 1 for m in rec["mAP_trajectory"])
+            and all(math.isfinite(x) for x in rec["loss_trajectory"]),
+            f"the gate's report {rec}")
+    args = quality_gate.parse_args(argv)
+    cfg, _ = quality_gate.gate_config(args)
+    _, sampler, val_pipe, *_ = make_dataloader(cfg)
+    steps = 2 * (len(sampler) // cfg.SOLVER.IMS_PER_BATCH)
+    evals = 2 * math.ceil(len(val_pipe.samples) / cfg.TEST.IMS_PER_BATCH)
+    layers = 2 if REHEARSAL else 12
+    require_launches(launches, launch_dict(
+        fused_attention_block=layers * evals, fused_mlp_block=layers * evals,
+        fused_attention_block_train=layers * steps, attention_bwd_saved_db=layers * steps),
+        "[gate] quality_gate.main")
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -3517,6 +3733,19 @@ def main() -> None:
     launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model, plain)
     phase_do_train(device, model, cache, sampler)
     times.update(phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
+
+    # The training knobs (phase 29): the flagship with REMAT_BACKBONE (kernel
+    # 3 twice a block), with center loss and the cosine schedule, and the
+    # quality gate's mechanics.
+    import tempfile
+
+    t29 = time.perf_counter()
+    remat_launches = phase_remat(device, card, cfg, model, cache, sampler)
+    phase_knobs(device, cache, sampler)
+    with tempfile.TemporaryDirectory() as root:
+        phase_gate(device, root)
+    log(f"[knobs] phase 29 in {time.perf_counter() - t29:.1f} s (budget "
+        f"{KNOB_PHASE_BUDGET_S:.0f} s)")
 
     # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
     # at full width, timed beside the flagship; the other DeMo branches of
@@ -3585,15 +3814,16 @@ def main() -> None:
     # decoded device cache (kernels 3, 4 in training, 1, 2 at eval),
     # tools/test.main on the checkpoints; then the loader and the host-fed
     # step timed.
-    import tempfile
-
     with tempfile.TemporaryDirectory() as root:
         phase_data(device, root)
         phase_data_timing(device, card, root)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errors[name], **times[name]}
+         "launches": launches[name], "max_abs_err": errors[name], **times[name],
+         # a remat step's launches (phase 29) beside the default step's
+         **({"launches_remat": remat_launches[name]}
+            if name in ("fused_attention_block_train", "attention_bwd_saved_db") else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()
     ]}))
     print(card)

@@ -7,13 +7,16 @@ config/yaml_loader.py loads the configs/ files that select them), these
 paths are ported: serving (the eval forward, the embedding extractor, the retrieval
 metrics), training (losses, optimizer, device-resident data cache with
 on-device augmentation, train step, epoch loop with eval and checkpoints,
-optionally with the one-pass LayerNorm backward, TPU.PALLAS_LN_BWD), and
+optionally with the one-pass LayerNorm backward, TPU.PALLAS_LN_BWD, with the
+backbone's blocks recomputed in the backward, TPU.REMAT_BACKBONE, with center
+loss and with the timm cosine schedule; the metric-learning losses), and
 evaluation with k-reciprocal re-ranking (TEST.RE_RANKING) under the camera
 protocol or MSVR310's scene protocol with its rank list file.  The input
 path from disk (the dataset parsers, the PIL transforms, a native JPEG loader
 built from native/ at first use, host batches or the decoded device
 cache) and the CLIs (`python -m demo2_tpu_torch.tools.train` / `.test`,
-with the metrics log and MODEL.PRETRAIN_PATH_T) drive them.  The Pallas
+with the metrics log and MODEL.PRETRAIN_PATH_T) drive them; the quality gate
+(`python -m demo2_tpu_torch.tools.quality_gate`) checks what training learns.  The Pallas
 kernels of those paths (the ViT's fused attention and MLP sub-blocks, the
 training forward with its residuals, the attention backwards, the packed and
 head-major attention, the LayerNorm backward, the re-ranking min-sum) are

@@ -1,14 +1,21 @@
 """Train state (demo2_tpu/engine/state.py): the step, the model (parameters
-and BatchNorm statistics) and the optimizer with its state and schedule."""
+and BatchNorm statistics), the optimizer with its state and schedule, and,
+when "center" is in MODEL.METRIC_LOSS_TYPE, the center loss's centers with
+their SGD."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Callable, List, Optional
+
+import torch
 
 from ..config.defaults import Config
+from ..losses.losses import CenterLossState
 from ..models.demo import train_slice_error
-from ..solver.optim import Optimizer, make_optimizer
+from ..solver.optim import CenterSGD, Optimizer, make_optimizer
+
+CENTER_DIM = 2048  # the reference builds its centers 2048 wide whatever the feature
 
 
 @dataclass
@@ -16,6 +23,8 @@ class TrainState:
     model: "torch.nn.Module"  # noqa: F821  (a DeMo)
     optimizer: Optimizer
     history: List[dict] = field(default_factory=list)  # one entry per epoch, not saved
+    centers: Optional[torch.Tensor] = None  # (num_classes, CENTER_DIM) f32
+    center_optimizer: Optional[CenterSGD] = None
 
     @property
     def step(self) -> int:
@@ -27,19 +36,37 @@ class TrainState:
         return self.optimizer.schedule
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        sd = {"step": self.step, "model": self.model.state_dict(),
+              "optimizer": self.optimizer.state_dict()}
+        if self.centers is not None:
+            sd["centers"] = self.centers
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
+        if ("centers" in sd) != (self.centers is not None):
+            raise ValueError("the checkpoint and the train state disagree on center loss")
         self.model.load_state_dict(sd["model"], strict=True)
         self.optimizer.load_state_dict(sd["optimizer"])
+        if self.centers is not None:
+            self.centers.copy_(sd["centers"])
         if self.step != sd["step"]:
             raise ValueError(f"checkpoint step {sd['step']} != optimizer count {self.step}")
 
 
-def create_train_state(cfg: Config, model, steps_per_epoch: int) -> TrainState:
-    """The optimizer over `model`'s parameters (its weights as they are)."""
+def create_train_state(cfg: Config, model, steps_per_epoch: int,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
+    """The optimizer over `model`'s parameters (its weights as they are) and,
+    with center loss, standard normal centers on the model's device drawn
+    from `generator` (default: a CPU generator seeded SOLVER.SEED)."""
     err = train_slice_error(cfg)
     if err is not None:
         raise err
-    return TrainState(model=model, optimizer=make_optimizer(cfg, model, steps_per_epoch))
+    state = TrainState(model=model, optimizer=make_optimizer(cfg, model, steps_per_epoch))
+    if "center" in cfg.MODEL.METRIC_LOSS_TYPE:
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.SOLVER.SEED)
+        device = next(model.parameters()).device
+        state.centers = CenterLossState.create(generator, model.num_classes, CENTER_DIM,
+                                               device).centers
+        state.center_optimizer = CenterSGD(cfg.SOLVER.CENTER_LR)
+    return state

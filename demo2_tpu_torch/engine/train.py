@@ -23,19 +23,25 @@ import torch
 
 from ..config.defaults import Config
 from ..data.device_cache import DeviceCache
-from ..losses.losses import branch_weights, make_loss_fn
+from ..losses.losses import branch_weights, center_loss, make_loss_fn
 from ..models.demo import train_slice_error
 from .state import TrainState
 
 logger = logging.getLogger("DeMo")
 
 
+CENTERS = "centers"  # the key of the centers' gradient in loss_and_grads' dict
+
+
 def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
-                   viewids=None):
+                   viewids=None, centers=None):
     """The training forward (BatchNorm statistics updated), the weighted
     branch losses plus the auxiliary losses (the one named 'lif' at
     MODEL.LIF_LOSS_WEIGHT, any other at 1) and their gradients: (loss, acc,
-    {name: f32 grad})."""
+    {name: f32 grad}).  With `centers` (the train state's, center loss on)
+    the loss also has SOLVER.CENTER_LOSS_WEIGHT times the center loss of the
+    first branch's feature over its first min(2048, width) columns, and the
+    dict the centers' gradient under CENTERS."""
     out = model(images.to(model.dtype), camids, viewids, None, train=True,
                 generator=generator)
     branches = out["branches"]
@@ -43,9 +49,15 @@ def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
     total = sum(weights[n] * loss_fn(logits, feat, pids) for n, (logits, feat) in branches.items())
     for name, value in out["aux_loss"].items():
         total = total + (cfg.MODEL.LIF_LOSS_WEIGHT if name == "lif" else 1.0) * value
-    first_logits = next(iter(branches.values()))[0]
-    acc = (first_logits.argmax(-1) == pids).float().mean()
+    first_logits, first_feat = next(iter(branches.values()))
     names, params = zip(*model.named_parameters())
+    if centers is not None:
+        centers = centers.detach().requires_grad_()
+        cdim = min(centers.shape[-1], first_feat.shape[-1])
+        total = total + cfg.SOLVER.CENTER_LOSS_WEIGHT * center_loss(
+            centers[:, :cdim], first_feat[..., :cdim], pids)
+        names, params = names + (CENTERS,), params + (centers,)
+    acc = (first_logits.argmax(-1) == pids).float().mean()
     grads = torch.autograd.grad(total, params, allow_unused=True)
     return total.detach(), acc, {n: torch.zeros_like(p) if g is None else g
                                  for n, p, g in zip(names, params, grads)}
@@ -64,7 +76,11 @@ def _optimizer_step(cfg: Config, model, state: TrainState, device: torch.device)
         generator.manual_seed(cfg.SOLVER.SEED * 2**32 + state.step)
         images, pids, camids, views = batch_of(generator)
         loss, acc, grads = loss_and_grads(cfg, model, loss_fn, images, pids, camids, generator,
-                                          views)
+                                          views, state.centers)
+        if state.centers is not None:
+            # The reference rescales the centers' gradient by 1 / weight.
+            cgrad = grads.pop(CENTERS) / cfg.SOLVER.CENTER_LOSS_WEIGHT
+            state.center_optimizer.step(state.centers, cgrad)
         state.optimizer.step(grads)
         return {"loss": loss, "acc": acc}
 

@@ -1,22 +1,25 @@
 """Training losses (demo2_tpu/losses/losses.py): label-smoothed ID loss and
 batch-hard triplet, combined per branch by `make_loss_fn` and weighted by
-`branch_weights`.
+`branch_weights`, and the center loss that engine/train.py adds on the first
+branch's feature when "center" is in MODEL.METRIC_LOSS_TYPE.
 
 All reductions run in f32.  The batch-hard mining uses masked max / min, as
 the JAX package does: with the PK sampler's guarantee that every anchor has a
 positive and a negative, that equals the reference's boolean indexing.
-Center loss is not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported
 from ..config.defaults import Config
+
+
+F32_TINY = 2.0 ** -126  # the smallest normal f32 (and bf16)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -36,18 +39,25 @@ def cross_entropy_label_smooth(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def euclidean_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """sqrt(max(|x|^2 + |y|^2 - 2 x.y, 1e-12)) in f32
-    (metric_learning.py::_pairwise_dist's numerics)."""
-    x, y = x.float(), y.float()
-    xx = x.square().sum(-1)[:, None]
-    yy = y.square().sum(-1)[None, :]
-    return torch.sqrt(torch.clamp(xx + yy - 2.0 * (x @ y.t()), min=1e-12))
+    """sqrt(max(|x|^2 + |y|^2 - 2 x.y, 1e-12)) in f32: metric_learning.py's
+    _pairwise_dist, the one definition of these numerics."""
+    from .metric_learning import _pairwise_dist
+
+    return _pairwise_dist(x.float(), y.float())
 
 
 def batch_hard_triplet_loss(feat: torch.Tensor, labels: torch.Tensor,
-                            margin: Optional[float] = None) -> torch.Tensor:
+                            margin: Optional[float] = None,
+                            normalize_feature: bool = False) -> torch.Tensor:
     """Batch-hard triplet; soft margin (softplus) when margin is None, else
-    MarginRankingLoss: mean(relu(ap - an + margin))."""
+    MarginRankingLoss: mean(relu(ap - an + margin)).  `normalize_feature`
+    divides each row by its norm (+ 1e-12) first; the max before the sqrt
+    keeps the backward finite at an all-zero row.  Its floor is f32's
+    smallest normal: the JAX package's 1e-60 rounds to 0 in f32, which gives
+    that row a NaN gradient there; the forward is the same."""
+    if normalize_feature:
+        n2 = feat.square().sum(-1, keepdim=True)
+        feat = feat / (torch.sqrt(torch.clamp(n2, min=F32_TINY)) + 1e-12)
     dist = euclidean_dist(feat, feat)
     same = labels[:, None] == labels[None, :]
     dist_ap = torch.where(same, dist, torch.full_like(dist, -1e30)).amax(1)
@@ -57,12 +67,35 @@ def batch_hard_triplet_loss(feat: torch.Tensor, labels: torch.Tensor,
     return F.softplus(-(dist_an - dist_ap)).mean()
 
 
+@dataclass
+class CenterLossState:
+    """The learnable class centers (num_classes, feat_dim), f32."""
+
+    centers: torch.Tensor
+
+    @staticmethod
+    def create(generator: torch.Generator, num_classes: int, feat_dim: int = 2048,
+               device: Optional[torch.device] = None) -> "CenterLossState":
+        """Standard normal centers drawn from `generator` (on its device),
+        then moved to `device`."""
+        c = torch.randn((num_classes, feat_dim), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        return CenterLossState(c.to(device or c.device))
+
+
+def center_loss(centers: torch.Tensor, feat: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch of each feature's squared distance to its
+    class center, clamped to [1e-12, 1e12]."""
+    c = centers[labels.long()].float()
+    d = (feat.float() - c).square().sum(-1)
+    return torch.clamp(d, 1e-12, 1e12).mean()
+
+
 def make_loss_fn(cfg: Config, num_classes: int) -> Callable:
     """The per-branch loss (logits, feat, target) -> scalar: cross-entropy
     alone for DATALOADER.SAMPLER='softmax', else ID_W * (label-smoothed)
-    cross-entropy + TRI_W * batch-hard triplet."""
-    if "center" in cfg.MODEL.METRIC_LOSS_TYPE:
-        raise not_ported("center loss", "the rest of the modules (center loss)")
+    cross-entropy + TRI_W * batch-hard triplet.  The center loss is not a
+    branch's: engine/train.py::loss_and_grads adds it."""
     sampler = cfg.DATALOADER.SAMPLER
     if sampler == "softmax":
         return lambda logits, feat, target: softmax_cross_entropy(logits, target)

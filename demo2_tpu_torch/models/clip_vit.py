@@ -14,7 +14,11 @@ unfused ln_2 + MLP, as in the JAX package.  Otherwise the plain LayerNorm /
 MHA / MLP modules.  `pallas_ln_bwd` (cfg.TPU.PALLAS_LN_BWD) gives the blocks'
 unfused LayerNorms the one-pass backward of ops/norm.py: ln_2 where the MLP is
 unfused, ln_1 where the attention is (fused, each lives inside its
-sub-block's kernels); not ln_pre / ln_post.
+sub-block's kernels); not ln_pre / ln_post.  With `remat`
+(cfg.TPU.REMAT_BACKBONE) each block of a training forward runs under
+torch.utils.checkpoint: its activations are not kept, and the backward runs
+its forward again (the fused attention's kernel twice a step); eval never
+recomputes.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import quick_gelu
 from ..ops.attention import MultiHeadAttention
@@ -124,10 +129,11 @@ class CLIPVisionTransformer(nn.Module):
                  width: int, layers: int, heads: int, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
                  patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False,
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, remat: bool = False):
         super().__init__()
         self.width = width
         self.dtype = dtype
+        self.remat = remat
         scale = width ** -0.5
         self.conv1 = PatchConv(width, patch_size, stride_size, dtype=dtype, device=device,
                                generator=generator)
@@ -160,6 +166,9 @@ class CLIPVisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + cached_cast(self, "positional_embedding", dt)[None]
         x = self.ln_pre(x)
         for blk in self.resblocks:
-            x = blk(x, train)
+            if train and self.remat:
+                x = checkpoint(blk, x, train, use_reentrant=False)
+            else:
+                x = blk(x, train)
         x = self.ln_post(x)
         return x @ cached_cast(self, "proj", dt)

@@ -82,22 +82,12 @@ def check_slice(cfg: Config) -> None:
         raise not_ported(f"TPU.INT8_MLP={cfg.TPU.INT8_MLP!r}", "the rest of the modules")
 
 
-def train_slice_error(cfg: Config, model_only: bool = False):
+def train_slice_error(cfg: Config):
     """The error for a training configuration outside the training slice, or
-    None.  The model's training forward raises the model's part
-    (`model_only`), create_train_state and build_train_step all of it."""
-    t, m = cfg.TPU, cfg.MODEL
-    if t.REMAT_BACKBONE:
-        return not_ported("TPU.REMAT_BACKBONE", "the rest of the modules (REMAT_BACKBONE)")
-    if model_only:
-        return None
+    None; create_train_state and build_train_step raise it."""
+    t = cfg.TPU
     if t.PIPELINED_AUGMENT:
         return not_ported("TPU.PIPELINED_AUGMENT", "the rest of the modules (not ported)")
-    if "center" in m.METRIC_LOSS_TYPE:
-        return not_ported(f"MODEL.METRIC_LOSS_TYPE={m.METRIC_LOSS_TYPE!r} (center loss)",
-                          "the rest of the modules (center loss)")
-    if t.ENABLE_COSINE_SCHEDULE and cfg.SOLVER.LR_SCHEDULER == "cosine":
-        return not_ported("the cosine LR schedule", "the rest of the modules (timm_cosine_lr)")
     if t.NUM_DEVICES > 1:
         return not_ported(f"TPU.NUM_DEVICES={t.NUM_DEVICES}",
                           "the rest of the modules (parallel/ as DDP / NCCL)")
@@ -135,7 +125,6 @@ class _Assembly(nn.Module):
                  device: torch.device, generator: torch.Generator):
         super().__init__()
         check_slice(cfg)
-        self.train_error = train_slice_error(cfg, model_only=True)
         m = cfg.MODEL
         dtype = compute_dtype(cfg)
         self.dtype = dtype
@@ -161,6 +150,7 @@ class _Assembly(nn.Module):
             fused=cfg.TPU.USE_FLASH_ATTENTION,
             pallas_ln_bwd=cfg.TPU.PALLAS_LN_BWD,
             fused_mlp_train=cfg.TPU.FUSED_MLP_TRAIN,
+            remat=cfg.TPU.REMAT_BACKBONE,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
             width_override=cfg.TPU.BACKBONE_WIDTH,
             heads_override=cfg.TPU.BACKBONE_HEADS,
@@ -185,8 +175,6 @@ class _Assembly(nn.Module):
                                                          device=device, generator=generator))
 
     def _features(self, images, cam_label, view_label, modality_mask, train, generator):
-        if train and self.train_error is not None:
-            raise self.train_error
         return self.backbone(images.to(self.dtype), cam_label, view_label, modality_mask,
                              train, generator)
 

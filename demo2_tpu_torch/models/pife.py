@@ -68,7 +68,7 @@ class PIFE(nn.Module):
                  device: torch.device, generator: torch.Generator, view_num: int = 0,
                  sie_view: bool = False, drop_path: float = 0.1, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, pallas_ln_bwd: bool = False,
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, remat: bool = False):
         super().__init__()
         tt = transformer_type
         self.transformer_type = tt
@@ -89,7 +89,7 @@ class PIFE(nn.Module):
                 gh, gw, stride_size=stride_size[0], width=self.width, layers=depth,
                 heads=heads, dtype=dtype, fused=fused, device=device, generator=generator,
                 # the CLIP branch only, as in the JAX package
-                pallas_ln_bwd=pallas_ln_bwd, fused_mlp_train=fused_mlp_train,
+                pallas_ln_bwd=pallas_ln_bwd, fused_mlp_train=fused_mlp_train, remat=remat,
             )
             return
         embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale = imagenet_vit_config(tt)
@@ -101,7 +101,7 @@ class PIFE(nn.Module):
             camera=camera_num if sie_camera else 0, view=view_num if sie_view else 0,
             sie_xishu=sie_coe, drop_path_rate=drop_path, drop_rate=drop_rate,
             attn_drop_rate=attn_drop_rate, attn_implementation="pallas" if fused else "xla",
-            dtype=dtype, device=device, generator=generator,
+            dtype=dtype, device=device, generator=generator, remat=remat,
         )
 
     @property

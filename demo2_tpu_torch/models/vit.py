@@ -15,6 +15,9 @@ unless attention dropout is active; otherwise ops/attention.py's
 attention_core.  Every random draw (dropout, drop path) comes from the
 `generator` the caller passes, as flax's 'dropout' rng in the JAX package;
 the two give different numbers, so the tests feed both the same masks.
+With `remat` (cfg.TPU.REMAT_BACKBONE) each block of a training forward runs
+under torch.utils.checkpoint (`checkpointed_block`), whose recompute draws
+the masks the forward drew.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import gelu
 from ..ops.attention import attention_core
@@ -130,6 +134,32 @@ class ViTBlock(nn.Module):
         return x + drop_path(y, self.drop_path_rate, train=train, generator=generator)
 
 
+def checkpointed_block(block: nn.Module, x: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """block(x, train=True, generator) under torch.utils.checkpoint.  The
+    checkpoint keeps the default generators' states for the recompute, not a
+    caller's: so the recompute starts `generator` from its state at the
+    forward, and so draws the same dropout and drop-path masks, then gives
+    it back the state it had."""
+    if generator is None:  # the default generators: checkpoint keeps those
+        return checkpoint(block, x, True, None, use_reentrant=False)
+    start = generator.get_state()
+    ran = []
+
+    def run(x):
+        if not ran:  # the forward
+            ran.append(True)
+            return block(x, True, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(x, True, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class ImageNetViT(nn.Module):
     """`Trans` of the reference: (B, H, W, 3) -> (B, N+1, embed_dim)."""
 
@@ -140,8 +170,10 @@ class ImageNetViT(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, camera: int = 0, view: int = 0,
                  sie_xishu: float = 1.5, attn_implementation: str = "xla",
-                 dtype: torch.dtype, device: torch.device, generator: torch.Generator):
+                 dtype: torch.dtype, device: torch.device, generator: torch.Generator,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.img_size, self.patch_size, self.stride_size = img_size, patch_size, stride_size
         self.embed_dim = embed_dim
         self.camera, self.view, self.sie_xishu = camera, view, sie_xishu
@@ -188,5 +220,8 @@ class ImageNetViT(nn.Module):
         if train:
             x = dropout(x, self.drop_rate, generator)
         for blk in self.blocks:
-            x = blk(x, train, generator)
+            if train and self.remat:
+                x = checkpointed_block(blk, x, generator)
+            else:
+                x = blk(x, train, generator)
         return self.norm(x)

@@ -66,6 +66,19 @@ LN_BWD_WARPS = 8
 LN_BWD_MAX_BLOCKS = 264
 
 
+def check_ln_bwd_limits(cols: int, dtype: torch.dtype) -> None:
+    """Raise, naming the ROADMAP item, for an input dtype or a width the
+    kernel does not take: bf16 or f32 rows whose width is a multiple of one
+    16-byte vector, up to LN_BWD_MAX_COLS.  The Pallas kernel takes any width."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise not_ported(f"layernorm_bwd on {dtype} inputs (the kernel takes bf16 and f32)",
+                         "wider heads, longer sequences and f32 inputs in the attention kernels")
+    vec = 16 // dtype.itemsize
+    if cols % vec or cols > LN_BWD_MAX_COLS:
+        raise not_ported(f"layernorm_bwd over {cols} columns (the kernel takes multiples of "
+                         f"{vec} up to {LN_BWD_MAX_COLS})", "Kernel 11 beyond 1,024 columns")
+
+
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, eps: float = EPS):
     """(dx (R, C) in dy's dtype, dweight (C,) f32, dbias (C,) f32) of a
     LayerNorm over the last axis of x (R, C): the kernel on CUDA tensors, the
@@ -75,14 +88,7 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, eps: 
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_bwd: the kernel takes CUDA tensors, got {x.device}")
     rows, cols = x.shape
-    item = "wider heads, longer sequences and f32 inputs in the attention kernels"
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise not_ported(f"layernorm_bwd on {x.dtype} inputs (the kernel takes bf16 and f32)",
-                         item)
-    vec = 16 // x.element_size()
-    if cols % vec or cols > LN_BWD_MAX_COLS:
-        raise not_ported(f"layernorm_bwd over {cols} columns (the kernel takes multiples of "
-                         f"{vec} up to {LN_BWD_MAX_COLS})", item)
+    check_ln_bwd_limits(cols, x.dtype)
     expect(x, "x", (rows, cols), x.dtype, x.device)
     expect(dy, "dy", (rows, cols), x.dtype, x.device)
     expect(weight, "weight", (cols,), torch.float32, x.device)

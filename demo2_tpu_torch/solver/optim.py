@@ -12,13 +12,15 @@ bf16 mu (TPU.BF16_MOMENTS: optax.scale_by_adam's mu_dtype, rounded for
 storage only), or bf16 mu and nu (TPU.BF16_SECOND_MOMENT:
 scale_by_adam_mixed, rounded before use); the arithmetic is f32 in every
 case.  torch.optim.Adam keeps its moments in the parameter's dtype, so it is
-not used.  The cosine schedule and FROZEN are not ported yet.
+not used.  `CenterSGD` is the center loss's plain SGD.  FROZEN is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Callable, Dict, Sequence
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,14 +48,84 @@ def warmup_multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float 
     return lr_at
 
 
+def warmup_linear_lr(base_lr: float, max_epochs: int, warmup_factor: float = 0.01,
+                     warmup_iters: int = 0, warmup_method: str = "linear",
+                     min_lr: float = 0.0) -> Callable[[int], float]:
+    """lr(epoch) per the reference's WarmupLinearLR: the warmup factor, then
+    a linear decay to 0 over the epochs after the warmup, floored at min_lr."""
+
+    def lr_at(epoch: int) -> float:
+        wf = 1.0
+        if epoch < warmup_iters:
+            if warmup_method == "constant":
+                wf = warmup_factor
+            else:
+                alpha = epoch / float(warmup_iters)
+                wf = warmup_factor * (1 - alpha) + alpha
+        if epoch <= warmup_iters:
+            decay = 1.0
+        else:
+            eff = max_epochs - warmup_iters
+            decay = 0.0 if eff <= 1 else max(1.0 - (epoch - warmup_iters - 1) / float(eff - 1),
+                                             0.0)
+        return max(min_lr, base_lr * wf * decay)
+
+    return lr_at
+
+
+def timm_cosine_lr(base_lr: float, t_initial: int, lr_min: float = 0.0, decay_rate: float = 1.0,
+                   warmup_t: int = 0, warmup_lr_init: float = 0.0, cycle_limit: int = 0,
+                   noise_range_t: Optional[Tuple[int, int]] = None, noise_pct: float = 0.67,
+                   noise_seed: int = 42) -> Callable[[int], float]:
+    """lr(epoch) per timm's CosineLRScheduler as the reference's commented-out
+    factory builds it (t_mul 1, no warmup prefix): a linear warmup from
+    warmup_lr_init, then cosine cycles of t_initial epochs, each decayed by
+    decay_rate, lr_min after cycle_limit cycles.  For t in noise_range_t the
+    lr is multiplied by 1 + noise, the noise a N(0, 1) draw of a generator
+    seeded noise_seed + t, drawn again until |noise| < noise_pct (timm's
+    normal noise)."""
+
+    def lr_at(t: int) -> float:
+        if warmup_t and t < warmup_t:
+            lr = warmup_lr_init + t * (base_lr - warmup_lr_init) / warmup_t
+        else:
+            i = t // t_initial
+            t_curr = t - t_initial * i
+            gamma = decay_rate ** i
+            if cycle_limit == 0 or i < cycle_limit:
+                lr = lr_min * gamma + 0.5 * (base_lr * gamma - lr_min * gamma) * (
+                    1 + math.cos(math.pi * t_curr / t_initial))
+            else:
+                lr = lr_min
+        if noise_range_t is not None and noise_range_t[0] <= t < noise_range_t[1]:
+            g = torch.Generator().manual_seed(noise_seed + t)
+            while True:
+                noise = torch.randn(1, generator=g).item()
+                if abs(noise) < noise_pct:
+                    break
+            lr = lr + lr * noise
+        return lr
+
+    return lr_at
+
+
 def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
     """lr(step) = lr_at_epoch(1 + step // steps_per_epoch), as f32 values (the
-    reference steps its scheduler once per epoch, the epoch starting at 1)."""
-    if cfg.TPU.ENABLE_COSINE_SCHEDULE and cfg.SOLVER.LR_SCHEDULER == "cosine":
-        raise not_ported("the cosine LR schedule", "the rest of the modules (timm_cosine_lr)")
+    reference steps its scheduler once per epoch, the epoch starting at 1).
+    The rule is WarmupMultiStepLR, which the reference's create_scheduler
+    always returns; with TPU.ENABLE_COSINE_SCHEDULE and SOLVER.LR_SCHEDULER
+    'cosine' it is the recipe of its commented-out cosine block: lr_min
+    0.001 * base, warmup_lr_init 0.1 * base, decay_rate 0.1, one cycle, noise
+    over every epoch."""
     s = cfg.SOLVER
-    lr_at = warmup_multistep_lr(s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
-                                s.WARMUP_METHOD)
+    if cfg.TPU.ENABLE_COSINE_SCHEDULE and s.LR_SCHEDULER == "cosine":
+        lr_at = timm_cosine_lr(s.BASE_LR, t_initial=s.MAX_EPOCHS, lr_min=0.001 * s.BASE_LR,
+                               decay_rate=0.1, warmup_t=s.WARMUP_ITERS,
+                               warmup_lr_init=0.1 * s.BASE_LR, cycle_limit=1,
+                               noise_range_t=(0, s.MAX_EPOCHS))
+    else:
+        lr_at = warmup_multistep_lr(s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR,
+                                    s.WARMUP_ITERS, s.WARMUP_METHOD)
     max_epochs = s.MAX_EPOCHS + 2
     table = [float(np.float32(lr_at(e))) for e in range(max_epochs)]
 
@@ -150,6 +222,18 @@ class Optimizer:
         for n, st in sd["state"].items():
             for k, v in st.items():
                 self.state[n][k].copy_(v)
+
+
+class CenterSGD:
+    """optax.sgd(SOLVER.CENTER_LR) on the center loss's centers:
+    c <- c - lr * g, in place.  It keeps no state."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    @torch.no_grad()
+    def step(self, centers: torch.Tensor, grad: torch.Tensor) -> None:
+        centers.add_(grad * -self.lr)
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module, steps_per_epoch: int) -> Optimizer:

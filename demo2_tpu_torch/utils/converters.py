@@ -139,9 +139,15 @@ def _adam_state(opt_state):
     return None
 
 
-def convert_train_state(variables: Mapping, opt_state, state) -> None:
-    """Load a JAX train state's variables and Adam state into the port's
-    TrainState `state` (engine/state.py), in place."""
+def convert_train_state(variables: Mapping, opt_state, state, centers=None) -> None:
+    """Load a JAX train state's variables and Adam state, and its center
+    loss's centers where the port's TrainState `state` (engine/state.py) has
+    centers, into `state`, in place."""
+    if (centers is None) != (state.centers is None):
+        raise ValueError("centers are given for a train state without center loss, or "
+                         "missing for one with it")
+    if centers is not None:
+        state.centers.copy_(torch.from_numpy(np.array(centers, np.float32)))
     state.model.load_state_dict(convert_flax_variables(variables, state.model), strict=True)
     adam = _adam_state(opt_state)
     if adam is None:

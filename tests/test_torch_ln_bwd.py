@@ -99,6 +99,25 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         tnorm.layernorm_bwd(x, x, torch.zeros(64, device="meta"), EPS)
 
 
+@pytest.mark.parametrize("cols,dtype,item", [
+    (768, torch.bfloat16, None),
+    (1024, torch.float32, None),
+    (1032, torch.bfloat16, "Kernel 11 beyond 1,024 columns"),
+    (770, torch.bfloat16, "Kernel 11 beyond 1,024 columns"),
+    (766, torch.float32, "Kernel 11 beyond 1,024 columns"),
+    (768, torch.float16, "f32 inputs in the attention kernels"),
+])
+def test_kernel_limits_name_their_roadmap_item(cols, dtype, item):
+    """The widths and dtypes the kernel refuses raise naming their ROADMAP
+    item: a width over 1,024 columns (or not a whole 16-byte vector) names
+    kernel 11's own item; the Pallas kernel takes any width."""
+    if item is None:
+        assert tnorm.check_ln_bwd_limits(cols, dtype) is None
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            tnorm.check_ln_bwd_limits(cols, dtype)
+
+
 def test_wrapper_counts_no_launch_on_the_cpu():
     before = tnorm.layernorm_bwd.launches
     x, dy, w, _ = _ln_inputs(8, 16, seed=0)

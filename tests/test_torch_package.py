@@ -41,7 +41,8 @@ for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_lis
              "models.lif", "models.frca", "models.sdtps_variants", "ops.conv", "data.loader",
              "data.native", "data.transforms", "data.datasets", "data.sampler", "utils.logger",
              "utils.meter", "utils.iotools", "utils.metrics_log", "utils.converters",
-             "tools.train", "tools.test"):
+             "tools.train", "tools.test", "tools.quality_gate", "tools.make_synthetic_jpegs",
+             "tools.arch_knobs", "losses.metric_learning"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 from demo2_tpu_torch.data.loader import pil_error
 assert pil_error().startswith("PIL does not import")
@@ -167,8 +168,6 @@ def test_configs_outside_the_slice_raise(section, key, value):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("MODEL", "METRIC_LOSS_TYPE", "triplet_center"),
-    ("TPU", "REMAT_BACKBONE", True),
     ("TPU", "PIPELINED_AUGMENT", True),
     ("TPU", "NUM_DEVICES", 4),
 ])
@@ -178,9 +177,6 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     model = make_model(cfg, 6, 4, device=CPU, generator=generator())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_train_state(cfg, model, steps_per_epoch=4)
-    if section == "TPU" and key == "REMAT_BACKBONE":
-        with pytest.raises(NotImplementedError, match=key):  # the model's own part
-            model(torch.zeros(2, 3, 64, 32, 3), torch.zeros(2, dtype=torch.long), train=True)
 
 
 @pytest.mark.parametrize("section,key,value", [
@@ -198,6 +194,9 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "USE_FRCA", True),
     ("MODEL", "SDTPS_VARIANT", "complete"),
     ("TPU", "DATA_CACHE", "host"),
+    ("MODEL", "METRIC_LOSS_TYPE", "triplet_center"),
+    ("TPU", "REMAT_BACKBONE", True),
+    ("TPU", "ENABLE_COSINE_SCHEDULE", True),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
@@ -206,8 +205,10 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     without DGAF, DGAF v1 (over GlobalLocalFuse, which it needs beside
     SDTPS), the HDM + ATMoE branch, GLOBAL_LOCAL, the nine-head
     DeMoParallel, the DeMoBeiyong cascade (DeMoLegacy), the FRCA selector,
-    SDTPSComplete, and the host loader (TPU.DATA_CACHE "host": the step and
-    the eval over data pipes)."""
+    SDTPSComplete, the host loader (TPU.DATA_CACHE "host": the step and
+    the eval over data pipes), center loss (the centers move), remat of the
+    backbone, and the timm cosine schedule (with SOLVER.LR_SCHEDULER
+    'cosine')."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.data.loader import TriModalDataPipe, device_batches
@@ -221,6 +222,8 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
         cfg.TPU.USE_FLASH_ATTENTION = True  # the flag acts on the fused blocks only
     if key == "DGAF_VERSION":
         cfg.MODEL.GLOBAL_LOCAL = True  # v1 beside SDTPS needs it (the next test)
+    if key == "ENABLE_COSINE_SCHEDULE":
+        cfg.SOLVER.LR_SCHEDULER = "cosine"  # the knob acts on this scheduler only
     ds = SyntheticTriModal(num_pids=8, imgs_per_pid=4, image_size=tuple(cfg.INPUT.SIZE_TRAIN))
     model = make_model(cfg, 8, 4, device=CPU, generator=generator())
     state = create_train_state(cfg, model, steps_per_epoch=4)
@@ -237,7 +240,10 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
         train = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
                                         device=CPU)
         step = build_train_step(cfg, model, state, train)
+        centers = None if state.centers is None else state.centers.clone()
         assert torch.isfinite(step(torch.arange(bs))["loss"])
+        assert (centers is None) == (key != "METRIC_LOSS_TYPE")
+        assert centers is None or not torch.equal(centers, state.centers)
         val = DeviceCache.from_arrays(ds.render_all(val_samples), val_samples, train=False,
                                       cfg=cfg, device=CPU)
     cmc, m_ap = run_eval(cfg, model, val, len(ds.query), rank_list_path=str(tmp_path / "re.txt"))
@@ -260,18 +266,25 @@ def test_dgaf_v1_beside_sdtps_without_global_local_raises_as_jax_does():
 
 
 def test_remat_backbone_on_the_imagenet_vit_raises_in_training():
+    """Named when the port refused REMAT_BACKBONE: the ImageNet ViT now
+    trains with it, its training forward the one without remat (the same
+    weights and draws), and create_train_state takes it."""
     cfg = _flagship_tiny()
     cfg.MODEL.TRANSFORMER_TYPE = "vit_base_patch16_224"
     cfg.TPU.BACKBONE_WIDTH = cfg.TPU.BACKBONE_HEADS = -1
     cfg.TPU.BACKBONE_DEPTH = 1
+    plain = make_model(cfg, 6, 4, device=CPU, generator=generator())
     cfg.TPU.REMAT_BACKBONE = True
     model = make_model(cfg, 6, 4, device=CPU, generator=generator())
     images = torch.zeros(2, 3, 64, 32, 3)
-    assert model(images, torch.zeros(2, dtype=torch.long))["embedding"].shape == (2, 3 * 768)
-    with pytest.raises(NotImplementedError, match="REMAT_BACKBONE"):
-        model(images, torch.zeros(2, dtype=torch.long), train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_train_state(cfg, model, steps_per_epoch=4)
+    cams = torch.zeros(2, dtype=torch.long)
+    assert model(images, cams)["embedding"].shape == (2, 3 * 768)
+    got, want = (m(images, cams, train=True, generator=generator(3))["branches"]
+                 for m in (model, plain))
+    assert list(got) == list(want)
+    for k in got:
+        assert all(torch.equal(a, b) for a, b in zip(got[k], want[k])), k
+    assert create_train_state(cfg, model, steps_per_epoch=4).step == 0
 
 
 def test_seeded_init_is_deterministic():
