@@ -215,7 +215,32 @@ Phases:
      SOLVER.LR_SCHEDULER cosine), the centers moved for exactly the ids seen,
      the lr the cosine recipe's; tools/quality_gate.main --report-only over 2
      epochs of a tree of 16 ids x 8 at full width: its report with two evals,
-     kernels 3 and 4 12 times a step, 1 and 2 12 times an eval forward.
+     kernels 3 and 4 12 times a step, 1 and 2 12 times an eval forward;
+  30. the CLIP tower's tuning paths at full width (run after phase 29, on
+     its cache), six configurations of the flagship: MODEL.FROZEN with LoRA
+     of rank 4 on q, k and v, on q and v (the merged form), with ConvLoRA on
+     the patch embed, FROZEN with the FFN adapter and no LoRA, the adapter
+     alone, and the modality prompts (PROMPT: x (192, 141, 768) in the
+     block kernels); LoRA's B, ConvLoRA's B and the prompts drawn at random
+     (their zero init hides the delta).  Each: a batch-64 request through
+     FeatureExtractor against the plain path (cosine >= 0.999), kernel 1
+     12 times a forward and kernel 2 12 times, 0 under the adapter, by the
+     wrappers' counts and the profiler's; the step-1 gradient of the
+     trainable parameters against the plain path (phase 6's cosines), 10
+     steps on both paths (phase 6's loss bound), the frozen parameters bit
+     for bit unchanged and every trainable one moved; 12 launches of kernel
+     3 a step and 12 of kernel 4, or of kernel 7 where MODEL.FROZEN leaves
+     the qkv bias without a gradient (wrappers and profiler); the step timed
+     beside the flagship's, with its device busy share; kernels 1, 3, 4 and
+     7 timed at S = 141 beside their bounds;
+  31. migration from the reference (after phase 28, on its JPEG tree): a
+     reference-layout DeMo (SDTPS + DGAF v3) on vit_base_patch16_224 written
+     with torch.save from random tensors under the reference's key names,
+     tools/test.main with it as TEST.WEIGHT (kernel 5 12 times an eval
+     forward), its embedding through load_reference_checkpoint against the
+     plain path's (cosine >= 0.999), tools/train.main --init_pth over one
+     epoch (kernels 5 and 6 12 times a step); the kernel-path checks of
+     phases 2 and 5 also run at the prompts' S = 141.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -242,6 +267,9 @@ import torch
 
 FLAGSHIP = (192, 129, 768)  # (3B, tokens, width) at batch 64
 BATCH1 = (3, 129, 768)
+# MODEL.PROMPT appends 3 x 4 prompt tokens to each block's sequence: S = 141,
+# which pads to the kernels' kMaxSeq of 144.
+PROMPT_SHAPE = (192, 141, 768)
 HEADS = 12
 NUM_CLASSES, CAMERA_NUM = 171, 6  # RGBNT201, as bench.py sizes the flagship
 # Kernel vs plain bf16 version.  Both round to bf16 at different points
@@ -421,7 +449,7 @@ def exact_products() -> None:
 # 256 (and at 512 not of the 192-column tile either), and the flagship shape,
 # which gives each block of the persistent GEMM many tiles.
 BLOCK_EDGE_SHAPES = ((3, 129, 768), (5, 77, 768), (1, 1, 768), (8, 129, 384), (8, 129, 512),
-                     FLAGSHIP)
+                     FLAGSHIP, PROMPT_SHAPE)
 # Kernels 3 and 2 (training form) round where attention_block_train_plain and
 # mlp_block_train_plain round, so the two differ only where an f32 sum taken in
 # another order lands on the other side of a bf16 rounding: on an H100 a mean
@@ -1171,7 +1199,8 @@ def check_train_function(x, p, grad_out, shape, kw) -> None:
                 f"Function grad {name} {shape}: {k32} > {F32_MEAN_RATIO} x {p32}")
 
 
-def phase_train_kernels(device, shapes=(FLAGSHIP, BATCH1), edges=SAVED_EDGE_SHAPES) -> dict:
+def phase_train_kernels(device, shapes=(FLAGSHIP, BATCH1, PROMPT_SHAPE),
+                        edges=SAVED_EDGE_SHAPES) -> dict:
     """Kernels 3, 4 and 7 against their plain versions, and the training
     Function against autograd of the plain block; then kernels 4 and 7 at
     `edges`, the edges of their tiling, on packed qkv with the probabilities
@@ -1583,10 +1612,10 @@ def phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sample
 
 def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
                     label: str = "", names=("kernel path", "plain path"),
-                    profiles: bool = True) -> None:
-    """The train step in ms and img/s on both paths (`names`) in turns, the
-    peak memory of a step and, with `profiles`, a profile of one step on each
-    path."""
+                    profiles: bool = True, reps: int = 5) -> None:
+    """The train step in ms and img/s on both paths (`names`) in turns (each
+    turn the mean of `reps` steps after 2), the peak memory of a step and,
+    with `profiles`, a profile of one step on each path."""
     from demo2_tpu_torch.engine.state import create_train_state
     from demo2_tpu_torch.engine.train import build_train_step
 
@@ -1600,7 +1629,7 @@ def time_train_step(device, card, cfg, model, plain_cfg, plain, cache, sampler,
 
     steppers = {names[0]: stepper(cfg, model), names[1]: stepper(plain_cfg, plain)}
 
-    def step_ms(which, reps=5):
+    def step_ms(which):
         run = steppers[which]
         for i in range(2):
             run(i)
@@ -3672,6 +3701,428 @@ def phase_gate(device, root: str) -> None:
         "[gate] quality_gate.main")
 
 
+# ---------------------------------------------------------------- phase 30
+
+
+TUNING_CASES = (  # (label, the flagship's overrides)
+    ("lora-qkv", dict(MODEL__FROZEN=True)),
+    ("lora-qv", dict(MODEL__FROZEN=True, TPU__LORA_ENABLE="qv")),
+    ("lora-conv", dict(MODEL__FROZEN=True, TPU__LORA_CONV=True)),
+    ("frozen-adapter", dict(MODEL__FROZEN=True, MODEL__ADAPTER=True, TPU__LORA_RANK=0)),
+    ("adapter", dict(MODEL__ADAPTER=True)),
+    ("prompt", dict(MODEL__PROMPT=True)),
+)
+TUNING_STEPS = 10
+ZERO_INIT = ("lora_b", "conv_lora_b", "adapter_prompts")  # drawn at random before the checks
+# Device kernels by the names the profiler gives them: the attention of
+# kernels 1 and 3 (and 5), of kernels 4 and 7 (and 6), and kernel 2's fc1
+# (its eval form).
+ATTN_FWD, ATTN_BWD, MLP_FC1 = "attention_regs_fwd_kernel", "attention_regs_bwd_kernel", \
+    "BiasQuickGeluEpilogue"
+
+
+def profiled_launches(fn, want: dict, card, label: str) -> None:
+    """One call of `fn` under torch.profiler: the device kernels whose name
+    contains each key of `want`, counted, must be launched the times it
+    says; the call's host wall and device busy time printed.  A count under
+    the one wanted (CUPTI dropped events) profiles the call again, up to
+    four times in all; a count over it fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    if REHEARSAL:
+        log(f"[rehearsal] {label}: profiler launches on the card only, {want}")
+        return
+    fn()
+    sync()
+    for attempt in range(4):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        got = {name: sum(e.count for e in rows if name in e.key) for name in want}
+        if got == want or any(got[k] > want[k] for k in want):
+            break
+        log(f"[profile] {label}: profiler launches {got}, fewer than {want} "
+            f"(attempt {attempt + 1})")
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[profile] {label}: launches {got} by the profiler; host wall {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%) ({card})")
+    require(got == want, f"{label}: profiler launches {got} != {want}")
+
+
+def randomize_zero_init(model, plain, seed=31) -> list:
+    """LoRA's B, ConvLoRA's B and the prompts drawn at random (std 0.02), the
+    same in both models: at their zero init the deltas would be zero.
+    Returns their names."""
+    g = torch.Generator().manual_seed(seed)
+    names = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ZERO_INIT:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+                names.append(name)
+    plain.load_state_dict(model.state_dict())
+    return names
+
+
+def check_tuned_eval(device, card, label, cfg, model, plain_cfg, plain) -> None:
+    """A batch-64 request through FeatureExtractor: kernel 1 once a block and
+    kernel 2 once a block, none under the adapter (wrappers and profiler),
+    the embedding against the plain path's."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    layers = num_blocks(model)
+    mlp = 0 if cfg.MODEL.ADAPTER else layers
+    images, cams = request_images(64, cfg, seed=2)
+    fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
+    reset_counts()
+    emb = fx.extract(images, cams)
+    sync()
+    require_launches(counts(), launch_dict(fused_attention_block=layers, fused_mlp_block=mlp),
+                     f"[{label}] a request of 64")
+    ref = FeatureExtractor(plain_cfg, plain, device=device, batch_size=64).extract(images, cams)
+    cos = np.sum(emb * ref, axis=1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+    log(f"[{label}] request of 64: embedding {emb.shape}, cosine to the plain path min "
+        f"{cos.min():.6f} mean {cos.mean():.6f}")
+    require(emb.shape == (64, model.embed_dim) and bool(np.isfinite(emb).all()),
+            f"[{label}] embedding {emb.shape} or not finite")
+    require(float(cos.min()) >= COSINE_MIN, f"[{label}] cosine {cos.min()} < {COSINE_MIN}")
+    profiled_launches(lambda: fx.extract(images, cams), {ATTN_FWD: layers, MLP_FC1: mlp}, card,
+                      f"[{label}] one request of 64")
+
+
+def check_tuned_grads(cfg, model, plain_cfg, plain, cache, idx, label) -> None:
+    """The step-1 gradients of the trainable parameters on both paths, from
+    the same batch and draws: their set, the whole cosine (GRAD_COS_MODEL)
+    and each block's per module (GRAD_COS_BLOCK)."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses.losses import make_loss_fn
+
+    grads = []
+    for c, m in ((cfg, model), (plain_cfg, plain)):
+        gen = torch.Generator(device=cache.images.device).manual_seed(cfg.SOLVER.SEED)
+        images, pids, camids = cache.batch(idx, gen)
+        loss, _, g = loss_and_grads(c, m, make_loss_fn(c, NUM_CLASSES), images, pids, camids, gen)
+        grads.append(g)
+        log(f"[{label}] step-1 loss, {'kernel' if c is cfg else 'plain'} path: {loss.item():.6f}")
+    gk, gp = grads
+    trainable = {k for k, p in model.named_parameters() if p.requires_grad}
+    require(set(gk) == trainable == set(gp), f"[{label}] gradients not of the trainable set")
+    whole = grads_cosine(gk, gp)
+    prefix = "backbone.base.resblocks.{}."
+    groups = sorted({(i, k[len(prefix.format(i)):].split(".")[0]) for i in range(num_blocks(model))
+                     for k in gk if k.startswith(prefix.format(i))})
+    worst = min((grads_cosine(gk, gp, prefix.format(i) + grp + (
+        "." if grp not in ("adapter_prompts",) else "")), f"{prefix.format(i)}{grp}")
+                for i, grp in groups)
+    log(f"[{label}] step-1 gradient cosine of the {len(gk)} trainable tensors, kernel vs plain "
+        f"path: whole {whole:.6f}; lowest block module {worst[0]:.6f} ({worst[1]}) of "
+        f"{sorted({g for _, g in groups})}")
+    if REHEARSAL:  # the tiny bf16 model's plain versions round unlike the card's kernels
+        log(f"[rehearsal] [{label}] gradient cosines held on the card only")
+        return
+    require(whole >= GRAD_COS_MODEL, f"[{label}] step-1 gradient cosine {whole}")
+    require(worst[0] >= GRAD_COS_BLOCK, f"[{label}] {worst[1]} gradient cosine {worst[0]}")
+
+
+def phase_tuning_case(device, card, label, overrides, cache, sampler, flag_cfg,
+                      flag_model) -> dict:
+    """Phase 30 for one configuration; returns the launches of its steps."""
+    from demo2_tpu_torch.engine.state import create_train_state
+
+    cfg, model, plain_cfg, plain = build_models(device, lambda fused: flagship_cfg(
+        fused, **overrides))
+    randomized = randomize_zero_init(model, plain)
+    layers = num_blocks(model)
+    log(f"[{label}] {overrides}: drawn at random {len(randomized)} zero-init tensors")
+    check_tuned_eval(device, card, label, cfg, model, plain_cfg, plain)
+    # MODEL.FROZEN: make_model built the frozen parameters not requiring grad
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    require(bool(frozen) == cfg.MODEL.FROZEN and all(k.startswith("backbone.base.")
+                                                     for k in frozen),
+            f"[{label}] frozen parameters {frozen[:4]}")
+    order = sampler.epoch_indices(1)
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    check_tuned_grads(cfg, model, plain_cfg, plain, cache,
+                      torch.from_numpy(order[:bs]).to(device), label)
+    model.load_state_dict(init)
+    plain.load_state_dict(init)
+    # FROZEN leaves the qkv bias without a gradient: the backward is kernel 7
+    bwd = "attention_bwd_saved" if cfg.MODEL.FROZEN else "attention_bwd_saved_db"
+    want = launch_dict(fused_attention_block_train=layers, **{bwd: layers})
+
+    def per_step(i, rose):
+        if i == 0 or not REHEARSAL:
+            require_launches(rose, want, f"[{label}] train step {i}")
+
+    reset_counts()
+    losses = train_steps(cfg, model, cache, order, TUNING_STEPS, per_step)
+    launches = counts()
+    plain_losses = train_steps(plain_cfg, plain, cache, order, TUNING_STEPS)
+    rel = [abs(k - p) / abs(p) for k, p in zip(losses, plain_losses)]
+    log(f"[{label}] {TUNING_STEPS} steps, kernel path losses {' '.join(f'{x:.4f}' for x in losses)}"
+        f"; plain path {' '.join(f'{x:.4f}' for x in plain_losses)}; largest relative "
+        f"difference {max(rel):.4%}; launches {launches}")
+    require(all(math.isfinite(x) for x in losses), f"[{label}] a non-finite loss")
+    require(max(rel) <= LOSS_REL, f"[{label}] kernel vs plain loss differ by {max(rel):.4%}")
+    after = model.state_dict()
+    moved = [k for k in frozen if not torch.equal(after[k], init[k])]
+    stale = [k for k, p in model.named_parameters()
+             if p.requires_grad and torch.equal(after[k], init[k])]
+    log(f"[{label}] after the steps: {len(frozen)} frozen tensors bit for bit unchanged: "
+        f"{not moved}; {len(init) - len(frozen)} others, trainable moved: {not stale}")
+    require(not moved, f"[{label}] frozen parameters changed: {moved[:4]}")
+    require(not stale, f"[{label}] trainable parameters the steps did not change: {stale[:4]}")
+    if device.type == "cuda":
+        from demo2_tpu_torch.engine.train import build_train_step
+
+        step = build_train_step(cfg, model, create_train_state(cfg, model, len(order) // bs),
+                                cache)
+        idx = torch.from_numpy(order[:bs]).to(device)
+        profiled_launches(lambda: step(idx), {ATTN_FWD: layers, ATTN_BWD: layers}, card,
+                          f"[{label}] one train step of {bs}")
+        time_train_step(device, card, cfg, model, flag_cfg, flag_model, cache, sampler,
+                        label=f"{label}: ", names=(label, "flagship"), profiles=False, reps=3)
+    return launches
+
+
+def time_prompt_kernels(device, card) -> None:
+    """Kernels 1, 3, 4 and 7 timed at the prompts' S = 141 beside their
+    bounds and plain versions (printed)."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+
+    shape = PROMPT_SHAPE
+    x, attn, _ = block_inputs(shape, device, seed=1)
+    xt, p, grad_out = train_kernel_inputs(shape, device, seed=5)
+    w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
+    kw = dict(num_heads=HEADS, scale=(shape[-1] // HEADS) ** -0.5)
+    _, qkv, _, probs = fb.fused_attention_block_train(xt, **w, **kw)
+    saved = [qkv, probs, grad_out]
+    time_kernels({
+        "fused_attention_block": timed(
+            lambda: fb.fused_attention_block(x, **attn, **kw),
+            lambda: fb.attention_block_plain(x, **attn, **kw),
+            block_flops("fused_attention_block", shape), shape, [x, *attn.values()]),
+        "fused_attention_block_train": timed(
+            lambda: fb.fused_attention_block_train(xt, **w, **kw),
+            lambda: fb.attention_block_train_plain(xt, **w, **kw),
+            train_kernel_flops("fused_attention_block_train", shape), shape, [xt, *w.values()]),
+        "attention_bwd_saved_db": timed(
+            lambda: pa.attention_bwd_saved_db(qkv, probs, grad_out, **kw),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw),
+            train_kernel_flops("attention_bwd_saved_db", shape), shape, saved),
+        "attention_bwd_saved": timed(
+            lambda: pa.attention_bwd_saved(qkv, probs, grad_out, **kw),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw),
+            train_kernel_flops("attention_bwd_saved", shape), shape, saved),
+    }, card)
+
+
+def phase_tuning(device, card, cache, sampler, flag_cfg, flag_model,
+                 cases=TUNING_CASES) -> dict:
+    """Phase 30: the six tuning configurations, then (on the card) kernels 1,
+    3, 4 and 7 timed at S = 141.  Returns each configuration's step launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    for label, overrides in cases:
+        launches[label] = phase_tuning_case(device, card, label, overrides, cache, sampler,
+                                            flag_cfg, flag_model)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        time_prompt_kernels(device, card)
+    log(f"[tuning] phase 30 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 31
+
+
+def _reference_values(shape, name, g) -> torch.Tensor:
+    if name.endswith("running_var"):
+        return torch.rand(shape, generator=g) + 0.5
+    if len(shape) >= 2:
+        return torch.randn(shape, generator=g) / math.sqrt(max(1, math.prod(shape[1:])))
+    if name.endswith("weight"):  # a norm's scale
+        return 1.0 + 0.1 * torch.randn(shape, generator=g)
+    return 0.1 * torch.randn(shape, generator=g)
+
+
+SETS = ("r", "n", "t", "rn", "rt", "nt", "rnt")  # HDM's modality sets, in the reference's order
+SDTPS_ATTN = {(0, 0): "rgb_self_attn", (0, 1): "rgb_cross_nir", (0, 2): "rgb_cross_tir",
+              (1, 0): "nir_cross_rgb", (1, 1): "nir_self_attn", (1, 2): "nir_cross_tir",
+              (2, 0): "tir_cross_rgb", (2, 1): "tir_cross_nir", (2, 2): "tir_self_attn"}
+
+
+def reference_state_dict(model, seed: int = 0) -> dict:
+    """Random tensors under the key names and shapes of the reference's
+    torch.save(model.state_dict()) of `model`, a DeMo or DeMoParallel of
+    the port (on an ImageNet ViT: a CLIP one's tower keeps the port's names,
+    which the converters do not read): the keys utils/ref_convert.py reads (a
+    reference BatchNorm's bias too, and the global-local reduce stacks the
+    reference always builds).  Imports no JAX: tests/test_torch_ref_convert.py
+    proves each such dict right with JAX's convert_demo and graft."""
+    sd = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    c = model.feat_dim
+    shapes = {}
+    for k, shape in sd.items():
+        if k == "backbone.cv_embed":  # the CLIP branch's SIE rows, (cameras, 1, 768) there
+            shapes["BACKBONE.cv_embed"] = (shape[0], 1, shape[1])
+        elif k.startswith("backbone.base."):
+            shapes["BACKBONE.base." + k[len("backbone.base."):].replace(
+                "patch_embed_proj", "patch_embed.proj")] = shape
+        elif k.startswith("head_"):
+            head, _, rest = k[len("head_"):].partition(".")
+            sfx = "" if head == "ori" else "_" + head
+            if rest == "classifier.weight":
+                shapes[f"classifier{sfx}.weight"] = shape
+            else:
+                field = rest.rsplit(".", 1)[1]
+                shapes[f"bottleneck{sfx}.{field}"] = shape
+                if field == "weight":
+                    shapes[f"bottleneck{sfx}.bias"] = shape
+        elif k.startswith("sdtps.modal_weight_mlp."):
+            i, sub, field = k.split(".")[2:]
+            layer = {"fc0": 0, "ln": 1, "fc1": 4, "fc2": 6}[sub]
+            nm = ("rgb", "nir", "tir")[int(i)]
+            shapes[f"sdtps.{nm}_sparse.modal_weight_mlp.{layer}.{field}"] = shape
+        elif k.startswith("dgaf."):
+            rest = k[len("dgaf."):]
+            for port, ref in (("pool.attn_pool.", "attn_pool."), ("pool.attn_norm.", "attn_norm."),
+                              ("core.entropy_proj.", "entropy_proj."),
+                              ("core.gate_fc0.", "gate_net.0."), ("core.gate_ln.", "gate_net.1."),
+                              ("core.gate_fc1.", "gate_net.3."),
+                              ("modal_enhance.fc.", "modal_enhance.0."),
+                              ("modal_enhance.ln.", "modal_enhance.1.")):
+                if rest.startswith(port):
+                    shapes["dgaf." + ref + rest[len(port):]] = shape
+            if rest == "core.alpha":
+                shapes["dgaf._alpha"] = ()
+            if rest == "pool.queries":
+                names = (("rgb_query", "nir_query", "tir_query") if shape[0] == 3
+                         else tuple(f"queries.{i}" for i in range(shape[0])))
+                shapes.update({f"dgaf.{nm}": (1, 1, c) for nm in names})
+    if "sdtps.q_proj_kernel" in sd:
+        cols = sd["sdtps.q_proj_kernel"][1]
+        names = (SDTPS_ATTN.values() if cols == 3
+                 else ("rgb_shared_attn", "nir_shared_attn", "tir_shared_attn"))
+        for nm in names:
+            for proj in ("q_proj", "k_proj"):
+                shapes[f"sdtps.{nm}.{proj}.weight"], shapes[f"sdtps.{nm}.{proj}.bias"] = (c, c), (c,)
+    for nm in ("rgb", "nir", "tir"):  # built whether or not GLOBAL_LOCAL uses them
+        shapes.update({f"{nm}_reduce.0.weight": (2 * c,), f"{nm}_reduce.0.bias": (2 * c,),
+                       f"{nm}_reduce.1.weight": (c, 2 * c), f"{nm}_reduce.1.bias": (c,)})
+    if "general_fusion.hdm.set_tokens" in sd:
+        for nm in SETS:
+            gf = f"generalFusion.{nm}"
+            shapes.update({f"{gf}_token": (1, 1, c), f"{gf}.in_proj_weight": (3 * c, c),
+                           f"{gf}.in_proj_bias": (3 * c,), f"{gf}.out_proj.weight": (c, c),
+                           f"{gf}.out_proj.bias": (c,)})
+    if "general_fusion.moe.expert_kernel" in sd:
+        head, sets, d, _ = sd["general_fusion.moe.expert_kernel"]
+        gate = "generalFusion.moe.gating_network.gate."
+        shapes.update({gate + "linear_re.0.weight": sd["general_fusion.moe.linear_re_fc.weight"],
+                       gate + "linear_re.0.bias": (c,), gate + "q_.weight": (c, c),
+                       gate + "k_.weight": (c, c)})
+        for field in ("weight", "bias", "running_mean", "running_var"):
+            shapes[gate + f"linear_re.2.{field}"] = (c,)
+        for h in range(head):
+            for s_ in range(sets):
+                mlp = f"generalFusion.moe.experts.{h}.expertHead.{s_}.mlp."
+                shapes.update({mlp + "0.weight": (d, d), mlp + "0.bias": (d,)})
+                for field in ("weight", "bias", "running_mean", "running_var"):
+                    shapes[mlp + f"2.{field}"] = (d,)
+    g = torch.Generator().manual_seed(seed)
+    return {k: _reference_values(shape, k, g) for k, shape in sorted(shapes.items())}
+
+
+def migration_opts(root: str, out: str) -> list:
+    """Phase 27's command line (the flagship's keys, the JPEG tree, the
+    device cache) on vit_base_patch16_224 at its full width, one epoch."""
+    return data_opts(root, out, "device") + [
+        "MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224", "TPU.BACKBONE_WIDTH", "-1",
+        "TPU.BACKBONE_HEADS", "-1", "SOLVER.MAX_EPOCHS", "1"]
+
+
+def phase_migration(device, card, root: str) -> dict:
+    """Phase 31 (on phase 27's tree in `root`): a reference-layout DeMo on
+    the ImageNet ViT, evaluated by tools/test.main, its embedding against
+    the plain path, then tools/train.main --init_pth for one epoch.  Returns
+    the launches of the training run."""
+    import os
+
+    from demo2_tpu_torch.data.loader import make_dataloader
+    from demo2_tpu_torch.models import make_model
+    from demo2_tpu_torch.serving import FeatureExtractor
+    from demo2_tpu_torch.tools import test as test_cli, train as train_cli
+    from demo2_tpu_torch.utils.ref_convert import load_reference_checkpoint
+
+    t0 = time.perf_counter()
+    cli_device = None if device.type == "cuda" else device
+    opts = migration_opts(root, os.path.join(root, "migrate"))
+    cfg = train_cli.load_config("", opts).freeze()
+    _, sampler, val_pipe, _, num_classes, cam_num, view_num = make_dataloader(cfg)
+    gen = lambda: torch.Generator().manual_seed(7)
+    model = make_model(cfg, num_classes, cam_num, view_num, device=device, generator=gen())
+    layers = num_blocks(model)
+    ref = reference_state_dict(model, seed=3)
+    pth = os.path.join(root, "reference_demo.pth")
+    torch.save(ref, pth)
+    log(f"[migrate] reference-layout DeMo (SDTPS + DGAF v3) on vit_base_patch16_224: "
+        f"{len(ref)} tensors, {sum(v.numel() for v in ref.values()) / 1e6:.1f}M values, "
+        f"{os.path.getsize(pth) / 2**20:.0f} MiB written with torch.save")
+
+    reset_counts()
+    cmc, m_ap = test_cli.main(opts + ["TEST.WEIGHT", pth], device=cli_device)
+    sync()
+    evals = math.ceil(len(val_pipe.samples) / cfg.TEST.IMS_PER_BATCH)
+    log(f"[migrate] tools/test.main with TEST.WEIGHT {os.path.basename(pth)}: mAP {m_ap:.4f}, "
+        f"Rank-1 {cmc[0]:.4f}; launches {counts()}")
+    require_launches(counts(), launch_dict(packed_attention_fwd=layers * evals),
+                     "[migrate] tools/test.main")
+    require(0.0 <= m_ap <= 1.0, f"mAP {m_ap}")
+
+    plain_cfg = train_cli.load_config("", opts + ["TPU.USE_FLASH_ATTENTION", "False"]).freeze()
+    plain = make_model(plain_cfg, num_classes, cam_num, view_num, device=device, generator=gen())
+    for c, m in ((cfg, model), (plain_cfg, plain)):
+        load_reference_checkpoint(m, pth, c)
+    sd = model.state_dict()
+    for key, ref_key in (("backbone.base.blocks.0.attn.qkv.weight",
+                          "BACKBONE.base.blocks.0.attn.qkv.weight"),
+                         ("head_dgaf.classifier.weight", "classifier_dgaf.weight")):
+        require(torch.equal(sd[key].cpu(), ref[ref_key]), f"{key} is not the checkpoint's")
+    images, cams = request_images(64, cfg, seed=6)
+    emb = FeatureExtractor(cfg, model, device=device, batch_size=64).extract(images, cams)
+    want = FeatureExtractor(plain_cfg, plain, device=device, batch_size=64).extract(images, cams)
+    cos = np.sum(emb * want, axis=1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(want, axis=1))
+    log(f"[migrate] load_reference_checkpoint, a request of 64: cosine to the plain path min "
+        f"{cos.min():.6f} mean {cos.mean():.6f}")
+    require(bool(np.isfinite(emb).all()) and float(cos.min()) >= COSINE_MIN,
+            f"[migrate] cosine {cos.min()} < {COSINE_MIN}")
+    del model, plain
+
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    steps = len(sampler) // bs
+    reset_counts()
+    state, best = train_cli.main(["--exp_name", "migrate", "--init_pth", pth] + opts,
+                                 device=cli_device)
+    sync()
+    launches = counts()
+    losses = [e["loss"] for e in state.history]
+    log(f"[migrate] tools/train.main --init_pth: {steps} steps of {bs}, losses {losses}, mAP "
+        f"{best['mAP']:.4f}; launches {launches}; phase 31 in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    require_launches(launches, launch_dict(packed_attention_fwd=layers * (steps + evals),
+                                           packed_attention_bwd=layers * steps),
+                     "[migrate] tools/train.main --init_pth")
+    require(len(losses) == 1 and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    return launches
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -3746,6 +4197,11 @@ def main() -> None:
         phase_gate(device, root)
     log(f"[knobs] phase 29 in {time.perf_counter() - t29:.1f} s (budget "
         f"{KNOB_PHASE_BUDGET_S:.0f} s)")
+    # The CLIP tower's tuning paths (phase 30): LoRA, ConvLoRA, the adapter
+    # (kernel 2 off), the prompts (kernels 1, 3, 4 at S = 141), FROZEN's
+    # backward through kernel 7.
+    tuned = phase_tuning(device, card, cache, sampler, cfg, model)
+    log(f"[tuning] launches of the 10 steps by configuration: {tuned}")
 
     # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
     # at full width, timed beside the flagship; the other DeMo branches of
@@ -3817,6 +4273,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         phase_data(device, root)
         phase_data_timing(device, card, root)
+        log(f"[migrate] launches of the --init_pth run: {phase_migration(device, card, root)}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

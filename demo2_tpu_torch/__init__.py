@@ -16,7 +16,11 @@ path from disk (the dataset parsers, the PIL transforms, a native JPEG loader
 built from native/ at first use, host batches or the decoded device
 cache) and the CLIs (`python -m demo2_tpu_torch.tools.train` / `.test`,
 with the metrics log and MODEL.PRETRAIN_PATH_T) drive them; the quality gate
-(`python -m demo2_tpu_torch.tools.quality_gate`) checks what training learns.  The Pallas
+(`python -m demo2_tpu_torch.tools.quality_gate`) checks what training learns.  The CLIP
+tower trains in its tuning paths too (MODEL.FROZEN with LoRA, MODEL.ADAPTER,
+MODEL.PROMPT), a reference-trained checkpoint loads through
+utils/ref_convert.py (tools/train.py --init_pth, a .pth TEST.WEIGHT), and
+models/clip_text.py is the CLIP text tower with its BPE tokenizer.  The Pallas
 kernels of those paths (the ViT's fused attention and MLP sub-blocks, the
 training forward with its residuals, the attention backwards, the packed and
 head-major attention, the LayerNorm backward, the re-ranking min-sum) are

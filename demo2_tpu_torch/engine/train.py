@@ -38,10 +38,11 @@ def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
     """The training forward (BatchNorm statistics updated), the weighted
     branch losses plus the auxiliary losses (the one named 'lif' at
     MODEL.LIF_LOSS_WEIGHT, any other at 1) and their gradients: (loss, acc,
-    {name: f32 grad}).  With `centers` (the train state's, center loss on)
-    the loss also has SOLVER.CENTER_LOSS_WEIGHT times the center loss of the
-    first branch's feature over its first min(2048, width) columns, and the
-    dict the centers' gradient under CENTERS."""
+    {name: f32 grad}) over the parameters that require grad (MODEL.FROZEN's
+    do not).  With `centers` (the train state's, center loss on) the loss
+    also has SOLVER.CENTER_LOSS_WEIGHT times the center loss of the first
+    branch's feature over its first min(2048, width) columns, and the dict
+    the centers' gradient under CENTERS."""
     out = model(images.to(model.dtype), camids, viewids, None, train=True,
                 generator=generator)
     branches = out["branches"]
@@ -50,7 +51,8 @@ def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
     for name, value in out["aux_loss"].items():
         total = total + (cfg.MODEL.LIF_LOSS_WEIGHT if name == "lif" else 1.0) * value
     first_logits, first_feat = next(iter(branches.values()))
-    names, params = zip(*model.named_parameters())
+    # the trainable parameters: make_model builds MODEL.FROZEN's not requiring grad
+    names, params = zip(*((k, p) for k, p in model.named_parameters() if p.requires_grad))
     if centers is not None:
         centers = centers.detach().requires_grad_()
         cdim = min(centers.shape[-1], first_feat.shape[-1])

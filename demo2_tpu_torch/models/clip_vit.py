@@ -19,6 +19,17 @@ sub-block's kernels); not ln_pre / ln_post.  With `remat`
 torch.utils.checkpoint: its activations are not kept, and the backward runs
 its forward again (the fused attention's kernel twice a step); eval never
 recomputes.
+
+The MambaPro tuning paths, as in the JAX package: LoRA on each block's
+in-projection (`lora_rank`, `lora_enable`: ops/attention.py), its delta
+merged into wqkv before the fused attention as before the plain MHA, and
+ConvLoRA on the patch embed (`lora_conv`); the FFN adapter beside the unfused
+MLP (`use_adapter`: x + mlp(ln_2(x)) + adapter_ffn(x)), which keeps the
+fused MLP off at eval too; and the modality prompts (`use_prompt`): each
+block appends 3k tokens to every modality segment of the stacked batch, its
+own prompt at its modality's slot and the other two modalities' transferred
+prompts at theirs, runs, strips them and hands their mean to the next block
+as `last_prompt` (S = 129 + 12 in the block kernels at the flagship's size).
 """
 
 from __future__ import annotations
@@ -32,10 +43,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import quick_gelu
-from ..ops.attention import MultiHeadAttention
+from ..ops.attention import MultiHeadAttention, conv_lora_delta
 from ..ops.fused_block import fused_attention, fused_mlp, needs_grad
-from ..ops.linear import (Linear, cached_cast, make_param, normal_init,
-                          truncated_normal_init, zeros_init)
+from ..ops.linear import (Linear, cached_cast, cached_merge, make_param, normal_init,
+                          truncated_normal_init, uniform_init, zeros_init)
 from ..ops.norm import LayerNorm
 
 
@@ -60,10 +71,13 @@ class PatchConv(nn.Module):
         self.bias = (make_param((width,), zeros_init, generator=generator, device=device)
                      if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`weight` replaces the stored one (cast to the compute dtype): the
+        CLIP tower's ConvLoRA merge."""
         dt = self.dtype
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), cached_cast(self, "weight", dt),
-                     cached_cast(self, "bias", dt), stride=self.stride)
+        weight = cached_cast(self, "weight", dt) if weight is None else weight
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight, cached_cast(self, "bias", dt),
+                     stride=self.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -78,44 +92,105 @@ class CLIPMlp(nn.Module):
         return self.c_proj(quick_gelu(self.c_fc(x)))
 
 
+class FFNAdapter(nn.Module):
+    """clip_vit.py::FFNAdapter: up(QuickGELU(down(x))), width -> width / 2 -> width."""
+
+    def __init__(self, width: int, *, dtype: torch.dtype, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.down = Linear(width, width // 2, dtype=dtype, device=device, generator=generator)
+        self.up = Linear(width // 2, width, dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up(quick_gelu(self.down(x)))
+
+
+PROMPT_K = 4  # prompt tokens per modality slot (clip_vit.py::ResidualAttentionBlock.prompt_k)
+MODALITY_ADAPTERS = ("adapter_r", "adapter_n", "adapter_t")
+
+
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x))."""
+    """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x)) (+ adapter_ffn(x)
+    with `use_adapter`).  With `use_prompt` the forward takes and returns
+    the prompt carried between blocks; the first block has no transfer
+    adapter, as JAX's creates it only where a prompt comes in."""
 
     def __init__(self, width: int, heads: int, *, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
-                 pallas_ln_bwd: bool = False, fused_mlp_train: bool = False):
+                 pallas_ln_bwd: bool = False, fused_mlp_train: bool = False,
+                 lora_rank: int = 0, lora_enable=(True, True, True), use_adapter: bool = False,
+                 use_prompt: bool = False, first: bool = True):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
         self.fused = fused
         self.fused_mlp_train = fused_mlp_train
+        self.use_adapter = use_adapter
+        self.use_prompt = use_prompt
+        kw = dict(dtype=dtype, device=device, generator=generator)
         # Fused, ln_1's parameters go to the attention kernels, never through
         # this module's forward.
         self.ln_1 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd and not fused)
-        self.attn = MultiHeadAttention(width, heads, dtype=dtype, device=device,
-                                       generator=generator)
+        self.attn = MultiHeadAttention(width, heads, lora_rank=lora_rank,
+                                       lora_enable=lora_enable, **kw)
         self.ln_2 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd)
-        self.mlp = CLIPMlp(width, dtype=dtype, device=device, generator=generator)
+        self.mlp = CLIPMlp(width, **kw)
+        if use_adapter:
+            self.adapter_ffn = FFNAdapter(width, **kw)
+        if use_prompt:
+            self.adapter_prompts = make_param((3, PROMPT_K, width), zeros_init,
+                                              generator=generator, device=device)
+            for name in MODALITY_ADAPTERS:
+                setattr(self, name, FFNAdapter(width, **kw))
+            if not first:
+                self.adapter_transfer = FFNAdapter(width, **kw)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def _append_prompts(self, x: torch.Tensor, last_prompt: Optional[torch.Tensor]):
+        """x (3B, S, C), modality-major, -> (3B, S + 3k, C): segment m gets
+        [slot 0, slot 1, slot 2], its own prompt at slot m, the other slots
+        the transferred prompt_i + adapter_i(prompt_i) (clip_vit.py:206-233)."""
+        k = PROMPT_K
+        b3, _, c = x.shape
+        b = b3 // 3
+        prompts = cached_cast(self, "adapter_prompts", self.dtype)
+        transferred = torch.stack([prompts[i] + getattr(self, name)(prompts[i])
+                                   for i, name in enumerate(MODALITY_ADAPTERS)])
+        if last_prompt is None:
+            own = prompts[:, None].expand(3, b, k, c)
+        else:
+            lp = last_prompt.reshape(3, b, k, c)
+            own = lp + self.adapter_transfer(lp) + prompts[:, None]
+        tr = transferred[:, None].expand(3, b, k, c)
+        segments = [torch.cat([own[m] if i == m else tr[i] for i in range(3)], dim=1)
+                    for m in range(3)]
+        return torch.cat([x, torch.cat(segments).to(x.dtype)], dim=1)
+
+    def _attention(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fused:
-            x = x + self.attn(self.ln_1(x))
-            return x + self.mlp(self.ln_2(x))
+            return x + self.attn(self.ln_1(x))
         dt = self.dtype
-        attn, mlp = self.attn, self.mlp
-        params = (self.ln_1.weight, self.ln_1.bias, attn.in_proj_weight, attn.in_proj_bias,
-                  attn.out_proj.weight, attn.out_proj.bias)
+        attn = self.attn
+        params = (self.ln_1.weight, self.ln_1.bias, attn.qkv_weight(torch.float32),
+                  attn.in_proj_bias, attn.out_proj.weight, attn.out_proj.bias)
         if not needs_grad(x, *params):  # eval: the weights' cached casts
-            params = (params[0], params[1], cached_cast(attn, "in_proj_weight", dt), params[3],
+            params = (params[0], params[1], attn.qkv_weight(dt), params[3],
                       cached_cast(attn.out_proj, "weight", dt), params[5])
-        x = fused_attention(x, *params, num_heads=self.heads,
-                            scale=(x.shape[-1] // self.heads) ** -0.5)
-        # The MLP is fused where JAX fuses it (clip_vit.py:250): outside
-        # training, and in training with TPU.FUSED_MLP_TRAIN.  JAX's fused MLP
-        # is differentiable wherever it runs, so an input gradient taken
-        # outside training (a saliency map) goes through FusedMlpBlockFn.
-        if train and not self.fused_mlp_train:
-            return x + self.mlp(self.ln_2(x))
+        return fused_attention(x, *params, num_heads=self.heads,
+                               scale=(x.shape[-1] // self.heads) ** -0.5)
+
+    def _mlp(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        # The MLP is fused where JAX fuses it (clip_vit.py:250, :265): outside
+        # training, and in training with TPU.FUSED_MLP_TRAIN, never beside the
+        # adapter.  JAX's fused MLP is differentiable wherever it runs, so an
+        # input gradient taken outside training (a saliency map) goes through
+        # FusedMlpBlockFn.
+        if not self.fused or (train and not self.fused_mlp_train) or self.use_adapter:
+            y = self.mlp(self.ln_2(x))
+            if self.use_adapter:
+                y = y + self.adapter_ffn(x)
+            return x + y
+        dt = self.dtype
+        mlp = self.mlp
         params = (self.ln_2.weight, self.ln_2.bias, mlp.c_fc.weight, mlp.c_fc.bias,
                   mlp.c_proj.weight, mlp.c_proj.bias)
         if not needs_grad(x, *params):  # eval: the weights' cached casts
@@ -123,52 +198,86 @@ class ResidualAttentionBlock(nn.Module):
                       cached_cast(mlp.c_proj, "weight", dt), params[5])
         return fused_mlp(x, *params)
 
+    def forward(self, x: torch.Tensor, last_prompt: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """x (3B, S, C) -> x, or with `use_prompt` (x, the (3B, k, C) mean of
+        the three prompt slots' outputs) (clip_vit.py:275-280)."""
+        if self.use_prompt:
+            x = self._append_prompts(x, last_prompt)
+        x = self._mlp(self._attention(x), train)
+        if not self.use_prompt:
+            return x
+        k = PROMPT_K
+        tail = x[:, -3 * k:]
+        return x[:, :-3 * k], (tail[:, :k] + tail[:, k:2 * k] + tail[:, 2 * k:]) / 3.0
+
 
 class CLIPVisionTransformer(nn.Module):
     def __init__(self, h_resolution: int, w_resolution: int, *, stride_size: int,
                  width: int, layers: int, heads: int, dtype: torch.dtype, fused: bool,
                  device: torch.device, generator: torch.Generator,
                  patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False,
-                 fused_mlp_train: bool = False, remat: bool = False):
+                 fused_mlp_train: bool = False, remat: bool = False, lora_rank: int = 0,
+                 lora_enable=(True, True, True), lora_conv: bool = False,
+                 use_adapter: bool = False, use_prompt: bool = False):
         super().__init__()
         self.width = width
         self.dtype = dtype
         self.remat = remat
+        self.use_prompt = use_prompt
+        self.patch_size = patch_size
         scale = width ** -0.5
-        self.conv1 = PatchConv(width, patch_size, stride_size, dtype=dtype, device=device,
-                               generator=generator)
-        self.class_embedding = make_param((width,), normal_init(scale), generator=generator,
-                                          device=device)
+        kw = dict(generator=generator, device=device)
+        self.conv1 = PatchConv(width, patch_size, stride_size, dtype=dtype, **kw)
+        self.lora_conv = bool(lora_conv and lora_rank > 0)
+        if self.lora_conv:
+            # ConvLoRA (clip_vit.py:325-348), the reference's layout: A
+            # (r*k, 3*k) flax he_uniform (fan_in r*k), B (width*k, r*k) zeros.
+            ks, r = patch_size, lora_rank
+            self.conv_lora_a = make_param((r * ks, 3 * ks), uniform_init(math.sqrt(6.0 / (r * ks))),
+                                          **kw)
+            self.conv_lora_b = make_param((width * ks, r * ks), zeros_init, **kw)
+        self.class_embedding = make_param((width,), normal_init(scale), **kw)
         self.positional_embedding = make_param(
-            (h_resolution * w_resolution + 1, width), normal_init(scale),
-            generator=generator, device=device,
-        )
+            (h_resolution * w_resolution + 1, width), normal_init(scale), **kw)
         self.ln_pre = LayerNorm(width, device=device)
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype=dtype, fused=fused, device=device,
                                    generator=generator, pallas_ln_bwd=pallas_ln_bwd,
-                                   fused_mlp_train=fused_mlp_train)
-            for _ in range(layers)
+                                   fused_mlp_train=fused_mlp_train, lora_rank=lora_rank,
+                                   lora_enable=lora_enable, use_adapter=use_adapter,
+                                   use_prompt=use_prompt, first=i == 0)
+            for i in range(layers)
         )
         self.ln_post = LayerNorm(width, device=device)
-        self.proj = make_param((width, output_dim), normal_init(scale), generator=generator,
-                               device=device)
+        self.proj = make_param((width, output_dim), normal_init(scale), **kw)
+
+    def patch_weight(self) -> Optional[torch.Tensor]:
+        """The patch conv's weight with ConvLoRA's delta merged in, or None
+        without ConvLoRA (the conv's own cached cast)."""
+        if not self.lora_conv:
+            return None
+        w, a, b = self.conv1.weight, self.conv_lora_a, self.conv_lora_b
+        return cached_merge(self, "conv1", (w, a, b), self.dtype, lambda: w + conv_lora_delta(
+            a, b, self.width, 3, self.patch_size))
 
     def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
         """x (B, H, W, 3) images, cv_emb (B, width) or None -> (B, N+1, output_dim)."""
         dt = self.dtype
         b = x.shape[0]
-        x = self.conv1(x)
+        x = self.conv1(x, self.patch_weight())
         cls = cached_cast(self, "class_embedding", dt).expand(b, 1, self.width)
         if cv_emb is not None:
             cls = cls + cv_emb.to(dt)[:, None, :]
         x = torch.cat([cls, x], dim=1) + cached_cast(self, "positional_embedding", dt)[None]
         x = self.ln_pre(x)
+        last_prompt = None
         for blk in self.resblocks:
             if train and self.remat:
-                x = checkpoint(blk, x, train, use_reentrant=False)
+                out = checkpoint(blk, x, last_prompt, train, use_reentrant=False)
             else:
-                x = blk(x, train)
+                out = blk(x, last_prompt, train)
+            x, last_prompt = out if self.use_prompt else (out, None)
         x = self.ln_post(x)
         return x @ cached_cast(self, "proj", dt)

@@ -26,7 +26,8 @@ builds SDTPSComplete in SDTPS's place.
 The output contract is the JAX package's: {"branches": {name: (logits,
 feat)} in the JAX package's order, "embedding": f32, "aux_loss": {}}.  Every
 configuration outside the ported slices raises NotImplementedError naming
-its ROADMAP item.
+its ROADMAP item.  Under MODEL.FROZEN the build sets requires_grad False on
+the frozen parameters (is_frozen); the optimizer takes the others.
 """
 
 from __future__ import annotations
@@ -70,16 +71,20 @@ def token_selector(cfg: Config) -> Optional[str]:
 
 def check_slice(cfg: Config) -> None:
     """Raise for every configuration the port does not cover yet."""
-    m = cfg.MODEL
-    for flag, item in (
-        ("FROZEN", "the rest of the modules (LoRA / FROZEN)"),
-        ("ADAPTER", "the rest of the modules (ADAPTER)"),
-        ("PROMPT", "the rest of the modules (PROMPT)"),
-    ):
-        if getattr(m, flag):
-            raise not_ported(f"MODEL.{flag}", item)
     if cfg.TPU.INT8_MLP != "off":
-        raise not_ported(f"TPU.INT8_MLP={cfg.TPU.INT8_MLP!r}", "the rest of the modules")
+        raise not_ported(f"TPU.INT8_MLP={cfg.TPU.INT8_MLP!r}", "`TPU.INT8_MLP`")
+
+
+def is_frozen(name: str) -> bool:
+    """MODEL.FROZEN's rule for a parameter name (reference LoRA.py
+    mark_only_lora_as_trainable, JAX solver/optim.py:350-353): under
+    backbone.base, and no name part containing "lora" or "adapter".  So the
+    SIE embedding (backbone.cv_embed), the heads and fusion modules, every
+    lora_* / conv_lora_* / adapter_* tensor and the prompts train; on the
+    ImageNet ViT the whole base is frozen."""
+    parts = name.split(".")
+    return parts[:2] == ["backbone", "base"] and not any(
+        "lora" in p or "adapter" in p for p in parts)
 
 
 def train_slice_error(cfg: Config):
@@ -151,6 +156,12 @@ class _Assembly(nn.Module):
             pallas_ln_bwd=cfg.TPU.PALLAS_LN_BWD,
             fused_mlp_train=cfg.TPU.FUSED_MLP_TRAIN,
             remat=cfg.TPU.REMAT_BACKBONE,
+            # the LoRA rank applies under FROZEN only (demo.py:98-100)
+            lora_rank=cfg.TPU.LORA_RANK if m.FROZEN else 0,
+            lora_enable=tuple(c in cfg.TPU.LORA_ENABLE for c in "qkv"),
+            lora_conv=cfg.TPU.LORA_CONV,
+            use_adapter=m.ADAPTER,
+            use_prompt=m.PROMPT,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
             width_override=cfg.TPU.BACKBONE_WIDTH,
             heads_override=cfg.TPU.BACKBONE_HEADS,
@@ -165,6 +176,10 @@ class _Assembly(nn.Module):
                 f"TRANSFORMER_TYPE {m.TRANSFORMER_TYPE!r}: the backbone gives "
                 f"{self.backbone.feat_dim}-wide tokens, DeMo's modules take feat_dim_for's "
                 f"{self.feat_dim}")
+        if m.FROZEN:  # as the reference marks them at build time
+            for name, p in self.named_parameters():
+                if is_frozen(name):
+                    p.requires_grad_(False)
         self.branch_heads: Dict[str, str] = {}
 
     def _add_heads(self, width_of, *, device: torch.device,

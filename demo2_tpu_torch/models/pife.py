@@ -6,7 +6,10 @@ the camera (and view) ids are tiled over the modalities.  The CLIP branch
 adds its SIE camera embedding to the CLS token; the ImageNet ViT adds its
 own to all tokens.  A (3,) or (B, 3) modality mask multiplies the images
 inside the same forward, so every missing-modality setting shares the graph.
-Returns patch tokens (3, B, N, C) and CLS features (3, B, C).
+Returns patch tokens (3, B, N, C) and CLS features (3, B, C).  The CLIP
+tower's tuning paths (LoRA, ConvLoRA, the FFN adapter, the modality prompts)
+reach the CLIP branch only, as in the JAX package; MODEL.PROMPT on another
+backbone raises as JAX's does.
 """
 
 from __future__ import annotations
@@ -68,9 +71,13 @@ class PIFE(nn.Module):
                  device: torch.device, generator: torch.Generator, view_num: int = 0,
                  sie_view: bool = False, drop_path: float = 0.1, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, pallas_ln_bwd: bool = False,
-                 fused_mlp_train: bool = False, remat: bool = False):
+                 fused_mlp_train: bool = False, remat: bool = False, lora_rank: int = 0,
+                 lora_enable=(True, True, True), lora_conv: bool = False,
+                 use_adapter: bool = False, use_prompt: bool = False):
         super().__init__()
         tt = transformer_type
+        if use_prompt and "ViT-B-16" not in tt:
+            raise NotImplementedError("MODEL.PROMPT is only defined for the CLIP backbone")
         self.transformer_type = tt
         self.width_override = width_override
         self.sie_coe = sie_coe
@@ -90,6 +97,8 @@ class PIFE(nn.Module):
                 heads=heads, dtype=dtype, fused=fused, device=device, generator=generator,
                 # the CLIP branch only, as in the JAX package
                 pallas_ln_bwd=pallas_ln_bwd, fused_mlp_train=fused_mlp_train, remat=remat,
+                lora_rank=lora_rank, lora_enable=lora_enable, lora_conv=lora_conv,
+                use_adapter=use_adapter, use_prompt=use_prompt,
             )
             return
         embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale = imagenet_vit_config(tt)

@@ -81,16 +81,28 @@ def cached_cast(module: nn.Module, name: str, dtype: torch.dtype) -> Optional[to
     t = getattr(module, name)
     if t is None or (t.dtype == dtype and t.is_contiguous()):
         return t
-    if t.requires_grad and torch.is_grad_enabled():
-        return t.to(dtype).contiguous()
+    return cached_merge(module, name, (t,), dtype, lambda: t)
+
+
+def cached_merge(module: nn.Module, name: str, tensors, dtype: torch.dtype,
+                 make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """`make()` (a weight computed from the parameters `tensors`: a cast, a
+    LoRA merge) as a contiguous tensor of `dtype`: differentiable and made
+    anew where a gradient is to flow to one of `tensors`, else made once and
+    reused until one of them is replaced or written in place (an optimizer
+    step), so that an eval forward never serves a stale weight.  A result
+    made under inference_mode is an inference tensor, which autograd may not
+    save: it serves inference_mode calls only."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return make().to(dtype).contiguous()
     cache = module.__dict__.setdefault("_cast_cache", {})
-    # A cast made under inference_mode is an inference tensor, which autograd
-    # may not save: it serves inference_mode calls only.
-    key = (t.data_ptr(), t._version, t.device, dtype, torch.is_inference_mode_enabled())
-    hit = cache.get(name)
+    key = (tuple((t.data_ptr(), t._version) for t in tensors), tensors[0].device,
+           torch.is_inference_mode_enabled())
+    hit = cache.get((name, dtype))
     if hit is None or hit[0] != key:
-        hit = (key, t.detach().to(dtype).contiguous())
-        cache[name] = hit
+        with torch.no_grad():
+            hit = (key, make().to(dtype).contiguous())
+        cache[(name, dtype)] = hit
     return hit[1]
 
 

@@ -12,8 +12,16 @@ bf16 mu (TPU.BF16_MOMENTS: optax.scale_by_adam's mu_dtype, rounded for
 storage only), or bf16 mu and nu (TPU.BF16_SECOND_MOMENT:
 scale_by_adam_mixed, rounded before use); the arithmetic is f32 in every
 case.  torch.optim.Adam keeps its moments in the parameter's dtype, so it is
-not used.  `CenterSGD` is the center loss's plain SGD.  FROZEN is not ported
-yet.
+not used.  `CenterSGD` is the center loss's plain SGD.
+
+MODEL.FROZEN (JAX's masked set_to_zero, solver/optim.py:344-358) freezes
+every parameter under backbone.base whose name has no part containing "lora"
+or "adapter" (models/demo.py::is_frozen): the model's build sets
+requires_grad False on them and the optimizer holds no state for them, so no
+gradient is taken for them and they stay bit for bit as they were.  The
+trainable ones take the updates JAX's chain gives them: its updates are per
+parameter (no global norm), so the frozen ones' zeroed updates change
+nothing else.
 """
 
 from __future__ import annotations
@@ -25,7 +33,6 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..config.defaults import Config
 
 
@@ -148,8 +155,6 @@ class Optimizer:
     def __init__(self, cfg: Config, named_params: Dict[str, torch.nn.Parameter],
                  steps_per_epoch: int):
         s, t = cfg.SOLVER, cfg.TPU
-        if cfg.MODEL.FROZEN:
-            raise not_ported("MODEL.FROZEN", "the rest of the modules (LoRA / FROZEN)")
         if s.OPTIMIZER_NAME not in ("Adam", "AdamW", "SGD"):
             raise ValueError(f"Unsupported optimizer: {s.OPTIMIZER_NAME}")
         if t.BF16_SECOND_MOMENT and not t.BF16_MOMENTS:
@@ -237,4 +242,7 @@ class CenterSGD:
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module, steps_per_epoch: int) -> Optimizer:
-    return Optimizer(cfg, dict(model.named_parameters()), steps_per_epoch)
+    """The optimizer over `model`'s parameters that require grad (MODEL.FROZEN's
+    frozen ones do not: models/demo.py sets them so at build)."""
+    return Optimizer(cfg, {n: p for n, p in model.named_parameters() if p.requires_grad},
+                     steps_per_epoch)

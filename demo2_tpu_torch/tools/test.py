@@ -5,9 +5,9 @@ test_net.py:9-44).
         TEST.WEIGHT OUTPUT_DIR/checkpoints [TEST.MISS nt] [KEY VALUE ...]
 
 TEST.WEIGHT is a checkpoint directory that demo2_tpu_torch.tools.train
-wrote (its latest step is loaded).  A reference-trained torch .pth, which the
-JAX package converts on load, is not ported yet.  Device as in
-tools/train.py.
+wrote (its latest step is loaded), or a reference-trained torch .pth / .pt
+(the reference's torch.save(model.state_dict()) file), converted on load by
+utils/ref_convert.py.  Device as in tools/train.py.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ from typing import Optional, Sequence
 
 import torch
 
-from .. import not_ported
 from .train import entry_device, load_config
 
 
@@ -46,11 +45,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
                        generator=torch.Generator().manual_seed(cfg.SOLVER.SEED))
     if cfg.TEST.WEIGHT:
         if cfg.TEST.WEIGHT.endswith((".pth", ".pt")):
-            raise not_ported(f"TEST.WEIGHT={cfg.TEST.WEIGHT!r} (a reference-trained torch "
-                             "checkpoint)", "--init_pth via utils/ref_convert.py")
-        state = create_train_state(cfg, model, max(1, len(sampler) // cfg.SOLVER.IMS_PER_BATCH))
-        restore_checkpoint(cfg.TEST.WEIGHT, state)
-        logger.info("Loaded checkpoint from %s at step %d", cfg.TEST.WEIGHT, state.step)
+            from ..utils.ref_convert import load_reference_checkpoint
+
+            load_reference_checkpoint(model, cfg.TEST.WEIGHT, cfg)
+            logger.info("Converted reference torch checkpoint %s", cfg.TEST.WEIGHT)
+        else:
+            state = create_train_state(cfg, model,
+                                       max(1, len(sampler) // cfg.SOLVER.IMS_PER_BATCH))
+            restore_checkpoint(cfg.TEST.WEIGHT, state)
+            logger.info("Loaded checkpoint from %s at step %d", cfg.TEST.WEIGHT, state.step)
     cmc, m_ap = do_inference(cfg, model, val_pipe, num_query, return_pattern=args.return_pattern)
     logger.info("Done. mAP=%.1f%% Rank-1=%.1f%%", m_ap * 100, cmc[0] * 100)
     return cmc, m_ap

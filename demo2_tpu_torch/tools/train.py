@@ -8,7 +8,9 @@ Reads the dataset from disk (data/loader.py::make_dataloader), trains with
 evaluation every SOLVER.EVAL_PERIOD epochs, writes the log and
 `<exp_name or MODEL.NAME>_metrics.jsonl` (and TensorBoard events where
 torch.utils.tensorboard imports) under OUTPUT_DIR, the checkpoints under
-OUTPUT_DIR/checkpoints and the best under OUTPUT_DIR/checkpoints_best.  It
+OUTPUT_DIR/checkpoints and the best under OUTPUT_DIR/checkpoints_best.
+`--init_pth <ref.pth>` initialises the whole model from a reference-trained
+DeMo / DeMo_Parallel checkpoint (utils/ref_convert.py).  It
 runs on cuda:0 unless MODEL.DEVICE is "cpu" or the caller of `main` passes a
 device; with neither and no card it raises.
 """
@@ -78,8 +80,6 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     args = p.parse_args(argv)
     if args.distributed:
         raise not_ported("--distributed", "the rest of the modules (parallel/ as DDP / NCCL)")
-    if args.init_pth:
-        raise not_ported("--init_pth", "--init_pth via utils/ref_convert.py")
     cfg = load_config(args.config_file, args.opts)
     # The reference stores --fea_cft in TEST.FEAT (train_net.py:49) and never
     # reads it; kept as it is.
@@ -112,6 +112,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
         loaded = load_pretrained_backbone(cfg, model, cfg.MODEL.PRETRAIN_PATH_T)
         logger.info("Loaded pretrained backbone (%d tensors) from %s", len(loaded),
                     cfg.MODEL.PRETRAIN_PATH_T)
+    if args.init_pth:
+        # The whole model from a reference-trained torch checkpoint, after
+        # the pretrained backbone and before --resume, which wins if both
+        # are given (JAX tools/train.py:161-169).
+        from ..utils.ref_convert import load_reference_checkpoint
+
+        loaded = load_reference_checkpoint(model, args.init_pth, cfg)
+        logger.info("Initialized the model (%d tensors) from reference checkpoint %s",
+                    len(loaded), args.init_pth)
     if args.resume:
         from ..utils.checkpoint import restore_checkpoint
 

@@ -23,10 +23,21 @@ and `sie_embed` keep their names.  The conversion is strict both ways: a
 flax leaf that fills no port tensor, or a port tensor that no leaf fills,
 raises.
 
+The CLIP tower's tuning leaves keep their names and JAX's layouts:
+`lora_a` / `lora_b` (whole-matrix (C, r) / (r, 3C) or merged (n_on, C, r) /
+(n_on, r, C)), `conv_lora_a` / `conv_lora_b` (the reference's layout) and
+`adapter_prompts`; the adapters `adapter_ffn`, `adapter_{r,n,t}` and
+`adapter_transfer` are Dense pairs (`down`, `up`) like any other.
+
 `convert_train_state` carries a JAX train state into the port's TrainState:
 the params and batch_stats (after any number of steps) into the model, and
 optax's Adam state (count, and mu / nu, trees shaped like the params) into
-the optimizer, under the same rules.
+the optimizer, under the same rules; under MODEL.FROZEN the moments JAX
+keeps for frozen parameters are dropped (the port's optimizer holds none).
+
+`graft` copies a partial converted tree (utils/ref_convert.py's) into a
+model in place.  `convert_clip_text` maps a CLIP text tower's state dict
+onto models/clip_text.py's CLIPTextTransformer.
 
 Pretrained backbones (MODEL.PRETRAIN_PATH_T), as
 demo2_tpu/utils/converters.py converts them for the JAX package:
@@ -89,7 +100,13 @@ def _leaf(collection: str, name: str, value: np.ndarray) -> Tuple[str, np.ndarra
     return name, value
 
 
-def _convert(variables: Mapping, target: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _convert(variables: Mapping, target: Dict[str, torch.Tensor], ignore=frozenset(),
+             strict: bool = True):
+    """The port tensors the flax leaves of `variables` fill in `target`'s
+    names, devices and dtypes; leaves whose port name is in `ignore` are
+    dropped.  Strict: any other leaf with no port tensor, or a port tensor
+    no leaf filled, raises.  Not strict: such leaves are skipped and
+    coverage is left to the caller.  A shape mismatch always raises."""
     out: Dict[str, torch.Tensor] = {}
     unconsumed = []
     for collection, tree in variables.items():
@@ -102,6 +119,8 @@ def _convert(variables: Mapping, target: Dict[str, torch.Tensor]) -> Dict[str, t
             conv1d = ".".join(module + ["weight"])
             if name == "kernel" and arr.ndim == 3 and key not in target and conv1d in target:
                 key, arr = conv1d, arr.transpose(2, 1, 0)
+            if key in ignore:
+                continue
             if key not in target or key in out:
                 unconsumed.append("/".join((collection,) + path))
                 continue
@@ -111,6 +130,8 @@ def _convert(variables: Mapping, target: Dict[str, torch.Tensor]) -> Dict[str, t
             ref = target[key]
             arr = np.ascontiguousarray(arr, np.float32).reshape(arr.shape)  # keeps 0-d leaves 0-d
             out[key] = torch.from_numpy(arr).to(ref.device, ref.dtype)
+    if not strict:
+        return out
     missing = sorted(set(target) - set(out))
     if unconsumed or missing:
         raise ValueError(f"flax leaves with no port tensor: {unconsumed}; "
@@ -123,6 +144,26 @@ def convert_flax_variables(variables: Mapping, model: nn.Module) -> Dict[str, to
     counterpart, as nested dicts of arrays; returns a full state_dict for
     `model.load_state_dict`, on the model's devices and dtypes."""
     return _convert(variables, model.state_dict())
+
+
+def graft(model: nn.Module, params: Mapping, stats: Mapping = None) -> list:
+    """utils/ref_convert.py::graft in torch: copy the converted flax trees
+    `params` (and `stats`, batch_stats) into `model`'s tensors in place, a
+    shape mismatch raising.  Every parameter of the model must be covered;
+    converted leaves the model has no tensor for (modules the reference
+    builds and never uses) are skipped.  Returns the names filled."""
+    target = model.state_dict()
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = stats
+    out = _convert(variables, target, strict=False)
+    uncovered = sorted(n for n, _ in model.named_parameters() if n not in out)
+    if uncovered:
+        raise ValueError(f"model parameters NOT covered by the conversion: {uncovered}")
+    with torch.no_grad():
+        for key, value in out.items():
+            target[key].copy_(value)
+    return sorted(out)
 
 
 def _adam_state(opt_state):
@@ -153,10 +194,13 @@ def convert_train_state(variables: Mapping, opt_state, state, centers=None) -> N
     if adam is None:
         raise ValueError("the optax state holds no Adam state (count, mu, nu)")
     opt = state.optimizer
+    # MODEL.FROZEN: JAX keeps moments for the frozen parameters (their updates
+    # are zeroed after Adam), the port's optimizer holds none
+    frozen = {n for n, p in state.model.named_parameters() if not p.requires_grad}
     moments = {}
     for slot in ("mu", "nu"):
         target = {n: st[slot] for n, st in opt.state.items()}
-        moments[slot] = _convert({"params": getattr(adam, slot)}, target)
+        moments[slot] = _convert({"params": getattr(adam, slot)}, target, ignore=frozen)
     opt.load_state_dict({"count": int(np.asarray(adam.count)),
                          "state": {n: {slot: moments[slot][n] for slot in moments}
                                    for n in opt.state}})
@@ -293,3 +337,20 @@ def load_pretrained_backbone(cfg, model: nn.Module, path: str) -> list:
     convert = convert_clip_visual if "ViT-B-16" in cfg.MODEL.TRANSFORMER_TYPE else \
         convert_imagenet_vit
     return merge_pretrained_backbone(model, convert(sd, gh, gw))
+
+
+def convert_clip_text(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """A CLIP text tower's state dict (reference clip/model.py:533-544:
+    token_embedding, positional_embedding, transformer.resblocks.N.*,
+    ln_final, text_projection) under the port's CLIPTextTransformer names,
+    as demo2_tpu/utils/converters.py::convert_clip_text maps it for JAX."""
+    sd = _tensors(state_dict)
+    out = {k: sd[k] for k in ("positional_embedding", "ln_final.weight", "ln_final.bias",
+                              "text_projection")}
+    out["token_embedding"] = sd["token_embedding.weight"]
+    i = 0
+    while f"transformer.resblocks.{i}.attn.in_proj_weight" in sd:
+        out.update({f"resblocks.{i}.{k.replace('mlp.', 'mlp_')}":
+                    sd[f"transformer.resblocks.{i}.{k}"] for k in _CLIP_BLOCK_KEYS})
+        i += 1
+    return out

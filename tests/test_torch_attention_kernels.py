@@ -513,7 +513,7 @@ def test_chip_smoke_block_kernel_phase_rehearses_on_the_plain_versions(capsys, m
     # out and attn of 3, out of 2-train: no attn control over one key
     assert out.count("; misrounded control") == 3 * len(BLOCK_EDGES) - 1
     assert cs.BLOCK_EDGE_SHAPES == ((3, 129, 768), (5, 77, 768), (1, 1, 768), (8, 129, 384),
-                                    (8, 129, 512), (192, 129, 768))
+                                    (8, 129, 512), (192, 129, 768), (192, 141, 768))
 
 
 # ---------------------------------------------------------------------------

@@ -67,8 +67,7 @@ def test_train_then_test_reproduces_the_map(data_cache, tree, tmp_path):
     assert list(out.glob("test_log_*.txt"))
 
 
-@pytest.mark.parametrize("flag,item", [(["--init_pth", "ref.pth"], "ref_convert"),
-                                       (["--distributed"], "DDP")])
+@pytest.mark.parametrize("flag,item", [(["--distributed"], "DDP")])
 def test_options_not_ported_raise_naming_the_roadmap(flag, item, tree, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         ttrain.main(flag + _opts(tree, tmp_path, "host"))

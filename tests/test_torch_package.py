@@ -29,7 +29,7 @@ CONFIG_FILES = sorted(str(p.relative_to(REPO / "configs")) for p in REPO.glob("c
 
 _BLOCKED_IMPORT = """
 import sys
-for name in ("jax", "flax", "demo2_tpu", "yaml", "PIL"):
+for name in ("jax", "flax", "demo2_tpu", "yaml", "PIL", "regex", "ftfy"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, pkgutil
 import demo2_tpu_torch
@@ -42,7 +42,8 @@ for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_lis
              "data.native", "data.transforms", "data.datasets", "data.sampler", "utils.logger",
              "utils.meter", "utils.iotools", "utils.metrics_log", "utils.converters",
              "tools.train", "tools.test", "tools.quality_gate", "tools.make_synthetic_jpegs",
-             "tools.arch_knobs", "losses.metric_learning"):
+             "tools.arch_knobs", "losses.metric_learning", "utils.ref_convert", "utils.bpe",
+             "models.clip_text"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 from demo2_tpu_torch.data.loader import pil_error
 assert pil_error().startswith("PIL does not import")
@@ -52,6 +53,8 @@ cfg.merge_from_list(chip_smoke.YAML_KEYS["RGBNT201/DeMo.yml"])  # needs no PyYAM
 assert cfg.MODEL.HDM and cfg.MODEL.HEAD == 4
 from demo2_tpu_torch.models import DeMoLegacy, DeMoParallel
 assert DeMoLegacy and DeMoParallel
+from demo2_tpu_torch.utils import bpe  # without regex (as on the card's machine): re's pattern
+assert bpe._re is None and bpe.tokenize("A photo of a X X X X person.")[0, :3].tolist() == [49406, 320, 1125]
 """
 
 
@@ -154,9 +157,6 @@ def _flagship_tiny():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("MODEL", "FROZEN", True),
-    ("MODEL", "ADAPTER", True),
-    ("MODEL", "PROMPT", True),
     ("MODEL", "TRANSFORMER_TYPE", "t2t_vit_t_14"),
     ("TPU", "INT8_MLP", "dynamic"),
 ])
@@ -197,6 +197,9 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "METRIC_LOSS_TYPE", "triplet_center"),
     ("TPU", "REMAT_BACKBONE", True),
     ("TPU", "ENABLE_COSINE_SCHEDULE", True),
+    ("MODEL", "FROZEN", True),
+    ("MODEL", "ADAPTER", True),
+    ("MODEL", "PROMPT", True),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
@@ -207,8 +210,10 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     DeMoParallel, the DeMoBeiyong cascade (DeMoLegacy), the FRCA selector,
     SDTPSComplete, the host loader (TPU.DATA_CACHE "host": the step and
     the eval over data pipes), center loss (the centers move), remat of the
-    backbone, and the timm cosine schedule (with SOLVER.LR_SCHEDULER
-    'cosine')."""
+    backbone, the timm cosine schedule (with SOLVER.LR_SCHEDULER
+    'cosine'), and the CLIP tower's tuning paths: FROZEN (LoRA of rank 4 on
+    q, k and v; the frozen backbone unchanged by the step), the FFN adapter
+    and the modality prompts."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.data.loader import TriModalDataPipe, device_batches
@@ -241,7 +246,11 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
                                         device=CPU)
         step = build_train_step(cfg, model, state, train)
         centers = None if state.centers is None else state.centers.clone()
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
         assert torch.isfinite(step(torch.arange(bs))["loss"])
+        frozen = {k for k, p in model.named_parameters() if not p.requires_grad}
+        assert bool(frozen) == (key == "FROZEN")
+        assert all(torch.equal(p, before[k]) for k, p in model.named_parameters() if k in frozen)
         assert (centers is None) == (key != "METRIC_LOSS_TYPE")
         assert centers is None or not torch.equal(centers, state.centers)
         val = DeviceCache.from_arrays(ds.render_all(val_samples), val_samples, train=False,
