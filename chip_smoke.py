@@ -19,7 +19,9 @@ full width) as a server, an evaluator at each return_pattern and a trainer,
 eleven more DeMo branches of configs/ at two blocks, and three more
 assemblies at full width (the DeMoBeiyong cascade of
 configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
-DeMo_FRCA_DGAF.yml), trains and evaluates the flagship from a JPEG tree on
+DeMo_FRCA_DGAF.yml), drives DeMo on the other backbones (T2T-ViT-24,
+vit_small at stride 12, ResNet-50-IBN-a, OSNet-AIN) as a server and a
+trainer, trains and evaluates the flagship from a JPEG tree on
 disk through the port's CLIs (tools/train.py, tools/test.py), and times
 kernels, requests, the loader and train steps against the plain path.
 Phases:
@@ -57,7 +59,15 @@ Phases:
      (192, 16, 12, 64), (192, 1, 12, 64), (64, 40, 6, 64) and (5, 77, 3, 64)
      and the packed qkv of the same sizes, (48, 144, 2304) to (5, 77, 576),
      within the same bounds; the outputs of kernels 6 and 10 bit-identical
-     over two runs at every shape;
+     over two runs at every shape.  The wide pair of kernels 5 and 6
+     (csrc/packed_attention_wide.cu: heads of 64 or 96 over up to 256
+     tokens) within the same bounds at qkv (192, 211, 2304) with 12 heads of
+     64 and with 8 of 96, and (192, 129, 2304) with 8 of 96 (vit_small's
+     scale 768^-0.5), kernels 5's and 6's misrounded controls failing the
+     mean bound there, and at WIDE_EDGE_SHAPES (S = 1, 16, 145, 256; many
+     (sample, head) blocks); its backward bit-identical over two runs;
+     packed_attention_fwd / _bwd at S = 211 launching it and not the
+     register pair;
   3. serving: requests of N = 0, 1, 64, 100 images with miss "None" and "nt";
      shape, finiteness, unit norm, 12 launches of kernels 1 and 2 per
      forward (and of no other kernel), cosine >= 0.999 to the plain path,
@@ -233,6 +243,24 @@ Phases:
      the qkv bias without a gradient (wrappers and profiler); the step timed
      beside the flagship's, with its device busy share; kernels 1, 3, 4 and
      7 timed at S = 141 beside their bounds;
+  32. the other backbones (after phase 21, on the flagship's cache), DeMo
+     with the flagship fusion (SDTPS + DGAF v3) and only TRANSFORMER_TYPE
+     and STRIDE_SIZE changed: t2t_vit_t_24 (512 wide, 24 blocks of 8 heads
+     of 64, 129 tokens) and vit_small_patch16_224 at stride 12 (768 wide, 8
+     blocks of 8 heads of 96, 211 tokens), each through phase 3 (24 / 8
+     launches a forward of kernel 5 / of the wide pair's forward, and no
+     other kernel) and phase 6 with BACKBONE_STEPS steps (24 launches a step
+     of kernels 5 and 6 / 8 of the wide pair), the backbone's step-1
+     gradient held from one upstream gradient, the losses within LOSS_REL of
+     the plain path's; resnet50_ibn_a and osnet_ain_x1_0 (no kernel of the
+     port: cuDNN convolutions): 20 steps, each finite and launching no
+     kernel, the loss falling, every BatchNorm's running statistics moved,
+     run_eval's mAP in (0, 1], and the f32 trunk on the card (cuDNN with
+     TF32 off) within CUDNN_F32_REL of the same trunk on the CPU;
+  33. timing (printed): the wide pair at WIDE_SHAPES beside its bound and
+     scaled_dot_product_attention's forward / backward; each of the four
+     backbones' train step and batch-64 request beside the flagship's in
+     turns, with the profiler's device busy share of one of each;
   31. migration from the reference (after phase 28, on its JPEG tree): a
      reference-layout DeMo (SDTPS + DGAF v3) on vit_base_patch16_224 written
      with torch.save from random tensors under the reference's key names,
@@ -248,8 +276,9 @@ its operations over the peak for their type.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
-are the fourteen kernels (JSON: the thirteen Pallas kernels' counterparts,
-the fused MLP in both forms), the card's name and power limit, and
+are the sixteen kernels (JSON: the thirteen Pallas kernels' counterparts,
+the fused MLP in both forms, the wide pair of kernels 5 and 6), the card's
+name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -316,7 +345,7 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def all_kernels() -> dict:
-    """The wrappers of the fourteen kernels, each counting its launches."""
+    """The wrappers of the sixteen kernels, each counting its launches."""
     from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
     from demo2_tpu_torch.ops import norm, packed_attention as pa
     from demo2_tpu_torch.tools import bench_kernel_ablate as ab
@@ -335,7 +364,9 @@ def all_kernels() -> dict:
             "jaccard_min_sum": reranking.jaccard_min_sum,
             "fused_mlp_block_train": fb.fused_mlp_block_train,
             "attention_bwd_fused_dw": pa.attention_bwd_fused_dw,
-            "attention_ablate": ab.ablate_attention}
+            "attention_ablate": ab.ablate_attention,
+            "packed_attention_wide_fwd": pa.packed_attention_wide_fwd,
+            "packed_attention_wide_bwd": pa.packed_attention_wide_bwd}
 
 
 def reset_counts() -> None:
@@ -348,7 +379,7 @@ def counts() -> dict:
 
 
 def launch_dict(**nonzero) -> dict:
-    """Launch counts of all fourteen kernels: `nonzero`, the rest 0."""
+    """Launch counts of all sixteen kernels: `nonzero`, the rest 0."""
     return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
@@ -694,7 +725,7 @@ def num_blocks(model) -> int:
 def phase_slice(device, cfg, model, plain_cfg, plain, per_forward: dict,
                 label: str = "slice") -> dict:
     """Serving: requests through FeatureExtractor, each forward launching
-    `per_forward` (all fourteen kernels' counts), embeddings against the plain
+    `per_forward` (all sixteen kernels' counts), embeddings against the plain
     path, match() and CMC / mAP.  Returns the launches of the requests."""
     from demo2_tpu_torch.serving import FeatureExtractor, match
     from demo2_tpu_torch.utils.metrics import R1mAPEvaluator
@@ -1399,14 +1430,17 @@ def train_steps(cfg, model, cache, order, steps, per_step=None, states=None):
 
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
                 label: str = "train", extra_groups=(), block_min=None,
-                whole_model: bool = True, states=None) -> dict:
-    """TRAIN_STEPS steps through build_train_step, each launching
-    `per_step_want` (all fourteen kernels' counts), against the plain path.
-    Without `whole_model` the step-1 gradient and the losses of the two
-    paths are printed only, and the backbone's gradient from one upstream
-    gradient is held (check_backbone_grads).  The kernel path's train state
+                whole_model: bool = True, states=None, steps: int = TRAIN_STEPS,
+                hold_losses=None) -> dict:
+    """`steps` steps through build_train_step, each launching
+    `per_step_want` (all sixteen kernels' counts), against the plain path.
+    Without `whole_model` the step-1 gradient of the two paths is printed
+    only, and the backbone's gradient from one upstream gradient is held
+    (check_backbone_grads); so are the losses of the two paths, unless
+    `hold_losses` holds them all the same.  The kernel path's train state
     is appended to `states` where that is a list.  Returns the launches of
     the steps."""
+    hold_losses = whole_model if hold_losses is None else hold_losses
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1427,10 +1461,10 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
 
     reset_counts()
     t0 = time.perf_counter()
-    losses = train_steps(cfg, model, cache, order, TRAIN_STEPS, per_step, states)
+    losses = train_steps(cfg, model, cache, order, steps, per_step, states)
     wall = time.perf_counter() - t0
     launches = counts()
-    log(f"[{label}] main path: {TRAIN_STEPS} steps of {bs} through build_train_step in "
+    log(f"[{label}] main path: {steps} steps of {bs} through build_train_step in "
         f"{wall:.1f} s, launches {launches}")
     log(f"[{label}] kernel path losses: {' '.join(f'{x:.4f}' for x in losses)}")
     require(all(math.isfinite(x) for x in losses), "a non-finite loss")
@@ -1449,8 +1483,8 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
     rel = [abs(k - p) / abs(p) for k, p in zip(losses, plain_losses)]
     log(f"[{label}] plain path losses: {' '.join(f'{x:.4f}' for x in plain_losses)}; "
         f"largest relative difference {max(rel):.4%}"
-        + ("" if whole_model else " (printed, not held)"))
-    if whole_model:
+        + ("" if hold_losses else " (printed, not held)"))
+    if hold_losses:
         require(max(rel) <= LOSS_REL, f"kernel vs plain loss differ by {max(rel):.4%}")
     return launches
 
@@ -1674,7 +1708,7 @@ FLASH_EDGE_SHAPES = ((48, 144, 12, 64), (192, 16, 12, 64), (192, 1, 12, 64), (64
 
 
 # The recomputing backwards sum in a fixed order, without atomics.
-BITWISE_RERUN = ("packed_attention_bwd", "flash_attention_bwd")
+BITWISE_RERUN = ("packed_attention_bwd", "flash_attention_bwd", "packed_attention_wide_bwd")
 
 
 def as_tuple(y):
@@ -1901,6 +1935,90 @@ def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES
     log(f"[attn-kernel] tolerances: max abs <= {MAX_ABS_TOL}, mean abs <= {MEAN_ABS_TOL}, "
         f"mean error vs f32 <= {F32_MEAN_RATIO} x the plain bf16 path's, mean abs <= "
         f"{ROUNDING_MEAN_TOL} (every misrounded control above it): ok")
+    return errors
+
+
+# The wide pair of kernels 5 and 6 (csrc/packed_attention_wide.cu): qkv
+# (3B, S, 3C) and the head count.  Stride 12 at 256x128 gives 211 tokens, in
+# vit_base's 12 heads of 64 and vit_small's 8 of 96; vit_small at stride 16
+# has 129.  The edges: one key, one 16-row tile, the first S past the
+# register tiles' 144, the longest S (256), each with many (sample, head)
+# blocks, and heads of 64 at a length the register pair also takes.
+WIDE_SHAPES = ((192, 211, 2304, 12), (192, 211, 2304, 8), (192, 129, 2304, 8))
+WIDE_EDGE_SHAPES = ((192, 1, 2304, 8), (192, 16, 2304, 8), (48, 145, 2304, 12),
+                    (24, 256, 2304, 8), (16, 256, 2304, 12), (64, 40, 1152, 6))
+
+
+def wide_scale(c: int, num_heads: int) -> float:
+    """The softmax scale the shape's backbone uses: vit_small's qk_scale
+    768^-0.5 for heads of 96 (not a power of two), 1 / sqrt(64) else."""
+    return c ** -0.5 if c // num_heads == 96 else (c // num_heads) ** -0.5
+
+
+def wide_attention_cases(device, shape, seed):
+    """The wide pair with its plain versions, as attention_kernel_cases gives
+    kernels 5 and 6 (the library call: scaled_dot_product_attention on
+    head-major views, and the autograd backward of its output)."""
+    import torch.nn.functional as F
+
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    b, s, c3, h = shape
+    c = c3 // 3
+    scale = wide_scale(c, h)
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *sh: torch.randn(*sh, generator=g).to(device, torch.bfloat16)
+    qkv, do = rnd(b, s, c3), rnd(b, s, c)
+    heads = [x.reshape(b, s, h, c // h).transpose(1, 2).detach().requires_grad_(True)
+             for x in qkv.split(c, -1)]
+    library_fwd = lambda: F.scaled_dot_product_attention(*heads, scale=scale)
+    library_bwd = None
+    if qkv.is_cuda:
+        out = library_fwd()
+        cot = do.reshape(b, s, h, c // h).transpose(1, 2)
+        library_bwd = lambda: torch.autograd.grad(out, heads, cot, retain_graph=True)
+    pk = dict(num_heads=h, scale=scale)
+    return {
+        "packed_attention_wide_fwd": (lambda: pa.packed_attention_wide_fwd(qkv, **pk),
+                                      lambda *x: pa.packed_self_attention_plain(*x, h, scale),
+                                      (qkv,), 4 * b * s * s * c, library_fwd),
+        "packed_attention_wide_bwd": (lambda: pa.packed_attention_wide_bwd(qkv, do, **pk),
+                                      lambda *x: pa.packed_attention_bwd_plain(*x, h, scale),
+                                      (qkv, do), 10 * b * s * s * c, library_bwd),
+    }
+
+
+def phase_wide_attention_kernels(device, shapes=WIDE_SHAPES, edges=WIDE_EDGE_SHAPES) -> dict:
+    """The wide pair of kernels 5 and 6 within phase 9's bounds of their
+    plain versions (ROUNDING_MEAN_TOL, which kernel 5's and 6's misrounded
+    controls fail on the same inputs), the backward bit-identical over two
+    runs, at WIDE_SHAPES and at the edges; then packed_attention_fwd / _bwd
+    at a wide shape, which must launch the wide pair and not the register
+    pair.  Returns name -> the max abs error at the first shape."""
+    from demo2_tpu_torch.ops import packed_attention as pa
+
+    errors = {}
+    for shape in shapes:
+        b, s, c3, h = shape
+        controls = misrounded_controls(h, wide_scale(c3 // 3, h))
+        for name, case in wide_attention_cases(device, shape, seed=7).items():
+            check_attention_case(name, case, controls[name.replace("_wide", "")],
+                                 errors if shape == shapes[0] else None)
+    for shape in edges:
+        for name, case in wide_attention_cases(device, shape, seed=9).items():
+            check_attention_case(name, case, None)
+    b, s, c3, h = shapes[0]
+    qkv = torch.randn(4, s, c3, generator=torch.Generator().manual_seed(3)).to(device,
+                                                                              torch.bfloat16)
+    kw = dict(num_heads=h, scale=wide_scale(c3 // 3, h))
+    reset_counts()
+    pa.packed_attention_bwd(qkv, pa.packed_attention_fwd(qkv, **kw), **kw)
+    sync()
+    require_launches(counts(), launch_dict(packed_attention_wide_fwd=1,
+                                           packed_attention_wide_bwd=1),
+                     f"[attn-wide] packed_attention_fwd / _bwd at qkv {(4, s, c3)}, {h} heads")
+    log(f"[attn-wide] the wide pair at {len(shapes)} shapes and {len(edges)} edges within "
+        f"the bounds, its backward bit-identical over two runs; the dispatch at S = {s}: ok")
     return errors
 
 
@@ -4123,6 +4241,217 @@ def phase_migration(device, card, root: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phases 32-33
+
+
+BACKBONE_STEPS = 10    # train steps of each ViT-family backbone phase, both paths
+# A CNN trunk from its random init learns slowly at the first epoch's warmup
+# learning rate (3.8e-5), and PK batches differ step to step: its loss is
+# held over phase 6's TRAIN_STEPS (the mean of the last 5 below the first 5's).
+BACKBONE_DEPTHS = {"t2t_vit_t_24": 24, "vit_small_patch16_224": 8}
+CUDNN_F32_REL = 1e-4   # the card's f32 trunk (TF32 off) vs the CPU's, of its largest value
+
+
+def backbone_cfg(tt: str, stride=(16, 16)):
+    """The flagship recipe (SDTPS + DGAF v3) with only TRANSFORMER_TYPE and
+    STRIDE_SIZE changed; `make_cfg(fused)` for build_models.  Full width (a
+    rehearsal keeps apply_tiny's on T2T, whose width follows it)."""
+    def make_cfg(fused: bool, **overrides):
+        if tt.startswith("vit") or not REHEARSAL:
+            overrides = dict(TPU__BACKBONE_WIDTH=-1, TPU__BACKBONE_HEADS=-1, **overrides)
+        return flagship_cfg(fused, MODEL__TRANSFORMER_TYPE=tt, MODEL__STRIDE_SIZE=tuple(stride),
+                            **overrides)
+
+    return make_cfg
+
+
+def phase_vit_backbone(device, tt: str, stride, per_forward: dict, per_step: dict, cache,
+                       sampler):
+    """Phases 3 and 6 on DeMo over `tt` at `stride`: requests against the
+    plain path, each forward launching `per_forward`; the backbone's step-1
+    gradient from one upstream gradient (cosine >= 0.999 whole, >= 0.99 per
+    block's qkv / proj), BACKBONE_STEPS steps each launching `per_step`, the
+    loss falling and within LOSS_REL of the plain path's.  Returns (cfg,
+    model, launches of the steps)."""
+    make_cfg = backbone_cfg(tt, stride)
+    cfg, model, plain_cfg, plain = build_models(device, make_cfg)
+    label = tt.split("_")[0] + ("" if tuple(stride) == (16, 16) else f"-s{stride[0]}")
+    tokens = math.prod(model.grid) + 1
+    log(f"[{label}] {tt} at stride {tuple(stride)}: {num_blocks(model)} blocks of width "
+        f"{model.feat_dim}, {tokens} tokens, feat_dim {model.feat_dim}")
+    phase_slice(device, cfg, model, plain_cfg, plain, per_forward, label=f"{label}-slice")
+    trained = phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step,
+                          label=f"{label}-train", whole_model=False, hold_losses=True,
+                          steps=BACKBONE_STEPS)
+    del plain
+    return cfg, model, trained
+
+
+def check_cudnn_f32(device, tt: str) -> None:
+    """The CNN trunk in f32 on the card, cuDNN with TF32 off, against the
+    same trunk on the CPU: an eval forward of two 256x128 images."""
+    from demo2_tpu_torch.models.osnet import OSNET_AIN_VARIANTS, OSNET_CONFIGS, OSNet
+    from demo2_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
+
+    cpu = torch.device("cpu")
+    h, w = (64, 32) if REHEARSAL else (256, 128)
+    x = torch.randn(2, h, w, 3, generator=torch.Generator().manual_seed(4))
+
+    def make(dev):
+        kw = dict(dtype=torch.float32, device=dev, generator=torch.Generator().manual_seed(5))
+        if tt in RESNET_CONFIGS:
+            layers, ibn = RESNET_CONFIGS[tt]
+            return ResNet(layers, ibn=ibn, **kw).eval()
+        layers, chans = OSNET_CONFIGS[tt]
+        return OSNet(layers, chans, block_variants=OSNET_AIN_VARIANTS, conv1_in=True, **kw).eval()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = make(device)(x.to(device)).cpu()
+            want = make(cpu)(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    log(f"[{tt}] f32 trunk on the card (cuDNN, TF32 off) vs the CPU: max abs {err:.3e} of the "
+        f"largest value (bound {CUDNN_F32_REL})")
+    require(err <= CUDNN_F32_REL, f"{tt}: f32 trunk differs by {err} of its largest value")
+
+
+def phase_cnn_backbone(device, tt: str, cache, sampler):
+    """DeMo (the flagship fusion) on a CNN trunk, which runs no hand-written
+    kernel (cuDNN convolutions, as JAX leaves them to XLA): TRAIN_STEPS
+    steps, each finite and launching no kernel of the port, the loss
+    falling, the BatchNorm running statistics moving (the trunk's too);
+    run_eval's mAP in (0, 1]; the f32 trunk against the CPU's.  Returns
+    (cfg, model)."""
+    from demo2_tpu_torch.engine.eval import run_eval
+    from demo2_tpu_torch.models import make_model
+
+    cfg = backbone_cfg(tt)(fused=True)
+    model = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    order = sampler.epoch_indices(1)
+
+    def per_step(i, rose):
+        require_launches(rose, launch_dict(), f"[{tt}] train step {i}")
+
+    t0 = time.perf_counter()
+    losses = train_steps(cfg, model, cache, order, TRAIN_STEPS, per_step)
+    log(f"[{tt}] {TRAIN_STEPS} steps of {cfg.SOLVER.IMS_PER_BATCH} in "
+        f"{time.perf_counter() - t0:.1f} s, feat_dim {model.feat_dim}; losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    require(all(math.isfinite(x) for x in losses), f"[{tt}] a non-finite loss")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    require(last < first, f"[{tt}] the loss did not fall: {first} -> {last}")
+    after = model.state_dict()
+    bn = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    moved = [k for k in bn if not torch.equal(after[k], init[k])]
+    require(len(moved) == len(bn) and any(k.startswith("backbone.base.") for k in bn),
+            f"[{tt}] BatchNorm statistics that did not move: {sorted(set(bn) - set(moved))}")
+    log(f"[{tt}] loss falls ({first:.4f} -> {last:.4f}); all {len(bn)} BatchNorm statistics "
+        f"moved, {sum(k.startswith('backbone.base.') for k in bn)} of them the trunk's")
+    val, nq = eval_cache_from(cache, cfg)
+    reset_counts()
+    cmc, m_ap = run_eval(cfg, model, val, nq)
+    sync()
+    require_launches(counts(), launch_dict(), f"[{tt}] run_eval")
+    require(0.0 < m_ap <= 1.0, f"[{tt}] mAP {m_ap}")
+    log(f"[{tt}] run_eval: embedding width {model.embed_dim}, {nq} queries, mAP {m_ap:.4f}, "
+        f"Rank-1 {cmc[0]:.3f}")
+    if device.type == "cuda":
+        check_cudnn_f32(device, tt)
+    return cfg, model
+
+
+def time_beside_flagship(device, card, label, cfg, model, flag_cfg, flag_model, cache,
+                         sampler) -> None:
+    """The backbone's train step and batch-64 request beside the flagship's,
+    in turns (host clock), with the profiler's device busy share of one step
+    and one request of the backbone."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    names = (label, "flagship")
+    time_train_step(device, card, cfg, model, flag_cfg, flag_model, cache, sampler,
+                    label=f"{label} vs flagship: ", names=names, profiles=False, reps=3)
+    images, cams = request_images(64, cfg, seed=3)
+    fxs = {names[0]: FeatureExtractor(cfg, model, device=device, batch_size=64),
+           names[1]: FeatureExtractor(flag_cfg, flag_model, device=device, batch_size=64)}
+
+    def request_ms(which, reps=3):
+        fxs[which].extract(images, cams)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fxs[which].extract(images, cams)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    p1, k1, k2, p2 = (request_ms(names[1]), request_ms(names[0]), request_ms(names[0]),
+                      request_ms(names[1]))
+    log(f"[time] {label} vs flagship: batch-64 request {(k1 + k2) / 2:.2f} ms, flagship "
+        f"{(p1 + p2) / 2:.2f} ms; turns {p1:.2f}, {k1:.2f}, {k2:.2f}, {p2:.2f} ms, host arrays "
+        f"in and out included ({card})")
+    step = build_timed_step(cfg, model, cache, sampler)
+    profile(f"{label}, one train step of {cfg.SOLVER.IMS_PER_BATCH}", step, card, top=6)
+    profile(f"{label}, one batch-64 request", lambda: fxs[names[0]].extract(images, cams), card,
+            top=6)
+
+
+def build_timed_step(cfg, model, cache, sampler):
+    """One build_train_step step on a fixed batch, as a call."""
+    from demo2_tpu_torch.engine.state import create_train_state
+    from demo2_tpu_torch.engine.train import build_train_step
+
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    order = sampler.epoch_indices(3)
+    step = build_train_step(cfg, model, create_train_state(cfg, model, len(order) // bs), cache)
+    idx = torch.from_numpy(order[:bs]).to(cache.images.device)
+    return lambda: step(idx)
+
+
+def phase_backbones(device, card, flag_cfg, flag_model, cache, sampler, timing=True):
+    """Phase 32: DeMo (SDTPS + DGAF v3) on T2T-ViT-24 (kernels 5 and 6, 24
+    launches each), on vit_small at stride 12 (211 tokens, heads of 96: the
+    wide pair, 8 launches each), on ResNet-50-IBN-a and OSNet-AIN x1.0 (no
+    kernel); phase 33 (`timing`): the wide pair timed at WIDE_SHAPES beside
+    its bound and SDPA's forward / backward, and each backbone's step and
+    request beside the flagship's.  Returns (launches of the vit_small
+    steps, the wide pair's times)."""
+    t0 = time.perf_counter()
+    models = {}
+    layers = 2 if REHEARSAL else BACKBONE_DEPTHS["t2t_vit_t_24"]
+    cfg, model, _ = phase_vit_backbone(
+        device, "t2t_vit_t_24", (16, 16), launch_dict(packed_attention_fwd=layers),
+        launch_dict(packed_attention_fwd=layers, packed_attention_bwd=layers), cache, sampler)
+    models["t2t_vit_t_24"] = (cfg, model)
+    layers = 2 if REHEARSAL else BACKBONE_DEPTHS["vit_small_patch16_224"]
+    cfg, model, trained = phase_vit_backbone(
+        device, "vit_small_patch16_224", (12, 12),
+        launch_dict(packed_attention_wide_fwd=layers),
+        launch_dict(packed_attention_wide_fwd=layers, packed_attention_wide_bwd=layers),
+        cache, sampler)
+    models["vit_small_patch16_224 s12"] = (cfg, model)
+    for tt in ("resnet50_ibn_a", "osnet_ain_x1_0"):
+        models[tt] = phase_cnn_backbone(device, tt, cache, sampler)
+    log(f"[backbones] phase 32 in {time.perf_counter() - t0:.1f} s")
+    times = {}
+    if timing:
+        t0 = time.perf_counter()
+        for shape in WIDE_SHAPES:
+            cases = wide_attention_cases(device, shape, seed=7)
+            got = time_kernels({
+                name: timed(kernel, lambda plain_fn=plain_fn, inputs=inputs: plain_fn(*inputs),
+                            flops, tuple(inputs[0].shape), inputs, library, plain_iters=5)
+                for name, (kernel, plain_fn, inputs, flops, library) in cases.items()}, card)
+            times = times or got  # the JSON line's: WIDE_SHAPES[0]
+        for label, (cfg, model) in models.items():
+            time_beside_flagship(device, card, label, cfg, model, flag_cfg, flag_model, cache,
+                                 sampler)
+        log(f"[backbones] phase 33 in {time.perf_counter() - t0:.1f} s")
+    return trained, times
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -4151,6 +4480,10 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                                "demo2_tpu/ops/packed_attention.py:377"),
     "attention_ablate": ("demo2_tpu_torch/csrc/attention_ablate.cu",
                          "tools/bench_kernel_ablate.py:25"),
+    "packed_attention_wide_fwd": ("demo2_tpu_torch/csrc/packed_attention_wide.cu",
+                                  "demo2_tpu/ops/packed_attention.py:52"),
+    "packed_attention_wide_bwd": ("demo2_tpu_torch/csrc/packed_attention_wide.cu",
+                                  "demo2_tpu/ops/packed_attention.py:91"),
 }
 
 
@@ -4163,6 +4496,7 @@ def main() -> None:
     errors = phase_kernels(device)
     errors.update(phase_train_kernels(device))
     errors.update(phase_attention_kernels(device))
+    errors.update(phase_wide_attention_kernels(device))
     errors.update(phase_ln_bwd_kernel(device))
     errors.update(phase_jaccard_kernel(device))
     errors.update(phase_new_kernels(device))
@@ -4245,7 +4579,17 @@ def main() -> None:
                                                       model, cache, sampler)
     times.update(new_times)
     launches["attention_ablate"] = tool_launches["attention_ablate"]
-    del model, plain, mlp_model
+    del plain, mlp_model
+    torch.cuda.empty_cache()
+
+    # The other backbones (phases 32, 33): T2T-ViT-24 (kernels 5, 6),
+    # vit_small at stride 12 (the wide pair), ResNet-50-IBN-a and OSNet-AIN,
+    # each beside the flagship.
+    trained, wide_times = phase_backbones(device, card, cfg, model, cache, sampler)
+    launches.update({k: trained[k] for k in ("packed_attention_wide_fwd",
+                                             "packed_attention_wide_bwd")})
+    times.update(wide_times)
+    del model
     torch.cuda.empty_cache()
 
     # The head-major route (kernels 9, 10).

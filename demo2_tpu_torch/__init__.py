@@ -1,7 +1,7 @@
 """demo2_tpu_torch: the PyTorch / CUDA port of demo2_tpu.
 
-The package mirrors demo2_tpu's module paths.  Of DeMo, on CLIP ViT-B/16 or
-the ImageNet ViT family, in its branches (the flagship SDTPS + DGAF v3, the
+The package mirrors demo2_tpu's module paths.  Of DeMo, on CLIP ViT-B/16,
+the ImageNet ViT family, T2T-ViT, ResNet / IBN or OSNet / AIN, in its branches (the flagship SDTPS + DGAF v3, the
 Baseline, SDTPS or DGAF alone, DGAF v1, and DeMo's own HDM + ATMoE fusion;
 config/yaml_loader.py loads the configs/ files that select them), these
 paths are ported: serving (the eval forward, the embedding extractor, the retrieval
@@ -25,7 +25,9 @@ kernels of those paths (the ViT's fused attention and MLP sub-blocks, the
 training forward with its residuals, the attention backwards, the packed and
 head-major attention, the LayerNorm backward, the re-ranking min-sum) are
 hand-written CUDA kernels for Hopper (sm_90a) under csrc/, built at first
-use (ops/kernel_lib.py).  The package imports torch and never jax.
+use (ops/kernel_lib.py); the packed attention has a second pair for heads of
+96 and up to 256 tokens.  The CNN trunks run no hand-written kernel (cuDNN
+convolutions, as the JAX package leaves them to XLA).  The package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

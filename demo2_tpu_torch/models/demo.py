@@ -121,6 +121,10 @@ def make_dgaf(cfg: Config, feat_dim: int, **kw) -> nn.Module:
     return DualGatedPostFusion(feat_dim, **dgaf_kw)
 
 
+# The backbones whose own width DeMo's modules take (T2T-ViT, ResNet, OSNet).
+OWN_WIDTH_BACKBONES = ("t2t", "resnet", "osnet")
+
+
 class _Assembly(nn.Module):
     """The backbone, the heads and the output contract the assemblies share.
     A subclass sets `branch_heads` ({branch: head name}, in the JAX
@@ -167,6 +171,11 @@ class _Assembly(nn.Module):
             heads_override=cfg.TPU.BACKBONE_HEADS,
             **kw,
         )
+        if m.TRANSFORMER_TYPE.startswith(OWN_WIDTH_BACKBONES):
+            # Deliberately unlike JAX (D6 in ROADMAP.md): DeMo's modules take
+            # the width these backbones give, where JAX's feat_dim_for 768
+            # fails to broadcast in SDTPS / DGAF.
+            self.feat_dim = self.backbone.feat_dim
         if self.backbone.feat_dim != self.feat_dim:
             # JAX builds SDTPS / DGAF at feat_dim_for's width whatever the
             # backbone gives, and its forward then fails to broadcast (the

@@ -1,10 +1,13 @@
-"""PIFE, the backbone wrapper (demo2_tpu/models/pife.py): the CLIP branch and
-the ImageNet ViT family.
+"""PIFE, the backbone wrapper (demo2_tpu/models/pife.py): the CLIP branch, the
+ImageNet ViT family, T2T-ViT and the CNN trunks (ResNet / IBN, OSNet / AIN).
 
 The three modalities run as ONE stacked batch of 3B images, modality-major;
 the camera (and view) ids are tiled over the modalities.  The CLIP branch
-adds its SIE camera embedding to the CLS token; the ImageNet ViT adds its
-own to all tokens.  A (3,) or (B, 3) modality mask multiplies the images
+adds its SIE camera embedding to the CLS token; the ImageNet ViT and T2T add
+their own to all tokens; the CNN trunks have none, and their tokens are the
+map's global average followed by the flattened 16-stride map
+(resnet.py::resnet_tokens), in their BatchNorms' training mode when `train`.
+A (3,) or (B, 3) modality mask multiplies the images
 inside the same forward, so every missing-modality setting shares the graph.
 Returns patch tokens (3, B, N, C) and CLS features (3, B, C).  The CLIP
 tower's tuning paths (LoRA, ConvLoRA, the FFN adapter, the modality prompts)
@@ -19,9 +22,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .. import not_ported
 from ..ops.linear import make_param, truncated_normal_init
 from .clip_vit import CLIPVisionTransformer
+from .osnet import OSNET_AIN_VARIANTS, OSNET_CONFIGS, OSNet
+from .resnet import RESNET_CONFIGS, ResNet, resnet_tokens
+from .t2t import T2T_CONFIGS, T2TViT
 from .vit import ImageNetViT
 
 NUM_MODALITIES = 3  # RGB, NIR, TIR
@@ -82,8 +87,7 @@ class PIFE(nn.Module):
         self.width_override = width_override
         self.sie_coe = sie_coe
         self.cv_embed = None
-        if tt.startswith(("t2t", "resnet", "osnet")):
-            raise not_ported(f"TRANSFORMER_TYPE {tt!r}", "other backbones")
+        kw = dict(dtype=dtype, device=device, generator=generator)
         if "ViT-B-16" in tt:
             self.width = 768 if width_override < 0 else width_override
             depth = 12 if depth_override < 0 else depth_override
@@ -101,16 +105,41 @@ class PIFE(nn.Module):
                 use_adapter=use_adapter, use_prompt=use_prompt,
             )
             return
+        if tt.startswith("resnet"):
+            if tt not in RESNET_CONFIGS:
+                raise NotImplementedError(
+                    f"'{tt}': only the Bottleneck variants {sorted(RESNET_CONFIGS)} are ported "
+                    "(resnet18/34 use BasicBlock and, like the rest of the CNN zoo, are dead "
+                    "weight no reference code path can reach)")
+            layers, ibn = RESNET_CONFIGS[tt]
+            self.base = ResNet(layers, ibn=ibn, **kw)
+            return
+        if tt.startswith("osnet"):
+            if tt not in OSNET_CONFIGS:
+                raise NotImplementedError(f"'{tt}': ported widths are {sorted(OSNET_CONFIGS)}")
+            layers, chans = OSNET_CONFIGS[tt]
+            ain = tt.startswith("osnet_ain")
+            self.base = OSNet(layers, chans, block_variants=OSNET_AIN_VARIANTS if ain else None,
+                              conv1_in=ain, **kw)
+            return
+        vit_kw = dict(camera=camera_num if sie_camera else 0, view=view_num if sie_view else 0,
+                      sie_xishu=sie_coe, drop_path_rate=drop_path, drop_rate=drop_rate,
+                      attn_drop_rate=attn_drop_rate,
+                      attn_implementation="pallas" if fused else "xla", remat=remat, **kw)
+        if tt in T2T_CONFIGS:
+            dim, depth, heads = T2T_CONFIGS[tt]
+            self.base = T2TViT(
+                img_size=tuple(img_size), embed_dim=dim if width_override < 0 else width_override,
+                depth=depth if depth_override < 0 else depth_override,
+                num_heads=heads if heads_override < 0 else heads_override, **vit_kw)
+            return
         embed_dim, depth, heads, mlp_ratio, qkv_bias, qk_scale = imagenet_vit_config(tt)
         self.base = ImageNetViT(
             img_size=tuple(img_size), stride_size=tuple(stride_size),
             embed_dim=embed_dim if width_override < 0 else width_override,
             depth=depth if depth_override < 0 else depth_override,
             num_heads=heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-            camera=camera_num if sie_camera else 0, view=view_num if sie_view else 0,
-            sie_xishu=sie_coe, drop_path_rate=drop_path, drop_rate=drop_rate,
-            attn_drop_rate=attn_drop_rate, attn_implementation="pallas" if fused else "xla",
-            dtype=dtype, device=device, generator=generator, remat=remat,
+            **vit_kw,
         )
 
     @property
@@ -119,8 +148,14 @@ class PIFE(nn.Module):
         tt = self.transformer_type
         if "ViT-B-16" in tt:
             return 512
+        if tt in T2T_CONFIGS:
+            return T2T_CONFIGS[tt][0] if self.width_override < 0 else self.width_override
         if "swin" in tt or "deit_small" in tt:
             return 384 if self.width_override < 0 else self.width_override
+        if tt.startswith("resnet"):
+            return 2048  # 512 x the Bottleneck's expansion
+        if tt.startswith("osnet"):
+            return OSNET_CONFIGS[tt][1][3]
         return 768 if self.width_override < 0 else self.width_override
 
     def forward(self, images: torch.Tensor, cam_label: Optional[torch.Tensor] = None,
@@ -142,6 +177,9 @@ class PIFE(nn.Module):
             if self.cv_embed is not None and cams is not None:
                 cv_emb = (self.sie_coe * self.cv_embed[cams])[:, : self.width]
             tokens = self.base(x, cv_emb, train)
+        elif isinstance(self.base, (ResNet, OSNet)):
+            g, t = resnet_tokens(self.base(x, train))
+            tokens = torch.cat([g[:, None, :], t], dim=1)
         else:
             views = None if view_label is None else view_label.long().repeat(m)
             tokens = self.base(x, cams, views, train, generator)

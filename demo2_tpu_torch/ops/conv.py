@@ -27,14 +27,16 @@ def lecun_normal_init(fan_in: int) -> Init:
 
 
 class Conv2d(nn.Module):
-    """flax nn.Conv at stride 1 over an odd kernel, padded by dilation *
-    (kernel // 2) on each side ("SAME"); `groups` is its feature_group_count."""
+    """flax nn.Conv over an odd kernel, padded by dilation * (kernel // 2) on
+    each side ("SAME" at stride 1; the CNN trunks' explicit padding of
+    (kernel - 1) // 2 at any `stride`); `groups` is its feature_group_count."""
 
     def __init__(self, in_features: int, out_features: int, kernel: int, *,
                  dtype: torch.dtype, device: torch.device, generator: torch.Generator,
-                 dilation: int = 1, groups: int = 1, bias: bool = False):
+                 dilation: int = 1, groups: int = 1, bias: bool = False, stride: int = 1):
         super().__init__()
         self.dtype = dtype
+        self.stride = stride
         self.dilation = dilation
         self.padding = dilation * (kernel // 2)
         self.groups = groups
@@ -48,6 +50,6 @@ class Conv2d(nn.Module):
         """x (B, H, W, C_in) -> (B, H, W, C_out) in the compute dtype."""
         dt = self.dtype
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), cached_cast(self, "weight", dt),
-                     cached_cast(self, "bias", dt), padding=self.padding,
+                     cached_cast(self, "bias", dt), stride=self.stride, padding=self.padding,
                      dilation=self.dilation, groups=self.groups)
         return y.permute(0, 2, 3, 1)

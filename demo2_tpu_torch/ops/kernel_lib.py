@@ -25,8 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
-           "packed_attention.cu", "flash_attention.cu", "layernorm_bwd.cu",
-           "jaccard_min_sum.cu", "attention_ablate.cu")
+           "packed_attention.cu", "packed_attention_wide.cu", "flash_attention.cu",
+           "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
 HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_regs_fwd.cuh",
            "attention_regs_bwd.cuh")
 NVCC_FLAGS = (
@@ -47,6 +47,10 @@ _SIGNATURES = {
     "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
     "demo2_packed_attention": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_packed_attention_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_wide": [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_wide_bwd": [_P] * 3 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_packed_attention_wide_max_seq": [],
+    "demo2_packed_attention_wide_takes_head": [_I],
     "demo2_flash_attention": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_flash_attention_bwd": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
     "demo2_layernorm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],

@@ -196,6 +196,59 @@ class TorchBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class FlaxBatchNorm(nn.Module):
+    """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over the last axis, as
+    the CNN trunks (demo2_tpu/models/resnet.py, osnet.py) use it.  It differs
+    from TorchBatchNorm in flax's conventions: the statistics in f32 (x's
+    dtype where that is wider) by the fast variance max(0, E[x^2] - E[x]^2),
+    the running statistics updated as 0.9 * running + 0.1 * batch with the
+    biased variance, and the output (x - mean) * (rsqrt(var + eps) * scale) +
+    bias in that dtype, cast to x's."""
+
+    momentum = 0.9
+
+    def __init__(self, features: int, *, device: torch.device):
+        super().__init__()
+        self.weight = make_param((features,), ones_init, generator=None, device=device)
+        self.bias = make_param((features,), zeros_init, generator=None, device=device)
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp_min(xf.square().mean(dims) - mean.square(), 0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return ((xf - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Affine InstanceNorm over (B, H, W, C), per sample and channel over H
+    and W, with batch statistics at eval too (demo2_tpu/models/resnet.py::
+    InstanceNorm).  The statistics accumulate in f32 (or x's wider dtype)
+    and, as in JAX, the arithmetic otherwise stays in x's dtype."""
+
+    def __init__(self, features: int, *, device: torch.device):
+        super().__init__()
+        self.weight = make_param((features,), ones_init, generator=None, device=device)
+        self.bias = make_param((features,), zeros_init, generator=None, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, acc = x.dtype, torch.promote_types(x.dtype, torch.float32)
+        mean = x.to(acc).mean((1, 2), keepdim=True).to(dt)
+        d = x - mean
+        var = d.square().to(acc).mean((1, 2), keepdim=True).to(dt)
+        y = d * torch.rsqrt(var + EPS)
+        return y * cached_cast(self, "weight", dt) + cached_cast(self, "bias", dt)
+
+
 def choose_gn_groups(channels: int) -> int:
     """The largest group count of 32, 16, 8, 4, 2 that divides C, else 1."""
     return next((g for g in (32, 16, 8, 4, 2) if channels % g == 0), 1)

@@ -9,7 +9,12 @@ saved-probs layout.
       replaces the Pallas kernel packed_attention.py::_bwd_kernel
       (csrc/packed_attention.cu, demo2_packed_attention_bwd);
       both keep scores and probabilities in registers, one warp per 16 rows
-      of a (sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh);
+      of a (sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh),
+      over heads of 64 and at most 144 tokens;
+  packed_attention_wide_fwd / _bwd: the same two functions over heads of 64
+      or 96 and at most 256 tokens, where the two above send every shape they
+      do not take (csrc/packed_attention_wide.cu, demo2_packed_attention_wide
+      and _wide_bwd; vit_small's heads of 96, the 211 tokens of stride 12);
   attention_bwd_saved_db: dqkv and the f32 qkv-bias gradient from saved probs
       replaces the Pallas kernel packed_attention.py::_bwd_saved_db_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db);
@@ -113,20 +118,36 @@ def check_input_dtype(what: str, dtype: torch.dtype, item: str = BLOCK_DTYPE_ITE
 
 
 def check_head_limits(what: str, width: int, num_heads: int, seq: int,
-                      dtype: torch.dtype = torch.bfloat16):
+                      dtype: torch.dtype = torch.bfloat16, wide: bool = False):
     """Raise for heads, sequences or input dtypes the attention tiles
-    (kernels 1, 3-10) do not take; return the library.  The Pallas kernels 5,
-    6, 9 and 10 also run on f32 inputs; the CUDA tiles read bf16."""
+    (kernels 1, 3-10) do not take; return the library.  `wide`: the limits
+    of kernels 5 and 6, which also take the wide pair's shapes (heads of 64
+    or 96 over at most 256 tokens).  The Pallas kernels 5, 6, 9 and 10 take
+    any head width and length, and f32 inputs too; the CUDA tiles read bf16."""
     item = "wider heads, longer sequences and f32 inputs in the attention kernels"
     check_input_dtype(what, dtype, item)
     kl = kernel_library()
-    head_dim, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
-    if width != num_heads * head_dim:
+    head_dim = width // num_heads
+    if wide:
+        takes = head_dim * num_heads == width and \
+            kl.lib.demo2_packed_attention_wide_takes_head(head_dim)
+        heads, max_seq = "64 or 96", kl.lib.demo2_packed_attention_wide_max_seq()
+    else:
+        heads, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
+        takes = width == num_heads * heads
+    if not takes:
         raise not_ported(f"{what} with {num_heads} heads over width {width} (the kernel "
-                         f"takes heads of {head_dim})", item)
+                         f"takes heads of {heads})", item)
     if seq > max_seq:
         raise not_ported(f"{what} over {seq} tokens (the kernel takes {max_seq})", item)
     return kl
+
+
+def regs_take(kl, width: int, num_heads: int, seq: int) -> bool:
+    """The register-resident pair of kernels 5 and 6 takes this shape (else
+    the wide pair does)."""
+    return (width == num_heads * kl.lib.demo2_attention_head_dim()
+            and seq <= kl.lib.demo2_attention_max_seq())
 
 
 def _expect_cuda(t: torch.Tensor, what: str) -> None:
@@ -312,7 +333,7 @@ def _check_packed(qkv, num_heads, what, do=None):
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {qkv.device}")
     b, s, c3 = qkv.shape
     c = c3 // 3
-    kl = check_head_limits(what, c, num_heads, s, qkv.dtype)
+    kl = check_head_limits(what, c, num_heads, s, qkv.dtype, wide=True)
     expect(qkv, "qkv", (b, s, c3), torch.bfloat16, qkv.device)
     if do is not None:
         expect(do, "do", (b, s, c), torch.bfloat16, qkv.device)
@@ -325,6 +346,8 @@ def packed_attention_fwd(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return packed_self_attention_plain(qkv, num_heads, scale)
     kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_fwd")
+    if not regs_take(kl, c, num_heads, s):
+        return packed_attention_wide_fwd(qkv, num_heads=num_heads, scale=scale)
     out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
     if qkv.numel() == 0:
         return out
@@ -347,6 +370,8 @@ def packed_attention_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tens
     if qkv.device.type == "cpu":
         return packed_attention_bwd_plain(qkv, do, num_heads, scale)
     kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_bwd", do)
+    if not regs_take(kl, c, num_heads, s):
+        return packed_attention_wide_bwd(qkv, do, num_heads=num_heads, scale=scale)
     dqkv = torch.empty_like(qkv)
     if qkv.numel() == 0:
         return dqkv
@@ -361,6 +386,52 @@ def packed_attention_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tens
 
 
 packed_attention_bwd.launches = 0
+
+
+def packed_attention_wide_fwd(qkv, *, num_heads: int, scale: float) -> torch.Tensor:
+    """packed_attention_fwd on the wide pair: (B, S, 3C) -> (B, S, C), heads
+    of 64 or 96, S <= 256; the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if qkv.device.type == "cpu":
+        return packed_self_attention_plain(qkv, num_heads, scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_wide_fwd")
+    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
+    if qkv.numel() == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention_wide(
+            qkv.data_ptr(), out.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_wide_fwd")
+    packed_attention_wide_fwd.launches += 1
+    return out
+
+
+packed_attention_wide_fwd.launches = 0
+
+
+def packed_attention_wide_bwd(qkv, do, *, num_heads: int, scale: float) -> torch.Tensor:
+    """packed_attention_bwd on the wide pair: dqkv (B, S, 3C), heads of 64 or
+    96, S <= 256; the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if qkv.device.type == "cpu":
+        return packed_attention_bwd_plain(qkv, do, num_heads, scale)
+    kl, b, s, c = _check_packed(qkv, num_heads, "packed_attention_wide_bwd", do)
+    dqkv = torch.empty_like(qkv)
+    if qkv.numel() == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        err = kl.lib.demo2_packed_attention_wide_bwd(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c, num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, "packed_attention_wide_bwd")
+    packed_attention_wide_bwd.launches += 1
+    return dqkv
+
+
+packed_attention_wide_bwd.launches = 0
 
 
 class PackedSelfAttentionFn(torch.autograd.Function):

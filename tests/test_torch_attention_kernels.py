@@ -126,6 +126,48 @@ def test_packed_backward_plain_matches_pallas_kernel_at_the_tiling_edges(edge, d
     np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
 
 
+# The wide pair's shapes (csrc/packed_attention_wide.cu), at a small batch:
+# vit_small's 8 heads of 96 at stride 16 (129 tokens) and 12 (211), and 12
+# heads of 64 at 211 tokens; vit_small's scale is 768^-0.5.  (batch, S,
+# heads, head width, scale).
+WIDE_CASES = [(2, 129, 8, 96, 768 ** -0.5), (2, 211, 8, 96, 768 ** -0.5),
+              (2, 211, 12, 64, 64 ** -0.5)]
+
+
+def _wide_inputs(case, seed):
+    b, s, heads, d, _ = case
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, s, 3 * heads * d)).astype(np.float32), \
+        rng.standard_normal((b, s, heads * d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: f"{c[1]}x{c[2]}x{c[3]}")
+def test_wide_packed_forward_plain_matches_pallas_kernel(case, dtype):
+    """The wide pair's forward (its plain version on the CPU) against the
+    Pallas kernel in interpret mode, heads of 96 and S = 211."""
+    qkv, _ = _wide_inputs(case, seed=80 + case[1])
+    b, s, heads, d, scale = case
+    want = _packed_fwd_impl(_jnp(qkv, dtype), heads, scale, interpret=True)
+    got = pa.packed_attention_wide_fwd(_torch(qkv, dtype), num_heads=heads, scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, s, heads * d)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: f"{c[1]}x{c[2]}x{c[3]}")
+def test_wide_packed_backward_plain_matches_pallas_kernel(case, dtype):
+    qkv, do = _wide_inputs(case, seed=90 + case[1])
+    b, s, heads, d, scale = case
+    (want,) = _packed_bwd(heads, scale, _jnp(qkv, dtype), _jnp(do, dtype), interpret=True)
+    got = pa.packed_attention_wide_bwd(_torch(qkv, dtype), _torch(do, dtype), num_heads=heads,
+                                       scale=scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == qkv.shape
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(n(got), np.asarray(want, np.float32), **tol)
+
+
 def test_packed_function_grads_match_jax_vjp():
     """PackedSelfAttentionFn (kernels 5 and 6 on the card) against jax.vjp of
     packed_self_attention, which on the CPU is JAX's XLA path."""
@@ -342,6 +384,51 @@ def test_attention_limits_raise_naming_the_roadmap(monkeypatch, width, heads, se
             pa.check_head_limits("attention", width, heads, seq)
 
 
+class _WideLib:
+    """A stand-in for the built library's limits, both pairs of kernels 5
+    and 6."""
+    demo2_attention_head_dim = staticmethod(lambda: 64)
+    demo2_attention_max_seq = staticmethod(lambda: 144)
+    demo2_packed_attention_wide_max_seq = staticmethod(lambda: 256)
+    demo2_packed_attention_wide_takes_head = staticmethod(lambda d: int(d in (64, 96)))
+
+
+@pytest.mark.parametrize("width,heads,seq,ok,regs", [
+    (768, 12, 129, True, True),    # ViT-B at stride 16: the register pair
+    (768, 12, 144, True, True),
+    (768, 8, 129, True, False),    # vit_small: heads of 96, the wide pair
+    (768, 12, 211, True, False),   # stride 12 at 256x128: 211 tokens
+    (768, 8, 256, True, False),    # the wide pair's longest
+    (768, 8, 1, True, False),
+    (768, 6, 129, False, False),   # heads of 128
+    (768, 8, 257, False, False),   # one token past the wide pair
+    (776, 8, 129, False, False),   # no whole number of heads
+])
+def test_packed_attention_limits_take_the_wide_pair(monkeypatch, width, heads, seq, ok, regs):
+    """Kernels 5 and 6 take heads of 64 or 96 over at most 256 tokens; the
+    register pair the (64, <= 144) shapes of them, the wide pair the rest.
+    Beyond, the refusal names the ROADMAP item; the other attention kernels
+    keep the register tiles' limits."""
+    class Library:
+        lib = _WideLib()
+
+    monkeypatch.setattr(pa, "kernel_library", lambda: Library)
+    if ok:
+        assert pa.check_head_limits("attention", width, heads, seq, wide=True) is Library
+        assert pa.regs_take(Library, width, heads, seq) == regs
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*wider heads"):
+            pa.check_head_limits("attention", width, heads, seq, wide=True)
+    if not regs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*wider heads"):
+            pa.check_head_limits("attention", width, heads, seq)
+
+
+def test_wide_pair_refuses_f32_naming_the_roadmap():
+    with pytest.raises(NotImplementedError, match="ROADMAP.*f32 inputs"):
+        pa.check_head_limits("attention", 768, 8, 211, torch.float32, wide=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_attention_kernels_on_other_dtypes_raise_naming_the_roadmap(dtype):
     """The Pallas kernels 5, 6, 9 and 10 run on f32 too; the CUDA tiles read
@@ -452,6 +539,24 @@ def test_chip_smoke_attention_phase_checks_the_packed_kernels_at_the_edges(capsy
         assert f"packed_attention_bwd {shape}: every output bit-identical over two runs" in out
     assert [(b, s, 3 * h * d) for b, s, h, d in cs.FLASH_EDGE_SHAPES] == [
         (48, 144, 2304), (192, 16, 2304), (192, 1, 2304), (64, 40, 1152), (5, 77, 576)]
+
+
+def test_chip_smoke_wide_attention_phase_passes_on_the_plain_versions(monkeypatch):
+    """Phase 9's checks of the wide pair at small shapes (heads of 96 and of
+    64) on the CPU: every bound holds, kernels 5's and 6's misrounded
+    controls fail, the dispatch check runs (and only logs: plain versions
+    count no launches); its shapes on the card are vit_small's and stride
+    12's, and its edges S = 1, 16, 145 and 256."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "REHEARSAL", True)
+    errors = cs.phase_wide_attention_kernels(CPU, shapes=((2, 21, 576, 2), (2, 17, 384, 2)),
+                                             edges=((3, 1, 576, 2), (2, 33, 576, 2)))
+    assert errors == {"packed_attention_wide_fwd": 0.0, "packed_attention_wide_bwd": 0.0}
+    assert [(s_, c3 // 3 // h) for _, s_, c3, h in cs.WIDE_SHAPES] == [(211, 64), (211, 96),
+                                                                       (129, 96)]
+    assert {s_ for _, s_, _, _ in cs.WIDE_EDGE_SHAPES} >= {1, 16, 145, 256}
+    assert cs.wide_scale(768, 8) == 768 ** -0.5 and cs.wide_scale(768, 12) == 0.125
 
 
 REMOVED_DESIGNS = ["demo2_attention_bwd_saved_db_first", "attention_bwd_saved_db_first",

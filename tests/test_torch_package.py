@@ -43,7 +43,7 @@ for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_lis
              "utils.meter", "utils.iotools", "utils.metrics_log", "utils.converters",
              "tools.train", "tools.test", "tools.quality_gate", "tools.make_synthetic_jpegs",
              "tools.arch_knobs", "losses.metric_learning", "utils.ref_convert", "utils.bpe",
-             "models.clip_text"):
+             "models.clip_text", "models.t2t", "models.resnet", "models.osnet"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 from demo2_tpu_torch.data.loader import pil_error
 assert pil_error().startswith("PIL does not import")
@@ -157,7 +157,6 @@ def _flagship_tiny():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("MODEL", "TRANSFORMER_TYPE", "t2t_vit_t_14"),
     ("TPU", "INT8_MLP", "dynamic"),
 ])
 def test_configs_outside_the_slice_raise(section, key, value):
@@ -200,6 +199,9 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "FROZEN", True),
     ("MODEL", "ADAPTER", True),
     ("MODEL", "PROMPT", True),
+    ("MODEL", "TRANSFORMER_TYPE", "t2t_vit_t_14"),
+    ("MODEL", "TRANSFORMER_TYPE", "resnet50_ibn_a"),
+    ("MODEL", "TRANSFORMER_TYPE", "osnet_x0_25"),
 ])
 def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
     """One train step and one eval under each configuration the port once
@@ -213,7 +215,8 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     backbone, the timm cosine schedule (with SOLVER.LR_SCHEDULER
     'cosine'), and the CLIP tower's tuning paths: FROZEN (LoRA of rank 4 on
     q, k and v; the frozen backbone unchanged by the step), the FFN adapter
-    and the modality prompts."""
+    and the modality prompts, and the other backbones: T2T-ViT, ResNet-50
+    IBN-a and OSNet (the flagship fusion at the width each gives)."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.data.loader import TriModalDataPipe, device_batches

@@ -181,11 +181,15 @@ def test_patch_grid_for_matches_jax(tt, stride):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tt", ["vit_base_patch16_224", "deit_base_patch16_224",
-                                "vit_small_patch16_224", "deit_small_patch16_224",
-                                "swin_small_patch16_224"])
-def test_pife_imagenet_types_match_jax(tt):
-    kw = dict(transformer_type=tt, img_size=(64, 32), stride_size=(16, 16), camera_num=CAMS,
+@pytest.mark.parametrize("tt,stride", [
+    pytest.param(tt, (16, 16), id=tt)
+    for tt in ("vit_base_patch16_224", "deit_base_patch16_224", "vit_small_patch16_224",
+               "deit_small_patch16_224", "swin_small_patch16_224")
+] + [pytest.param("vit_small_patch16_224", (12, 12), id="vit_small_patch16_224-stride12")])
+def test_pife_imagenet_types_match_jax(tt, stride):
+    """Each ImageNet type, and vit_small (heads of 96) at the overlapping
+    stride 12 (5 x 2 patches at 64x32)."""
+    kw = dict(transformer_type=tt, img_size=(64, 32), stride_size=stride, camera_num=CAMS,
               view_num=VIEWS, sie_camera=True, sie_view=True, sie_coe=1.5, drop_path=0.1,
               depth_override=1, width_override=-1, heads_override=-1)
     jm = JPIFE(attn_implementation="pallas", **kw)
@@ -199,7 +203,8 @@ def test_pife_imagenet_types_match_jax(tt):
     assert port.feat_dim == jm.feat_dim
     want_p, want_g = apply_jit(jm, variables, *map(jnp.asarray, (images, cams, views, mask)))
     got_p, got_g = port(t(images), t(cams).long(), t(views).long(), t(mask))
-    assert got_g.shape == (3, 2, jm.feat_dim) and got_p.shape == (3, 2, 8, jm.feat_dim)
+    gh, gw = jm.patch_grid
+    assert got_g.shape == (3, 2, jm.feat_dim) and got_p.shape == (3, 2, gh * gw, jm.feat_dim)
     np.testing.assert_allclose(n(got_p), np.asarray(want_p), **TOL)
     np.testing.assert_allclose(n(got_g), np.asarray(want_g), **TOL)
 
