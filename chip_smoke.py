@@ -65,7 +65,8 @@ Phases:
      64 and with 8 of 96, and (192, 129, 2304) with 8 of 96 (vit_small's
      scale 768^-0.5), kernels 5's and 6's misrounded controls failing the
      mean bound there, and at WIDE_EDGE_SHAPES (S = 1, 16, 145, 256; many
-     (sample, head) blocks); its backward bit-identical over two runs;
+     (sample, head) items; at S = 256 and batch 192, 11-18 items to each
+     block of the persistent grid); its backward bit-identical over two runs;
      packed_attention_fwd / _bwd at S = 211 launching it and not the
      register pair;
   3. serving: requests of N = 0, 1, 64, 100 images with miss "None" and "nt";
@@ -1767,9 +1768,11 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
 
 def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
                   flash_shape=FLASH_SHAPES[0], jaccard_size=None, qkv_shape=None,
-                  seed=7) -> dict:
+                  wide_shapes=None, seed=7) -> dict:
     """Kernels 1, 2, 2-train, 3, 5, 6, 9, 10, 12 (at JACCARD_SIZES[0] on the
-    clustered weights) and 8, 4 and 7 (at QKV_SHAPES[0]) on fixed inputs, as
+    clustered weights), 8, 4 and 7 (at QKV_SHAPES[0]) and the wide pair of 5
+    and 6 (by default at WIDE_SHAPES and WIDE_LONG_SHAPES, named by S and
+    the head width) on fixed inputs, as
     tools/compare_trees.py times them: name -> one call of the kernel's
     wrapper.  Only the wrappers' public signatures are used, so the same
     cases run against the package of any checkout of the port."""
@@ -1790,6 +1793,9 @@ def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
     cases["attention_bwd_fused_dw"] = lambda: pa.attention_bwd_fused_dw(*dw_inputs, **dw_kw)
     cases["attention_bwd_saved_db"] = lambda: pa.attention_bwd_saved_db(*dw_inputs[:3], **dw_kw)
     cases["attention_bwd_saved"] = lambda: pa.attention_bwd_saved(*dw_inputs[:3], **dw_kw)
+    for shape in wide_shapes or WIDE_SHAPES + WIDE_LONG_SHAPES:
+        for name, case in wide_attention_cases(device, shape, seed).items():
+            cases[f"{name} {shape[1]}x{shape[2] // 3 // shape[3]}"] = case[0]
     return cases
 
 
@@ -1943,10 +1949,16 @@ def phase_attention_kernels(device, shapes=tuple(zip(PACKED_SHAPES, FLASH_SHAPES
 # vit_base's 12 heads of 64 and vit_small's 8 of 96; vit_small at stride 16
 # has 129.  The edges: one key, one 16-row tile, the first S past the
 # register tiles' 144, the longest S (256), each with many (sample, head)
-# blocks, and heads of 64 at a length the register pair also takes.
+# items, and heads of 64 at a length the register pair also takes.
+# WIDE_LONG_SHAPES, the longest S at batch 192, give each block of the
+# persistent grid 11-12 (8 heads of 96) or 17-18 (12 heads of 64) items, so
+# that every slot of the operand ring and of the statistics is reused many
+# times over.
 WIDE_SHAPES = ((192, 211, 2304, 12), (192, 211, 2304, 8), (192, 129, 2304, 8))
+WIDE_LONG_SHAPES = ((192, 256, 2304, 8), (192, 256, 2304, 12))
 WIDE_EDGE_SHAPES = ((192, 1, 2304, 8), (192, 16, 2304, 8), (48, 145, 2304, 12),
-                    (24, 256, 2304, 8), (16, 256, 2304, 12), (64, 40, 1152, 6))
+                    (24, 256, 2304, 8), (16, 256, 2304, 12), (64, 40, 1152, 6),
+                    *WIDE_LONG_SHAPES)
 
 
 def wide_scale(c: int, num_heads: int) -> float:

@@ -1,6 +1,7 @@
 """Time the port's kernels in several checkouts on one card, in turns.
 
     python3 -m demo2_tpu_torch.tools.compare_trees parent/ . . parent/
+    python3 -m demo2_tpu_torch.tools.compare_trees --cases wide parent/ . . parent/
 
 Each argument is the root of a checkout (one that holds chip_smoke.py and
 demo2_tpu_torch/).  One process per argument, in the order given, each in its
@@ -13,10 +14,12 @@ one line: for the block kernels 1, 2, 2's training form and 3 at x (192, 129,
 768), the attention kernels 5, 6, 9 and 10 at qkv (192, 129, 2304) and
 (192, 129, 12, 64), the re-ranking min-sum 12 on the weights of 1,600
 queries among 4,800 clustered features and the saved-probs backwards 8, 4
-and 7 at qkv (192, 129, 2304), the median [min .. max] in ms of six rounds of 20
-launches by CUDA events, taken kernel by kernel in turns, with the card's
-name and power limit.  Two readings of one checkout say how far two
-processes differ before two checkouts are compared.
+and 7 at qkv (192, 129, 2304), and the wide pair of 5 and 6 at S = 211, 129
+and 256 with heads of 64 and 96, the median [min .. max] in ms of six rounds
+of 20 launches by CUDA events, taken kernel by kernel in turns, with the
+card's name and power limit.  `--cases TEXT` keeps the cases whose name holds
+TEXT (`wide`: the wide pair alone).  Two readings of one checkout say how far
+two processes differ before two checkouts are compared.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ if not torch.cuda.is_available():
     raise SystemExit("compare_trees needs a CUDA device")
 device = torch.device("cuda", 0)
 cs.exact_products()
-cases = cs.compare_cases(device)
+keep = sys.argv[1]  # the --cases filter ("" keeps every case)
+cases = {{name: call for name, call in cs.compare_cases(device).items() if keep in name}}
 got = {{name: [] for name in cases}}
 for _ in range({ROUNDS}):
     for name, call in cases.items():
@@ -49,14 +53,18 @@ print(f"{{os.getcwd()}}: {{times}} ms ({{cs.card_line()}})", flush=True)
 """
 
 
-def main(trees: list[str]) -> None:
+def main(args: list[str]) -> None:
+    keep, trees = "", args
+    if args[:1] == ["--cases"] and len(args) > 1:
+        keep, trees = args[1], args[2:]
     if not trees:
-        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.compare_trees TREE [TREE ...]")
+        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.compare_trees "
+                         "[--cases TEXT] TREE [TREE ...]")
     for tree in trees:
         if not (Path(tree) / "chip_smoke.py").is_file():
             raise SystemExit(f"compare_trees: {tree} holds no chip_smoke.py")
     for tree in trees:
-        done = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
+        done = subprocess.run([sys.executable, "-c", CHILD, keep], cwd=tree, capture_output=True,
                               text=True, timeout=TREE_SECONDS)
         if done.returncode != 0:
             raise SystemExit(f"compare_trees: {tree} failed:\n{done.stdout}{done.stderr}")

@@ -140,22 +140,27 @@ def test_compare_trees_refuses_what_it_cannot_time(tmp_path):
 def test_compare_trees_times_every_redesigned_kernel():
     """tools/compare_trees.py times, in every checkout, the cases of
     chip_smoke.py's own compare_cases: the block kernels 1, 2, 2-train and 3,
-    the attention kernels 5, 6, 9 and 10, kernel 12 and the saved-probs
-    backwards 8, 4 and 7, each by the wrapper that counts its launches."""
+    the attention kernels 5, 6, 9 and 10, kernel 12, the saved-probs
+    backwards 8, 4 and 7 and the wide pair of 5 and 6 (one case a shape,
+    named by S and the head width), each by the wrapper that counts its
+    launches."""
     import chip_smoke as cs
     from demo2_tpu_torch.tools import compare_trees
 
     cases = cs.compare_cases(torch.device("cpu"), block_shape=(2, 9, 128),
                              packed_shape=(2, 9, 384), flash_shape=(2, 9, 2, 64),
-                             jaccard_size=(12, 60), qkv_shape=(2, 9, 384))
+                             jaccard_size=(12, 60), qkv_shape=(2, 9, 384),
+                             wide_shapes=((2, 21, 576, 2), (1, 17, 384, 2)))
     assert set(cases) == {"fused_attention_block", "fused_mlp_block",
                           "fused_attention_block_train", "fused_mlp_block_train",
                           "packed_attention_fwd", "packed_attention_bwd",
                           "flash_attention_fwd", "flash_attention_bwd", "jaccard_min_sum",
                           "attention_bwd_fused_dw", "attention_bwd_saved_db",
-                          "attention_bwd_saved"}
-    assert set(cases) <= set(cs.all_kernels())
-    assert "cases = cs.compare_cases(device)" in compare_trees.CHILD
+                          "attention_bwd_saved",
+                          "packed_attention_wide_fwd 21x96", "packed_attention_wide_bwd 21x96",
+                          "packed_attention_wide_fwd 17x64", "packed_attention_wide_bwd 17x64"}
+    assert {name.split()[0] for name in cases} <= set(cs.all_kernels())
+    assert "cs.compare_cases(device)" in compare_trees.CHILD
     assert compare_trees.CHIP_SMOKE == Path(cs.__file__).resolve()
     for call in cases.values():
         assert all(torch.isfinite(y).all() for y in cs.as_tuple(call()))

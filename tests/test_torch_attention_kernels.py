@@ -128,10 +128,14 @@ def test_packed_backward_plain_matches_pallas_kernel_at_the_tiling_edges(edge, d
 
 # The wide pair's shapes (csrc/packed_attention_wide.cu), at a small batch:
 # vit_small's 8 heads of 96 at stride 16 (129 tokens) and 12 (211), and 12
-# heads of 64 at 211 tokens; vit_small's scale is 768^-0.5.  (batch, S,
+# heads of 64 at 211 tokens; vit_small's scale is 768^-0.5.  Then the edges
+# of its domain at batch 1: one key, one 16-row tile, the first S past the
+# register pair's 144, and the longest S, with both head widths.  (batch, S,
 # heads, head width, scale).
 WIDE_CASES = [(2, 129, 8, 96, 768 ** -0.5), (2, 211, 8, 96, 768 ** -0.5),
-              (2, 211, 12, 64, 64 ** -0.5)]
+              (2, 211, 12, 64, 64 ** -0.5),
+              (1, 1, 12, 64, 64 ** -0.5), (1, 16, 8, 96, 768 ** -0.5),
+              (1, 145, 12, 64, 64 ** -0.5), (1, 256, 8, 96, 768 ** -0.5)]
 
 
 def _wide_inputs(case, seed):

@@ -1,0 +1,22 @@
+"""The wide pair's ablation tool (demo2_tpu_torch/tools/wide_ablate.py): each
+ablation's text substitutions apply to csrc/packed_attention_wide.cu as it
+stands, so a change to the kernel that moves the text an ablation edits
+fails here rather than on the card."""
+
+import pytest
+
+from demo2_tpu_torch.tools import wide_ablate
+
+
+@pytest.mark.parametrize("name", sorted(wide_ablate.ABLATIONS))
+def test_every_ablation_applies_to_the_kernel_source(name):
+    source = wide_ablate.SOURCE.read_text()
+    changed = wide_ablate.ablated(source, name)
+    assert changed != source
+    for old, new in wide_ablate.ABLATIONS[name]:
+        assert new in changed
+
+
+def test_a_missing_piece_of_text_is_refused():
+    with pytest.raises(ValueError, match="not found exactly once"):
+        wide_ablate.ablated("no kernel here", "fwd_noexp")
