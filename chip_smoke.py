@@ -22,7 +22,9 @@ configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
 DeMo_FRCA_DGAF.yml), drives DeMo on the other backbones (T2T-ViT-24,
 vit_small at stride 12, ResNet-50-IBN-a, OSNet-AIN) as a server and a
 trainer, trains and evaluates the flagship from a JPEG tree on
-disk through the port's CLIs (tools/train.py, tools/test.py), and times
+disk through the port's CLIs (tools/train.py, tools/test.py), trains and
+serves the flagship with the int8 MLP (TPU.INT8_MLP), takes its saliency
+maps and runs the missing-modality sweep (tools/miss_sweep.py), and times
 kernels, requests, the loader and train steps against the plain path.
 Phases:
 
@@ -269,7 +271,30 @@ Phases:
      forward), its embedding through load_reference_checkpoint against the
      plain path's (cosine >= 0.999), tools/train.main --init_pth over one
      epoch (kernels 5 and 6 12 times a step); the kernel-path checks of
-     phases 2 and 5 also run at the prompts' S = 141.
+     phases 2 and 5 also run at the prompts' S = 141;
+  34. TPU.INT8_MLP and the analysis stack (parts 1 and 2 after phase 30, on
+     its cache; part 3 after phase 27, on its tree): torch._int_mm bit-equal
+     to the exact f64 product at the flagship's MLP shapes, (24768, 768) x
+     (768, 3072) and (24768, 3072) x (3072, 768); int8_dense on x (24768,
+     768) bf16 bit-equal to a reference (host scales and half-to-even
+     rounding, the product in f64) in both modes, which a control rounding
+     toward zero fails; the flagship with INT8_MLP dynamic and static at
+     full width against the plain path with the same INT8_MLP: a batch-64
+     request (cosine >= 0.999; kernel 1 12 times, kernel 2 never), the
+     step-1 gradient (phase 6's cosines, ln_2 and the MLP among the groups),
+     INT8_STEPS steps on each path (kernels 3 and 4 12 times a step, losses
+     within 2%), the step and the request timed beside the bf16 flagship's,
+     a profile of one step of each; gradcam (class_idx pinned; kernels 1
+     and 2 12 times: the probe lies after the backbone) and gradcam_heatmaps
+     (kernels 3, 7 and 2's training form 12 times) on the flagship at batch
+     8, the probed patch activations held (cosine >= 0.999), the maps'
+     agreement printed (SDTPS's input gradient is ill-conditioned); the maps
+     held within CAM_MAP_TOL of the plain path's on DGAF v3 alone (gradcam)
+     and on the Baseline (gradcam_heatmaps), other images' maps further;
+     tools.miss_sweep's seven conditions on phase 27's tree and best
+     checkpoint (kernels 1 and 2 12 times an eval forward), "None" equal to
+     tools/test.main's mAP and Rank-1; the phase's seconds against its
+     45 s budget.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -4464,6 +4489,304 @@ def phase_backbones(device, card, flag_cfg, flag_model, cache, sampler, timing=T
     return trained, times
 
 
+# ---------------------------------------------------------------- phase 34
+
+
+INT8_MODES = ("dynamic", "static")
+# The flagship's two MLP products at batch 64: (3B x S, C) x (C, 4C), (3B x S, 4C) x (4C, C).
+INT8_PRODUCT_SHAPES = ((24768, 768, 3072), (24768, 3072, 768))
+INT8_STEPS = 3           # train steps on each path, each mode
+CAM_BATCH = 8            # images a Grad-CAM call
+CAM_MAP_TOL = 0.05       # largest |difference| of two [0, 1] maps, kernel vs plain path
+PHASE34_BUDGET_S = 45.0
+
+
+def int8_cfg(mode: str):
+    """The flagship with TPU.INT8_MLP `mode` (both GEMMs of each MLP in int8)."""
+    return lambda fused, **overrides: flagship_cfg(fused, TPU__INT8_MLP=mode, **overrides)
+
+
+def no_sdtps_cfg(use_dgaf: bool):
+    """The flagship without SDTPS: the Baseline, or DGAF v3 alone."""
+    return lambda fused, **overrides: flagship_cfg(fused, MODEL__USE_SDTPS=False,
+                                                   MODEL__USE_DGAF=use_dgaf, **overrides)
+
+
+def quantize_toward_zero(xf, s):
+    """The misquantized control: round toward zero, not half to even."""
+    return torch.clamp(torch.trunc(xf / s), -127, 127).to(torch.int8)
+
+
+def int8_dense_reference(x: torch.Tensor, w: torch.Tensor, act_scale: float) -> torch.Tensor:
+    """ops/quant.py::int8_dense's forward by other means: the scales and the
+    half-to-even rounding in numpy on the host, the integer product exact in
+    f64 on the device (every partial sum an integer below 2^53), the
+    rescale in numpy in int8_dense's association, the cast by torch."""
+    xf = x.float().cpu().numpy().reshape(-1, x.shape[-1])
+    wf = w.float().cpu().numpy()
+    s = np.float32(act_scale) if act_scale > 0 else np.maximum(
+        np.abs(xf).max() / np.float32(127.0), np.float32(1e-8))
+    sw = np.maximum(np.abs(wf).max(axis=1) / np.float32(127.0), np.float32(1e-8))
+    xq = np.clip(np.rint(xf / s), -127, 127)
+    wq = np.clip(np.rint(wf / sw[:, None]), -127, 127)
+    dev = x.device
+    y32 = (torch.from_numpy(xq).to(dev, torch.float64)
+           @ torch.from_numpy(wq).to(dev, torch.float64).t()).cpu().numpy().astype(np.float32)
+    y = torch.from_numpy(y32 * (s * sw))
+    return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[0])
+
+
+def check_int8_products(device, shapes=INT8_PRODUCT_SHAPES) -> None:
+    """torch._int_mm (quant.int8_matmul) bit-equal to the exact product at the
+    flagship's MLP shapes (an f32 product is not exact there: 3,072 x 127^2
+    > 2^24); int8_dense on the flagship's fc1 input bit-equal to its
+    reference in both modes, which the misquantized control fails."""
+    from demo2_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(41)
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(device)
+        got = quant.int8_matmul(a, w)
+        exact = a.double() @ w.double().t()
+        require(got.dtype == torch.int32 and torch.equal(got.double(), exact),
+                f"_int_mm ({m}, {k}) x ({k}, {n}) differs from the exact product")
+        log(f"[int8] _int_mm ({m}, {k}) x ({k}, {n}): bit-equal to the exact f64 product, "
+            f"largest |value| {exact.abs().max().item():.0f} (> 2^24 = 16777216: "
+            f"{exact.abs().max().item() > 2 ** 24})")
+    m, k, n = shapes[0]
+    x = (torch.randn(m, k, generator=g) * 2.0).to(device, torch.bfloat16)
+    w = (torch.randn(n, k, generator=g) * k ** -0.5).to(device)
+    for mode, s in (("dynamic", 0.0), ("static", 10.0 / 127.0)):
+        want = int8_dense_reference(x, w, s)
+        got = quant.int8_dense(x, w, s).cpu()
+        require(torch.equal(got, want), f"int8_dense ({mode}) differs from its reference")
+        kept = quant.quantize
+        quant.quantize = quantize_toward_zero
+        try:
+            wrong = quant.int8_dense(x, w, s).cpu()
+        finally:
+            quant.quantize = kept
+        differ = (wrong != want).float().mean().item()
+        require(differ > 0, f"the misquantized control ({mode}) passed the reference check")
+        log(f"[int8] int8_dense ({mode}) at x ({m}, {k}) bf16: bit-equal to its reference; the "
+            f"control rounding toward zero differs in {differ:.2%} of the outputs")
+
+
+def phase_int8(device, card, cache, sampler, flag_cfg, flag_model) -> dict:
+    """Phase 34, part 1: TPU.INT8_MLP on the flagship at full width, both
+    modes.  The int8 products (check_int8_products); an eval request of 64
+    against the plain path with the same INT8_MLP (embedding cosine >=
+    COSINE_MIN; kernel 1 12 times, kernel 2 never); the step-1 gradient
+    against the plain path (phase 6's cosines, ln_2 and the MLP among the
+    groups) and INT8_STEPS steps on each path (kernels 3 and 4 12 times a
+    step, the losses within LOSS_REL); then the int8 step and request timed
+    beside the bf16 flagship's in turns.  Returns the launches of the steps."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    t0 = time.perf_counter()
+    check_int8_products(device, ((64, 64, 256), (64, 256, 64)) if REHEARSAL
+                        else INT8_PRODUCT_SHAPES)
+    layers = 2 if REHEARSAL else 12
+    per_forward = launch_dict(fused_attention_block=layers)
+    per_step = launch_dict(fused_attention_block_train=layers, attention_bwd_saved_db=layers)
+    images, cams = request_images(64, flag_cfg, seed=5)
+    order = sampler.epoch_indices(4)
+    bs = flag_cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.from_numpy(order[:bs]).to(device)
+    built, launches = {}, {}
+    for mode in INT8_MODES:
+        label = f"int8 {mode}"
+        cfg, model, plain_cfg, plain = build_models(device, int8_cfg(mode))
+        fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
+        fx_plain = FeatureExtractor(plain_cfg, plain, device=device, batch_size=64)
+        reset_counts()
+        emb = fx.extract(images, cams)
+        sync()
+        require_launches(counts(), per_forward, f"[{label}] eval request of 64")
+        ref = fx_plain.extract(images, cams)
+        cos = np.sum(emb * ref, axis=1) / (np.linalg.norm(emb, axis=1)
+                                          * np.linalg.norm(ref, axis=1))
+        require(bool(np.isfinite(emb).all()) and float(cos.min()) >= COSINE_MIN,
+                f"[{label}] embedding cosine to the plain path {cos.min()} < {COSINE_MIN}")
+        log(f"[{label}] eval request of 64: embedding cosine to the plain path min "
+            f"{cos.min():.6f} mean {cos.mean():.6f}; kernel 1 {layers} launches, kernel 2 none")
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        check_step1_grads(cfg, model, plain_cfg, plain, cache, idx, label,
+                          extra_groups=("ln_2.", "mlp.c_fc.", "mlp.c_proj."))
+        model.load_state_dict(init)
+        plain.load_state_dict(init)
+
+        def checked(i, rose, label=label):
+            if i == 0 or not REHEARSAL:
+                require_launches(rose, per_step, f"[{label}] train step {i}")
+
+        reset_counts()
+        losses = train_steps(cfg, model, cache, order, INT8_STEPS, checked)
+        launches[mode] = counts()
+        plain_losses = train_steps(plain_cfg, plain, cache, order, INT8_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        log(f"[{label}] {INT8_STEPS} steps of {bs}: kernel path losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}, plain path "
+            f"{' '.join(f'{x:.4f}' for x in plain_losses)}; largest relative difference "
+            f"{rel:.4%}; launches {launches[mode]}")
+        require(all(math.isfinite(x) for x in losses) and rel <= LOSS_REL,
+                f"[{label}] losses differ from the plain path's by {rel:.4%}")
+        model.load_state_dict(init)
+        built[mode] = (cfg, model)
+        del plain, fx_plain
+    if device.type == "cuda":
+        time_int8(device, card, built, flag_cfg, flag_model, cache, sampler, images, cams)
+    log(f"[int8] phase 34, INT8_MLP part, in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def time_int8(device, card, built, flag_cfg, flag_model, cache, sampler, images, cams) -> None:
+    """The int8 models' train step and batch-64 request beside the bf16
+    flagship's, in turns (host clock, the mean of 3 after 1): flagship,
+    dynamic, static, static, dynamic, flagship; then a profile of one step
+    of the flagship and of the dynamic model."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    models = {"bf16 flagship": (flag_cfg, flag_model),
+              **{f"int8 {mode}": built[mode] for mode in INT8_MODES}}
+    steps = {name: build_timed_step(c, m, cache, sampler) for name, (c, m) in models.items()}
+    fxs = {name: FeatureExtractor(c, m, device=device, batch_size=64)
+           for name, (c, m) in models.items()}
+    calls = {"train step": lambda name: steps[name](),
+             "batch-64 request": lambda name: fxs[name].extract(images, cams)}
+    names = list(models)
+    for what, call in calls.items():
+        readings = {name: [] for name in names}
+        for name in names + names[::-1]:
+            call(name)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                call(name)
+            sync()
+            readings[name].append((time.perf_counter() - t0) * 1e3 / 3)
+        log(f"[time] {what}, INT8_MLP beside the bf16 flagship: " + "; ".join(
+            f"{name} {np.mean(r):.2f} ms (turns {', '.join(f'{x:.2f}' for x in r)})"
+            for name, r in readings.items()) + f" ({card})")
+    for name in names[:2]:  # where the int8 step's time goes, beside the bf16 step's
+        profile(f"{name}, one train step of {flag_cfg.SOLVER.IMS_PER_BATCH}", steps[name],
+                card, top=8)
+
+
+def map_difference(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max())
+
+
+def phase_saliency(device, card, flag_cfg, flag_model, flag_plain) -> dict:
+    """Phase 34, part 2: the saliency maps at full width, batch CAM_BATCH,
+    class_idx pinned.  On the flagship, gradcam (kernels 1 and 2 12 times:
+    the eval kernels, its probe lying after the backbone) and
+    gradcam_heatmaps (the input-gradient pass: kernels 3, 7 and 2's training
+    form) on both paths: the probed patch activations held (cosine >=
+    COSINE_MIN), the maps' agreement printed (SDTPS's input gradient is
+    ill-conditioned at random weights).  The maps held within CAM_MAP_TOL of
+    the plain path's where no SDTPS lies on the gradient's way: gradcam on
+    DGAF v3 alone, gradcam_heatmaps on the Baseline (whose branches never
+    read the patch tokens, so its Grad-CAM maps are zero); the maps of
+    other images (the control) are further.  Returns the launches."""
+    from demo2_tpu_torch.visualize import gradcam, gradcam_heatmaps
+
+    t0 = time.perf_counter()
+    layers = 2 if REHEARSAL else 12
+    images, cams = request_images(CAM_BATCH, flag_cfg, seed=6)
+    x = torch.from_numpy(images).to(device)
+    c = torch.from_numpy(cams).to(device)
+    pinned = torch.arange(CAM_BATCH, device=device) * 7 % NUM_CLASSES
+    flag_plain.load_state_dict(flag_model.state_dict())
+    launches = {}
+
+    def maps(model, kind, images=x):
+        if kind == "gradcam":
+            return gradcam(model, images, c, class_idx=pinned)
+        return gradcam_heatmaps(model, images, c, model.grid)
+
+    for kind, want in (("gradcam", launch_dict(fused_attention_block=layers,
+                                               fused_mlp_block=layers)),
+                       ("gradcam_heatmaps", launch_dict(fused_attention_block_train=layers,
+                                                        attention_bwd_saved=layers,
+                                                        fused_mlp_block_train=layers))):
+        reset_counts()
+        got = maps(flag_model, kind)
+        sync()
+        launches[kind] = counts()
+        require_launches(launches[kind], want, f"[saliency] flagship {kind}")
+        ref = maps(flag_plain, kind)
+        require(got.shape == (3, CAM_BATCH, *flag_model.grid) and bool(np.isfinite(got).all()),
+                f"flagship {kind}: maps {got.shape}")
+        log(f"[saliency] flagship {kind}, batch {CAM_BATCH}: launches {launches[kind]}; maps "
+            f"vs the plain path: largest difference {map_difference(got, ref):.4f}, mean "
+            f"{np.abs(got - ref).mean():.4f} (printed, not held: SDTPS lies on the way)")
+    gh, gw = flag_model.grid
+    probe = torch.zeros(3, CAM_BATCH, gh * gw, flag_model.feat_dim, device=device)
+    with torch.no_grad():
+        acts = [m(x, c, patch_perturb=probe)["patches"] for m in (flag_model, flag_plain)]
+    cos = cosine(acts[0], acts[1])
+    log(f"[saliency] flagship probed patch activations, kernel vs plain path: cosine {cos:.6f}")
+    require(cos >= COSINE_MIN, f"probed patch activations: cosine {cos} < {COSINE_MIN}")
+
+    for kind, make_cfg in (("gradcam", no_sdtps_cfg(True)), ("gradcam_heatmaps",
+                                                             no_sdtps_cfg(False))):
+        _, model, _, plain = build_models(device, make_cfg)
+        got, ref = maps(model, kind), maps(plain, kind)
+        other = maps(plain, kind, images=x.roll(1, dims=0))
+        diff, control = map_difference(got, ref), map_difference(other, ref)
+        name = "DGAF v3 alone" if kind == "gradcam" else "the Baseline"
+        log(f"[saliency] {name}, {kind}: maps vs the plain path largest difference {diff:.4f}, "
+            f"mean {np.abs(got - ref).mean():.4f} (bound {CAM_MAP_TOL}); other images' maps "
+            f"{control:.4f} away")
+        require(diff <= CAM_MAP_TOL < control, f"{name} {kind}: maps {diff} from the plain "
+                f"path's (bound {CAM_MAP_TOL}), the control {control}")
+        del model, plain
+    log(f"[saliency] phase 34, saliency part, in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_miss_sweep(device, root: str) -> dict:
+    """Phase 34, part 3 (after phase 27, on its JPEG tree and best
+    checkpoint): tools.miss_sweep's seven conditions through the device
+    cache, kernels 1 and 2 12 times an eval forward and no other; "None"'s
+    mAP and Rank-1 equal to tools/test.main's on the same checkpoint."""
+    import os
+
+    from demo2_tpu_torch.tools import miss_sweep, test as test_cli
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "run_device")
+    opts = data_opts(root, out, "device") + ["TEST.WEIGHT", os.path.join(out, "checkpoints_best")]
+    cli_device = None if device.type == "cuda" else device
+    cfg = test_cli.load_config("", opts)
+    reset_counts()
+    results = miss_sweep.main(opts, device=cli_device)
+    sync()
+    launches = counts()
+    from demo2_tpu_torch.data.loader import make_dataloader
+
+    _, _, val_pipe, *_ = make_dataloader(cfg.freeze())
+    forwards = len(miss_sweep.CONDITIONS) * math.ceil(len(val_pipe.samples)
+                                                      / cfg.TEST.IMS_PER_BATCH)
+    layers = 2 if REHEARSAL else 12
+    require_launches(launches, launch_dict(fused_attention_block=layers * forwards,
+                                           fused_mlp_block=layers * forwards),
+                     "[miss-sweep] tools.miss_sweep")
+    cmc, m_ap = test_cli.main(opts, device=cli_device)
+    log(f"[miss-sweep] seven conditions, mAP / Rank-1: " + ", ".join(
+        f"{miss} {a:.4f} / {r:.4f}" for miss, (a, r) in results.items())
+        + f"; tools/test.main {m_ap:.4f} / {cmc[0]:.4f}; launches {launches}")
+    require(list(results) == list(miss_sweep.CONDITIONS)
+            and all(0.0 < a <= 1.0 for a, _ in results.values()), f"sweep {results}")
+    require(results["None"] == (m_ap, cmc[0]),
+            f"the sweep's full mAP / Rank-1 {results['None']} differ from tools/test.main's "
+            f"{(m_ap, cmc[0])}")
+    log(f"[miss-sweep] phase 34, sweep part, in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -4548,6 +4871,13 @@ def main() -> None:
     # backward through kernel 7.
     tuned = phase_tuning(device, card, cache, sampler, cfg, model)
     log(f"[tuning] launches of the 10 steps by configuration: {tuned}")
+    # TPU.INT8_MLP (kernels 1, 3, 4; kernel 2 off) and the saliency maps
+    # (phase 34, parts 1 and 2; part 3 runs on phase 27's JPEG tree).
+    t34 = time.perf_counter()
+    int8_launches = phase_int8(device, card, cache, sampler, cfg, model)
+    log(f"[int8] launches of the {INT8_STEPS} steps by mode: {int8_launches}")
+    phase_saliency(device, card, cfg, model, plain)
+    phase34_s = time.perf_counter() - t34
 
     # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
     # at full width, timed beside the flagship; the other DeMo branches of
@@ -4628,6 +4958,10 @@ def main() -> None:
     # step timed.
     with tempfile.TemporaryDirectory() as root:
         phase_data(device, root)
+        t34 = time.perf_counter()
+        phase_miss_sweep(device, root)
+        phase34_s += time.perf_counter() - t34
+        log(f"[int8] phase 34 in {phase34_s:.1f} s (budget {PHASE34_BUDGET_S:.0f} s)")
         phase_data_timing(device, card, root)
         log(f"[migrate] launches of the --init_pth run: {phase_migration(device, card, root)}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")

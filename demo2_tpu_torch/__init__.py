@@ -20,7 +20,11 @@ with the metrics log and MODEL.PRETRAIN_PATH_T) drive them; the quality gate
 tower trains in its tuning paths too (MODEL.FROZEN with LoRA, MODEL.ADAPTER,
 MODEL.PROMPT), a reference-trained checkpoint loads through
 utils/ref_convert.py (tools/train.py --init_pth, a .pth TEST.WEIGHT), and
-models/clip_text.py is the CLIP text tower with its BPE tokenizer.  The Pallas
+models/clip_text.py is the CLIP text tower with its BPE tokenizer.  The CLIP
+MLP runs an int8 forward under TPU.INT8_MLP (ops/quant.py, torch._int_mm),
+and the analysis stack (utils/profiling.py, visualize/ with Grad-CAM through
+DeMo's patch probe, and the gradcam / miss_sweep / compare_modules /
+diagnose_training / run_experiments CLIs) is ported too.  The Pallas
 kernels of those paths (the ViT's fused attention and MLP sub-blocks, the
 training forward with its residuals, the attention backwards, the packed and
 head-major attention, the LayerNorm backward, the re-ranking min-sum) are

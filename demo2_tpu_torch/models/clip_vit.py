@@ -30,6 +30,9 @@ block appends 3k tokens to every modality segment of the stacked batch, its
 own prompt at its modality's slot and the other two modalities' transferred
 prompts at theirs, runs, strips them and hands their mean to the next block
 as `last_prompt` (S = 129 + 12 in the block kernels at the flagship's size).
+With `int8_mlp` (cfg.TPU.INT8_MLP) the MLP's two GEMMs run an int8 forward
+and keep the exact backward (CLIPMlp, ops/quant.py); the fused MLP is then
+off at eval too.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..ops.fused_block import fused_attention, fused_mlp, needs_grad
 from ..ops.linear import (Linear, cached_cast, cached_merge, make_param, normal_init,
                           truncated_normal_init, uniform_init, zeros_init)
 from ..ops.norm import LayerNorm
+from ..ops.quant import int8_dense
 
 
 class PatchConv(nn.Module):
@@ -81,15 +85,32 @@ class PatchConv(nn.Module):
         return y.flatten(2).transpose(1, 2)
 
 
+# TPU.INT8_MLP "static": the activation scale of both GEMMs, a rough
+# calibration (ln_2's output and QuickGELU's reach |10|; clip_vit.py:77-81).
+INT8_STATIC_SCALE = 10.0 / 127.0
+
+
 class CLIPMlp(nn.Module):
+    """c_proj(QuickGELU(c_fc(x))).  With `int8_fwd` "dynamic" or "static"
+    (cfg.TPU.INT8_MLP) both GEMMs run ops/quant.py::int8_dense on the f32
+    weights, dynamic or INT8_STATIC_SCALE activation scales, each bias added
+    after the product in its dtype; the parameters are the same."""
+
     def __init__(self, width: int, *, dtype: torch.dtype, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, int8_fwd: str = "off"):
         super().__init__()
+        self.int8_fwd = int8_fwd
         self.c_fc = Linear(width, 4 * width, dtype=dtype, device=device, generator=generator)
         self.c_proj = Linear(4 * width, width, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        if self.int8_fwd == "off":
+            return self.c_proj(quick_gelu(self.c_fc(x)))
+        s = INT8_STATIC_SCALE if self.int8_fwd == "static" else 0.0
+        y = int8_dense(x, self.c_fc.weight, s)
+        y = quick_gelu(y + cached_cast(self.c_fc, "bias", y.dtype))
+        y = int8_dense(y, self.c_proj.weight, s)
+        return y + cached_cast(self.c_proj, "bias", y.dtype)
 
 
 class FFNAdapter(nn.Module):
@@ -119,7 +140,7 @@ class ResidualAttentionBlock(nn.Module):
                  device: torch.device, generator: torch.Generator,
                  pallas_ln_bwd: bool = False, fused_mlp_train: bool = False,
                  lora_rank: int = 0, lora_enable=(True, True, True), use_adapter: bool = False,
-                 use_prompt: bool = False, first: bool = True):
+                 use_prompt: bool = False, first: bool = True, int8_mlp: str = "off"):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
@@ -127,6 +148,7 @@ class ResidualAttentionBlock(nn.Module):
         self.fused_mlp_train = fused_mlp_train
         self.use_adapter = use_adapter
         self.use_prompt = use_prompt
+        self.int8_mlp = int8_mlp
         kw = dict(dtype=dtype, device=device, generator=generator)
         # Fused, ln_1's parameters go to the attention kernels, never through
         # this module's forward.
@@ -134,7 +156,7 @@ class ResidualAttentionBlock(nn.Module):
         self.attn = MultiHeadAttention(width, heads, lora_rank=lora_rank,
                                        lora_enable=lora_enable, **kw)
         self.ln_2 = LayerNorm(width, device=device, pallas_bwd=pallas_ln_bwd)
-        self.mlp = CLIPMlp(width, **kw)
+        self.mlp = CLIPMlp(width, int8_fwd=int8_mlp, **kw)
         if use_adapter:
             self.adapter_ffn = FFNAdapter(width, **kw)
         if use_prompt:
@@ -181,10 +203,12 @@ class ResidualAttentionBlock(nn.Module):
     def _mlp(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         # The MLP is fused where JAX fuses it (clip_vit.py:250, :265): outside
         # training, and in training with TPU.FUSED_MLP_TRAIN, never beside the
-        # adapter.  JAX's fused MLP is differentiable wherever it runs, so an
+        # adapter nor under TPU.INT8_MLP (whose eval must run training's int8
+        # MLP).  JAX's fused MLP is differentiable wherever it runs, so an
         # input gradient taken outside training (a saliency map) goes through
         # FusedMlpBlockFn.
-        if not self.fused or (train and not self.fused_mlp_train) or self.use_adapter:
+        if (not self.fused or (train and not self.fused_mlp_train) or self.use_adapter
+                or self.int8_mlp != "off"):
             y = self.mlp(self.ln_2(x))
             if self.use_adapter:
                 y = y + self.adapter_ffn(x)
@@ -219,7 +243,7 @@ class CLIPVisionTransformer(nn.Module):
                  patch_size: int = 16, output_dim: int = 512, pallas_ln_bwd: bool = False,
                  fused_mlp_train: bool = False, remat: bool = False, lora_rank: int = 0,
                  lora_enable=(True, True, True), lora_conv: bool = False,
-                 use_adapter: bool = False, use_prompt: bool = False):
+                 use_adapter: bool = False, use_prompt: bool = False, int8_mlp: str = "off"):
         super().__init__()
         self.width = width
         self.dtype = dtype
@@ -246,7 +270,7 @@ class CLIPVisionTransformer(nn.Module):
                                    generator=generator, pallas_ln_bwd=pallas_ln_bwd,
                                    fused_mlp_train=fused_mlp_train, lora_rank=lora_rank,
                                    lora_enable=lora_enable, use_adapter=use_adapter,
-                                   use_prompt=use_prompt, first=i == 0)
+                                   use_prompt=use_prompt, first=i == 0, int8_mlp=int8_mlp)
             for i in range(layers)
         )
         self.ln_post = LayerNorm(width, device=device)

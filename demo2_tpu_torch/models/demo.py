@@ -24,10 +24,12 @@ HDM + ATMoE head, SDTPS and DGAF.  MODEL.SDTPS_VARIANT 'complete' / 'fixed'
 builds SDTPSComplete in SDTPS's place.
 
 The output contract is the JAX package's: {"branches": {name: (logits,
-feat)} in the JAX package's order, "embedding": f32, "aux_loss": {}}.  Every
+feat)} in the JAX package's order, "embedding": f32, "aux_loss": {}}, and
+"patches" where the forward took a `patch_perturb` probe.  Every training
 configuration outside the ported slices raises NotImplementedError naming
-its ROADMAP item.  Under MODEL.FROZEN the build sets requires_grad False on
-the frozen parameters (is_frozen); the optimizer takes the others.
+its ROADMAP item (train_slice_error).  Under MODEL.FROZEN the build sets
+requires_grad False on the frozen parameters (is_frozen); the optimizer
+takes the others.
 """
 
 from __future__ import annotations
@@ -69,12 +71,6 @@ def token_selector(cfg: Config) -> Optional[str]:
     return "sdtps" if m.USE_FRCA is None and m.USE_SDTPS else None
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise for every configuration the port does not cover yet."""
-    if cfg.TPU.INT8_MLP != "off":
-        raise not_ported(f"TPU.INT8_MLP={cfg.TPU.INT8_MLP!r}", "`TPU.INT8_MLP`")
-
-
 def is_frozen(name: str) -> bool:
     """MODEL.FROZEN's rule for a parameter name (reference LoRA.py
     mark_only_lora_as_trainable, JAX solver/optim.py:350-353): under
@@ -108,7 +104,8 @@ def make_sdtps(cfg: Config, feat_dim: int, **kw) -> nn.Module:
                              sparse_ratio=m.SDTPS_SPARSE_RATIO, use_gumbel=m.SDTPS_USE_GUMBEL,
                              gumbel_tau=m.SDTPS_GUMBEL_TAU, use_cross_attn=use_cross_attn, **kw)
     return MultiModalSDTPS(feat_dim, sparse_ratio=m.SDTPS_SPARSE_RATIO,
-                           use_cross_attn=use_cross_attn,
+                           use_cross_attn=use_cross_attn, use_gumbel=m.SDTPS_USE_GUMBEL,
+                           gumbel_tau=m.SDTPS_GUMBEL_TAU,
                            share_cross_attn_weights=m.SDTPS_SHARE_CROSS_ATTN, **kw)
 
 
@@ -133,7 +130,6 @@ class _Assembly(nn.Module):
     def __init__(self, cfg: Config, num_classes: int, camera_num: int, view_num: int, *,
                  device: torch.device, generator: torch.Generator):
         super().__init__()
-        check_slice(cfg)
         m = cfg.MODEL
         dtype = compute_dtype(cfg)
         self.dtype = dtype
@@ -166,6 +162,7 @@ class _Assembly(nn.Module):
             lora_conv=cfg.TPU.LORA_CONV,
             use_adapter=m.ADAPTER,
             use_prompt=m.PROMPT,
+            int8_mlp=cfg.TPU.INT8_MLP,
             depth_override=cfg.TPU.BACKBONE_DEPTH,
             width_override=cfg.TPU.BACKBONE_WIDTH,
             heads_override=cfg.TPU.BACKBONE_HEADS,
@@ -198,15 +195,29 @@ class _Assembly(nn.Module):
             setattr(self, f"head_{name}", ClassifierHead(width_of(branch), self.num_classes,
                                                          device=device, generator=generator))
 
-    def _features(self, images, cam_label, view_label, modality_mask, train, generator):
-        return self.backbone(images.to(self.dtype), cam_label, view_label, modality_mask,
-                             train, generator)
+    def _features(self, images, cam_label, view_label, modality_mask, train, generator,
+                  patch_perturb=None):
+        """The backbone's (patches, globals); a `patch_perturb` (3, B, N, C)
+        is added to the patches: with a zero-valued probe the forward is
+        unchanged, and the gradient with respect to the probe is that of
+        the patch tokens (Grad-CAM's, visualize/saliency.py::gradcam)."""
+        patches, globals_ = self.backbone(images.to(self.dtype), cam_label, view_label,
+                                          modality_mask, train, generator)
+        if patch_perturb is not None:
+            patches = patches + patch_perturb.to(patches.dtype)
+        return patches, globals_
 
     def _output(self, feats: Dict[str, torch.Tensor], embedding: torch.Tensor, train: bool,
-                aux_loss: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+                aux_loss: Optional[Dict[str, torch.Tensor]] = None,
+                patches: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """The output contract; "patches" (the probed patch tokens) only where
+        the forward took a probe."""
         branches = {branch: (getattr(self, f"head_{name}")(feats[branch], train), feats[branch])
                     for branch, name in self.branch_heads.items()}
-        return {"branches": branches, "embedding": embedding.float(), "aux_loss": aux_loss or {}}
+        out = {"branches": branches, "embedding": embedding.float(), "aux_loss": aux_loss or {}}
+        if patches is not None:
+            out["patches"] = patches
+        return out
 
 
 class DeMo(_Assembly):
@@ -276,15 +287,17 @@ class DeMo(_Assembly):
                 view_label: Optional[torch.Tensor] = None,
                 modality_mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                return_pattern: int = 3) -> Dict[str, Any]:
+                return_pattern: int = 3,
+                patch_perturb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """images (B, 3, H, W, 3), cam_label and view_label (B,), modality_mask
         (3,) or (B, 3).  `train` selects batch statistics in the BatchNorms,
         dropout and drop path (drawn from `generator`) and the training
         kernels of the backbone.  `return_pattern` picks the moe branch's
         embedding (1: ori, 2: moe, 3: [moe, ori]); without it, the embedding
-        is the branch's feature."""
+        is the branch's feature.  `patch_perturb` (3, B, N, C) is the probe
+        of _features; the output then holds the probed patches too."""
         patches, globals_ = self._features(images, cam_label, view_label, modality_mask, train,
-                                          generator)
+                                          generator, patch_perturb)
         ori_feat = torch.cat(list(globals_), dim=-1)
         moe_feat = (self.general_fusion(patches, globals_, train, generator)
                     if self.use_moe else None)
@@ -313,7 +326,8 @@ class DeMo(_Assembly):
             embedding = moe_feat
         else:
             embedding = torch.cat([moe_feat, ori_feat], dim=-1)
-        return self._output(feats, embedding, train)
+        return self._output(feats, embedding, train,
+                            patches=None if patch_perturb is None else patches)
 
     def _frca_stack(self, patches: torch.Tensor) -> torch.Tensor:
         """Each modality's patches through its own FRCA on the patch grid."""
@@ -371,10 +385,11 @@ class DeMoParallel(_Assembly):
                 view_label: Optional[torch.Tensor] = None,
                 modality_mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                return_pattern: int = 3) -> Dict[str, Any]:
+                return_pattern: int = 3,
+                patch_perturb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """DeMo.forward's arguments; `return_pattern` changes nothing here."""
         patches, globals_ = self._features(images, cam_label, view_label, modality_mask, train,
-                                          generator)
+                                          generator, patch_perturb)
         m, b, n, c = patches.shape
         families = {
             "sdtps": self.sdtps(patches, globals_, train, generator)[0].mean(2),
@@ -383,7 +398,8 @@ class DeMoParallel(_Assembly):
         }
         feats = {f"{fam}_{nm}": families[fam][i] for fam in PARALLEL_FAMILIES
                  for i, nm in enumerate(MODALITIES)}
-        return self._output(feats, torch.cat(list(feats.values()), dim=-1), train)
+        return self._output(feats, torch.cat(list(feats.values()), dim=-1), train,
+                            patches=None if patch_perturb is None else patches)
 
 
 class DeMoLegacy(_Assembly):
@@ -446,11 +462,14 @@ class DeMoLegacy(_Assembly):
                 view_label: Optional[torch.Tensor] = None,
                 modality_mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                return_pattern: int = 3) -> Dict[str, Any]:
+                return_pattern: int = 3,
+                patch_perturb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """DeMo.forward's arguments; `return_pattern` changes nothing here.
-        LIF reads `images` as given, before the modality mask."""
+        LIF reads `images` as given, before the modality mask.  With a probe
+        the output's "patches" are the backbone's, before the cascade."""
         patches, globals_ = self._features(images, cam_label, view_label, modality_mask, train,
-                                          generator)
+                                          generator, patch_perturb)
+        probed = None if patch_perturb is None else patches
         aux = {}
         for stage in ("multimodal_sacr", "sacr"):  # at most one is built
             if hasattr(self, stage):
@@ -478,4 +497,4 @@ class DeMoLegacy(_Assembly):
             else:
                 feats["dgaf"] = self.dgaf(self.gl_fuse(patches, globals_) if self.global_local
                                           else globals_)
-        return self._output(feats, feats[self.main or "ori"], train, aux)
+        return self._output(feats, feats[self.main or "ori"], train, aux, probed)

@@ -11,8 +11,8 @@ A (3,) or (B, 3) modality mask multiplies the images
 inside the same forward, so every missing-modality setting shares the graph.
 Returns patch tokens (3, B, N, C) and CLS features (3, B, C).  The CLIP
 tower's tuning paths (LoRA, ConvLoRA, the FFN adapter, the modality prompts)
-reach the CLIP branch only, as in the JAX package; MODEL.PROMPT on another
-backbone raises as JAX's does.
+and TPU.INT8_MLP's int8 MLP reach the CLIP branch only, as in the JAX
+package; MODEL.PROMPT on another backbone raises as JAX's does.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class PIFE(nn.Module):
                  attn_drop_rate: float = 0.0, pallas_ln_bwd: bool = False,
                  fused_mlp_train: bool = False, remat: bool = False, lora_rank: int = 0,
                  lora_enable=(True, True, True), lora_conv: bool = False,
-                 use_adapter: bool = False, use_prompt: bool = False):
+                 use_adapter: bool = False, use_prompt: bool = False, int8_mlp: str = "off"):
         super().__init__()
         tt = transformer_type
         if use_prompt and "ViT-B-16" not in tt:
@@ -102,7 +102,7 @@ class PIFE(nn.Module):
                 # the CLIP branch only, as in the JAX package
                 pallas_ln_bwd=pallas_ln_bwd, fused_mlp_train=fused_mlp_train, remat=remat,
                 lora_rank=lora_rank, lora_enable=lora_enable, lora_conv=lora_conv,
-                use_adapter=use_adapter, use_prompt=use_prompt,
+                use_adapter=use_adapter, use_prompt=use_prompt, int8_mlp=int8_mlp,
             )
             return
         if tt.startswith("resnet"):

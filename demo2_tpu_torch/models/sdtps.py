@@ -10,6 +10,11 @@ broadcast to (3, 3, C, C).
 In training the modality-weight MLPs' dropout draws from the caller's
 torch.Generator (flax's 'dropout' rng in the JAX package: the two give
 different draws from one seed).
+With `use_soft_masking=False` (sdtps.py:167-179; no configuration selects
+it, in either package) the mask is hard: the ceil(N * sparse_ratio) top
+scores by a double argsort, ties to the lower index; with `use_gumbel` in
+training its gradient is a Gumbel-noised sigmoid's (straight through:
+hard + (soft - soft.detach())), the noise drawn from the caller's generator.
 """
 
 from __future__ import annotations
@@ -76,10 +81,14 @@ class ModalWeightMLP(nn.Module):
 class MultiModalSDTPS(nn.Module):
     def __init__(self, embed_dim: int, *, sparse_ratio: float, use_cross_attn: bool,
                  dtype: torch.dtype, device: torch.device, generator: torch.Generator,
-                 share_cross_attn_weights: bool = False):
+                 share_cross_attn_weights: bool = False, use_soft_masking: bool = True,
+                 use_gumbel: bool = False, gumbel_tau: float = 1.0):
         super().__init__()
         c, m = embed_dim, 3
         self.sparse_ratio = sparse_ratio
+        self.use_soft_masking = use_soft_masking
+        self.use_gumbel = use_gumbel
+        self.gumbel_tau = gumbel_tau
         self.use_cross_attn = use_cross_attn
         self.dtype = dtype
         if use_cross_attn:
@@ -137,6 +146,23 @@ class MultiModalSDTPS(nn.Module):
         )  # (3, B, 3)
         score = torch.einsum("mjbn,mbj->mbn", s_norm, weights)
 
-        thr = torch.quantile(score, 1.0 - self.sparse_ratio, dim=-1, keepdim=True)
-        mask = torch.sigmoid((score - thr) / SOFT_MASK_TAU)
+        if self.use_soft_masking:
+            thr = torch.quantile(score, 1.0 - self.sparse_ratio, dim=-1, keepdim=True)
+            mask = torch.sigmoid((score - thr) / SOFT_MASK_TAU)
+        else:
+            mask = self._hard_mask(score, train, generator)
         return patches * mask[..., None].to(patches.dtype), mask
+
+    def _hard_mask(self, score: torch.Tensor, train: bool, generator) -> torch.Tensor:
+        """1 on the ceil(N * sparse_ratio) top scores of each row (ranked by a
+        double argsort, ties to the lower index), else 0; with Gumbel in
+        training the straight-through estimator around it."""
+        num_keep = max(1, math.ceil(score.shape[-1] * self.sparse_ratio))
+        ranks = torch.argsort(torch.argsort(-score, dim=-1, stable=True), dim=-1)
+        hard = (ranks < num_keep).float()
+        if not (self.use_gumbel and train):
+            return hard
+        u = torch.rand(score.shape, generator=generator, device=score.device)
+        noise = -torch.log(-torch.log(u + 1e-9) + 1e-9)
+        soft = torch.sigmoid((score + noise - 0.5) / self.gumbel_tau)
+        return hard + (soft - soft.detach())

@@ -21,13 +21,33 @@ import torch
 from .train import entry_device, load_config
 
 
-def main(argv: Optional[Sequence[str]] = None, device=None):
-    """Evaluate as the command line says; returns (cmc, mAP)."""
+def build_for_eval(cfg, device, logger):
+    """(model, val_pipe, num_query) of `cfg` on `device`, TEST.WEIGHT loaded
+    where it is set: a reference .pth / .pt (converted), or a checkpoint
+    directory of the train CLI (its latest step)."""
     from ..data.loader import make_dataloader
-    from ..engine.eval import do_inference
     from ..engine.state import create_train_state
     from ..models import make_model
     from ..utils.checkpoint import restore_checkpoint
+
+    _, sampler, val_pipe, num_query, num_classes, cam_num, view_num = make_dataloader(cfg)
+    model = make_model(cfg, num_classes, cam_num, view_num, device=device,
+                       generator=torch.Generator().manual_seed(cfg.SOLVER.SEED))
+    if cfg.TEST.WEIGHT.endswith((".pth", ".pt")):
+        from ..utils.ref_convert import load_reference_checkpoint
+
+        load_reference_checkpoint(model, cfg.TEST.WEIGHT, cfg)
+        logger.info("Converted reference torch checkpoint %s", cfg.TEST.WEIGHT)
+    elif cfg.TEST.WEIGHT:
+        state = create_train_state(cfg, model, max(1, len(sampler) // cfg.SOLVER.IMS_PER_BATCH))
+        restore_checkpoint(cfg.TEST.WEIGHT, state)
+        logger.info("Loaded checkpoint from %s at step %d", cfg.TEST.WEIGHT, state.step)
+    return model, val_pipe, num_query
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None):
+    """Evaluate as the command line says; returns (cmc, mAP)."""
+    from ..engine.eval import do_inference
     from ..utils.logger import setup_logger
 
     p = argparse.ArgumentParser(description="DeMo evaluation (PyTorch / CUDA)")
@@ -40,20 +60,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
 
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logger = setup_logger("DeMo", cfg.OUTPUT_DIR, if_train=False)
-    _, sampler, val_pipe, num_query, num_classes, cam_num, view_num = make_dataloader(cfg)
-    model = make_model(cfg, num_classes, cam_num, view_num, device=device,
-                       generator=torch.Generator().manual_seed(cfg.SOLVER.SEED))
-    if cfg.TEST.WEIGHT:
-        if cfg.TEST.WEIGHT.endswith((".pth", ".pt")):
-            from ..utils.ref_convert import load_reference_checkpoint
-
-            load_reference_checkpoint(model, cfg.TEST.WEIGHT, cfg)
-            logger.info("Converted reference torch checkpoint %s", cfg.TEST.WEIGHT)
-        else:
-            state = create_train_state(cfg, model,
-                                       max(1, len(sampler) // cfg.SOLVER.IMS_PER_BATCH))
-            restore_checkpoint(cfg.TEST.WEIGHT, state)
-            logger.info("Loaded checkpoint from %s at step %d", cfg.TEST.WEIGHT, state.step)
+    model, val_pipe, num_query = build_for_eval(cfg, device, logger)
     cmc, m_ap = do_inference(cfg, model, val_pipe, num_query, return_pattern=args.return_pattern)
     logger.info("Done. mAP=%.1f%% Rank-1=%.1f%%", m_ap * 100, cmc[0] * 100)
     return cmc, m_ap

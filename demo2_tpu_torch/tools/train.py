@@ -10,7 +10,8 @@ evaluation every SOLVER.EVAL_PERIOD epochs, writes the log and
 torch.utils.tensorboard imports) under OUTPUT_DIR, the checkpoints under
 OUTPUT_DIR/checkpoints and the best under OUTPUT_DIR/checkpoints_best.
 `--init_pth <ref.pth>` initialises the whole model from a reference-trained
-DeMo / DeMo_Parallel checkpoint (utils/ref_convert.py).  It
+DeMo / DeMo_Parallel checkpoint (utils/ref_convert.py).  At start it logs
+the parameter count and one forward's FLOPs (utils/profiling.py).  It
 runs on cuda:0 unless MODEL.DEVICE is "cpu" or the caller of `main` passes a
 device; with neither and no card it raises.
 """
@@ -65,6 +66,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     from ..models import make_model
     from ..utils.logger import setup_logger
     from ..utils.metrics_log import MetricsLogger, TeeWriter
+    from ..utils.profiling import count_params, model_flops
 
     p = argparse.ArgumentParser(description="DeMo training (PyTorch / CUDA)")
     p.add_argument("--config_file", default="", type=str)
@@ -100,7 +102,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     model = make_model(cfg, num_classes, cam_num, view_num, device=device,
                        generator=torch.Generator().manual_seed(cfg.SOLVER.SEED))
     state = create_train_state(cfg, model, max(1, len(sampler) // cfg.SOLVER.IMS_PER_BATCH))
-    logger.info("Total parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
+    logger.info("Total parameters: %.2fM", count_params(model) / 1e6)
+    # The startup FLOP count of one eval forward at the training batch
+    # (JAX tools/train.py:109-128); FLOPs do not depend on the pixels, so
+    # the batch is zeros.  Unlike JAX, an error of the count is not hidden.
+    h, w = cfg.INPUT.SIZE_TRAIN
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    fl = model_flops(model, torch.zeros(bs, 3, h, w, 3, device=device),
+                     torch.zeros(bs, dtype=torch.long, device=device))
+    logger.info("Forward FLOPs (batch %d): %.1f GFLOPs", bs, fl["flops"] / 1e9)
 
     if cfg.MODEL.PRETRAIN_PATH_T:  # reference: meta_arch.py:59,66-71
         if not os.path.exists(cfg.MODEL.PRETRAIN_PATH_T):

@@ -16,6 +16,7 @@ from demo2_tpu_torch.data import device_cache as tdc
 from demo2_tpu_torch.tools import test as ttest
 from demo2_tpu_torch.tools import train as ttrain
 from tools.make_synthetic_jpegs import generate
+from torch_port_helpers import import_tensorboard_without_tensorflow
 
 TINY_FLAGSHIP = [
     "MODEL.TRANSFORMER_TYPE", "ViT-B-16", "MODEL.USE_SDTPS", "True", "MODEL.USE_DGAF", "True",
@@ -25,6 +26,12 @@ TINY_FLAGSHIP = [
     "SOLVER.IMS_PER_BATCH", "8", "DATALOADER.NUM_INSTANCE", "2", "DATALOADER.NUM_WORKERS", "2",
     "TEST.IMS_PER_BATCH", "16", "DATASETS.NAMES", "RGBNT201",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _tensorboard_without_tensorflow():
+    """The train CLI's TensorBoard writer on its stub (torch_port_helpers)."""
+    import_tensorboard_without_tensorflow()
 
 
 @pytest.fixture(scope="module")

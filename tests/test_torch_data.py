@@ -32,7 +32,6 @@ from demo2_tpu.data import device_cache as jdc
 from demo2_tpu.data import loader as jloader
 from demo2_tpu.data import native as jnative
 from demo2_tpu.data import transforms as jtf
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.models import make_model as j_make_model
 from demo2_tpu.utils import converters as jconv
@@ -51,7 +50,7 @@ from demo2_tpu_torch.utils import converters as tconv
 from demo2_tpu_torch.utils import metrics_log as tml
 from demo2_tpu_torch.utils.converters import convert_flax_variables
 from tools.make_synthetic_jpegs import generate
-from torch_port_helpers import CPU, generator, load_port, n, random_variables, t
+from torch_port_helpers import CPU, generator, jax_state_from, load_port, n, random_variables, t
 
 # ---------------------------------------------------------------------------
 # Fixture trees (the layouts of tests/test_dataset_parsers.py)
@@ -453,7 +452,7 @@ def test_one_host_fed_train_step_matches_jax(trees, no_flax_dropout):
     jb = next(jtrain.iter_batches(order, seed=1))
     jmodel = j_make_model(jcfg, nc, cams)
     variables = random_variables(jmodel, jb.images[:2], jb.camids[:2], train=False, seed=3)
-    jstate, tx, ctx, _ = j_create_train_state(jcfg, jmodel, jax.random.PRNGKey(0), jb, 4)
+    jstate, tx, ctx, _ = jax_state_from(jcfg, jmodel, variables, jb)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     new_jstate, metrics = j_build_train_step(jcfg, jmodel, tx, ctx, donate=False)(

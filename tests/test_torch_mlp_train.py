@@ -26,7 +26,6 @@ import torch
 
 from demo2_tpu.config import get_cfg_defaults
 from demo2_tpu.config.presets import apply_flagship, apply_tiny
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.losses import losses as jl
 from demo2_tpu.models import make_model as j_make_model
@@ -37,7 +36,7 @@ from demo2_tpu_torch.losses import losses as tl
 from demo2_tpu_torch.models import make_model
 from demo2_tpu_torch.ops import fused_block as fb
 from demo2_tpu_torch.utils.converters import convert_flax_variables
-from torch_port_helpers import CPU, generator, load_port, n, random_variables, t
+from torch_port_helpers import CPU, generator, jax_state_from, load_port, n, random_variables, t
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)  # as test_fused_mlp_block_grad_matches_unfused
@@ -281,7 +280,7 @@ def _jax_step():
     jmodel = j_make_model(cfg, NUM_CLASSES, CAMERA_NUM)
     variables = random_variables(jmodel, images[:2], cams[:2], train=False, seed=21)
     batch = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), batch, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, batch)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     jargs = (jnp.asarray(images), jnp.asarray(pids), jnp.asarray(cams), jnp.asarray(cams * 0))

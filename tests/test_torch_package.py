@@ -43,11 +43,15 @@ for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_lis
              "utils.meter", "utils.iotools", "utils.metrics_log", "utils.converters",
              "tools.train", "tools.test", "tools.quality_gate", "tools.make_synthetic_jpegs",
              "tools.arch_knobs", "losses.metric_learning", "utils.ref_convert", "utils.bpe",
-             "models.clip_text", "models.t2t", "models.resnet", "models.osnet"):
+             "models.clip_text", "models.t2t", "models.resnet", "models.osnet", "ops.quant",
+             "utils.profiling", "visualize.saliency", "visualize.embedding",
+             "visualize.similarity", "tools.gradcam", "tools.miss_sweep",
+             "tools.compare_modules", "tools.diagnose_training", "tools.run_experiments"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 from demo2_tpu_torch.data.loader import pil_error
 assert pil_error().startswith("PIL does not import")
 assert "tensorboard" not in sys.modules
+assert not {"matplotlib", "sklearn"} & set(sys.modules)  # imported inside the plotting functions
 cfg = demo2_tpu_torch.config.get_cfg_defaults()
 cfg.merge_from_list(chip_smoke.YAML_KEYS["RGBNT201/DeMo.yml"])  # needs no PyYAML
 assert cfg.MODEL.HDM and cfg.MODEL.HEAD == 4
@@ -149,21 +153,22 @@ def test_miss_masks_are_the_jax_packages():
         miss_mask("rnt", device=CPU)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The port's side on one thread: the suite runs several workers, each
+    with its own pool, and spinning pools oversubscribe the cores (the
+    ResNet and OSNet trunks below are the heaviest torch work of a test)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flagship_tiny():
     cfg = tcfg.get_cfg_defaults()
     tpresets.apply_flagship(cfg, on_tpu=False)
     tpresets.apply_tiny(cfg)
     return cfg
-
-
-@pytest.mark.parametrize("section,key,value", [
-    ("TPU", "INT8_MLP", "dynamic"),
-])
-def test_configs_outside_the_slice_raise(section, key, value):
-    cfg = _flagship_tiny()
-    setattr(getattr(cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(cfg, 6, 4, device=CPU, generator=generator())
 
 
 @pytest.mark.parametrize("section,key,value", [
@@ -202,8 +207,10 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     ("MODEL", "TRANSFORMER_TYPE", "t2t_vit_t_14"),
     ("MODEL", "TRANSFORMER_TYPE", "resnet50_ibn_a"),
     ("MODEL", "TRANSFORMER_TYPE", "osnet_x0_25"),
+    ("TPU", "INT8_MLP", "dynamic"),
 ])
-def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path):
+def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_path,
+                                                      one_torch_thread):
     """One train step and one eval under each configuration the port once
     refused: the fused MLP in training, the LayerNorm backward flag,
     re-ranking, MSVR310's scene protocol, ranking off the device, SDTPS
@@ -215,8 +222,9 @@ def test_configs_inside_the_slices_train_and_evaluate(section, key, value, tmp_p
     backbone, the timm cosine schedule (with SOLVER.LR_SCHEDULER
     'cosine'), and the CLIP tower's tuning paths: FROZEN (LoRA of rank 4 on
     q, k and v; the frozen backbone unchanged by the step), the FFN adapter
-    and the modality prompts, and the other backbones: T2T-ViT, ResNet-50
-    IBN-a and OSNet (the flagship fusion at the width each gives)."""
+    and the modality prompts, the other backbones: T2T-ViT, ResNet-50
+    IBN-a and OSNet (the flagship fusion at the width each gives), and the
+    int8 MLP forward (TPU.INT8_MLP)."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.data.loader import TriModalDataPipe, device_batches

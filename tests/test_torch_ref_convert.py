@@ -30,7 +30,8 @@ from demo2_tpu_torch.tools import test as ttest
 from demo2_tpu_torch.tools import train as ttrain
 from demo2_tpu_torch.utils import ref_convert as tref
 from tools.make_synthetic_jpegs import generate
-from torch_port_helpers import CPU, generator, n, random_variables, t
+from torch_port_helpers import (CPU, generator, import_tensorboard_without_tensorflow, n,
+                                random_variables, t)
 
 TOL_MODEL = dict(rtol=1e-4, atol=1e-4)
 NUM_CLASSES, CAMERA_NUM = 8, 4
@@ -233,6 +234,12 @@ def test_graft_is_strict_where_asked():
 # ---------------------------------------------------------------------------
 # The CLIs
 # ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _tensorboard_without_tensorflow():
+    """The train CLI's TensorBoard writer on its stub (torch_port_helpers)."""
+    import_tensorboard_without_tensorflow()
 
 
 @pytest.fixture(scope="module")

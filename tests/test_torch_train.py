@@ -24,7 +24,6 @@ from demo2_tpu.config.presets import apply_flagship, apply_tiny
 from demo2_tpu.data import device_cache as jdc
 from demo2_tpu.data.datasets import SyntheticTriModal as JSynthetic
 from demo2_tpu.data.sampler import RandomIdentitySampler as JSampler
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.losses import losses as jl
 from demo2_tpu.models import make_model as j_make_model
@@ -42,7 +41,7 @@ from demo2_tpu_torch.ops.norm import TorchBatchNorm
 from demo2_tpu_torch.solver.optim import Optimizer
 from demo2_tpu_torch.utils.checkpoint import restore_checkpoint
 from demo2_tpu_torch.utils.converters import convert_flax_variables, convert_train_state
-from torch_port_helpers import CPU, generator, load_port, n, random_variables, t
+from torch_port_helpers import CPU, generator, jax_state_from, load_port, n, random_variables, t
 
 # f32 on both sides: only the summation order differs.
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -273,7 +272,7 @@ def _jax_case():
     jmodel = j_make_model(cfg, NUM_CLASSES, CAMERA_NUM)
     variables = random_variables(jmodel, images[:2], cams[:2], train=False, seed=8)
     batch = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), batch, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, batch)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     jargs = (jnp.asarray(images), jnp.asarray(pids), jnp.asarray(cams), jnp.asarray(cams * 0))

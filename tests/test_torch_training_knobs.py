@@ -20,7 +20,6 @@ from torch.utils.checkpoint import checkpoint
 
 from demo2_tpu.config import get_cfg_defaults
 from demo2_tpu.config.presets import apply_flagship, apply_tiny
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.losses import losses as jl
 from demo2_tpu.models import make_model as j_make_model
@@ -34,7 +33,7 @@ from demo2_tpu_torch.models import make_model, vit as tvit
 from demo2_tpu_torch.solver import optim as topt
 from demo2_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from demo2_tpu_torch.utils.converters import convert_flax_variables, convert_train_state
-from torch_port_helpers import CPU, generator, load_port, n, random_variables, t
+from torch_port_helpers import CPU, generator, jax_state_from, load_port, n, random_variables, t
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 NUM_CLASSES, CAMERA_NUM = 8, 4
@@ -293,7 +292,7 @@ def _jax_two_steps():
     jmodel = j_make_model(cfg, NUM_CLASSES, CAMERA_NUM)
     variables = random_variables(jmodel, images[:2], cams[:2], train=False, seed=8)
     sample = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, sample)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     step = j_build_train_step(cfg, jmodel, tx, ctx, donate=False)

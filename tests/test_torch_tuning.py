@@ -21,7 +21,6 @@ import torch
 
 from demo2_tpu.config import get_cfg_defaults
 from demo2_tpu.config.presets import apply_flagship, apply_tiny
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.models import make_model as j_make_model
 from demo2_tpu.models.clip_vit import FFNAdapter as JFFNAdapter
@@ -34,7 +33,8 @@ from demo2_tpu_torch.models import clip_vit, make_model
 from demo2_tpu_torch.models.demo import is_frozen
 from demo2_tpu_torch.ops import attention as tattn
 from demo2_tpu_torch.utils.converters import convert_flax_variables, convert_train_state
-from torch_port_helpers import CPU, apply_jit, generator, load_port, n, random_variables, t
+from torch_port_helpers import (CPU, apply_jit, generator, jax_state_from, load_port, n,
+                                random_variables, t)
 
 F32 = torch.float32
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -277,7 +277,7 @@ def _jax_two_steps(case):
     batches = _batches(cfg)
     images, _, cams = batches[0]
     sample = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, sample)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     step = j_build_train_step(cfg, jmodel, tx, ctx, donate=False)

@@ -25,7 +25,6 @@ import torch
 
 from demo2_tpu.config import get_cfg_defaults
 from demo2_tpu.config.presets import apply_flagship, apply_tiny
-from demo2_tpu.engine import create_train_state as j_create_train_state
 from demo2_tpu.engine.train import build_train_step as j_build_train_step
 from demo2_tpu.losses import losses as jl
 from demo2_tpu.models import make_model as j_make_model
@@ -44,7 +43,8 @@ from demo2_tpu_torch.ops.activations import gelu
 from demo2_tpu_torch.serving import FeatureExtractor
 from demo2_tpu_torch.utils.converters import (convert_flax_variables, convert_train_state,
                                               load_imagenet_vit_pretrained)
-from torch_port_helpers import CPU, apply_jit, generator, load_port, n, random_variables, t
+from torch_port_helpers import (CPU, apply_jit, generator, jax_state_from, load_port, n,
+                                random_variables, t)
 
 # f32 on both sides: only the summation order differs.
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -260,7 +260,7 @@ def _demo_case():
     jmodel = j_make_model(cfg, NUM_CLASSES, CAMS, VIEWS)
     variables = random_variables(jmodel, images[:2], cams[:2], views[:2], train=False, seed=7)
     sample = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=views[:2])
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, sample)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     jargs = tuple(map(jnp.asarray, batch))

@@ -9,6 +9,8 @@ and, through the port's converter, to the port module.
 from __future__ import annotations
 
 import functools
+import sys
+from unittest import mock
 
 import flax
 import jax
@@ -20,6 +22,36 @@ from demo2_tpu_torch.ops.packed_attention import probs_cols
 from demo2_tpu_torch.utils.converters import convert_flax_variables
 
 CPU = torch.device("cpu")
+
+
+def import_tensorboard_without_tensorflow() -> None:
+    """Import torch.utils.tensorboard with TensorFlow unimportable, so that
+    TensorBoard's writer takes its own stub, as where TensorFlow is not
+    installed (where it is, its import takes seconds a process).
+    sys.modules is restored after; event files are written alike."""
+    if "torch.utils.tensorboard" in sys.modules:
+        return
+    kept = sys.modules.get("tensorflow", False)
+    sys.modules["tensorflow"] = None
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    finally:
+        if kept is False:
+            del sys.modules["tensorflow"]
+        else:
+            sys.modules["tensorflow"] = kept
+
+
+def jax_state_from(cfg, jmodel, variables, sample, steps_per_epoch: int = 4):
+    """JAX's create_train_state, its model.init answered by `variables`
+    (the tests start from those variables, so the init's compile of the
+    whole model would be thrown away): the state holds them and the
+    optimizer state JAX's chain initialises from them.  Returns what
+    create_train_state returns: (state, tx, center_tx, schedule)."""
+    from demo2_tpu.engine import create_train_state
+
+    with mock.patch.object(type(jmodel), "init", lambda self, *args, **kwargs: variables):
+        return create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, steps_per_epoch)
 
 
 def generator(seed: int = 0) -> torch.Generator:
@@ -141,7 +173,6 @@ def jax_train_case(cfg, num_classes: int, camera_num: int, seed: int = 8, batch:
     import types
 
     import jax.numpy as jnp
-    from demo2_tpu.engine import create_train_state as j_create_train_state
     from demo2_tpu.engine.train import build_train_step as j_build_train_step
     from demo2_tpu.losses import losses as jl
     from demo2_tpu.models import make_model as j_make_model
@@ -154,7 +185,7 @@ def jax_train_case(cfg, num_classes: int, camera_num: int, seed: int = 8, batch:
     jmodel = j_make_model(cfg, num_classes, camera_num)
     variables = random_variables(jmodel, images[:2], cams[:2], train=False, seed=seed)
     sample = types.SimpleNamespace(images=images[:2], camids=cams[:2], viewids=cams[:2] * 0)
-    jstate, tx, ctx, _ = j_create_train_state(cfg, jmodel, jax.random.PRNGKey(0), sample, 4)
+    jstate, tx, ctx, _ = jax_state_from(cfg, jmodel, variables, sample)
     jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=tx.init(variables["params"]))
     jargs = (jnp.asarray(images), jnp.asarray(pids), jnp.asarray(cams), jnp.asarray(cams * 0))
