@@ -24,8 +24,10 @@ vit_small at stride 12, ResNet-50-IBN-a, OSNet-AIN) as a server and a
 trainer, trains and evaluates the flagship from a JPEG tree on
 disk through the port's CLIs (tools/train.py, tools/test.py), trains and
 serves the flagship with the int8 MLP (TPU.INT8_MLP), takes its saliency
-maps and runs the missing-modality sweep (tools/miss_sweep.py), and times
-kernels, requests, the loader and train steps against the plain path.
+maps and runs the missing-modality sweep (tools/miss_sweep.py), trains and
+evaluates the flagship data-parallel (two ranks sharing the card over gloo;
+tools/train --distributed in a one-rank NCCL world), and times kernels,
+requests, the loader and train steps against the plain path.
 Phases:
 
   1. device: card name and power limit, torch / CUDA / triton / nvcc
@@ -295,6 +297,31 @@ Phases:
      checkpoint (kernels 1 and 2 12 times an eval forward), "None" equal to
      tools/test.main's mAP and Rank-1; the phase's seconds against its
      45 s budget.
+  35. data parallel: (a) after phase 13, two ranks (spawned processes,
+     the kernels built in phase 1 reused) sharing cuda:0 over gloo
+     (parallel/mesh.py::join_process_group with the device pinned) train
+     the flagship at full width, 256x128, bf16, kernels on, global batch 64
+     (32 a rank) on a synthetic cache of 24 ids x 8, DP_STEPS steps from
+     seed 0, each step against the one-process step from the same state on
+     the same global batch (rank 0): the backbone's step-1 gradient cosine
+     >= 0.9999 whole and >= 0.999 per block, the step-1 gradient norm within
+     1e-3, every step's loss within 1e-3, the BatchNorm running statistics
+     after every step within 1e-2 of their largest, and the ranks' train
+     states bitwise equal after the steps (the free one-process trajectory's
+     losses printed beside: SDTPS's selection turns summation-order noise
+     into loss jumps of ~1e-3 within three steps); the same run with the
+     gradients averaged, and with the BatchNorm statistics per rank, must
+     each fail one of these; kernels 3 and 4 12 times a step on each rank;
+     one eval of 96 samples in a batch of 128 padded (64 rows a rank):
+     kernels 1 and 2 12 times on each rank, both ranks' CMC and mAP equal;
+     each rank's step wall time and one step's device-busy ms beside the
+     one process's (two ranks on one card measure correctness, not
+     scaling); (b) after phase 31, on phase 27's tree: `python -m
+     torch.distributed.run --nproc_per_node 1 -m demo2_tpu_torch.tools.train
+     --distributed` (a one-rank NCCL world, its log naming the backend), one
+     epoch and an eval, against tools/train without --distributed, each a
+     fresh process: the checkpoint (parameters, buffers, moments) and the
+     mAP bit for bit.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -4787,6 +4814,371 @@ def phase_miss_sweep(device, root: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 35
+
+DP_WORLD = 2             # ranks on one card, over gloo
+DP_STEPS = 3
+DP_IDS = 24              # 24 ids x 8 images: DP_STEPS PK batches of 64
+DP_VAL = (16, 4)         # val ids x images: 32 queries + 64 gallery, one eval batch of 128
+DP_GRAD_COS_MODEL = 0.9999
+DP_GRAD_COS_BLOCK = 0.999
+DP_GRAD_NORM_REL = 1e-3  # step-1 gradient norm, two ranks against one process
+DP_LOSS_REL = 1e-3
+DP_BN_REL = 1e-2         # BatchNorm running statistics after the steps, of each tensor's largest
+DP_PHASE_BUDGET_S = 90.0
+DP_JOIN_TIMEOUT_S = 300
+
+
+def dp_data(cfg, device):
+    """The phase's train cache (DP_IDS ids at 256x128), its PK order and an
+    eval cache whose one batch is padded (96 samples in a batch of 128)."""
+    from demo2_tpu_torch.data.datasets import SyntheticTriModal
+    from demo2_tpu_torch.data.device_cache import DeviceCache
+    from demo2_tpu_torch.data.sampler import RandomIdentitySampler
+
+    size = tuple(cfg.INPUT.SIZE_TRAIN)
+    ds = SyntheticTriModal(num_pids=DP_IDS, num_cams=CAMERA_NUM,
+                           imgs_per_pid=TRAIN_IMGS_PER_PID, image_size=size, seed=0)
+    cache = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
+                                    device=device)
+    sampler = RandomIdentitySampler(ds.train, cfg.SOLVER.IMS_PER_BATCH,
+                                    cfg.DATALOADER.NUM_INSTANCE, seed=cfg.SOLVER.SEED)
+    val_ds = SyntheticTriModal(num_pids=DP_VAL[0], num_cams=CAMERA_NUM, imgs_per_pid=DP_VAL[1],
+                               image_size=size, seed=1)
+    val_samples = val_ds.query + val_ds.gallery
+    val = DeviceCache.from_arrays(val_ds.render_all(val_samples), val_samples, train=False,
+                                  cfg=cfg, device=device)
+    return cache, sampler.epoch_indices(1), val, len(val_ds.query)
+
+
+def dp_one_process_step(cfg, ref_model, model, cache, idx, step: int) -> dict:
+    """The one-process step from `model`'s current state on the global
+    batch `idx`: its loss, gradients and BatchNorm running statistics after,
+    computed on `ref_model` (loaded with `model`'s state) with the draws the
+    train step takes at optimizer step `step`."""
+    from demo2_tpu_torch.engine.train import loss_and_grads
+    from demo2_tpu_torch.losses.losses import make_loss_fn
+
+    ref_model.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=cache.images.device).manual_seed(
+        cfg.SOLVER.SEED * 2**32 + step)  # engine/train.py's seed of the step
+    images, pids, camids = cache.batch(idx, gen)
+    loss, _, grads = loss_and_grads(cfg, ref_model, make_loss_fn(cfg, NUM_CLASSES), images,
+                                    pids, camids, gen, cache.viewids[idx])
+    return {"loss": loss.item(), "grads": grads, "stats": bn_stats(ref_model)}
+
+
+def bn_stats(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def dp_train(cfg, model, init, cache, order, world, control: str = "",
+             ref_model=None) -> dict:
+    """DP_STEPS optimizer steps of `model` from the weights `init` through
+    build_train_step in `world` (this rank's rows of each global batch).
+    With `ref_model` (rank 0) each step is held against the one-process step
+    from the same state on the same global batch (dp_one_process_step):
+    its loss, its gradients after the sum over the ranks (cosine whole
+    backbone and lowest block, norm) and the BatchNorm statistics after it.
+    `control` 'averaged' divides the summed gradients by W, 'per_rank_bn'
+    leaves the BatchNorm statistics per rank.  Returns the losses, the
+    comparisons by step, the train state, the launches, the step function
+    and this rank's index batches."""
+    import contextlib
+    from unittest import mock
+
+    from demo2_tpu_torch.engine import train as engine_train
+    from demo2_tpu_torch.engine.state import create_train_state
+    from demo2_tpu_torch.ops import norm
+    from demo2_tpu_torch.parallel.multihost import iter_index_batches
+
+    model.load_state_dict(init)
+    state = create_train_state(cfg, model, DP_STEPS)
+    reduce = engine_train.reduce_gradients
+    summed = {}
+
+    def keep(w, grads):
+        reduce(w, grads)
+        if control == "averaged":
+            for g in grads.values():
+                g.div_(w.size)
+        if ref_model is not None:
+            summed.update({k: g.detach().clone() for k, g in grads.items()})
+
+    per_rank = (mock.patch.object(norm, "active_shard", lambda: None)
+                if control == "per_rank_bn" else contextlib.nullcontext())
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    dev = cache.images.device
+    rows = [torch.from_numpy(r).to(dev)
+            for r, _ in iter_index_batches(world, order[: DP_STEPS * bs], bs)]
+    prefix, groups = block_groups(model)
+    losses, compared, launches = [], [], launch_dict()
+    with mock.patch.object(engine_train, "reduce_gradients", keep), per_rank:
+        step = engine_train.build_train_step(cfg, model, state, cache, world)
+        for i, idx in enumerate(rows):
+            ref = None
+            if ref_model is not None:
+                ref = dp_one_process_step(cfg, ref_model, model, cache, torch.from_numpy(
+                    order[i * bs : (i + 1) * bs]).to(dev), state.step)
+            reset_counts()
+            losses.append(step(idx)["loss"].item())
+            launches = {k: launches[k] + v for k, v in counts().items()}
+            if ref is None:
+                continue
+            gp = ref["grads"]
+            norm_of = lambda gs: math.sqrt(sum(g.double().square().sum().item()
+                                               for g in gs.values()))
+            mine = bn_stats(model)
+            compared.append({
+                "loss": abs(losses[-1] - ref["loss"]) / abs(ref["loss"]),
+                "cos": grads_cosine(summed, gp, "backbone."),
+                "block": min(grads_cosine(summed, gp, prefix.format(b) + g)
+                             for b in range(num_blocks(model)) for g in groups),
+                "norm": abs(norm_of(summed) / norm_of(gp) - 1.0),
+                "stats": max(((mine[k].float() - v.float()).abs().max()
+                              / v.float().abs().max()).item() for k, v in ref["stats"].items())})
+            summed.clear()
+    return {"losses": losses, "compared": compared, "state": state, "launches": launches,
+            "step": step, "rows": rows}
+
+
+def dp_bounds(got: dict, same_on_ranks: bool) -> dict:
+    """Phase 35's bounds on a run against the one-process steps from the
+    same states: {name: (value, holds)}."""
+    c = got["compared"]
+    first, loss = c[0], max(x["loss"] for x in c)
+    stats = max(x["stats"] for x in c)
+    return {"backbone step-1 gradient cosine": (first["cos"], first["cos"] >= DP_GRAD_COS_MODEL),
+            "lowest block gradient cosine": (first["block"],
+                                             first["block"] >= DP_GRAD_COS_BLOCK),
+            "step-1 gradient norm, relative error": (first["norm"],
+                                                     first["norm"] <= DP_GRAD_NORM_REL),
+            "losses, largest relative error": (loss, loss <= DP_LOSS_REL),
+            "ranks bitwise equal": (same_on_ranks, same_on_ranks),
+            "BatchNorm statistics, largest relative error": (stats, stats <= DP_BN_REL)}
+
+
+def dp_step_times(step, idx) -> tuple:
+    """Two more steps on this rank: the wall ms of one, and the device ms of
+    the other (the profiler's kernels of this process; None where it records
+    none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    sync()
+    t0 = time.perf_counter()
+    step(idx)
+    sync()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(idx)
+        sync()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return wall, (busy or None)
+
+
+def dp_rank(rank: int, port: int, out: str, rehearsal: bool) -> None:
+    """One rank of phase 35: joins the gloo group on the shared card, trains
+    the flagship DP_STEPS steps on its rows of each global batch of 64, then
+    the two controls, and evaluates; rank 0 holds each step of every run
+    against the one-process step from the same state (dp_train), and first
+    runs the one-process trajectory alone (its losses printed beside the
+    two ranks', its step timed).  Writes its lines and launches to
+    <out>/rank<r>.json; any failed check raises.  `rehearsal` is the
+    parent's REHEARSAL."""
+    import os
+
+    global REHEARSAL
+    REHEARSAL = rehearsal
+    from demo2_tpu_torch.engine.eval import run_eval
+    from demo2_tpu_torch.engine.state import replica_tensors
+    from demo2_tpu_torch.models import make_model
+    from demo2_tpu_torch.ops.kernel_lib import kernel_library
+    from demo2_tpu_torch.parallel.collectives import check_replicas_equal
+    from demo2_tpu_torch.parallel.mesh import World, join_process_group
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    device = torch.device("cpu") if rehearsal else torch.device("cuda", 0)
+    lines = []
+
+    def say(msg):
+        lines.append(msg)
+        log(f"[dp rank {rank}] {msg}")
+
+    if not rehearsal:
+        require(kernel_library().build_seconds == 0.0, "a rank rebuilt the kernels")
+    world = join_process_group("cpu" if rehearsal else "cuda:0", device, timeout_s=240)
+    require((world.size, world.rank, world.backend) == (DP_WORLD, rank, "gloo"),
+            f"world {world}")
+    say(f"joined: backend {world.backend}, rank {world.rank} of {world.size}, {device}")
+    cfg = flagship_cfg(True, TEST__IMS_PER_BATCH=128)
+    model = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    cache, order, val, num_query = dp_data(cfg, device)
+    layers = num_blocks(model)
+    ref_model = free = None
+    if rank == 0:  # the one-process trajectory on the same global batches (rank 1 waits)
+        free = dp_train(cfg, model, init, cache, order, World(device=device))
+        free_wall, free_busy = (None, None) if rehearsal else dp_step_times(
+            free["step"], torch.from_numpy(order[: cfg.SOLVER.IMS_PER_BATCH]).to(device))
+        say(f"one process: losses {free['losses']}; a step's wall ms {free_wall}, device-busy "
+            f"ms {free_busy if free_busy is not None else 'not measured'}")
+        ref_model = make_model(cfg, NUM_CLASSES, CAMERA_NUM, device=device,
+                               generator=torch.Generator().manual_seed(0))
+    dist.barrier()
+    runs = {}
+    for control in ("", "averaged", "per_rank_bn"):
+        got = dp_train(cfg, model, init, cache, order, world, control, ref_model)
+        try:
+            check_replicas_equal(world, replica_tensors(got["state"]), "the train states")
+            same = True
+        except RuntimeError:
+            same = False
+        label = control or "two ranks"
+        say(f"{label}: losses {got['losses']}, launches of kernels 3 / 4 "
+            f"{got['launches']['fused_attention_block_train']} / "
+            f"{got['launches']['attention_bwd_saved_db']} over {DP_STEPS} steps")
+        require_launches(got["launches"], launch_dict(
+            fused_attention_block_train=layers * DP_STEPS,
+            attention_bwd_saved_db=layers * DP_STEPS), f"[dp] {label}, rank {rank}")
+        if rank == 0:
+            bounds = dp_bounds(got, same)
+            say(f"{label} against the one-process steps from the same states: " + "; ".join(
+                f"{k} {v}{'' if ok else ' (fails)'}" for k, (v, ok) in bounds.items())
+                + f"; by step {got['compared']}; the free trajectories' losses "
+                f"{max(abs(a - b) / abs(b) for a, b in zip(got['losses'], free['losses']))} "
+                "apart (printed)")
+            runs[control] = all(ok for _, ok in bounds.values())
+        if control == "":
+            # two more steps a rank, without the one-process comparison
+            wall, busy = (None, None) if rehearsal else dp_step_times(got["step"],
+                                                                      got["rows"][0])
+            say(f"two-rank step: wall ms {wall}, device-busy ms of this rank's step "
+                f"{busy if busy is not None else 'not measured'}")
+            reset_counts()
+            cmc, m_ap = run_eval(cfg, model, val, num_query, world=world)
+            ev = counts()
+            say(f"eval of {len(val.pids)} samples (one batch of {cfg.TEST.IMS_PER_BATCH}, "
+                f"{cfg.TEST.IMS_PER_BATCH // DP_WORLD} rows a rank): mAP {m_ap}, Rank-1 "
+                f"{cmc[0]}; launches of kernels 1 / 2 {ev['fused_attention_block']} / "
+                f"{ev['fused_mlp_block']}")
+            require_launches(ev, launch_dict(fused_attention_block=layers,
+                                             fused_mlp_block=layers), f"[dp] eval, rank {rank}")
+            every = [None] * DP_WORLD
+            dist.all_gather_object(every, (m_ap, [float(x) for x in cmc]))
+            require(all(e == every[0] for e in every), f"the ranks' eval differs: {every}")
+            launches = {k: got["launches"][k] for k in ("fused_attention_block_train",
+                                                         "attention_bwd_saved_db")}
+            launches.update({k: ev[k] for k in ("fused_attention_block", "fused_mlp_block")})
+        del got
+    if rank == 0:
+        require(runs[""], "the two-rank run fails a bound")
+        require(not runs["averaged"] and not runs["per_rank_bn"],
+                f"a control passes every bound: {runs}")
+    dist.barrier()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"lines": lines, "launches": launches}, f)
+    dist.destroy_process_group()
+
+
+def phase_data_parallel(device, card) -> dict:
+    """Phase 35 (a): DP_WORLD ranks (spawned processes) on cuda:0 over gloo
+    train and evaluate the flagship at full width (dp_rank).  Returns each
+    rank's launches of kernels 1-4."""
+    import multiprocessing
+    import socket
+    import tempfile
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=dp_rank, args=(r, port, out, REHEARSAL))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.perf_counter() + DP_JOIN_TIMEOUT_S
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        require(codes == [0] * DP_WORLD, f"[dp] rank exit codes {codes}")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(f"{out}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    log(f"[dp] {DP_WORLD} ranks sharing one card measure correctness, not scaling ({card}); "
+        f"phase 35 (a) in {seconds:.1f} s (budget {DP_PHASE_BUDGET_S:.0f} s)")
+    return {k: [rk["launches"][k] for rk in ranks] for k in ranks[0]["launches"]}
+
+
+def phase_distributed_cli(device, root: str) -> None:
+    """Phase 35 (b): tools/train --distributed in a one-rank NCCL world
+    launched by torch.distributed.run, one epoch and an eval on phase 27's
+    JPEG tree, against tools/train without --distributed, each a fresh
+    process (this one's globals are not the defaults: exact_products turns
+    cuBLAS's reduced-precision bf16 sums off): the checkpoint (parameters,
+    buffers, optimizer moments) and the mAP bit for bit.  Rehearsed on the
+    CPU, the world is gloo's."""
+    import glob
+    import os
+    import socket
+
+    from demo2_tpu_torch.utils.metrics_log import load_metrics
+
+    t0 = time.perf_counter()
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    runs = {}
+    for mode in (backend, "none"):
+        out = os.path.join(root, f"dist_{mode}")
+        opts = data_opts(root, out, "device") + ["SOLVER.MAX_EPOCHS", "1"]
+        cmd = [sys.executable, "-m", "demo2_tpu_torch.tools.train", "--exp_name", "dist"] + opts
+        if mode == backend:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            cmd[1:3] = ["-m", "torch.distributed.run", "--nproc_per_node", "1",
+                        "--master_port", str(port), "-m", "demo2_tpu_torch.tools.train",
+                        "--distributed"]
+        proc = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=os.getcwd()),
+                              capture_output=True, text=True, timeout=600)
+        text = proc.stdout + proc.stderr
+        require(proc.returncode == 0, f"[dist] {mode} exit {proc.returncode}:\n{text[-3000:]}")
+        if mode == backend:
+            require(f"data parallel: backend {backend}, 1 ranks" in text,
+                    f"[dist] no {backend} startup line:\n{text[-2000:]}")
+        m_ap = max(r["value"] for r in load_metrics(os.path.join(out, "dist_metrics.jsonl"))
+                   if r["tag"] == "Val/mAP")
+        (path,) = glob.glob(os.path.join(out, "checkpoints", "step_*.pt"))
+        runs[mode] = (torch.load(path, map_location="cpu", weights_only=True), m_ap)
+    (dist_sd, dist_map), (sd, m_ap) = runs[backend], runs["none"]
+    flat = lambda d: {f"{k}.{j}": v for k, x in d.items() if isinstance(x, dict)
+                      for j, v in flat(x).items()} | {k: x for k, x in d.items()
+                                                      if not isinstance(x, dict)}
+    a, b = flat(dist_sd), flat(sd)
+    differ = [k for k in b if not (torch.equal(a[k], b[k]) if isinstance(b[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    log(f"[dist] torchrun --nproc_per_node 1 tools/train --distributed ({backend}) against "
+        f"tools/train: mAP {dist_map} / {m_ap}; checkpoint entries that differ "
+        f"{len(differ)} of {len(b)}; {time.perf_counter() - t0:.1f} s")
+    require(a.keys() == b.keys() and not differ and dist_map == m_ap,
+            f"[dist] differs from the run without a group: {differ[:5]}, mAP {dist_map} / "
+            f"{m_ap}")
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -4951,6 +5343,10 @@ def main() -> None:
     del model, plain, cache
     torch.cuda.empty_cache()
 
+    # Data parallel (phase 35 (a)): two ranks on this card over gloo train
+    # and evaluate the flagship (kernels 3, 4 and 1, 2 on each rank).
+    dp_launches = phase_data_parallel(device, card)
+
     # The input path from disk: a JPEG tree written on the card's machine,
     # the native loader, tools/train.main with the host pipe and with the
     # decoded device cache (kernels 3, 4 in training, 1, 2 at eval),
@@ -4964,13 +5360,17 @@ def main() -> None:
         log(f"[int8] phase 34 in {phase34_s:.1f} s (budget {PHASE34_BUDGET_S:.0f} s)")
         phase_data_timing(device, card, root)
         log(f"[migrate] launches of the --init_pth run: {phase_migration(device, card, root)}")
+        # tools/train --distributed in a one-rank NCCL world (phase 35 (b)).
+        phase_distributed_cli(device, root)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errors[name], **times[name],
          # a remat step's launches (phase 29) beside the default step's
          **({"launches_remat": remat_launches[name]}
-            if name in ("fused_attention_block_train", "attention_bwd_saved_db") else {})}
+            if name in ("fused_attention_block_train", "attention_bwd_saved_db") else {}),
+         # each rank's launches in phase 35 (a): 3 steps, one eval forward
+         **({"launches_data_parallel": dp_launches[name]} if name in dp_launches else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()
     ]}))
     print(card)

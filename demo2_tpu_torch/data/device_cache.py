@@ -32,6 +32,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import batch_rand, batch_randint, batch_randn
+
 
 def draw_aug_params(generator: torch.Generator, batch: int, size: Tuple[int, int], *,
                     device: torch.device, flip_prob: float = 0.5, padding: int = 10,
@@ -39,13 +41,15 @@ def draw_aug_params(generator: torch.Generator, batch: int, size: Tuple[int, int
                     min_aspect: float = 0.3, attempts: int = 10) -> Dict[str, torch.Tensor]:
     """Per-(sample, modality) parameters, each (B, 3): random erasing tries
     `attempts` (area, aspect) proposals and takes the first that fits; none
-    fits -> no erase, as the host loop falls through."""
+    fits -> no erase, as the host loop falls through.  Under data parallelism
+    (parallel/collectives.py) `batch` is this rank's rows, each drawn as the
+    one-process step draws it."""
     h, w = size
     shape = (batch, 3)
-    u = lambda *sh: torch.rand(sh, generator=generator, device=device)
+    u = lambda *sh: batch_rand(sh, generator=generator, device=device)
     flip = u(*shape) < flip_prob
-    crop_top = torch.randint(0, 2 * padding + 1, shape, generator=generator, device=device)
-    crop_left = torch.randint(0, 2 * padding + 1, shape, generator=generator, device=device)
+    crop_top = batch_randint(0, 2 * padding + 1, shape, generator=generator, device=device)
+    crop_left = batch_randint(0, 2 * padding + 1, shape, generator=generator, device=device)
     tgt = (min_area + (max_area - min_area) * u(*shape, attempts)) * float(h * w)
     lo, hi = math.log(min_aspect), math.log(1.0 / min_aspect)
     asp = torch.exp(lo + (hi - lo) * u(*shape, attempts))
@@ -110,7 +114,7 @@ def augment_batch(u8: torch.Tensor, generator: torch.Generator, size: Tuple[int,
     batch = u8.shape[0] if idx is None else idx.shape[0]
     params = draw_aug_params(generator, batch, size, device=u8.device, flip_prob=flip_prob,
                              padding=padding, re_prob=re_prob)
-    noise = torch.randn((batch, 3, *size, 3), generator=generator, device=u8.device)
+    noise = batch_randn((batch, 3, *size, 3), generator=generator, device=u8.device)
     return apply_augment(u8, params, mean, std, noise, padding=padding, idx=idx)
 
 

@@ -146,11 +146,17 @@ class TriModalDataPipe:
         return np.stack([self.transform(im, np.random.default_rng((*key, m)))
                          for m, im in enumerate(imgs)])  # (3, H, W, 3)
 
-    def _make_batch(self, indices: np.ndarray, seed: int, pad_to: Optional[int]) -> Batch:
+    def _make_batch(self, indices: np.ndarray, seed: int, pad_to: Optional[int],
+                    positions: Optional[np.ndarray] = None) -> Batch:
+        """`positions` are the rows' positions in the global batch (default
+        0 .. B-1): they key each sample's augmentation, so that a rank's
+        rows draw what the one-process batch draws for them
+        (parallel/multihost.py)."""
         valid = len(indices)
         if pad_to is not None and valid < pad_to:
             indices = np.concatenate([indices, np.full(pad_to - valid, indices[-1])])
-        positions = np.arange(len(indices))
+        if positions is None:
+            positions = np.arange(len(indices))
         if self.use_native:
             images = self._native_batch_images(indices, seed, positions)
         else:
@@ -169,12 +175,15 @@ class TriModalDataPipe:
 
     def iter_batches(self, order: np.ndarray, seed: int = 0, drop_last: bool = True,
                      pad_last: bool = False, prefetch: int = 2,
-                     stage: Optional[Callable[[Batch], Any]] = None) -> Iterator[Any]:
+                     stage: Optional[Callable[[Batch], Any]] = None,
+                     rows: Optional[np.ndarray] = None) -> Iterator[Any]:
         """Batches of `order`, made `prefetch` ahead in a producer thread
         (and passed through `stage` there, where given); a decode error is
         raised here, never swallowed (a truncated epoch would score a
         partial eval as complete).  Leaving the loop early stops the
-        producer."""
+        producer.  With `rows` (a rank's rows of the global batch) each
+        batch, padded first with `pad_last`, is decoded at those rows only,
+        its `valid` the global batch's."""
         bs = self.batch_size
         n_full = len(order) // bs
         chunks = [order[i * bs : (i + 1) * bs] for i in range(n_full)]
@@ -199,7 +208,15 @@ class TriModalDataPipe:
                 for ch in chunks:
                     if done.is_set():
                         return
-                    batch = self._make_batch(np.asarray(ch), seed, bs if pad_last else None)
+                    if rows is None:
+                        batch = self._make_batch(np.asarray(ch), seed, bs if pad_last else None)
+                    else:
+                        valid = len(ch)
+                        if valid < bs and not pad_last:
+                            raise ValueError("a rank's rows split whole batches: pass pad_last")
+                        ch = np.concatenate([ch, np.full(bs - valid, ch[-1])])
+                        batch = self._make_batch(ch[rows], seed, None, positions=rows)
+                        batch.valid = valid
                     put(batch if stage is None else stage(batch))
             except BaseException as e:  # re-raised in the consumer
                 err.append(e)

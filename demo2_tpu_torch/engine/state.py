@@ -6,7 +6,7 @@ their SGD."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -51,6 +51,19 @@ class TrainState:
             self.centers.copy_(sd["centers"])
         if self.step != sd["step"]:
             raise ValueError(f"checkpoint step {sd['step']} != optimizer count {self.step}")
+
+
+def replica_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor a data-parallel rank must hold bitwise equal to the
+    others': the model's parameters and buffers, the optimizer's moments,
+    the centers."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for name, st in state.optimizer.state.items():
+        out.update({f"optimizer.{name}.{k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    if state.centers is not None:
+        out["centers"] = state.centers
+    return out
 
 
 def create_train_state(cfg: Config, model, steps_per_epoch: int,

@@ -11,6 +11,14 @@ from a cache, dropout and drop path) come from one generator on the model's
 device, seeded from (SOLVER.SEED, step) as JAX folds the step into its key:
 a resumed run draws what the uninterrupted one drew.  A host pipe draws its
 augmentation from (epoch, sample, position) on the host.
+
+Data parallel (parallel/): in a world of W ranks each rank feeds its rows of
+the global batch and the step is the one-process step on that batch.  Each
+draw over the batch is the one-process draw at this rank's rows, BatchNorm
+takes the global batch's statistics, the loss reads the gathered global
+batch (every rank computes the same loss, its backward reaching its own
+rows), and the gradients are summed over the ranks: every rank then takes
+the same update.  Only the primary rank logs and saves checkpoints.
 """
 
 from __future__ import annotations
@@ -19,13 +27,16 @@ import logging
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..config.defaults import Config
 from ..data.device_cache import DeviceCache
 from ..losses.losses import branch_weights, center_loss, make_loss_fn
 from ..models.demo import train_slice_error
-from .state import TrainState
+from ..parallel.collectives import Shard, all_reduce_sum_, data_parallel, gather_rows
+from ..parallel.mesh import World, check_batch, make_world
+from .state import TrainState, replica_tensors
 
 logger = logging.getLogger("DeMo")
 
@@ -42,10 +53,16 @@ def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
     do not).  With `centers` (the train state's, center loss on) the loss
     also has SOLVER.CENTER_LOSS_WEIGHT times the center loss of the first
     branch's feature over its first min(2048, width) columns, and the dict
-    the centers' gradient under CENTERS."""
+    the centers' gradient under CENTERS.  Under data parallelism (the
+    caller's parallel.data_parallel) the inputs are this rank's rows, and
+    the loss reads each branch's logits and features and the pids gathered
+    over the ranks: the global batch's loss, whose gradients reach this
+    rank's rows only."""
     out = model(images.to(model.dtype), camids, viewids, None, train=True,
                 generator=generator)
-    branches = out["branches"]
+    branches = {n: (gather_rows(logits), gather_rows(feat))
+                for n, (logits, feat) in out["branches"].items()}
+    pids = gather_rows(pids)
     weights = branch_weights(cfg, branches)
     total = sum(weights[n] * loss_fn(logits, feat, pids) for n, (logits, feat) in branches.items())
     for name, value in out["aux_loss"].items():
@@ -65,20 +82,32 @@ def loss_and_grads(cfg: Config, model, loss_fn, images, pids, camids, generator,
                                  for n, p, g in zip(names, params, grads)}
 
 
-def _optimizer_step(cfg: Config, model, state: TrainState, device: torch.device):
-    """step(batch_of) -> {"loss", "acc"}: batch_of(generator) gives (images,
-    pids, camids, viewids) on the device; one optimizer step on them."""
+def reduce_gradients(world: World, grads: Dict[str, torch.Tensor]) -> None:
+    """Sum the step's gradients over the ranks in place (every rank's loss is
+    the global one, its gradient its own rows' share)."""
+    if world.backend is not None:
+        all_reduce_sum_(list(grads.values()))
+
+
+def _optimizer_step(cfg: Config, model, state: TrainState, device: torch.device,
+                    world: Optional[World]):
+    """step(batch_of, rows) -> {"loss", "acc"}: batch_of(generator) gives
+    this rank's `rows` of the global batch (images, pids, camids, viewids)
+    on the device; one optimizer step on the global batch."""
     err = train_slice_error(cfg)
     if err is not None:
         raise err
+    world = make_world(cfg.TPU.NUM_DEVICES, device) if world is None else world
     loss_fn = make_loss_fn(cfg, model.num_classes)
     generator = torch.Generator(device=device)
 
-    def step(batch_of) -> Dict[str, torch.Tensor]:
+    def step(batch_of, rows: int) -> Dict[str, torch.Tensor]:
         generator.manual_seed(cfg.SOLVER.SEED * 2**32 + state.step)
-        images, pids, camids, views = batch_of(generator)
-        loss, acc, grads = loss_and_grads(cfg, model, loss_fn, images, pids, camids, generator,
-                                          views, state.centers)
+        with data_parallel(Shard(world, rows * world.size)):
+            images, pids, camids, views = batch_of(generator)
+            loss, acc, grads = loss_and_grads(cfg, model, loss_fn, images, pids, camids,
+                                              generator, views, state.centers)
+        reduce_gradients(world, grads)
         if state.centers is not None:
             # The reference rescales the centers' gradient by 1 / weight.
             cgrad = grads.pop(CENTERS) / cfg.SOLVER.CENTER_LOSS_WEIGHT
@@ -89,31 +118,37 @@ def _optimizer_step(cfg: Config, model, state: TrainState, device: torch.device)
     return step
 
 
-def build_train_step(cfg: Config, model, state: TrainState,
-                     cache: DeviceCache) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+def build_train_step(cfg: Config, model, state: TrainState, cache: DeviceCache,
+                     world: Optional[World] = None) -> Callable[[torch.Tensor],
+                                                                 Dict[str, torch.Tensor]]:
     """step(idx) takes one optimizer step on the cache's samples at `idx`
-    (B,) and returns {"loss", "acc"} as device scalars (no host sync)."""
+    (B,) and returns {"loss", "acc"} as device scalars (no host sync).  In
+    a `world` (default: TPU.NUM_DEVICES's) of W ranks `idx` is this rank's
+    B / W rows of the global batch (parallel/multihost.py::iter_index_batches)."""
     if not cache.train:
         raise ValueError("build_train_step needs a train cache (augmenting)")
-    step = _optimizer_step(cfg, model, state, cache.images.device)
+    step = _optimizer_step(cfg, model, state, cache.images.device, world)
 
     def train_step(idx: torch.Tensor) -> Dict[str, torch.Tensor]:
         idx = idx.to(cache.images.device)
-        return step(lambda g: (*cache.batch(idx, g), cache.viewids[idx]))
+        return step(lambda g: (*cache.batch(idx, g), cache.viewids[idx]), len(idx))
 
     return train_step
 
 
-def build_host_train_step(cfg: Config, model, state: TrainState, device: torch.device):
+def build_host_train_step(cfg: Config, model, state: TrainState, device: torch.device,
+                          world: Optional[World] = None):
     """step(images, pids, camids, viewids) takes one optimizer step on a
     batch a host pipe augmented (data/loader.py::device_batches), already on
-    `device`; returns {"loss", "acc"} as device scalars."""
-    step = _optimizer_step(cfg, model, state, device)
-    return lambda images, pids, camids, views: step(lambda g: (images, pids, camids, views))
+    `device` (this rank's rows in a `world` of several); returns {"loss",
+    "acc"} as device scalars."""
+    step = _optimizer_step(cfg, model, state, device, world)
+    return lambda images, pids, camids, views: step(lambda g: (images, pids, camids, views),
+                                                    images.shape[0])
 
 
 def do_train(cfg: Config, state: TrainState, train, sampler, val=None, num_query: int = 0,
-             checkpoint_dir: Optional[str] = None, writer=None):
+             checkpoint_dir: Optional[str] = None, writer=None, world: Optional[World] = None):
     """The epoch loop from the state's step to SOLVER.MAX_EPOCHS: a log line
     every LOG_PERIOD steps, eval every EVAL_PERIOD epochs, a checkpoint every
     CHECKPOINT_PERIOD epochs and at each best mAP (in `<dir>_best`).  With
@@ -124,15 +159,26 @@ def do_train(cfg: Config, state: TrainState, train, sampler, val=None, num_query
     with "host" every step takes the pipe's next batch.  `writer.add_scalar`
     (utils/metrics_log.py) gets Train/Loss, Train/Acc, Train/LR every
     LOG_PERIOD steps and Val/mAP, Val/Rank-1, Val_Best/mAP every eval.
+    `world` (default: TPU.NUM_DEVICES's, parallel/mesh.py::make_world)
+    splits each global batch of SOLVER.IMS_PER_BATCH over its ranks, which
+    must start from bitwise equal train states; only its primary rank
+    writes the checkpoints and to `writer`.
     Returns (state, best); state.history gets one entry per epoch."""
     from ..data.device_cache import build_device_cache
     from ..data.loader import device_batches
+    from ..parallel.collectives import check_replicas_equal
+    from ..parallel.multihost import HostShardedBatches, iter_index_batches
     from ..utils.checkpoint import save_checkpoint
     from .eval import run_eval
 
     s = cfg.SOLVER
     bs = s.IMS_PER_BATCH
     device = next(state.model.parameters()).device
+    world = make_world(cfg.TPU.NUM_DEVICES, device) if world is None else world
+    check_batch(world, bs, "SOLVER.IMS_PER_BATCH")
+    check_replicas_equal(world, replica_tensors(state), "the train states")
+    if not world.primary:
+        checkpoint_dir = writer = None
     if not isinstance(train, DeviceCache) and cfg.TPU.DATA_CACHE == "device":
         train = build_device_cache(train, device, train=True)
         logger.info("device cache: decoded %d train samples once in %.1fs",
@@ -142,10 +188,11 @@ def do_train(cfg: Config, state: TrainState, train, sampler, val=None, num_query
             logger.info("device cache: decoded %d val samples once in %.1fs",
                         val.images.shape[0], val.decode_seconds)
     if isinstance(train, DeviceCache):
-        step_fn = build_train_step(cfg, state.model, state, train)
+        step_fn = build_train_step(cfg, state.model, state, train, world)
         device = train.images.device
     else:
-        host_step = build_host_train_step(cfg, state.model, state, device)
+        host_step = build_host_train_step(cfg, state.model, state, device, world)
+        source = HostShardedBatches(train, world) if world.size > 1 else train
     steps_per_epoch = max(1, len(sampler) // bs)
     start_epoch = 1 + state.step // steps_per_epoch
     best = {"mAP": 0.0, "Rank-1": 0.0, "Rank-5": 0.0, "Rank-10": 0.0}
@@ -154,11 +201,13 @@ def do_train(cfg: Config, state: TrainState, train, sampler, val=None, num_query
         order = sampler.epoch_indices(epoch)
         steps = len(order) // bs
         if isinstance(train, DeviceCache):
-            idx_all = torch.from_numpy(order[: steps * bs].reshape(steps, bs)).to(device)
+            rows = [r for r, _ in iter_index_batches(world, order[: steps * bs], bs)]
+            idx_all = torch.from_numpy(np.asarray(rows, np.int64).reshape(
+                steps, bs // world.size)).to(device)
             metrics = (step_fn(idx_all[i]) for i in range(steps))
         else:
             metrics = (host_step(*batch) for _, *batch in
-                       device_batches(train, order[: steps * bs], device, seed=epoch))
+                       device_batches(source, order[: steps * bs], device, seed=epoch))
         losses, accs = [], []
         for i, m in enumerate(metrics):
             losses.append(m["loss"])
@@ -183,11 +232,11 @@ def do_train(cfg: Config, state: TrainState, train, sampler, val=None, num_query
             save_checkpoint(checkpoint_dir, state)
         if val is not None and epoch % s.EVAL_PERIOD == 0:
             for pattern in (1, 2) if cfg.MODEL.HDM or cfg.MODEL.ATM else ():
-                cmc, m_ap = run_eval(cfg, state.model, val, num_query, pattern)
+                cmc, m_ap = run_eval(cfg, state.model, val, num_query, pattern, world=world)
                 entry[f"mAP@{pattern}"] = m_ap
                 logger.info("Validation Results - Epoch: %d, return_pattern %d, mAP: %.1f%%, "
                             "Rank-1: %.1f%%", epoch, pattern, 100 * m_ap, 100 * cmc[0])
-            cmc, m_ap = run_eval(cfg, state.model, val, num_query)
+            cmc, m_ap = run_eval(cfg, state.model, val, num_query, world=world)
             entry["mAP"], entry["Rank-1"] = m_ap, float(cmc[0])
             logger.info("Validation Results - Epoch: %d, mAP: %.1f%%, Rank-1: %.1f%%", epoch,
                         100 * m_ap, 100 * cmc[0])

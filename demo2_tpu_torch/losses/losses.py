@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.defaults import Config
+from ..parallel.collectives import own_rows
 
 
 F32_TINY = 2.0 ** -126  # the smallest normal f32 (and bf16)
@@ -85,8 +86,11 @@ class CenterLossState:
 
 def center_loss(centers: torch.Tensor, feat: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The mean over the batch of each feature's squared distance to its
-    class center, clamped to [1e-12, 1e12]."""
-    c = centers[labels.long()].float()
+    class center, clamped to [1e-12, 1e12].  Under data parallelism `feat`
+    and `labels` are the global batch's, and the centers' gradient is taken
+    from this rank's rows only (parallel/collectives.py::own_rows): the sum
+    over the ranks is then the one-process gradient."""
+    c = own_rows(centers[labels.long()]).float()
     d = (feat.float() - c).square().sum(-1)
     return torch.clamp(d, 1e-12, 1e12).mean()
 

@@ -89,9 +89,6 @@ def train_slice_error(cfg: Config):
     t = cfg.TPU
     if t.PIPELINED_AUGMENT:
         return not_ported("TPU.PIPELINED_AUGMENT", "the rest of the modules (not ported)")
-    if t.NUM_DEVICES > 1:
-        return not_ported(f"TPU.NUM_DEVICES={t.NUM_DEVICES}",
-                          "the rest of the modules (parallel/ as DDP / NCCL)")
     return None
 
 

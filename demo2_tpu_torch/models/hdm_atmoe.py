@@ -128,7 +128,7 @@ class HDM(nn.Module):
             e = torch.exp(x - x.amax(dim=(1, 4), keepdim=True))
             p = e / e.sum(dim=(1, 4), keepdim=True)
             if train:
-                p = dropout(p, self.dropout, generator)
+                p = dropout(p, self.dropout, generator, batch_axis=2)
             probs.append(p.reshape(p1 - p0, b, h, seg))
         probs = torch.cat(probs)[self.set_to_mm].reshape(m, 4, b, h, seg)
         probs = probs.permute(0, 2, 4, 1, 3).to(dt)  # (3, B, seg, 4, h)

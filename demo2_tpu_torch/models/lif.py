@@ -23,6 +23,7 @@ from torch import nn
 
 from ..ops.conv import Conv2d
 from ..ops.norm import TorchBatchNorm
+from ..parallel.collectives import batch_mean
 
 MODALITIES = ("rgb", "nir", "tir")
 
@@ -130,13 +131,14 @@ def tir_quality(tir: torch.Tensor, target: Tuple[int, int], kernel: int = 15) ->
 
 def lif_loss(quality_maps: torch.Tensor, images: torch.Tensor) -> torch.Tensor:
     """The summed MSE of the three maps (3, B, h, w, 1) against their targets
-    from `images` (B, 3, H, W, 3), in f32."""
+    from `images` (B, 3, H, W, 3), in f32; each MSE over the global batch
+    under data parallelism."""
     target = tuple(quality_maps.shape[2:4])
     imgs = images.float()
     q = quality_maps.float()
     gts = (rgb_quality(imgs[:, 0], target), nir_quality(imgs[:, 1], target),
            tir_quality(imgs[:, 2], target))
-    return sum((q[i] - gt).square().mean() for i, gt in enumerate(gts))
+    return sum(batch_mean((q[i] - gt).square()) for i, gt in enumerate(gts))
 
 
 def lif_reweight(patches: torch.Tensor, quality_maps: torch.Tensor,

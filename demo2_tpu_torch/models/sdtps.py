@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.linear import Linear, cached_cast, make_param, uniform_init, zeros_init
 from ..ops.norm import LayerNorm
+from ..parallel.collectives import batch_rand
 
 COSINE_TAU = 0.3     # temperature of the cosine scores in the logits
 SOFT_MASK_TAU = 0.3  # temperature of the sigmoid soft mask
@@ -46,12 +47,13 @@ def _xavier_half(fan_in: int, fan_out: int):
     return uniform_init(math.sqrt(3.0 * 0.25 / ((fan_in + fan_out) / 2.0)))
 
 
-def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator, batch_axis: int = 0) -> torch.Tensor:
     """flax nn.Dropout in training: keep with probability 1 - rate, scale
-    the kept values by 1 / (1 - rate)."""
+    the kept values by 1 / (1 - rate).  x's rows lie on `batch_axis`."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = batch_rand(x.shape, generator=generator, device=x.device,
+                      batch_axis=batch_axis) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -162,7 +164,7 @@ class MultiModalSDTPS(nn.Module):
         hard = (ranks < num_keep).float()
         if not (self.use_gumbel and train):
             return hard
-        u = torch.rand(score.shape, generator=generator, device=score.device)
+        u = batch_rand(score.shape, generator=generator, device=score.device, batch_axis=1)
         noise = -torch.log(-torch.log(u + 1e-9) + 1e-9)
         soft = torch.sigmoid((score + noise - 0.5) / self.gumbel_tau)
         return hard + (soft - soft.detach())

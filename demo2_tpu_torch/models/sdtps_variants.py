@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.linear import cached_cast, make_param, ones_init, uniform_init, zeros_init
+from ..parallel.collectives import batch_rand
 from .sdtps import GUIDE_ORDER, l2_normalize
 
 
@@ -84,7 +85,8 @@ class SDTPSComplete(nn.Module):
         order = torch.argsort(-score, dim=-1, stable=True)
         hard = torch.zeros_like(score).scatter_(-1, order[..., :num_keep], 1.0)
         if self.use_gumbel and train:
-            u = torch.rand(score.shape, generator=generator, device=score.device)
+            u = batch_rand(score.shape, generator=generator, device=score.device,
+                           batch_axis=1)
             noise = -torch.log(-torch.log(u + 1e-9) + 1e-9)
             soft = torch.softmax((score + noise) / self.gumbel_tau, dim=-1)
             mask = hard + (soft - soft.detach())  # straight through

@@ -33,6 +33,7 @@ from ..ops.attention import attention_core
 from ..ops.linear import Linear, cached_cast, make_param, normal_init
 from ..ops.norm import LayerNorm
 from ..ops.packed_attention import packed_self_attention
+from ..parallel.collectives import batch_rand
 from .clip_vit import PatchConv
 from .sdtps import dropout
 
@@ -105,7 +106,7 @@ def drop_path(x: torch.Tensor, rate: float, *, train: bool,
         return x
     keep = 1.0 - rate
     if mask is None:
-        mask = torch.rand((x.shape[0],), generator=generator, device=x.device) < keep
+        mask = batch_rand((x.shape[0],), generator=generator, device=x.device) < keep
     mask = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from .flash_attention import flash_attention
 from .linear import (Linear, cached_cast, cached_merge, make_param, normal_init,
                      xavier_uniform_init, zeros_init)
+from ..parallel.collectives import batch_rand
 from .packed_attention import packed_self_attention
 
 
@@ -62,7 +63,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: 
     keep = None
     if active_dropout:
         shape = (q.shape[0], q.shape[2], q.shape[1], k.shape[1])
-        keep = torch.rand(shape, generator=generator, device=q.device) < 1.0 - dropout_rate
+        keep = batch_rand(shape, generator=generator, device=q.device) < 1.0 - dropout_rate
     return plain_attention(q, k, v, scale=scale, mask_bias=mask_bias,
                            dropout_rate=dropout_rate, keep=keep)
 

@@ -14,6 +14,11 @@ keeps x and weight alone.  `LayerNorm(pallas_bwd=True)`
 The wrapper takes the plain version for tensors on the CPU and launches the
 kernel for CUDA tensors (it raises on what the kernel does not take); it
 counts its launches in `.launches`.
+
+Under data parallelism (parallel/collectives.py) the BatchNorms take their
+training statistics over the global batch, as JAX's do over a sharded batch:
+the per-rank sums are summed over the ranks (their backward too), and the
+running statistics move alike on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from .. import not_ported
+from ..parallel.collectives import active_shard, sum_over_ranks
 from .kernel_lib import check, expect, kernel_library
 from .linear import cached_cast, make_param, ones_init, zeros_init
 
@@ -178,10 +184,16 @@ class TorchBatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            # Centered form: E[x^2] - E[x]^2 can go negative in f32.
-            var = (xf - mean).square().mean(dims)
             n = xf.numel() // xf.shape[-1]
+            shard = active_shard()
+            if shard is None:
+                mean = xf.mean(dims)
+                # Centered form: E[x^2] - E[x]^2 can go negative in f32.
+                var = (xf - mean).square().mean(dims)
+            else:  # the global batch's, in two passes as above
+                n *= shard.world.size
+                mean = sum_over_ranks(xf.sum(dims)) / n
+                var = sum_over_ranks((xf - mean).square().sum(dims)) / n
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
@@ -218,8 +230,16 @@ class FlaxBatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp_min(xf.square().mean(dims) - mean.square(), 0.0)
+            shard = active_shard()
+            if shard is None:
+                mean = xf.mean(dims)
+                mean_sq = xf.square().mean(dims)
+            else:  # the global batch's: one sum over the ranks of both sums
+                n = xf.numel() // xf.shape[-1] * shard.world.size
+                mean, mean_sq = sum_over_ranks(torch.stack([xf.sum(dims),
+                                                            xf.square().sum(dims)])) / n
+            # max(0, .): E[x^2] - E[x]^2 can go negative in f32.
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -14,6 +14,17 @@ DeMo / DeMo_Parallel checkpoint (utils/ref_convert.py).  At start it logs
 the parameter count and one forward's FLOPs (utils/profiling.py).  It
 runs on cuda:0 unless MODEL.DEVICE is "cpu" or the caller of `main` passes a
 device; with neither and no card it raises.
+
+`--distributed` trains data-parallel, one process a device, in the process
+group a launcher describes (parallel/mesh.py::join_process_group):
+
+    torchrun --nproc_per_node N -m demo2_tpu_torch.tools.train --distributed ...
+
+Each rank runs on cuda:LOCAL_RANK over NCCL; with MODEL.DEVICE cpu, or a
+device that the caller pins (MODEL.DEVICE cuda:N, or `main`'s `device`), the
+ranks use gloo (ranks that share a card must).  SOLVER.IMS_PER_BATCH stays
+the global batch; only the primary rank writes the log file, the metrics and
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import not_ported
+from ..parallel.mesh import join_process_group, leave_process_group, make_world
 
 
 def entry_device(cfg, device=None) -> torch.device:
@@ -60,14 +71,6 @@ def set_seed(seed: int) -> None:
 
 def main(argv: Optional[Sequence[str]] = None, device=None):
     """Train as the command line says; returns (state, best)."""
-    from ..data.loader import make_dataloader
-    from ..engine.state import create_train_state
-    from ..engine.train import do_train
-    from ..models import make_model
-    from ..utils.logger import setup_logger
-    from ..utils.metrics_log import MetricsLogger, TeeWriter
-    from ..utils.profiling import count_params, model_flops
-
     p = argparse.ArgumentParser(description="DeMo training (PyTorch / CUDA)")
     p.add_argument("--config_file", default="", type=str)
     p.add_argument("--fea_cft", default=0, type=int, help="feature pattern for eval")
@@ -80,15 +83,32 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
                    help="reference-trained torch .pth to initialize the full model from")
     p.add_argument("opts", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
-    if args.distributed:
-        raise not_ported("--distributed", "the rest of the modules (parallel/ as DDP / NCCL)")
     cfg = load_config(args.config_file, args.opts)
     # The reference stores --fea_cft in TEST.FEAT (train_net.py:49) and never
     # reads it; kept as it is.
     cfg.TEST.FEAT = args.fea_cft
     cfg.freeze()
-    device = entry_device(cfg, device)
+    if not args.distributed:
+        return _train(args, cfg, entry_device(cfg, device))
+    # torch.distributed.launch passes --local_rank; torchrun sets LOCAL_RANK.
+    local_rank = int(os.environ.get("LOCAL_RANK", args.local_rank))
+    world = join_process_group(cfg.MODEL.DEVICE, device, local_rank)
+    try:
+        return _train(args, cfg, world.device)
+    finally:
+        leave_process_group()
 
+
+def _train(args, cfg, device: torch.device):
+    from ..data.loader import make_dataloader
+    from ..engine.state import create_train_state
+    from ..engine.train import do_train
+    from ..models import make_model
+    from ..utils.logger import setup_logger
+    from ..utils.metrics_log import MetricsLogger, TeeWriter
+    from ..utils.profiling import count_params, model_flops
+
+    world = make_world(cfg.TPU.NUM_DEVICES, device)
     set_seed(cfg.SOLVER.SEED)
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)
@@ -96,6 +116,9 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     logger.info("Running with config:\n%s", cfg)
     logger.info("torch %s on %s (%s)", torch.__version__, device,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
+    if world.backend is not None:
+        logger.info("data parallel: backend %s, %d ranks (this is rank %d), device %s",
+                    world.backend, world.size, world.rank, device)
 
     train_pipe, sampler, val_pipe, num_query, num_classes, cam_num, view_num = \
         make_dataloader(cfg)
@@ -144,13 +167,14 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     except ImportError as e:  # TensorBoard is optional; the JSONL file is always written
         logger.info("TensorBoard unavailable (%s); JSONL metrics only", e)
     else:
-        tb = SummaryWriter(os.path.join(output_dir, "tensorboard", name))
-        logger.info("TensorBoard logging to %s", tb.log_dir)
+        if world.primary:
+            tb = SummaryWriter(os.path.join(output_dir, "tensorboard", name))
+            logger.info("TensorBoard logging to %s", tb.log_dir)
     writer = TeeWriter(MetricsLogger(os.path.join(output_dir, f"{name}_metrics.jsonl")), tb)
     try:
         state, best = do_train(cfg, state, train_pipe, sampler, val_pipe, num_query,
                                checkpoint_dir=os.path.join(output_dir, "checkpoints"),
-                               writer=writer)
+                               writer=writer, world=world)
     finally:
         writer.close()
     logger.info("Training done. Best: %s", best)

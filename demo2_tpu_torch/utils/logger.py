@@ -13,9 +13,14 @@ def setup_logger(name: str = "DeMo", save_dir: str = "", if_train: bool = True):
     """The named logger at INFO to stdout and, with `save_dir`, to
     `<save_dir>/{train,test}_log_<stamp>.txt`.  Called again in one process
     (the CLIs' `main` run more than once), it keeps the one stdout handler
-    and moves the file handler to the new run's file."""
+    and moves the file handler to the new run's file.  On a data-parallel
+    rank other than the primary it writes no file and only warnings and
+    errors to stdout."""
+    from ..parallel.multihost import is_primary
+
+    primary = is_primary()
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if primary else logging.WARNING)
     logger.propagate = False
     formatter = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
     for h in list(logger.handlers):
@@ -27,7 +32,7 @@ def setup_logger(name: str = "DeMo", save_dir: str = "", if_train: bool = True):
         sh.setFormatter(formatter)
         logger.addHandler(sh)
 
-    if save_dir:
+    if save_dir and primary:
         os.makedirs(save_dir, exist_ok=True)
         stamp = time.strftime("%Y%m%d_%H%M%S")
         mode = "train" if if_train else "test"

@@ -18,12 +18,15 @@ from typing import Any, Dict, List, Optional
 
 
 class MetricsLogger:
-    """Append-only JSONL metrics file; TensorBoard-compatible call surface."""
+    """Append-only JSONL metrics file; TensorBoard-compatible call surface.
+    Only the primary rank of a data-parallel world writes it."""
 
     def __init__(self, path: Optional[str]):
+        from ..parallel.multihost import is_primary
+
         self.path = path
         self._f = None
-        if path:
+        if path and is_primary():
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._f = open(path, "a", buffering=1)
 

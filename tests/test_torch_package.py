@@ -46,7 +46,8 @@ for name in ("ops.norm", "utils.reranking", "utils.metrics", "visualize.rank_lis
              "models.clip_text", "models.t2t", "models.resnet", "models.osnet", "ops.quant",
              "utils.profiling", "visualize.saliency", "visualize.embedding",
              "visualize.similarity", "tools.gradcam", "tools.miss_sweep",
-             "tools.compare_modules", "tools.diagnose_training", "tools.run_experiments"):
+             "tools.compare_modules", "tools.diagnose_training", "tools.run_experiments",
+             "parallel", "parallel.mesh", "parallel.multihost", "parallel.collectives"):
     assert "demo2_tpu_torch." + name in sys.modules, name
 from demo2_tpu_torch.data.loader import pil_error
 assert pil_error().startswith("PIL does not import")
@@ -173,7 +174,6 @@ def _flagship_tiny():
 
 @pytest.mark.parametrize("section,key,value", [
     ("TPU", "PIPELINED_AUGMENT", True),
-    ("TPU", "NUM_DEVICES", 4),
 ])
 def test_training_configs_outside_the_slice_raise(section, key, value):
     cfg = _flagship_tiny()
@@ -181,6 +181,22 @@ def test_training_configs_outside_the_slice_raise(section, key, value):
     model = make_model(cfg, 6, 4, device=CPU, generator=generator())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_train_state(cfg, model, steps_per_epoch=4)
+
+
+def test_num_devices_above_one_in_one_process_raises_naming_the_launch():
+    """D12 (demo2_tpu_torch/parallel/mesh.py): TPU.NUM_DEVICES 4 trains
+    data-parallel over four ranks; in one process, without a process group,
+    do_train raises a ValueError naming the torchrun launch, where JAX's
+    make_mesh would take four local devices."""
+    from demo2_tpu_torch.engine.train import do_train
+
+    cfg = _flagship_tiny()
+    cfg.TPU.NUM_DEVICES = 4
+    model = make_model(cfg, 6, 4, device=CPU, generator=generator())
+    state = create_train_state(cfg, model, steps_per_epoch=4)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4 -m "
+                                         "demo2_tpu_torch.tools.train --distributed"):
+        do_train(cfg, state, None, None)
 
 
 @pytest.mark.parametrize("section,key,value", [
@@ -285,10 +301,10 @@ def test_dgaf_v1_beside_sdtps_without_global_local_raises_as_jax_does():
         make_model(cfg, 6, 4, device=CPU, generator=generator())
 
 
-def test_remat_backbone_on_the_imagenet_vit_raises_in_training():
-    """Named when the port refused REMAT_BACKBONE: the ImageNet ViT now
-    trains with it, its training forward the one without remat (the same
-    weights and draws), and create_train_state takes it."""
+def test_remat_backbone_on_the_imagenet_vit_trains_as_without_remat():
+    """The ImageNet ViT trains with REMAT_BACKBONE: its training forward is
+    the one without remat (the same weights and draws), and
+    create_train_state takes it."""
     cfg = _flagship_tiny()
     cfg.MODEL.TRANSFORMER_TYPE = "vit_base_patch16_224"
     cfg.TPU.BACKBONE_WIDTH = cfg.TPU.BACKBONE_HEADS = -1
