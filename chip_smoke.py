@@ -21,7 +21,8 @@ assemblies at full width (the DeMoBeiyong cascade of
 configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
 DeMo_FRCA_DGAF.yml), drives DeMo on the other backbones (T2T-ViT-24,
 vit_small at stride 12, ResNet-50-IBN-a, OSNet-AIN) as a server and a
-trainer, trains and evaluates the flagship from a JPEG tree on
+trainer, serves and trains the flagship past 144 tokens (at stride 12 and
+at 384x128), trains and evaluates the flagship from a JPEG tree on
 disk through the port's CLIs (tools/train.py, tools/test.py), trains and
 serves the flagship with the int8 MLP (TPU.INT8_MLP), takes its saliency
 maps and runs the missing-modality sweep (tools/miss_sweep.py), trains and
@@ -169,13 +170,15 @@ Phases:
      slower than it), the train
      step with and without FUSED_MLP_TRAIN in turns with the peak memory of
      each, a profile of one step of each;
-  22. DeMo.yml (its keys from YAML_KEYS, apply_flagship's production flags,
+  22. DeMo.yml (at CUT_DEPTH = 6 of its 12 blocks, as phases 25 and 30:
+     the script's time limit; its keys from YAML_KEYS,
+     apply_flagship's production flags,
      171 ids, 6 cameras, PK 8 x 8; HDM 8 heads of 64, ATMoE HEAD 4): phase 3
-     on it (12 launches of kernels 1 and 2 a forward, cosine >= 0.999 to the
+     on it (kernels 1 and 2 once a block a forward, cosine >= 0.999 to the
      plain path at N = 1, 64, 100 under miss "None" and "nt"); run_eval at
      return_pattern 1, 2, 3 with widths 1,536 / 3,584 / 5,120 (3C / 7C /
-     10C at C = 512), pattern 3 = [2, 1], mAP in (0, 1]; phase 6 on it (12
-     launches of kernels 3 and 4 a step; HDM's parameters, ATMoE's
+     10C at C = 512), pattern 3 = [2, 1], mAP in (0, 1]; phase 6 on it
+     (kernels 3 and 4 once a block a step; HDM's parameters, ATMoE's
      expert_kernel and its two BatchNorms' running statistics changed); a
      do_train epoch logging patterns 1, 2 and 3;
   23. timing (printed): the DeMo.yml train step and batch-64 request beside
@@ -190,8 +193,8 @@ Phases:
      kernels 1 and 2 a forward) each;
   25. DeMo_SACR_SDTPS_LIF.yml (DeMoLegacy: SACR, LIF, SDTPS, GLOBAL_LOCAL),
      DeMo_Parallel.yml (nine heads, 9C) and DeMo_FRCA_DGAF.yml (FRCA, its six
-     directed cross-attentions, DGAF V3Multi, 6C) at full width as phase 22
-     builds DeMo.yml: phase 3 on each, run_eval at its width, the LIF loss
+     directed cross-attentions, DGAF V3Multi, 6C) at full width and CUT_DEPTH
+     blocks as phase 22 builds DeMo.yml: phase 3 on each, run_eval at its width, the LIF loss
      finite and in the step's loss, phase 6 on each (every tensor of its own
      modules changed, BatchNorm statistics included), and FRCA's channel
      spectrum on the card against numpy's f64 FFT, its phase at the real bins
@@ -231,7 +234,8 @@ Phases:
      the lr the cosine recipe's; tools/quality_gate.main --report-only over 2
      epochs of a tree of 16 ids x 8 at full width: its report with two evals,
      kernels 3 and 4 12 times a step, 1 and 2 12 times an eval forward;
-  30. the CLIP tower's tuning paths at full width (run after phase 29, on
+  30. the CLIP tower's tuning paths at full width, CUT_DEPTH blocks (after
+     phase 29, on
      its cache), six configurations of the flagship: MODEL.FROZEN with LoRA
      of rank 4 on q, k and v, on q and v (the merged form), with ConvLoRA on
      the patch embed, FROZEN with the FFN adapter and no LoRA, the adapter
@@ -239,12 +243,12 @@ Phases:
      block kernels); LoRA's B, ConvLoRA's B and the prompts drawn at random
      (their zero init hides the delta).  Each: a batch-64 request through
      FeatureExtractor against the plain path (cosine >= 0.999), kernel 1
-     12 times a forward and kernel 2 12 times, 0 under the adapter, by the
+     once a block a forward and kernel 2 too, 0 under the adapter, by the
      wrappers' counts and the profiler's; the step-1 gradient of the
      trainable parameters against the plain path (phase 6's cosines), 10
      steps on both paths (phase 6's loss bound), the frozen parameters bit
-     for bit unchanged and every trainable one moved; 12 launches of kernel
-     3 a step and 12 of kernel 4, or of kernel 7 where MODEL.FROZEN leaves
+     for bit unchanged and every trainable one moved; kernel 3 once a block
+     a step and kernel 4 too, or kernel 7 where MODEL.FROZEN leaves
      the qkv bias without a gradient (wrappers and profiler); the step timed
      beside the flagship's, with its device busy share; kernels 1, 3, 4 and
      7 timed at S = 141 beside their bounds;
@@ -322,6 +326,27 @@ Phases:
      epoch and an eval, against tools/train without --distributed, each a
      fresh process: the checkpoint (parameters, buffers, moments) and the
      mAP bit for bit.
+  36. the block kernels past the register tiles' 144 tokens (heads of 64,
+     up to 256: csrc/attention_wide_block.cuh): (a) after phase 18, kernels
+     1, 3, 4, 7 and 8 at x (192, 211, 768), (192, 145, 768), (64, 193, 768)
+     and (48, 256, 768) within phases 2, 5 and 18's bounds of their plain
+     versions (kernel 3's control, p rounded before it is normalised, and
+     kernel 4's, dS left in f32, failing them), kernel 1 bitwise kernel 3's
+     out, kernel 7 bitwise kernel 4's dqkv, reruns bit-identical, the
+     training Function's grads at the first shape, kernels 4 and 7 also at
+     qkv (192, 256, 2304), (16, 150, 1536) and (3, 211, 2304), every launch
+     on the wide forms and none on the register forms; the four wide forms
+     timed at (192, 211, 768) beside their bounds (kernel 8 there too); (b)
+     after phase 34 (parts 1 and 2), the flagship at MODEL.STRIDE_SIZE
+     (12, 12) (211 tokens) on both paths: phase 3's requests (kernels 1 and
+     2 12 times a forward, 1 in its wide form), phase 6 over BACKBONE_STEPS
+     steps (3 and 4 wide, 12 times a step; the backbone's step-1 gradient
+     held from one upstream gradient), the input-gradient pass (3 and 7
+     wide), its step and request beside the flagship's; (c) the flagship at
+     384x128, stride 16 (193 tokens): one batch-64 request against the plain
+     path and one step; (d) after phase 27, on its tree: tools/train.main at
+     stride 12 (one epoch, the wide forms' launches) and tools/test.main on
+     its checkpoint (the run's mAP and Rank-1 exactly).
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -329,9 +354,9 @@ its operations over the peak for their type.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
-are the sixteen kernels (JSON: the thirteen Pallas kernels' counterparts,
-the fused MLP in both forms, the wide pair of kernels 5 and 6), the card's
-name and power limit, and
+are the twenty kernels (JSON: the thirteen Pallas kernels' counterparts,
+the fused MLP in both forms, the wide pair of kernels 5 and 6, the wide
+forms of kernels 1, 3, 4 and 7), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -398,7 +423,7 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def all_kernels() -> dict:
-    """The wrappers of the sixteen kernels, each counting its launches."""
+    """The wrappers of the twenty kernels, each counting its launches."""
     from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
     from demo2_tpu_torch.ops import norm, packed_attention as pa
     from demo2_tpu_torch.tools import bench_kernel_ablate as ab
@@ -419,7 +444,11 @@ def all_kernels() -> dict:
             "attention_bwd_fused_dw": pa.attention_bwd_fused_dw,
             "attention_ablate": ab.ablate_attention,
             "packed_attention_wide_fwd": pa.packed_attention_wide_fwd,
-            "packed_attention_wide_bwd": pa.packed_attention_wide_bwd}
+            "packed_attention_wide_bwd": pa.packed_attention_wide_bwd,
+            "fused_attention_block_wide": fb.fused_attention_block_wide,
+            "fused_attention_block_train_wide": fb.fused_attention_block_train_wide,
+            "attention_bwd_saved_db_wide": pa.attention_bwd_saved_db_wide,
+            "attention_bwd_saved_wide": pa.attention_bwd_saved_wide}
 
 
 def reset_counts() -> None:
@@ -432,7 +461,7 @@ def counts() -> dict:
 
 
 def launch_dict(**nonzero) -> dict:
-    """Launch counts of all sixteen kernels: `nonzero`, the rest 0."""
+    """Launch counts of all twenty kernels: `nonzero`, the rest 0."""
     return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
@@ -742,6 +771,22 @@ def yaml_cfg(path: str, fused: bool, **overrides):
     return cfg.freeze()
 
 
+# Blocks of the models of phases 22-23 (DeMo.yml), 25-26 (the three
+# assemblies) and 30 (the six tuning configurations) on the card, of the
+# backbone's 12: their paths are the flagship's block kernels at full width,
+# which phases 2-8 check at full depth, and the whole script has to end well
+# inside its time limit beside phase 36.
+CUT_DEPTH = 6
+
+
+def cut_depth(make_cfg):
+    """`make_cfg` with the backbone cut to CUT_DEPTH blocks on the card (a
+    rehearsal keeps apply_tiny's two)."""
+    if REHEARSAL:
+        return make_cfg
+    return lambda fused, **overrides: make_cfg(fused, TPU__BACKBONE_DEPTH=CUT_DEPTH, **overrides)
+
+
 def demo_cfg(fused: bool, **overrides):
     """configs/RGBNT201/DeMo.yml: HDM + ATMoE beside the three globals' head."""
     return yaml_cfg("RGBNT201/DeMo.yml", fused, **overrides)
@@ -778,7 +823,7 @@ def num_blocks(model) -> int:
 def phase_slice(device, cfg, model, plain_cfg, plain, per_forward: dict,
                 label: str = "slice") -> dict:
     """Serving: requests through FeatureExtractor, each forward launching
-    `per_forward` (all sixteen kernels' counts), embeddings against the plain
+    `per_forward` (all twenty kernels' counts), embeddings against the plain
     path, match() and CMC / mAP.  Returns the launches of the requests."""
     from demo2_tpu_torch.serving import FeatureExtractor, match
     from demo2_tpu_torch.utils.metrics import R1mAPEvaluator
@@ -1327,15 +1372,15 @@ GRAD_COS_BLOCK = 0.99
 LOSS_REL = 0.02
 
 
-def build_train_data(cfg, device):
-    """A DeviceCache of SyntheticTriModal at the flagship's 256x128, RGBNT201's
-    171 train ids, and its PK sampler."""
+def build_train_data(cfg, device, num_pids=NUM_CLASSES):
+    """A DeviceCache of SyntheticTriModal at the config's size (the flagship's
+    256x128), RGBNT201's 171 train ids (or `num_pids`), and its PK sampler."""
     from demo2_tpu_torch.data.datasets import SyntheticTriModal
     from demo2_tpu_torch.data.device_cache import DeviceCache
     from demo2_tpu_torch.data.sampler import RandomIdentitySampler
 
     t0 = time.perf_counter()
-    ds = SyntheticTriModal(num_pids=NUM_CLASSES, num_cams=CAMERA_NUM,
+    ds = SyntheticTriModal(num_pids=num_pids, num_cams=CAMERA_NUM,
                            imgs_per_pid=TRAIN_IMGS_PER_PID,
                            image_size=tuple(cfg.INPUT.SIZE_TRAIN), seed=0)
     cache = DeviceCache.from_arrays(ds.render_all(ds.train), ds.train, train=True, cfg=cfg,
@@ -1486,7 +1531,7 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
                 whole_model: bool = True, states=None, steps: int = TRAIN_STEPS,
                 hold_losses=None) -> dict:
     """`steps` steps through build_train_step, each launching
-    `per_step_want` (all sixteen kernels' counts), against the plain path.
+    `per_step_want` (all twenty kernels' counts), against the plain path.
     Without `whole_model` the step-1 gradient of the two paths is printed
     only, and the backbone's gradient from one upstream gradient is held
     (check_backbone_grads); so are the losses of the two paths, unless
@@ -1542,18 +1587,20 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
     return launches
 
 
-def phase_input_grad(device, cfg, model, plain) -> int:
+def phase_input_grad(device, cfg, model, plain, make_cfg=flagship_cfg, wide=False) -> dict:
     """The input gradient of the summed embedding norms with the weights
     frozen, as demo2_tpu/visualize/saliency.py::gradcam_heatmaps takes it:
     the attention backward needs no db, so it runs kernel 7, and the MLP,
     fused outside training, runs its training form for its backward.  Held,
     as the kernels are, to be no further from an f32 run of the plain path than the
-    plain bf16 path is."""
+    plain bf16 path is.  `make_cfg` builds the model's config (the f32 run's
+    too); `wide`: kernels 3 and 7 in their wide forms (S > 144).  Returns the
+    launches of the pass."""
     from demo2_tpu_torch.models import make_model
 
     layers = num_blocks(model)
     images, cams = request_images(64, cfg, seed=4)
-    f32 = make_model(flagship_cfg(False, TPU__COMPUTE_DTYPE="float32"), NUM_CLASSES,
+    f32 = make_model(make_cfg(False, TPU__COMPUTE_DTYPE="float32"), NUM_CLASSES,
                      CAMERA_NUM, device=device, generator=torch.Generator().manual_seed(0))
     plain.load_state_dict(model.state_dict())
     f32.load_state_dict(model.state_dict())
@@ -1571,7 +1618,9 @@ def phase_input_grad(device, cfg, model, plain) -> int:
         grads.append(x.grad.float())
         m.requires_grad_(True)
     del f32
-    want = launch_dict(fused_attention_block_train=layers, attention_bwd_saved=layers,
+    suffix = "_wide" if wide else ""
+    want = launch_dict(**{f"fused_attention_block_train{suffix}": layers,
+                          f"attention_bwd_saved{suffix}": layers},
                        fused_mlp_block_train=layers)
     ref = grads[2]
     err = [((g - ref).norm() / ref.norm()).item() for g in grads[:2]]
@@ -1583,7 +1632,7 @@ def phase_input_grad(device, cfg, model, plain) -> int:
             "input gradient is zero or non-finite")
     require(err[0] <= F32_MEAN_RATIO * err[1],
             f"input gradient: error {err[0]} > {F32_MEAN_RATIO} x the plain bf16 path's {err[1]}")
-    return launches["attention_bwd_saved"]
+    return launches
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3055,9 +3104,11 @@ def phase_demo(device, card, flag_cfg, flag_model, cache, sampler) -> None:
     HDM's parameters, ATMoE's experts and both of its BatchNorms' statistics
     among what must change), do_train with its pattern loop, then phase 23's
     timing beside the flagship."""
-    cfg, model, plain_cfg, plain = build_models(device, demo_cfg)
+    make_cfg = cut_depth(demo_cfg)
+    cfg, model, plain_cfg, plain = build_models(device, make_cfg)
     layers = num_blocks(model)
-    log(f"[demo] configs/RGBNT201/DeMo.yml: {sum(p.numel() for p in model.parameters())} "
+    log(f"[demo] configs/RGBNT201/DeMo.yml at {layers} blocks: "
+        f"{sum(p.numel() for p in model.parameters())} "
         f"parameters, HDM {model.feat_dim // 64} heads of 64, ATMoE HEAD {cfg.MODEL.HEAD}, "
         f"branches {list(model.branch_heads)}, embedding widths by pattern "
         f"{pattern_widths(model)}")
@@ -3075,7 +3126,7 @@ def phase_demo(device, card, flag_cfg, flag_model, cache, sampler) -> None:
     log(f"[demo-train] largest change over the 20 steps: {moved}")
     require(len(moved) == 10 and all(d > 0 for d in moved.values()),
             f"HDM / ATMoE tensors the steps did not change: {moved}")
-    phase_do_train(device, model, cache, sampler, demo_cfg)
+    phase_do_train(device, model, cache, sampler, make_cfg)
     phase_demo_timing(device, card, cfg, model, plain, flag_cfg, flag_model, cache, sampler)
 
 
@@ -3337,9 +3388,9 @@ def phase_assemblies(device, card, flag_cfg, flag_model, cache, sampler,
     FRCA's spectrum on the card, then phase 26's timing beside the
     flagship."""
     for label, path, own, whole_model in ASSEMBLY_CASES:
-        cfg, model, plain_cfg, plain = build_models(device, assembly_cfg(path))
+        cfg, model, plain_cfg, plain = build_models(device, cut_depth(assembly_cfg(path)))
         layers = num_blocks(model)
-        log(f"[{label}] configs/{path}: {type(model).__name__}, "
+        log(f"[{label}] configs/{path} at {layers} blocks: {type(model).__name__}, "
             f"{sum(p.numel() for p in model.parameters())} parameters, branches "
             f"{list(model.branch_heads)}, embedding width {model.embed_dim}")
         phase_slice(device, cfg, model, plain_cfg, plain,
@@ -4015,11 +4066,12 @@ def phase_tuning_case(device, card, label, overrides, cache, sampler, flag_cfg,
     """Phase 30 for one configuration; returns the launches of its steps."""
     from demo2_tpu_torch.engine.state import create_train_state
 
-    cfg, model, plain_cfg, plain = build_models(device, lambda fused: flagship_cfg(
-        fused, **overrides))
+    cfg, model, plain_cfg, plain = build_models(device, cut_depth(
+        lambda fused, **more: flagship_cfg(fused, **overrides, **more)))
     randomized = randomize_zero_init(model, plain)
     layers = num_blocks(model)
-    log(f"[{label}] {overrides}: drawn at random {len(randomized)} zero-init tensors")
+    log(f"[{label}] {overrides} at {layers} blocks: drawn at random {len(randomized)} "
+        f"zero-init tensors")
     check_tuned_eval(device, card, label, cfg, model, plain_cfg, plain)
     # MODEL.FROZEN: make_model built the frozen parameters not requiring grad
     frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
@@ -5179,6 +5231,264 @@ def phase_distributed_cli(device, root: str) -> None:
             f"{m_ap}")
 
 
+# ---------------------------------------------------------------- phase 36
+
+
+LONG_SHAPE = (192, 211, 768)  # the stride-12 flagship's x (3B, tokens, width) at batch 64
+# The block kernels' wide forms (heads of 64, 145 <= S <= 256): the stride-12
+# flagship, one token past the register tiles, the 384x128 crop's 193 and the
+# longest the forms take, each at a batch that gives every block of the
+# persistent grid several (sample, head) items (17 or 18 at 192 x 12 heads
+# over 132 SMs), the mbarrier-parity trap of attention_regs_fwd.cuh's
+# wait_started.
+LONG_BLOCK_SHAPES = (LONG_SHAPE, (192, 145, 768), (64, 193, 768), (48, 256, 768))
+# Kernels 4 and 7 alone at the edges of the wide form's tiling: 256 tokens at
+# batch 192 (18 items a block), S16 = 160 with 8 heads, a batch of 3.
+LONG_SAVED_EDGES = ((192, 256, 2304), (16, 150, 1536), (3, 211, 2304))
+LONG_CROP = (384, 128)  # a taller crop at stride 16: 24 x 8 patches + 1 = 193 tokens
+LONG_PHASE_BUDGET_S = 60.0
+
+
+def long_shape_launches(fused_dw: bool) -> dict:
+    """The launches of one pass of phase 36 (a)'s checks at a shape past 144
+    tokens: every one on the wide forms, none on the register forms."""
+    return launch_dict(fused_attention_block_wide=1, fused_attention_block_train_wide=2,
+                       attention_bwd_saved_db_wide=2, attention_bwd_saved_wide=1,
+                       attention_bwd_fused_dw=2 if fused_dw else 0)
+
+
+def phase_long_block_kernels(device, card, shapes=LONG_BLOCK_SHAPES,
+                             edges=LONG_SAVED_EDGES) -> tuple:
+    """Phase 36 (a): kernels 1, 3, 4, 7 and 8 past the register tiles, at
+    `shapes` (x (B, S, C)): kernel 1 against its plain bf16 version (phase
+    2's bounds) and bitwise equal to kernel 3's out; kernel 3 with its
+    residuals and probs (phase 5's bounds, within BLOCK_ROUNDING_REL of the
+    plain version, which its misrounded control, p rounded before it is
+    normalised, fails); kernels 4 and 7 on kernel 3's qkv and probs (phase
+    5's bounds, the dS-in-f32 control failing ROUNDING_MEAN_TOL, bit-identical
+    reruns, 7 bitwise 4's dqkv); kernel 8 (phase 18's bounds, its first stage
+    the wide form of 4); the training Function's grads at the first shape;
+    4 and 7 also at `edges` (packed qkv).  Each wrapper's launches show that
+    the wide forms ran and the register forms did not.  On the card, the
+    four wide forms timed at the first shape beside their bounds (and kernel
+    8 there, printed).  Returns (name -> max abs error, name -> times) for
+    the wide forms at the first shape."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+
+    exact_products()
+    errors = {}
+    for shape in shapes:
+        b, s, c = shape
+        x, attn, _ = block_inputs(shape, device, seed=1)
+        kw = dict(num_heads=c // 64, scale=64 ** -0.5)
+        reset_counts()
+        eval_out, eval_err = check_eval_kernel(
+            "fused_attention_block", lambda: fb.fused_attention_block(x, **attn, **kw),
+            lambda xx, w: fb.attention_block_plain(xx, **w, **kw), attn, x, shape)
+        train = check_train_forward(x, {k: v.float() for k, v in attn.items()}, shape, kw)
+        if REHEARSAL:
+            log(f"[rehearsal] kernel 1 {shape}: bitwise equality to kernel 3 on the card only")
+        else:
+            require(torch.equal(eval_out, train["residuals"][0]),
+                    f"kernel 1 {shape}: output not bitwise equal to kernel 3's")
+            log(f"[long] kernel 1 {shape}: output bitwise equal to kernel 3's")
+        _, qkv, _, probs = train["residuals"]
+        do = torch.randn(shape, generator=torch.Generator().manual_seed(b + s)).to(
+            device, torch.bfloat16)
+        bwd = check_train_backward(qkv, probs, do, kw)
+        check_fused_dw(device, (b, s, 3 * c))
+        require_launches(counts(), long_shape_launches(True), f"[long] checks at {shape}")
+        if shape == shapes[0]:
+            check_train_function(x, {k: v.float() for k, v in attn.items()}, do, shape, kw)
+            errors.update({"fused_attention_block_wide": eval_err,
+                           "fused_attention_block_train_wide": train["max_abs"],
+                           "attention_bwd_saved_db_wide": bwd["max_abs"],
+                           "attention_bwd_saved_wide": bwd["max_abs"]})
+    for shape in edges:
+        kw = dict(num_heads=shape[-1] // 3 // 64, scale=64 ** -0.5)
+        reset_counts()
+        check_train_backward(*saved_probs_inputs(shape, device, seed=9), kw)
+        require_launches(counts(), launch_dict(attention_bwd_saved_db_wide=2,
+                                               attention_bwd_saved_wide=1),
+                         f"[long] kernels 4 and 7 at {shape}")
+    log(f"[long] tolerances as phases 2, 5 and 18 (the misrounded controls beyond them) at "
+        f"{len(shapes)} shapes past 144 tokens and {len(edges)} edges of kernel 4's wide form; "
+        f"every launch on the wide forms: ok")
+    times = time_long_block_kernels(device, card, shapes[0]) if device.type == "cuda" else {}
+    return errors, times
+
+
+def time_long_block_kernels(device, card, shape) -> dict:
+    """The wide forms of kernels 1, 3, 4 and 7 timed at `shape` beside their
+    bounds and plain versions; kernel 8 there too (printed)."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+
+    b, s, c = shape
+    x, attn, _ = block_inputs(shape, device, seed=1)
+    xt, p, grad_out = train_kernel_inputs(shape, device, seed=5)
+    w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
+    kw = dict(num_heads=c // 64, scale=64 ** -0.5)
+    _, qkv, _, probs = fb.fused_attention_block_train_wide(xt, **w, **kw)
+    saved = [qkv, probs, grad_out]
+    times = time_kernels({
+        "fused_attention_block_wide": timed(
+            lambda: fb.fused_attention_block_wide(x, **attn, **kw),
+            lambda: fb.attention_block_plain(x, **attn, **kw),
+            block_flops("fused_attention_block", shape), shape, [x, *attn.values()]),
+        "fused_attention_block_train_wide": timed(
+            lambda: fb.fused_attention_block_train_wide(xt, **w, **kw),
+            lambda: fb.attention_block_train_plain(xt, **w, **kw),
+            train_kernel_flops("fused_attention_block_train", shape), shape, [xt, *w.values()]),
+        "attention_bwd_saved_db_wide": timed(
+            lambda: pa.attention_bwd_saved_db_wide(qkv, probs, grad_out, **kw),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw),
+            train_kernel_flops("attention_bwd_saved_db", shape), shape, saved),
+        "attention_bwd_saved_wide": timed(
+            lambda: pa.attention_bwd_saved_wide(qkv, probs, grad_out, **kw),
+            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw),
+            train_kernel_flops("attention_bwd_saved", shape), shape, saved),
+    }, card)
+    inputs, kw8 = fused_dw_inputs((b, s, 3 * c), device, seed=19)
+    time_kernels({"attention_bwd_fused_dw": timed(
+        lambda: pa.attention_bwd_fused_dw(*inputs, **kw8),
+        lambda: pa.attention_bwd_fused_dw_plain(*inputs, **kw8),
+        8 * b * s * s * c + 4 * b * s * c * 3 * c, (b, s, 3 * c), list(inputs))}, card)
+    return times
+
+
+def long_cfg(stride=(12, 12), size=None):
+    """The flagship at MODEL.STRIDE_SIZE `stride` and, with `size`, at that
+    crop (a rehearsal shrinks it as apply_tiny does: a quarter of each
+    side); `make_cfg(fused)` for build_models."""
+    def make_cfg(fused: bool, **overrides):
+        if size is not None:
+            h, w = (size[0] // 4, size[1] // 4) if REHEARSAL else size
+            overrides = dict(INPUT__SIZE_TRAIN=(h, w), INPUT__SIZE_TEST=(h, w), **overrides)
+        return flagship_cfg(fused, MODEL__STRIDE_SIZE=tuple(stride), **overrides)
+
+    return make_cfg
+
+
+def phase_long_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> dict:
+    """Phase 36 (b) and (c): the flagship past 144 tokens on both paths.
+    (b) At MODEL.STRIDE_SIZE (12, 12), 211 tokens at 256x128: phase 3's
+    requests (kernels 1 and 2 12 times a forward, 1 in its wide form),
+    phase 6 over BACKBONE_STEPS steps (3 and 4 in their wide forms 12 times
+    a step) with the backbone's step-1 gradient held from one upstream
+    gradient (SDTPS's input gradient is ill-conditioned) and the losses held,
+    the input-gradient pass (3 and 7 wide, 12 times); on the card its step and
+    request beside the flagship's.  (c) At 384x128, stride 16, 193 tokens: one
+    batch-64 request against the plain path and one step (the backbone's
+    gradient held as in (b), the step's launches, a finite loss).  Returns
+    the launches of (b)'s requests, steps and input-gradient pass."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    t0 = time.perf_counter()
+    make_cfg = long_cfg()
+    cfg, model, plain_cfg, plain = build_models(device, make_cfg)
+    layers = num_blocks(model)
+    log(f"[s12] the flagship at stride (12, 12): {layers} blocks, "
+        f"{math.prod(model.grid) + 1} tokens")
+    served = phase_slice(device, cfg, model, plain_cfg, plain,
+                         launch_dict(fused_attention_block_wide=layers, fused_mlp_block=layers),
+                         label="s12-slice")
+    trained = phase_train(device, cfg, model, plain_cfg, plain, cache, sampler,
+                          launch_dict(fused_attention_block_train_wide=layers,
+                                      attention_bwd_saved_db_wide=layers),
+                          label="s12-train", whole_model=False, hold_losses=True,
+                          steps=BACKBONE_STEPS)
+    frozen = phase_input_grad(device, cfg, model, plain, make_cfg, wide=True)
+    launches = {"fused_attention_block_wide": served["fused_attention_block_wide"],
+                "fused_attention_block_train_wide": trained["fused_attention_block_train_wide"],
+                "attention_bwd_saved_db_wide": trained["attention_bwd_saved_db_wide"],
+                "attention_bwd_saved_wide": frozen["attention_bwd_saved_wide"]}
+    del plain
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the 384x128 crop: a cache of its own, 16 ids x 8
+    make_cfg = long_cfg((16, 16), LONG_CROP)
+    ccfg, cmodel, cplain_cfg, cplain = build_models(device, make_cfg)
+    log(f"[crop] the flagship at {tuple(ccfg.INPUT.SIZE_TRAIN)}, stride (16, 16): "
+        f"{math.prod(cmodel.grid) + 1} tokens")
+    images, cams = request_images(64, ccfg, seed=6)
+    reset_counts()
+    emb = FeatureExtractor(ccfg, cmodel, device=device, batch_size=64).extract(images, cams)
+    sync()
+    require_launches(counts(), launch_dict(fused_attention_block_wide=layers,
+                                           fused_mlp_block=layers), "[crop] request")
+    ref = FeatureExtractor(cplain_cfg, cplain, device=device, batch_size=64).extract(images, cams)
+    cos = np.sum(emb * ref, axis=1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+    log(f"[crop] batch-64 request: shape {emb.shape}, cosine to the plain path min "
+        f"{cos.min():.6f}")
+    require(emb.shape == (64, cmodel.embed_dim) and bool(np.isfinite(emb).all()),
+            "[crop] request: shape or non-finite")
+    require(float(cos.min()) >= COSINE_MIN, f"[crop] cosine to the plain path {cos.min()}")
+    ccache, csampler = build_train_data(ccfg, device, num_pids=16)
+    idx = torch.from_numpy(csampler.epoch_indices(1)[:ccfg.SOLVER.IMS_PER_BATCH]).to(device)
+    init = {k: v.detach().clone() for k, v in cmodel.state_dict().items()}
+    check_backbone_grads(ccfg, cmodel, cplain_cfg, cplain, ccache, idx, "crop")
+    cmodel.load_state_dict(init)
+
+    def per_step(i, rose):
+        require_launches(rose, launch_dict(fused_attention_block_train_wide=layers,
+                                           attention_bwd_saved_db_wide=layers),
+                         f"[crop] train step {i}")
+
+    losses = train_steps(ccfg, cmodel, ccache, csampler.epoch_indices(1), 1, per_step)
+    require(math.isfinite(losses[0]), "[crop] a non-finite loss")
+    log(f"[crop] one train step of {ccfg.SOLVER.IMS_PER_BATCH}: loss {losses[0]:.4f}")
+    del cplain, cmodel, ccache
+    log(f"[long] phase 36 (b, c) in {time.perf_counter() - t0:.1f} s")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        time_beside_flagship(device, card, "flagship s12", cfg, model, flag_cfg, flag_model,
+                             cache, sampler)
+    return launches
+
+
+def phase_long_cli(device, root: str) -> None:
+    """Phase 36 (d), on phase 27's JPEG tree: tools/train.main at
+    MODEL.STRIDE_SIZE (12, 12) (211 tokens; one epoch with an eval and a
+    checkpoint, the decoded device cache), its launches all on the block
+    kernels' wide forms, then tools/test.main on its checkpoint reproducing
+    the run's mAP and Rank-1."""
+    import os
+
+    from demo2_tpu_torch.data.loader import make_dataloader
+    from demo2_tpu_torch.tools import test as test_cli, train as train_cli
+
+    out = os.path.join(root, "run_s12")
+    opts = data_opts(root, out, "device") + ["MODEL.STRIDE_SIZE", "[12, 12]",
+                                             "SOLVER.MAX_EPOCHS", "1"]
+    cfg = train_cli.load_config("", opts)
+    _, sampler, val_pipe, *_ = make_dataloader(cfg.freeze())
+    steps = len(sampler) // cfg.SOLVER.IMS_PER_BATCH
+    evals = math.ceil(len(val_pipe.samples) / cfg.TEST.IMS_PER_BATCH)
+    layers = 2 if REHEARSAL else 12
+    cli_device = None if device.type == "cuda" else device
+    reset_counts()
+    t0 = time.perf_counter()
+    state, best = train_cli.main(["--exp_name", "s12"] + opts, device=cli_device)
+    sync()
+    launches = counts()
+    last = state.history[-1]
+    log(f"[s12-cli] tools/train.main at stride (12, 12): {steps} steps and {evals} eval "
+        f"forwards in {time.perf_counter() - t0:.1f} s; loss {last['loss']:.4f}, mAP "
+        f"{last['mAP']}, Rank-1 {last['Rank-1']}; launches {launches}")
+    require(math.isfinite(last["loss"]), "[s12-cli] a non-finite loss")
+    require_launches(launches, launch_dict(
+        fused_attention_block_wide=layers * evals, fused_mlp_block=layers * evals,
+        fused_attention_block_train_wide=layers * steps,
+        attention_bwd_saved_db_wide=layers * steps), "[s12-cli] tools/train.main")
+    cmc, got = test_cli.main(opts + ["TEST.WEIGHT", os.path.join(out, "checkpoints")],
+                             device=cli_device)
+    log(f"[s12-cli] tools/test.main on its checkpoint: mAP {got}, Rank-1 {cmc[0]} (the run's "
+        f"{last['mAP']}, {last['Rank-1']})")
+    require((got, float(cmc[0])) == (last["mAP"], last["Rank-1"]),
+            f"[s12-cli] tools/test.main gives mAP {got}, Rank-1 {cmc[0]}")
+
+
 KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
     "fused_attention_block": ("demo2_tpu_torch/csrc/fused_attention_block.cu",
                               "demo2_tpu/ops/fused_block.py:128"),
@@ -5211,7 +5521,20 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                                   "demo2_tpu/ops/packed_attention.py:52"),
     "packed_attention_wide_bwd": ("demo2_tpu_torch/csrc/packed_attention_wide.cu",
                                   "demo2_tpu/ops/packed_attention.py:91"),
+    "fused_attention_block_wide": ("demo2_tpu_torch/csrc/attention_wide_block.cuh",
+                                   "demo2_tpu/ops/fused_block.py:128"),
+    "fused_attention_block_train_wide": ("demo2_tpu_torch/csrc/attention_wide_block.cuh",
+                                         "demo2_tpu/ops/fused_block.py:118"),
+    "attention_bwd_saved_db_wide": ("demo2_tpu_torch/csrc/attention_wide_block.cuh",
+                                    "demo2_tpu/ops/packed_attention.py:264"),
+    "attention_bwd_saved_wide": ("demo2_tpu_torch/csrc/attention_wide_block.cuh",
+                                 "demo2_tpu/ops/packed_attention.py:231"),
 }
+
+
+def clock(t0: float, what: str) -> None:
+    """The script's seconds since t0 at the end of `what`."""
+    log(f"[clock] {what}: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> None:
@@ -5227,6 +5550,13 @@ def main() -> None:
     errors.update(phase_ln_bwd_kernel(device))
     errors.update(phase_jaccard_kernel(device))
     errors.update(phase_new_kernels(device))
+    # The block kernels past the register tiles' 144 tokens (phase 36 (a)):
+    # the wide forms of kernels 1, 3, 4, 7 and 8.
+    t36 = time.perf_counter()
+    long_errors, long_times = phase_long_block_kernels(device, card)
+    errors.update(long_errors)
+    phase36_s = time.perf_counter() - t36
+    clock(t0, "the kernel phases (1, 2, 5, 9, 14, 18, 36 (a))")
 
     # The CLIP flagship: serving (kernels 1, 2), training (3, 4), the input
     # gradient (7), do_train, timing.
@@ -5242,9 +5572,11 @@ def main() -> None:
                                       attention_bwd_saved_db=layers))
     launches.update({k: trained[k] for k in ("fused_attention_block_train",
                                              "attention_bwd_saved_db")})
-    launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model, plain)
+    launches["attention_bwd_saved"] = phase_input_grad(device, cfg, model,
+                                                       plain)["attention_bwd_saved"]
     phase_do_train(device, model, cache, sampler)
     times.update(phase_train_timing(device, card, cfg, model, plain_cfg, plain, cache, sampler))
+    clock(t0, "phases 3-8")
 
     # The training knobs (phase 29): the flagship with REMAT_BACKBONE (kernel
     # 3 twice a block), with center loss and the cosine schedule, and the
@@ -5258,11 +5590,13 @@ def main() -> None:
         phase_gate(device, root)
     log(f"[knobs] phase 29 in {time.perf_counter() - t29:.1f} s (budget "
         f"{KNOB_PHASE_BUDGET_S:.0f} s)")
-    # The CLIP tower's tuning paths (phase 30): LoRA, ConvLoRA, the adapter
-    # (kernel 2 off), the prompts (kernels 1, 3, 4 at S = 141), FROZEN's
-    # backward through kernel 7.
+    clock(t0, "phase 29")
+    # The CLIP tower's tuning paths (phase 30, CUT_DEPTH blocks): LoRA,
+    # ConvLoRA, the adapter (kernel 2 off), the prompts (kernels 1, 3, 4 at
+    # S = 141), FROZEN's backward through kernel 7.
     tuned = phase_tuning(device, card, cache, sampler, cfg, model)
     log(f"[tuning] launches of the 10 steps by configuration: {tuned}")
+    clock(t0, "phase 30")
     # TPU.INT8_MLP (kernels 1, 3, 4; kernel 2 off) and the saliency maps
     # (phase 34, parts 1 and 2; part 3 runs on phase 27's JPEG tree).
     t34 = time.perf_counter()
@@ -5270,15 +5604,26 @@ def main() -> None:
     log(f"[int8] launches of the {INT8_STEPS} steps by mode: {int8_launches}")
     phase_saliency(device, card, cfg, model, plain)
     phase34_s = time.perf_counter() - t34
+    # The flagship at stride 12 (211 tokens) and at 384x128 (193), served and
+    # trained through the block kernels' wide forms (phase 36 (b, c)).
+    t36 = time.perf_counter()
+    launches.update(phase_long_flagship(device, card, cfg, model, cache, sampler))
+    times.update(long_times)
+    log(f"[long] phase 36 in {phase36_s + time.perf_counter() - t36:.1f} s, its timing "
+        f"included (budget {LONG_PHASE_BUDGET_S:.0f} s)")
+    clock(t0, "phases 34 (parts 1, 2) and 36 (b, c)")
 
     # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
-    # at full width, timed beside the flagship; the other DeMo branches of
-    # configs/ at reduced depth.
+    # at full width and CUT_DEPTH blocks, timed beside the flagship; the
+    # other DeMo branches of configs/ at BRANCH_DEPTH.
     phase_demo(device, card, cfg, model, cache, sampler)
+    clock(t0, "phases 22-23")
     phase_branches(device)
-    # The DeMoBeiyong cascade, DeMo_Parallel and FRCA at full width (kernels
-    # 1-4), each timed beside the flagship.
+    clock(t0, "phase 24")
+    # The DeMoBeiyong cascade, DeMo_Parallel and FRCA at full width and
+    # CUT_DEPTH blocks (kernels 1-4), each timed beside the flagship.
     phase_assemblies(device, card, cfg, model, cache, sampler)
+    clock(t0, "phases 25-26")
 
     # The flagship with PALLAS_LN_BWD (kernel 11 beside 3 and 4), its
     # re-ranked eval (kernel 12 beside 1 and 2), their timing.
@@ -5293,6 +5638,7 @@ def main() -> None:
     times.update(phase_rerank_ln_timing(device, card, ln_cfg, ln_model, cfg, model, cache,
                                         sampler))
     del ln_model
+    clock(t0, "phases 15-17")
 
     # The block backward through kernel 8; the flagship with FUSED_MLP_TRAIN
     # (the training form of kernel 2 beside 3 and 4), its do_train epoch, the
@@ -5315,6 +5661,7 @@ def main() -> None:
     launches["attention_ablate"] = tool_launches["attention_ablate"]
     del plain, mlp_model
     torch.cuda.empty_cache()
+    clock(t0, "phases 19-21")
 
     # The other backbones (phases 32, 33): T2T-ViT-24 (kernels 5, 6),
     # vit_small at stride 12 (the wide pair), ResNet-50-IBN-a and OSNet-AIN,
@@ -5329,6 +5676,7 @@ def main() -> None:
     # The head-major route (kernels 9, 10).
     routed = phase_head_major(device)
     launches.update({k: routed[k] for k in ("flash_attention_fwd", "flash_attention_bwd")})
+    clock(t0, "phases 32-33 and 10")
 
     # DeMo on vit_base_patch16_224: serving (kernel 5), training (5, 6), timing.
     cfg, model, plain_cfg, plain = build_models(device, vit_cfg)
@@ -5346,6 +5694,7 @@ def main() -> None:
     # Data parallel (phase 35 (a)): two ranks on this card over gloo train
     # and evaluate the flagship (kernels 3, 4 and 1, 2 on each rank).
     dp_launches = phase_data_parallel(device, card)
+    clock(t0, "phases 11-13 and 35 (a)")
 
     # The input path from disk: a JPEG tree written on the card's machine,
     # the native loader, tools/train.main with the host pipe and with the
@@ -5354,6 +5703,7 @@ def main() -> None:
     # step timed.
     with tempfile.TemporaryDirectory() as root:
         phase_data(device, root)
+        phase_long_cli(device, root)
         t34 = time.perf_counter()
         phase_miss_sweep(device, root)
         phase34_s += time.perf_counter() - t34

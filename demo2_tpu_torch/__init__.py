@@ -30,8 +30,9 @@ training forward with its residuals, the attention backwards, the packed and
 head-major attention, the LayerNorm backward, the re-ranking min-sum) are
 hand-written CUDA kernels for Hopper (sm_90a) under csrc/, built at first
 use (ops/kernel_lib.py); the packed attention has a second pair for heads of
-96 and up to 256 tokens.  The CNN trunks run no hand-written kernel (cuDNN
-convolutions, as the JAX package leaves them to XLA).  The package imports torch and never jax.
+96 and up to 256 tokens, and the block kernels have wide forms for up to 256
+tokens (the CLIP flagship at stride 12).  The CNN trunks run no hand-written
+kernel (cuDNN convolutions, as the JAX package leaves them to XLA).  The package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

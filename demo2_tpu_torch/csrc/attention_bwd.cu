@@ -10,7 +10,11 @@
 // device memory once (four TMA tile copies and one bulk copy), and one warp
 // carries 16 query rows, or 16 keys, with dP and dS in registers.  Kernel 7 is
 // the same instantiation with the db sums compiled out, so its dqkv equals
-// kernel 4's bit for bit.
+// kernel 4's bit for bit.  Past the register tiles' 144 tokens (up to 256:
+// the CLIP flagship at stride 12, 211 tokens) the _wide entries run the same
+// arithmetic as block_wide_bwd_kernel<kDb> (attention_wide_block.cuh), with P
+// read from device memory by 16-row and 16-column strips, and kernel 8 routes
+// its first stage there.
 // With db (kernel 4), db_qkv = the f32 column sums of the bf16-rounded dq,
 // dk and dv, as _bwd_saved_db_kernel sums them.  The sums are deterministic:
 // inside the kernel the tasks of a (sample, head) add their column sums in
@@ -60,6 +64,7 @@
 // 87.7 GFLOP each) = 0.28 ms, plus the slice sum's bytes.
 
 #include "attention_regs_bwd.cuh"
+#include "attention_wide_block.cuh"
 #include "gemm_sm90.cuh"
 
 namespace demo2 {
@@ -97,13 +102,22 @@ cudaError_t reduce_db(const void* db_partial, void* db, int batch, int width, cu
   return cudaGetLastError();
 }
 
-// Kernels 4 and 7 on the packed qkv (B*S, 3C) and dO (B*S, C).
+// Kernels 4 and 7 on the packed qkv (B*S, 3C) and dO (B*S, C): `wide`, the
+// form past the register tiles (block_wide_bwd_kernel, attention_wide_block.cuh:
+// heads of 64, 1 <= S <= 256), else the register tiles (S <= kMaxSeq).
 template <bool kDb>
 cudaError_t launch_saved(const void* qkv, const void* probs, const void* dout, void* dqkv,
                          void* db_partial, int batch, int seq, int width, int heads,
-                         float scale, cudaStream_t st) {
+                         float scale, bool wide, cudaStream_t st) {
   const bf16* x = static_cast<const bf16*>(qkv);
   bf16* dx = static_cast<bf16*>(dqkv);
+  if (wide) {
+    return launch_block_wide_bwd<kDb>(x, static_cast<const bf16*>(probs),
+                                      static_cast<const bf16*>(dout), dx,
+                                      static_cast<float*>(db_partial), batch, seq, width, heads,
+                                      scale, st);
+  }
+  if (width != heads * kHeadDim || seq > kMaxSeq) return cudaErrorInvalidValue;
   const HeadLayout packed = packed_layout(seq, width);
   return launch_attention_regs_bwd<Probs::kSaved, kDb>(
       x, x + width, x + 2 * width, packed, static_cast<const bf16*>(dout),
@@ -136,7 +150,7 @@ cudaError_t fused_dw(const void* qkv, const void* probs, const void* dout, const
     return cudaErrorInvalidValue;
   }
   cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
-                                       heads, scale, st);
+                                       heads, scale, seq > kMaxSeq, st);
   if (err != cudaSuccess) return err;
   err = reduce_db(db_partial, dbqkv, batch, width, st);
   if (err != cudaSuccess) return err;
@@ -167,17 +181,33 @@ cudaError_t fused_dw(const void* qkv, const void* probs, const void* dout, const
 // and dout (B*S, C) are bf16 device pointers, dqkv (B*S, 3C) bf16 output.
 // Each returns the first non-zero cudaGetLastError() of its launches, else 0.
 //
-// Kernel 4: also db (3C,) f32, through db_partial (B, 3C) f32 scratch.
+// Kernel 4: also db (3C,) f32, through db_partial (B, 3C) f32 scratch.  The
+// _wide entries take heads of 64 over 1 <= S <= 256, the others S <= 144.
+static int saved_db(const void* qkv, const void* probs, const void* dout, void* dqkv,
+                    void* db_partial, void* db, int batch, int seq, int width, int heads,
+                    float scale, bool wide, void* stream) {
+  using namespace demo2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
+                                       heads, scale, wide, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_db(db_partial, db, batch, width, st));
+}
+
 extern "C" int demo2_attention_bwd_saved_db(const void* qkv, const void* probs,
                                             const void* dout, void* dqkv, void* db_partial,
                                             void* db, int batch, int seq, int width, int heads,
                                             float scale, void* stream) {
-  using namespace demo2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
-                                       heads, scale, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_db(db_partial, db, batch, width, st));
+  return saved_db(qkv, probs, dout, dqkv, db_partial, db, batch, seq, width, heads, scale,
+                  false, stream);
+}
+
+extern "C" int demo2_attention_bwd_saved_db_wide(const void* qkv, const void* probs,
+                                                 const void* dout, void* dqkv, void* db_partial,
+                                                 void* db, int batch, int seq, int width,
+                                                 int heads, float scale, void* stream) {
+  return saved_db(qkv, probs, dout, dqkv, db_partial, db, batch, seq, width, heads, scale,
+                  true, stream);
 }
 
 // Kernel 7: dqkv only.
@@ -186,11 +216,21 @@ extern "C" int demo2_attention_bwd_saved(const void* qkv, const void* probs, con
                                          float scale, void* stream) {
   using namespace demo2;
   return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
-                                              width, heads, scale,
+                                              width, heads, scale, false,
                                               static_cast<cudaStream_t>(stream)));
 }
 
-// Kernel 8: t (B*S, C) and wqkv (3C, C) bf16 inputs besides; dt (B*S, C) bf16,
+extern "C" int demo2_attention_bwd_saved_wide(const void* qkv, const void* probs,
+                                              const void* dout, void* dqkv, int batch, int seq,
+                                              int width, int heads, float scale, void* stream) {
+  using namespace demo2;
+  return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
+                                              width, heads, scale, true,
+                                              static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel 8 (its first stage kernel 4's register form at S <= 144, its wide
+// form up to 256): t (B*S, C) and wqkv (3C, C) bf16 inputs besides; dt (B*S, C) bf16,
 // dwqkv (3C, C) and dbqkv (3C,) f32 outputs; dqkv (B*S, 3C) bf16, db_partial
 // (B, 3C) f32 and, where B*S > slice_rows (a multiple of 64), dw_partial
 // (ceil(B*S / slice_rows), 3C, C) f32 scratch.

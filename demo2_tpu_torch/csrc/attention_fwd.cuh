@@ -25,7 +25,8 @@ namespace demo2 {
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kMaxSeq = 144;   // keys, padded to 16; ViT-B at 256x128 has 129
+constexpr int kMaxSeq = 144;   // keys, padded to 16, of the register tiles; ViT-B at 256x128
+                               // has 129.  Longer (<= 256): attention_wide.cuh's forms
 
 // Element (b, h, s, d) of a head-split bf16 tensor at
 // b * sample + h * head + s * row + d; row and head are multiples of 8.

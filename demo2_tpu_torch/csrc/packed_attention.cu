@@ -23,8 +23,9 @@
 // elements apart, row stride 3C; out and dO have row stride C), and one warp
 // carries 16 rows from the loads' arrival to the store with scores,
 // probabilities and dS in registers.  The kernels take heads of 64 and
-// S <= 144 (demo2_attention_head_dim / _max_seq), which the Python wrapper
-// checks.
+// S <= 144 (demo2_attention_head_dim / _max_seq); the Python wrappers send
+// every other shape, up to 256 tokens and heads of 96, to the wide pair
+// (packed_attention_wide.cu).
 
 #include "attention_regs_bwd.cuh"
 #include "attention_regs_fwd.cuh"

@@ -8,6 +8,12 @@ PyTorch version (demo2_tpu/ops/fused_block.py).
       the bf16 probs (ops/packed_attention.py's layout) for the backward
       replaces the Pallas kernel fused_block.py::_fwd_kernel
       (csrc/fused_attention_block.cu, demo2_fused_attention_block_train);
+      both take heads of 64 over at most 144 tokens (the register tiles);
+  fused_attention_block_wide / fused_attention_block_train_wide: the same
+      two with their attention on csrc/attention_wide_block.cuh, heads of 64
+      over at most 256 tokens, where the two above send the sequences past
+      144 (demo2_fused_attention_block_wide and _train_wide; the CLIP
+      flagship at MODEL.STRIDE_SIZE (12, 12), 211 tokens at 256x128);
   fused_mlp_block:             x + fc2(QuickGELU(fc1(LN2(x)))) at eval
       replaces the Pallas kernel fused_block.py::_mlp_kernel
       (csrc/fused_mlp_block.cu, demo2_fused_mlp_block);
@@ -49,7 +55,8 @@ from .attention import attention_core
 from .kernel_lib import check, expect, kernel_library
 from .packed_attention import (attention_bwd_fused_dw, attention_bwd_saved,
                                attention_bwd_saved_db, check_head_limits, check_input_dtype,
-                               merge_heads, needs_grad, probs_cols, probs_shape, split_heads)
+                               merge_heads, needs_grad, probs_cols, probs_shape, regs_take,
+                               split_heads)
 
 
 def _layernorm_f32(x, weight, bias, eps=1e-5):
@@ -100,7 +107,7 @@ def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
     _expect_cuda(x, what)
     check_input_dtype(what, x.dtype)
     b, s, c = x.shape
-    kl = check_head_limits(what, c, num_heads, s)
+    kl = check_head_limits(what, c, num_heads, s, block=True)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     for tensor, name, shape, dtype in (
         (x, "x", (b, s, c), bf16), (ln_weight, "ln_weight", (c,), f32),
@@ -111,36 +118,67 @@ def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
     return kl
 
 
-def fused_attention_block(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
-                          num_heads: int, scale: float) -> torch.Tensor:
-    """x (B, S, C) -> x + out_proj(MHA(LN(x))): the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
-                                     num_heads=num_heads, scale=scale)
-    kl = _check_attention_inputs("fused_attention_block", x, ln_weight, ln_bias, wqkv, bqkv,
-                                 wout, bout, num_heads)
+def _launch_attention(wrapper, entry, kl, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                      num_heads, scale, train: bool):
+    """Launch `entry` (kernel 1 or 3, either form) on checked inputs and
+    count it on `wrapper`: out at eval, (out, qkv, attn, probs) in
+    training."""
+    what = wrapper.__name__
     b, s, c = x.shape
     dev, bf16 = x.device, torch.bfloat16
     out = torch.empty_like(x)
+    qkv = torch.empty((b, s, 3 * c), device=dev, dtype=bf16)
+    attn = torch.empty((b, s, c), device=dev, dtype=bf16)
+    probs = torch.empty(probs_shape(b, num_heads, s), device=dev, dtype=bf16) if train else None
+    result = (out, qkv, attn, probs) if train else out
     if x.numel() == 0:
-        return out
+        return result
     t = torch.empty((b * s, c), device=dev, dtype=bf16)
-    qkv = torch.empty((b * s, 3 * c), device=dev, dtype=bf16)
-    attn = torch.empty((b * s, c), device=dev, dtype=bf16)
+    head = (x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(), out.data_ptr(), t.data_ptr(),
+            qkv.data_ptr(), attn.data_ptr())
     with torch.cuda.device(dev):
-        err = kl.lib.demo2_fused_attention_block(
-            x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-            bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(), out.data_ptr(),
-            t.data_ptr(), qkv.data_ptr(), attn.data_ptr(), b, s, c, num_heads,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, "fused_attention_block")
-    fused_attention_block.launches += 1
-    return out
+        err = getattr(kl.lib, entry)(*head, *((probs.data_ptr(),) if train else ()), b, s, c,
+                                     num_heads, float(scale),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    check(err, what)
+    wrapper.launches += 1
+    return result
+
+
+def fused_attention_block(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
+                          num_heads: int, scale: float) -> torch.Tensor:
+    """x (B, S, C) -> x + out_proj(MHA(LN(x))): the kernel on CUDA tensors
+    (its wide form past the register tiles' 144 tokens), the plain version on
+    CPU tensors."""
+    if x.device.type == "cpu":
+        return attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                                     num_heads=num_heads, scale=scale)
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block", *args, num_heads)
+    wrapper = fused_attention_block if regs_take(kl, x.shape[-1], num_heads, x.shape[1]) \
+        else fused_attention_block_wide
+    return _launch_attention(wrapper, f"demo2_{wrapper.__name__}", kl, *args, num_heads, scale,
+                             train=False)
 
 
 fused_attention_block.launches = 0
+
+
+def fused_attention_block_wide(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
+                               num_heads: int, scale: float) -> torch.Tensor:
+    """fused_attention_block on its wide form: heads of 64, S <= 256; the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                                     num_heads=num_heads, scale=scale)
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block_wide", *args, num_heads)
+    return _launch_attention(fused_attention_block_wide, "demo2_fused_attention_block_wide", kl,
+                             *args, num_heads, scale, train=False)
+
+
+fused_attention_block_wide.launches = 0
 
 
 def _launch_mlp(wrapper, x, ln_weight, ln_bias, w1, b1, w2, b2, with_hidden: bool):
@@ -233,35 +271,38 @@ def attention_block_train_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *
 def fused_attention_block_train(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
                                 num_heads: int, scale: float):
     """The training forward: (out, qkv, attn, probs) as
-    attention_block_train_plain returns them; the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+    attention_block_train_plain returns them; the kernel on CUDA tensors (its
+    wide form past the register tiles' 144 tokens), the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return attention_block_train_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
                                            num_heads=num_heads, scale=scale)
-    kl = _check_attention_inputs("fused_attention_block_train", x, ln_weight, ln_bias, wqkv,
-                                 bqkv, wout, bout, num_heads)
-    b, s, c = x.shape
-    dev, bf16 = x.device, torch.bfloat16
-    out = torch.empty_like(x)
-    qkv = torch.empty((b, s, 3 * c), device=dev, dtype=bf16)
-    attn = torch.empty((b, s, c), device=dev, dtype=bf16)
-    probs = torch.empty(probs_shape(b, num_heads, s), device=dev, dtype=bf16)
-    if x.numel() == 0:
-        return out, qkv, attn, probs
-    t = torch.empty((b * s, c), device=dev, dtype=bf16)
-    with torch.cuda.device(dev):
-        err = kl.lib.demo2_fused_attention_block_train(
-            x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-            bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(), out.data_ptr(), t.data_ptr(),
-            qkv.data_ptr(), attn.data_ptr(), probs.data_ptr(), b, s, c, num_heads,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, "fused_attention_block_train")
-    fused_attention_block_train.launches += 1
-    return out, qkv, attn, probs
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block_train", *args, num_heads)
+    wrapper = fused_attention_block_train if regs_take(kl, x.shape[-1], num_heads, x.shape[1]) \
+        else fused_attention_block_train_wide
+    return _launch_attention(wrapper, f"demo2_{wrapper.__name__}", kl, *args, num_heads, scale,
+                             train=True)
 
 
 fused_attention_block_train.launches = 0
+
+
+def fused_attention_block_train_wide(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
+                                     num_heads: int, scale: float):
+    """fused_attention_block_train on its wide form: heads of 64, S <= 256;
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return attention_block_train_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                                           num_heads=num_heads, scale=scale)
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block_train_wide", *args, num_heads)
+    return _launch_attention(fused_attention_block_train_wide,
+                             "demo2_fused_attention_block_train_wide", kl, *args, num_heads,
+                             scale, train=True)
+
+
+fused_attention_block_train_wide.launches = 0
 
 
 class FusedAttentionBlockFn(torch.autograd.Function):

@@ -28,7 +28,7 @@ SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
            "packed_attention.cu", "packed_attention_wide.cu", "flash_attention.cu",
            "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
 HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_regs_fwd.cuh",
-           "attention_regs_bwd.cuh")
+           "attention_regs_bwd.cuh", "attention_wide.cuh", "attention_wide_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,8 +40,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "demo2_fused_attention_block": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_fused_attention_block_train": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_fused_attention_block_wide": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_fused_attention_block_train_wide": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_db": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_db_wide": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_wide": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_fused_dw": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
     "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
@@ -59,6 +63,7 @@ _SIGNATURES = {
     "demo2_attention_ablate": [_P] * 2 + [_I] * 6 + [_P],
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
+    "demo2_block_attention_max_seq": [],
 }
 
 

@@ -10,7 +10,8 @@ saved-probs layout.
       (csrc/packed_attention.cu, demo2_packed_attention_bwd);
       both keep scores and probabilities in registers, one warp per 16 rows
       of a (sample, head) (csrc/attention_regs_fwd.cuh, attention_regs_bwd.cuh),
-      over heads of 64 and at most 144 tokens;
+      over heads of 64 and at most 144 tokens (the register tiles' limit; the
+      wide forms below take up to 256);
   packed_attention_wide_fwd / _bwd: the same two functions over heads of 64
       or 96 and at most 256 tokens, where the two above send every shape they
       do not take (csrc/packed_attention_wide.cu, demo2_packed_attention_wide
@@ -22,13 +23,19 @@ saved-probs layout.
       replaces the Pallas kernel packed_attention.py::_bwd_saved_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_saved);
       both on the same register-resident backward, reading the saved
-      probabilities in place of recomputing them;
+      probabilities in place of recomputing them, over heads of 64 and at
+      most 144 tokens;
+  attention_bwd_saved_db_wide / attention_bwd_saved_wide: the same two over
+      heads of 64 and at most 256 tokens, where the two above send the
+      sequences past 144 (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db_wide
+      and _saved_wide, on csrc/attention_wide_block.cuh; the CLIP flagship at
+      stride 12, 211 tokens);
   attention_bwd_fused_dw: the saved-probs backward with dqkv contracted at
       once into dt, the f32 dW_qkv and the f32 db_qkv
       replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_fused_dw): kernel 4's
-      backward into a bf16 dqkv scratch, then dt and dW on the wgmma GEMM
-      of csrc/gemm_sm90.cuh.
+      backward (either form, by S) into a bf16 dqkv scratch, then dt and dW
+      on the wgmma GEMM of csrc/gemm_sm90.cuh.
 
 `packed_self_attention` is the entry of the ImageNet ViT's blocks and of
 MultiHeadAttention's packed route: with grad enabled and a qkv that requires
@@ -118,12 +125,16 @@ def check_input_dtype(what: str, dtype: torch.dtype, item: str = BLOCK_DTYPE_ITE
 
 
 def check_head_limits(what: str, width: int, num_heads: int, seq: int,
-                      dtype: torch.dtype = torch.bfloat16, wide: bool = False):
+                      dtype: torch.dtype = torch.bfloat16, wide: bool = False,
+                      block: bool = False):
     """Raise for heads, sequences or input dtypes the attention tiles
-    (kernels 1, 3-10) do not take; return the library.  `wide`: the limits
-    of kernels 5 and 6, which also take the wide pair's shapes (heads of 64
-    or 96 over at most 256 tokens).  The Pallas kernels 5, 6, 9 and 10 take
-    any head width and length, and f32 inputs too; the CUDA tiles read bf16."""
+    (kernels 1, 3-10) do not take; return the library.  The register tiles
+    take heads of 64 over at most 144 tokens.  `wide`: the limits of kernels
+    5 and 6, which also take the wide pair's shapes (heads of 64 or 96 over
+    at most 256 tokens); `block`: those of the block kernels 1, 3, 4, 7 and
+    8, whose wide forms take heads of 64 over at most 256 tokens.  The Pallas
+    kernels take any head width and length, and f32 inputs too; the CUDA
+    tiles read bf16."""
     item = "wider heads, longer sequences and f32 inputs in the attention kernels"
     check_input_dtype(what, dtype, item)
     kl = kernel_library()
@@ -133,7 +144,9 @@ def check_head_limits(what: str, width: int, num_heads: int, seq: int,
             kl.lib.demo2_packed_attention_wide_takes_head(head_dim)
         heads, max_seq = "64 or 96", kl.lib.demo2_packed_attention_wide_max_seq()
     else:
-        heads, max_seq = kl.lib.demo2_attention_head_dim(), kl.lib.demo2_attention_max_seq()
+        heads = kl.lib.demo2_attention_head_dim()
+        max_seq = (kl.lib.demo2_block_attention_max_seq() if block
+                   else kl.lib.demo2_attention_max_seq())
         takes = width == num_heads * heads
     if not takes:
         raise not_ported(f"{what} with {num_heads} heads over width {width} (the kernel "
@@ -144,8 +157,9 @@ def check_head_limits(what: str, width: int, num_heads: int, seq: int,
 
 
 def regs_take(kl, width: int, num_heads: int, seq: int) -> bool:
-    """The register-resident pair of kernels 5 and 6 takes this shape (else
-    the wide pair does)."""
+    """The register tiles take this shape: kernels 5 and 6's register pair
+    (else the wide pair), and the register forms of kernels 1, 3, 4 and 7
+    (else their wide forms)."""
     return (width == num_heads * kl.lib.demo2_attention_head_dim()
             and seq <= kl.lib.demo2_attention_max_seq())
 
@@ -160,7 +174,7 @@ def _check_inputs(qkv, probs, do, num_heads, what):
     check_input_dtype(what, qkv.dtype)
     b, s, c3 = qkv.shape
     c = c3 // 3
-    kl = check_head_limits(what, c, num_heads, s)
+    kl = check_head_limits(what, c, num_heads, s, block=True)
     for tensor, name, shape in ((qkv, "qkv", (b, s, c3)),
                                 (probs, "probs", probs_shape(b, num_heads, s)),
                                 (do, "do", (b, s, c))):
@@ -168,55 +182,103 @@ def _check_inputs(qkv, probs, do, num_heads, what):
     return kl, b, s, c
 
 
-def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
-    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors, the plain
-    version on CPU tensors.  The (B, 3C) f32 partial sums of db, one row a
-    sample, are scratch allocated here."""
-    if qkv.device.type == "cpu":
-        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
-                                         with_db=True)
-    what = "attention_bwd_saved_db"
-    kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, what)
+def _launch_saved_db(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
+    """Launch `entry` (kernel 4, either form) on checked inputs and count it
+    on `wrapper`.  The (B, 3C) f32 partial sums of db, one row a sample, are
+    scratch allocated here."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
     dqkv = torch.empty_like(qkv)
     db = torch.empty((3 * c,), device=qkv.device, dtype=torch.float32)
     partial = torch.empty((b, 3 * c), device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, db.zero_()
     with torch.cuda.device(qkv.device):
-        err = kl.lib.demo2_attention_bwd_saved_db(
+        err = getattr(kl.lib, entry)(
             qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
             partial.data_ptr(), db.data_ptr(), b, s, c, num_heads, float(scale),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
-    check(err, what)
-    attention_bwd_saved_db.launches += 1
+    check(err, wrapper.__name__)
+    wrapper.launches += 1
     return dqkv, db
+
+
+def _launch_saved(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
+    """Launch `entry` (kernel 7, either form) on checked inputs and count it
+    on `wrapper`."""
+    b, s, c3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    if qkv.numel() == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        err = getattr(kl.lib, entry)(
+            qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c3 // 3,
+            num_heads, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, wrapper.__name__)
+    wrapper.launches += 1
+    return dqkv
+
+
+def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
+    """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors (its wide
+    form past the register tiles' 144 tokens), the plain version on CPU
+    tensors."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                         with_db=True)
+    kl, _, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_db")
+    wrapper = attention_bwd_saved_db if regs_take(kl, c, num_heads, s) \
+        else attention_bwd_saved_db_wide
+    return _launch_saved_db(wrapper, f"demo2_{wrapper.__name__}", kl, qkv, probs, do,
+                            num_heads, scale)
 
 
 attention_bwd_saved_db.launches = 0
 
 
 def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):
-    """dqkv (B, S, 3C): the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    """dqkv (B, S, 3C): the kernel on CUDA tensors (its wide form past the
+    register tiles' 144 tokens), the plain version on CPU tensors."""
     if qkv.device.type == "cpu":
         return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
                                          with_db=False)
-    kl, b, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved")
-    dqkv = torch.empty_like(qkv)
-    if qkv.numel() == 0:
-        return dqkv
-    with torch.cuda.device(qkv.device):
-        err = kl.lib.demo2_attention_bwd_saved(
-            qkv.data_ptr(), probs.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, c,
-            num_heads, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, "attention_bwd_saved")
-    attention_bwd_saved.launches += 1
-    return dqkv
+    kl, _, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved")
+    wrapper = attention_bwd_saved if regs_take(kl, c, num_heads, s) else attention_bwd_saved_wide
+    return _launch_saved(wrapper, f"demo2_{wrapper.__name__}", kl, qkv, probs, do, num_heads,
+                         scale)
 
 
 attention_bwd_saved.launches = 0
+
+
+def attention_bwd_saved_db_wide(qkv, probs, do, *, num_heads: int, scale: float):
+    """attention_bwd_saved_db on its wide form: heads of 64, S <= 256; the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                         with_db=True)
+    kl = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_db_wide")[0]
+    return _launch_saved_db(attention_bwd_saved_db_wide, "demo2_attention_bwd_saved_db_wide", kl,
+                            qkv, probs, do, num_heads, scale)
+
+
+attention_bwd_saved_db_wide.launches = 0
+
+
+def attention_bwd_saved_wide(qkv, probs, do, *, num_heads: int, scale: float):
+    """attention_bwd_saved on its wide form: heads of 64, S <= 256; the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                         with_db=False)
+    kl = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_wide")[0]
+    return _launch_saved(attention_bwd_saved_wide, "demo2_attention_bwd_saved_wide", kl, qkv,
+                         probs, do, num_heads, scale)
+
+
+attention_bwd_saved_wide.launches = 0
 
 
 def attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, *, num_heads: int, scale: float):

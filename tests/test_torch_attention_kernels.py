@@ -365,34 +365,38 @@ def test_every_cuda_source_is_part_of_the_build():
 
 @pytest.mark.parametrize("width,heads,seq,ok", [
     (768, 12, 129, True),     # ViT-B: 12 heads of 64
-    (768, 12, 144, True),     # the longest sequence the tiles hold
+    (768, 12, 144, True),     # the longest sequence the register tiles hold
     (768, 8, 129, False),     # vit_small: heads of 96
     (776, 12, 129, False),    # a width that is no whole number of 64-wide heads
-    (768, 12, 211, False),    # stride 12 at 256x128: 211 tokens
+    (768, 12, 211, True),     # stride 12 at 256x128: 211 tokens, the wide forms
+    (768, 12, 257, False),    # one token past the wide forms
 ])
 def test_attention_limits_raise_naming_the_roadmap(monkeypatch, width, heads, seq, ok):
-    """Every attention wrapper checks the tiles' limits through one function,
-    which reads them from the library: here a stand-in for the built one."""
+    """Every block-kernel wrapper (kernels 1, 3, 4, 7 and 8) checks its
+    limits through one function, which reads them from the library: here a
+    stand-in for the built one.  Heads of 64 over at most 256 tokens."""
     class Lib:
         demo2_attention_head_dim = staticmethod(lambda: 64)
         demo2_attention_max_seq = staticmethod(lambda: 144)
+        demo2_block_attention_max_seq = staticmethod(lambda: 256)
 
     class Library:
         lib = Lib()
 
     monkeypatch.setattr(pa, "kernel_library", lambda: Library)
     if ok:
-        assert pa.check_head_limits("attention", width, heads, seq) is Library
+        assert pa.check_head_limits("attention", width, heads, seq, block=True) is Library
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.*wider heads"):
-            pa.check_head_limits("attention", width, heads, seq)
+            pa.check_head_limits("attention", width, heads, seq, block=True)
 
 
 class _WideLib:
     """A stand-in for the built library's limits, both pairs of kernels 5
-    and 6."""
+    and 6 and the block kernels' wide forms."""
     demo2_attention_head_dim = staticmethod(lambda: 64)
     demo2_attention_max_seq = staticmethod(lambda: 144)
+    demo2_block_attention_max_seq = staticmethod(lambda: 256)
     demo2_packed_attention_wide_max_seq = staticmethod(lambda: 256)
     demo2_packed_attention_wide_takes_head = staticmethod(lambda d: int(d in (64, 96)))
 
