@@ -1869,14 +1869,15 @@ def attention_kernel_cases(device, packed_shape, flash_shape, seed):
 
 def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
                   flash_shape=FLASH_SHAPES[0], jaccard_size=None, qkv_shape=None,
-                  wide_shapes=None, seed=7) -> dict:
+                  wide_shapes=None, long_shape=None, seed=7) -> dict:
     """Kernels 1, 2, 2-train, 3, 5, 6, 9, 10, 12 (at JACCARD_SIZES[0] on the
-    clustered weights), 8, 4 and 7 (at QKV_SHAPES[0]) and the wide pair of 5
+    clustered weights), 8, 4 and 7 (at QKV_SHAPES[0]), the wide pair of 5
     and 6 (by default at WIDE_SHAPES and WIDE_LONG_SHAPES, named by S and
-    the head width) on fixed inputs, as
-    tools/compare_trees.py times them: name -> one call of the kernel's
-    wrapper.  Only the wrappers' public signatures are used, so the same
-    cases run against the package of any checkout of the port."""
+    the head width) and kernels 1, 3, 4 and 7 past the register tiles (by
+    default at LONG_SHAPE, named "block S": their wide forms) on fixed
+    inputs, as tools/compare_trees.py times them: name -> one call of the
+    kernel's wrapper.  Only the wrappers' public signatures are used, so the
+    same cases run against the package of any checkout of the port."""
     from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
     from demo2_tpu_torch.utils import reranking as rr
 
@@ -1897,6 +1898,16 @@ def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
     for shape in wide_shapes or WIDE_SHAPES + WIDE_LONG_SHAPES:
         for name, case in wide_attention_cases(device, shape, seed).items():
             cases[f"{name} {shape[1]}x{shape[2] // 3 // shape[3]}"] = case[0]
+    b, s, c = long_shape or LONG_SHAPE
+    xl, attnl, _ = block_inputs((b, s, c), device, seed)
+    saved = saved_probs_inputs((b, s, 3 * c), device, seed)
+    kwl = dict(num_heads=c // 64, scale=64 ** -0.5)
+    cases.update({
+        f"fused_attention_block block {s}": lambda: fb.fused_attention_block(xl, **attnl, **kwl),
+        f"fused_attention_block_train block {s}":
+            lambda: fb.fused_attention_block_train(xl, **attnl, **kwl),
+        f"attention_bwd_saved_db block {s}": lambda: pa.attention_bwd_saved_db(*saved, **kwl),
+        f"attention_bwd_saved block {s}": lambda: pa.attention_bwd_saved(*saved, **kwl)})
     return cases
 
 
@@ -5240,11 +5251,16 @@ LONG_SHAPE = (192, 211, 768)  # the stride-12 flagship's x (3B, tokens, width) a
 # longest the forms take, each at a batch that gives every block of the
 # persistent grid several (sample, head) items (17 or 18 at 192 x 12 heads
 # over 132 SMs), the mbarrier-parity trap of attention_regs_fwd.cuh's
-# wait_started.
-LONG_BLOCK_SHAPES = (LONG_SHAPE, (192, 145, 768), (64, 193, 768), (48, 256, 768))
+# wait_started.  The tiling's edges: S16 a multiple of the 64-column probs
+# box only at 256 (160, 176, 208 and 224 end in a part box), 16-row tiles a
+# head of 10, 11, 13, 14 and 16, so the backward's four query warps meet
+# each item at another tile and its last key warp holds one tile or none.
+LONG_BLOCK_SHAPES = (LONG_SHAPE, (192, 145, 768), (64, 193, 768), (48, 256, 768),
+                     (96, 161, 768))
 # Kernels 4 and 7 alone at the edges of the wide form's tiling: 256 tokens at
-# batch 192 (18 items a block), S16 = 160 with 8 heads, a batch of 3.
-LONG_SAVED_EDGES = ((192, 256, 2304), (16, 150, 1536), (3, 211, 2304))
+# batch 192 (18 items a block), S16 = 160 with 8 heads, a batch of 3, and
+# S = 161 at batch 256 (23 or 24 items a block, 11 tiles an item).
+LONG_SAVED_EDGES = ((192, 256, 2304), (16, 150, 1536), (3, 211, 2304), (256, 161, 2304))
 LONG_CROP = (384, 128)  # a taller crop at stride 16: 24 x 8 patches + 1 = 193 tokens
 LONG_PHASE_BUDGET_S = 60.0
 
@@ -5445,6 +5461,47 @@ def phase_long_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> d
         time_beside_flagship(device, card, "flagship s12", cfg, model, flag_cfg, flag_model,
                              cache, sampler)
     return launches
+
+
+def time_long_step(device, card, rounds=6, reps=3, warmup=2) -> str:
+    """The stride-12 flagship's train step (batch 64) and batch-64 request,
+    as tools/compare_trees.py --steps times them in each checkout: host wall
+    per call, the mean of `reps` calls after `warmup`, `rounds` times each,
+    and on the card the profiler's device busy of one step and one request
+    with their largest items.  Returns the summary line."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    cfg, model, _, _ = build_models(device, long_cfg())
+    cache, sampler = build_train_data(cfg, device)
+    step = build_timed_step(cfg, model, cache, sampler)
+    images, cams = request_images(64, cfg, seed=3)
+    fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
+
+    def request():
+        fx.extract(images, cams)
+
+    def wall_ms(fn):
+        for _ in range(warmup):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    step_ms, request_ms = [], []
+    for _ in range(rounds):
+        step_ms.append(wall_ms(step))
+        request_ms.append(wall_ms(request))
+    line = (f"s12 step {spread(step_ms)} ms, batch-64 request {spread(request_ms)} ms "
+            f"(host wall)")
+    if device.type == "cuda":
+        bs = cfg.SOLVER.IMS_PER_BATCH
+        _, step_busy = profile(f"s12, one train step of {bs}", step, card, top=8)
+        _, request_busy = profile("s12, one batch-64 request", request, card, top=12)
+        line += f", device busy step {step_busy:.2f} ms, request {request_busy:.2f} ms ({card})"
+    return line
 
 
 def phase_long_cli(device, root: str) -> None:

@@ -2,6 +2,7 @@
 
     python3 -m demo2_tpu_torch.tools.compare_trees parent/ . . parent/
     python3 -m demo2_tpu_torch.tools.compare_trees --cases wide parent/ . . parent/
+    python3 -m demo2_tpu_torch.tools.compare_trees --steps parent/ . . parent/
 
 Each argument is the root of a checkout (one that holds chip_smoke.py and
 demo2_tpu_torch/).  One process per argument, in the order given, each in its
@@ -15,11 +16,16 @@ one line: for the block kernels 1, 2, 2's training form and 3 at x (192, 129,
 (192, 129, 12, 64), the re-ranking min-sum 12 on the weights of 1,600
 queries among 4,800 clustered features and the saved-probs backwards 8, 4
 and 7 at qkv (192, 129, 2304), and the wide pair of 5 and 6 at S = 211, 129
-and 256 with heads of 64 and 96, the median [min .. max] in ms of six rounds
-of 20 launches by CUDA events, taken kernel by kernel in turns, with the
-card's name and power limit.  `--cases TEXT` keeps the cases whose name holds
-TEXT (`wide`: the wide pair alone).  Two readings of one checkout say how far
-two processes differ before two checkouts are compared.
+and 256 with heads of 64 and 96, and kernels 1, 3, 4 and 7 past the
+register tiles at x (192, 211, 768) ("block 211": their wide forms), the
+median [min .. max] in ms of six rounds of 20 launches by CUDA events, taken
+kernel by kernel in turns, with the card's name and power limit.  `--cases
+TEXT` keeps the cases whose name holds TEXT (`wide`: the wide pair alone;
+`block 211`: the block kernels' wide forms alone).  `--steps` times instead the
+stride-12 flagship's train step and batch-64 request (chip_smoke.py::
+time_long_step: host wall, six rounds, and the profiler's device busy with
+its largest items).  Two readings of one checkout say how far two processes
+differ before two checkouts are compared.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import sys
 from pathlib import Path
 
 ROUNDS = 6
+STEPS = "--steps"  # the stride-12 flagship's step and request in place of the kernel cases
 TREE_SECONDS = 900  # one checkout's build and turns; a hung process fails the comparison
 CHIP_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"  # the cases' source
 CHILD = f"""
@@ -42,7 +49,10 @@ if not torch.cuda.is_available():
     raise SystemExit("compare_trees needs a CUDA device")
 device = torch.device("cuda", 0)
 cs.exact_products()
-keep = sys.argv[1]  # the --cases filter ("" keeps every case)
+keep = sys.argv[1]  # the --cases filter ("" keeps every case), or --steps
+if keep == {STEPS!r}:
+    print(f"{{os.getcwd()}}: {{cs.time_long_step(device, cs.card_line())}}", flush=True)
+    raise SystemExit(0)
 cases = {{name: call for name, call in cs.compare_cases(device).items() if keep in name}}
 got = {{name: [] for name in cases}}
 for _ in range({ROUNDS}):
@@ -57,9 +67,11 @@ def main(args: list[str]) -> None:
     keep, trees = "", args
     if args[:1] == ["--cases"] and len(args) > 1:
         keep, trees = args[1], args[2:]
+    elif args[:1] == [STEPS]:
+        keep, trees = STEPS, args[1:]
     if not trees:
         raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.compare_trees "
-                         "[--cases TEXT] TREE [TREE ...]")
+                         "[--cases TEXT | --steps] TREE [TREE ...]")
     for tree in trees:
         if not (Path(tree) / "chip_smoke.py").is_file():
             raise SystemExit(f"compare_trees: {tree} holds no chip_smoke.py")
@@ -68,7 +80,10 @@ def main(args: list[str]) -> None:
                               text=True, timeout=TREE_SECONDS)
         if done.returncode != 0:
             raise SystemExit(f"compare_trees: {tree} failed:\n{done.stdout}{done.stderr}")
-        print(done.stdout.strip().splitlines()[-1], flush=True)
+        lines = done.stdout.strip().splitlines()
+        # --steps: the profiles' lines too, where the step's and request's time goes
+        shown = [x for x in lines if x.startswith("[profile]")] if keep == STEPS else []
+        print("\n".join(shown + lines[-1:]), flush=True)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,20 @@ and only its times are read:
   bwd_nodq   the backward's query-owner tasks skip the dQ pass;
   bwd_exp2   the backward with ex2.approx in place of both expf.
 
+    python3 -m demo2_tpu_torch.tools.wide_ablate --block OUT_DIR
+
+does the same for the block kernels' wide forms (csrc/attention_wide_block.cuh,
+BLOCK_ABLATIONS below), timing kernels 1, 3, 4 and 7 at x (192, 211, 768)
+(compare_cases' "block 211" cases):
+
+  bwd_pconst   kernels 4 and 7 without the copies of P (the strip slots are
+               read as they lie);
+  bwd_noko     the backward's key warps compute nothing (dK, dV zero);
+  bwd_nodq     the backward's query warps skip the dQ product;
+  fwd_noexp    the forward with e = s * scale - m in place of expf;
+  fwd_nopv     the forward without the PV product;
+  fwd_nostore  kernel 3 without its probs (no staging, no store).
+
 OUT_DIR should be a directory that .gitignore lists; it is emptied first.
 """
 
@@ -36,6 +50,8 @@ from . import compare_trees
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "demo2_tpu_torch" / "csrc" / "packed_attention_wide.cu"
 CASES = "211x"  # the wide pair's cases of compare_cases at S = 211
+BLOCK_SOURCE = ROOT / "demo2_tpu_torch" / "csrc" / "attention_wide_block.cuh"
+BLOCK_CASES = "block 211"  # kernels 1, 3, 4 and 7's cases of compare_cases at S = 211
 
 _FWD_BODY = ("    uint32_t qa[D / 16][4];\n", "    const float d0 = quad_sum(sum0)")
 _BWD_BODY = ("    if (!key_owner) {  // query rows r0 .. r0 + 15\n", "\n  }\n}\n\n// ---- launches")
@@ -82,11 +98,37 @@ ABLATIONS = {
                   "exp2_approx((p[nt][e] - (e < 2 ? m0 : m1)) * kLog2e)")],
 }
 
+BLOCK_ABLATIONS = {
+    "bwd_pconst": [
+        ("    mbar_arrive_expect(bar, static_cast<uint32_t>((s_pad + 63) / 64 * kProbsBoxElems"
+         " * 2));\n"
+         "    for (int c = 0; c < s_pad; c += 64)\n"
+         "      tma_load_probs(dst + (c >> 6) * kProbsBoxElems, &probs_map, c, r0, item, bar);",
+         "    mbar_arrive(bar);")],
+    "bwd_noko": [("          if (k0 < s_pad) {\n            const int c = (k0 >> 3)",
+                  "          if (k0 < 0) {\n            const int c = (k0 >> 3)")],
+    "bwd_nodq": [("          if (j < pairs) {\n            uint32_t dsa[4];\n"
+                  "            ldmatrix_x4(",
+                  "          if (j < 0) {\n            uint32_t dsa[4];\n"
+                  "            ldmatrix_x4(")],
+    "fwd_noexp": [("const float x = expf(s[nt][e] - (e < 2 ? m0 : m1));",
+                   "const float x = s[nt][e] - (e < 2 ? m0 : m1);")],
+    "fwd_nopv": [("      if (j < cnt) block_accumulate(o, pa[j], v_s, 16 * (j0 + j), lane);",
+                  "      if (j < cnt)\n"
+                  "        o[0][0] += __uint_as_float(pa[j][0] ^ pa[j][1] ^ pa[j][2]"
+                  " ^ pa[j][3]);")],
+    "fwd_nostore": [("    if constexpr (kSaveProbs) {\n"
+                     "      // This half's p through the warp's staging tile",
+                     "    if constexpr (false) {\n"
+                     "      // This half's p through the warp's staging tile")],
+}
 
-def ablated(source: str, name: str) -> str:
-    """The kernel source with ablation `name` applied; raises if a piece of
-    text it changes is not found exactly once."""
-    for old, new in ABLATIONS[name]:
+
+def ablated(source: str, name: str, ablations: dict | None = None) -> str:
+    """The kernel source with ablation `name` of `ablations` (ABLATIONS by
+    default) applied; raises if a piece of text it changes is not found
+    exactly once."""
+    for old, new in (ablations or ABLATIONS)[name]:
         if isinstance(old, tuple):
             start, end = old
             if source.count(start) != 1:
@@ -101,26 +143,36 @@ def ablated(source: str, name: str) -> str:
     return source
 
 
-def write_trees(out_dir: Path) -> list[Path]:
-    """One checkout per ablation under out_dir, emptied first."""
-    source = SOURCE.read_text()
+def write_trees(out_dir: Path, source_path: Path = SOURCE,
+                ablations: dict | None = None) -> list[Path]:
+    """One checkout per ablation of `ablations` (of `source_path`) under
+    out_dir, emptied first."""
+    ablations = ablations or ABLATIONS
+    source = source_path.read_text()
     shutil.rmtree(out_dir, ignore_errors=True)
     trees = []
-    for name in ABLATIONS:
+    for name in ablations:
         tree = out_dir / name
         shutil.copytree(ROOT / "demo2_tpu_torch", tree / "demo2_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
-        (tree / "demo2_tpu_torch" / "csrc" / SOURCE.name).write_text(ablated(source, name))
+        (tree / "demo2_tpu_torch" / "csrc" / source_path.name).write_text(
+            ablated(source, name, ablations))
         trees.append(tree)
     return trees
 
 
 def main(args: list[str]) -> None:
+    block = args[:1] == ["--block"]
+    args = args[1:] if block else args
     if len(args) != 1:
-        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.wide_ablate OUT_DIR")
-    trees = write_trees(Path(args[0]).resolve())
-    compare_trees.main(["--cases", CASES, str(ROOT), *map(str, trees), str(ROOT)])
+        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.wide_ablate [--block] OUT_DIR")
+    if block:
+        trees = write_trees(Path(args[0]).resolve(), BLOCK_SOURCE, BLOCK_ABLATIONS)
+    else:
+        trees = write_trees(Path(args[0]).resolve())
+    compare_trees.main(["--cases", BLOCK_CASES if block else CASES, str(ROOT),
+                        *map(str, trees), str(ROOT)])
 
 
 if __name__ == "__main__":

@@ -141,16 +141,19 @@ def test_compare_trees_times_every_redesigned_kernel():
     """tools/compare_trees.py times, in every checkout, the cases of
     chip_smoke.py's own compare_cases: the block kernels 1, 2, 2-train and 3,
     the attention kernels 5, 6, 9 and 10, kernel 12, the saved-probs
-    backwards 8, 4 and 7 and the wide pair of 5 and 6 (one case a shape,
-    named by S and the head width), each by the wrapper that counts its
-    launches."""
+    backwards 8, 4 and 7, the wide pair of 5 and 6 (one case a shape,
+    named by S and the head width) and kernels 1, 3, 4 and 7 past 144 tokens
+    (named "block S", so that `--cases "block 211"` and the ablation tool's
+    block run select them), each by the wrapper that counts its launches: on
+    the CPU its plain version."""
     import chip_smoke as cs
-    from demo2_tpu_torch.tools import compare_trees
+    from demo2_tpu_torch.tools import compare_trees, wide_ablate
 
     cases = cs.compare_cases(torch.device("cpu"), block_shape=(2, 9, 128),
                              packed_shape=(2, 9, 384), flash_shape=(2, 9, 2, 64),
                              jaccard_size=(12, 60), qkv_shape=(2, 9, 384),
-                             wide_shapes=((2, 21, 576, 2), (1, 17, 384, 2)))
+                             wide_shapes=((2, 21, 576, 2), (1, 17, 384, 2)),
+                             long_shape=(1, 145, 128))
     assert set(cases) == {"fused_attention_block", "fused_mlp_block",
                           "fused_attention_block_train", "fused_mlp_block_train",
                           "packed_attention_fwd", "packed_attention_bwd",
@@ -158,9 +161,16 @@ def test_compare_trees_times_every_redesigned_kernel():
                           "attention_bwd_fused_dw", "attention_bwd_saved_db",
                           "attention_bwd_saved",
                           "packed_attention_wide_fwd 21x96", "packed_attention_wide_bwd 21x96",
-                          "packed_attention_wide_fwd 17x64", "packed_attention_wide_bwd 17x64"}
+                          "packed_attention_wide_fwd 17x64", "packed_attention_wide_bwd 17x64",
+                          "fused_attention_block block 145",
+                          "fused_attention_block_train block 145",
+                          "attention_bwd_saved_db block 145", "attention_bwd_saved block 145"}
     assert {name.split()[0] for name in cases} <= set(cs.all_kernels())
     assert "cs.compare_cases(device)" in compare_trees.CHILD
     assert compare_trees.CHIP_SMOKE == Path(cs.__file__).resolve()
-    for call in cases.values():
-        assert all(torch.isfinite(y).all() for y in cs.as_tuple(call()))
+    for name, call in cases.items():
+        outputs = cs.as_tuple(call())
+        assert all(torch.isfinite(y).all() for y in outputs)
+        if name.endswith(" block 145"):
+            assert outputs[0].shape[:2] == (1, 145)
+    assert wide_ablate.BLOCK_CASES == f"block {cs.LONG_SHAPE[1]}"

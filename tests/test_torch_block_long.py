@@ -277,8 +277,8 @@ def test_chip_smoke_long_phase_rehearses_on_the_plain_versions(monkeypatch, caps
     import chip_smoke as cs
 
     monkeypatch.setattr(cs, "REHEARSAL", True)
-    errors, times = cs.phase_long_block_kernels(CPU, None, shapes=((2, 145, 128),),
-                                                edges=((2, 150, 384),))
+    errors, times = cs.phase_long_block_kernels(CPU, None, shapes=((2, 145, 128), (1, 161, 128)),
+                                                edges=((2, 150, 384), (2, 161, 384)))
     assert errors == {name: 0.0 for name in ("fused_attention_block_wide",
                                              "fused_attention_block_train_wide",
                                              "attention_bwd_saved_db_wide",
@@ -289,3 +289,22 @@ def test_chip_smoke_long_phase_rehearses_on_the_plain_versions(monkeypatch, caps
     assert "misrounded control" in out
     assert "kernel 4 dqkv (2, 150, 384): control with dS left in f32" in out
     assert "kernel 8 (2, 145, 384)" in out
+    assert "kernel 3 attn (1, 161, 128): vs the plain version rounding alike" in out
+    assert "kernel 4 dqkv (2, 161, 384): control with dS left in f32" in out
+
+
+def test_long_step_timing_rehearses_on_the_plain_versions(monkeypatch):
+    """chip_smoke.py::time_long_step, which tools/compare_trees.py --steps runs
+    in each checkout: the stride-12 flagship's step and request at the
+    rehearsal's size, one timed call of each, their line (the profiles need
+    the card)."""
+    import chip_smoke as cs
+    from demo2_tpu_torch.tools import compare_trees
+
+    monkeypatch.setattr(cs, "REHEARSAL", True)
+    line = cs.time_long_step(CPU, None, rounds=1, reps=1, warmup=0)
+    assert line.startswith("s12 step ") and "batch-64 request" in line
+    assert "device busy" not in line
+    assert "cs.time_long_step(device, cs.card_line())" in compare_trees.CHILD
+    with pytest.raises(SystemExit, match="usage"):
+        compare_trees.main([compare_trees.STEPS])
