@@ -22,7 +22,8 @@ configs/RGBNT201/DeMo_SACR_SDTPS_LIF.yml, DeMo_Parallel.yml and
 DeMo_FRCA_DGAF.yml), drives DeMo on the other backbones (T2T-ViT-24,
 vit_small at stride 12, ResNet-50-IBN-a, OSNet-AIN) as a server and a
 trainer, serves and trains the flagship past 144 tokens (at stride 12 and
-at 384x128), trains and evaluates the flagship from a JPEG tree on
+at 384x128) and past 256 (on TransReID's stride-12 crops, 256x256 and
+384x128), trains and evaluates the flagship from a JPEG tree on
 disk through the port's CLIs (tools/train.py, tools/test.py), trains and
 serves the flagship with the int8 MLP (TPU.INT8_MLP), takes its saliency
 maps and runs the missing-modality sweep (tools/miss_sweep.py), trains and
@@ -346,7 +347,25 @@ Phases:
      384x128, stride 16 (193 tokens): one batch-64 request against the plain
      path and one step; (d) after phase 27, on its tree: tools/train.main at
      stride 12 (one epoch, the wide forms' launches) and tools/test.main on
-     its checkpoint (the run's mAP and Rank-1 exactly).
+     its checkpoint (the run's mAP and Rank-1 exactly).  (c) runs at
+     CUT_DEPTH blocks.
+  37. the block kernels past 256 tokens (heads of 64, up to 512:
+     csrc/attention_long_block.cuh): (a) after phase 36 (a), phase 36
+     (a)'s checks of the long forms of kernels 1, 3, 4, 7 (and 8's first
+     stage) at x (192, 442, 768), (192, 257, 768), (64, 311, 768) and (48,
+     512, 768), kernels 4 and 7 also at qkv (3, 442, 2304) and (256, 272,
+     2304), every launch on the long forms; the four timed at (192, 442,
+     768) beside their bounds (kernel 8 there too); (b) after phase 36 (b,
+     c), the flagship at 256x256, MODEL.STRIDE_SIZE (12, 12) (442 tokens),
+     full width and all 12 blocks, on both paths: requests of 1 and 64
+     images (kernel 1 long, 12 times a forward), phase 6 over BACKBONE_STEPS
+     steps (3 and 4 long; the backbone's step-1 gradient held from one
+     upstream gradient, each step's loss held to the plain path's, their
+     fall printed only), the input-gradient pass (3 and 7
+     long), the peak memory over phase 6, its step and request (device
+     busy, peak memory) beside the 129-token flagship's; (c) 384x128 at
+     stride 12 (311 tokens): one batch-64 request against the plain path and
+     one step.
 
 Every timed kernel is printed beside its bound: the larger of its bytes
 (each input read and each output written once) over the card's 3.35 TB/s and
@@ -354,9 +373,10 @@ its operations over the peak for their type.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA device
 the script exits non-zero before printing any result.  The last three lines
-are the twenty kernels (JSON: the thirteen Pallas kernels' counterparts,
-the fused MLP in both forms, the wide pair of kernels 5 and 6, the wide
-forms of kernels 1, 3, 4 and 7), the card's name and power limit, and
+are the twenty-four kernels (JSON: the thirteen Pallas kernels'
+counterparts, the fused MLP in both forms, the wide pair of kernels 5 and 6,
+the wide and the long forms of kernels 1, 3, 4 and 7), the card's name and
+power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -423,7 +443,7 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def all_kernels() -> dict:
-    """The wrappers of the twenty kernels, each counting its launches."""
+    """The wrappers of the twenty-four kernels, each counting its launches."""
     from demo2_tpu_torch.ops import fused_block as fb, flash_attention as fa
     from demo2_tpu_torch.ops import norm, packed_attention as pa
     from demo2_tpu_torch.tools import bench_kernel_ablate as ab
@@ -448,7 +468,11 @@ def all_kernels() -> dict:
             "fused_attention_block_wide": fb.fused_attention_block_wide,
             "fused_attention_block_train_wide": fb.fused_attention_block_train_wide,
             "attention_bwd_saved_db_wide": pa.attention_bwd_saved_db_wide,
-            "attention_bwd_saved_wide": pa.attention_bwd_saved_wide}
+            "attention_bwd_saved_wide": pa.attention_bwd_saved_wide,
+            "fused_attention_block_long": fb.fused_attention_block_long,
+            "fused_attention_block_train_long": fb.fused_attention_block_train_long,
+            "attention_bwd_saved_db_long": pa.attention_bwd_saved_db_long,
+            "attention_bwd_saved_long": pa.attention_bwd_saved_long}
 
 
 def reset_counts() -> None:
@@ -461,7 +485,7 @@ def counts() -> dict:
 
 
 def launch_dict(**nonzero) -> dict:
-    """Launch counts of all twenty kernels: `nonzero`, the rest 0."""
+    """Launch counts of all twenty-four kernels: `nonzero`, the rest 0."""
     return {name: nonzero.get(name, 0) for name in all_kernels()}
 
 
@@ -1529,15 +1553,16 @@ def train_steps(cfg, model, cache, order, steps, per_step=None, states=None):
 def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_want: dict,
                 label: str = "train", extra_groups=(), block_min=None,
                 whole_model: bool = True, states=None, steps: int = TRAIN_STEPS,
-                hold_losses=None) -> dict:
+                hold_losses=None, hold_fall: bool = True) -> dict:
     """`steps` steps through build_train_step, each launching
     `per_step_want` (all twenty kernels' counts), against the plain path.
     Without `whole_model` the step-1 gradient of the two paths is printed
     only, and the backbone's gradient from one upstream gradient is held
     (check_backbone_grads); so are the losses of the two paths, unless
-    `hold_losses` holds them all the same.  The kernel path's train state
-    is appended to `states` where that is a list.  Returns the launches of
-    the steps."""
+    `hold_losses` holds them all the same.  Without `hold_fall` the fall of
+    the loss over the steps is printed only (on both paths).  The kernel
+    path's train state is appended to `states` where that is a list.
+    Returns the launches of the steps."""
     hold_losses = whole_model if hold_losses is None else hold_losses
     order = sampler.epoch_indices(1)
     bs = cfg.SOLVER.IMS_PER_BATCH
@@ -1574,10 +1599,15 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
             "BatchNorm running statistics did not change")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"[{label}] loss falls: mean of the first 5 steps {first:.4f}, of the last 5 "
-        f"{last:.4f}")
-    require(last < first, "the loss did not fall")
+        f"{last:.4f}" + ("" if hold_fall else " (printed, not held)"))
+    if hold_fall:
+        require(last < first, "the loss did not fall")
 
     plain_losses = train_steps(plain_cfg, plain, cache, order, PLAIN_STEPS)
+    if not hold_fall:
+        log(f"[{label}] plain path: mean of the first 5 steps "
+            f"{float(np.mean(plain_losses[:5])):.4f}, of the last 5 "
+            f"{float(np.mean(plain_losses[-5:])):.4f} (printed, not held)")
     rel = [abs(k - p) / abs(p) for k, p in zip(losses, plain_losses)]
     log(f"[{label}] plain path losses: {' '.join(f'{x:.4f}' for x in plain_losses)}; "
         f"largest relative difference {max(rel):.4%}"
@@ -1587,15 +1617,20 @@ def phase_train(device, cfg, model, plain_cfg, plain, cache, sampler, per_step_w
     return launches
 
 
-def phase_input_grad(device, cfg, model, plain, make_cfg=flagship_cfg, wide=False) -> dict:
+def phase_input_grad(device, cfg, model, plain, make_cfg=flagship_cfg, form="",
+                     ref_chunk=None) -> dict:
     """The input gradient of the summed embedding norms with the weights
     frozen, as demo2_tpu/visualize/saliency.py::gradcam_heatmaps takes it:
     the attention backward needs no db, so it runs kernel 7, and the MLP,
     fused outside training, runs its training form for its backward.  Held,
     as the kernels are, to be no further from an f32 run of the plain path than the
     plain bf16 path is.  `make_cfg` builds the model's config (the f32 run's
-    too); `wide`: kernels 3 and 7 in their wide forms (S > 144).  Returns the
-    launches of the pass."""
+    too); `form`: kernels 3 and 7 in that form ("_wide" at 145-256 tokens,
+    "_long" past 256).  With `ref_chunk` the two references take the batch
+    `ref_chunk` images at a time (an eval forward is per sample, so the
+    gradient is the same sum; the f32 run's activations past 256 tokens do
+    not fit the card at 64), the kernel path the whole batch in one pass.
+    Returns the launches of the pass."""
     from demo2_tpu_torch.models import make_model
 
     layers = num_blocks(model)
@@ -1605,22 +1640,25 @@ def phase_input_grad(device, cfg, model, plain, make_cfg=flagship_cfg, wide=Fals
     plain.load_state_dict(model.state_dict())
     f32.load_state_dict(model.state_dict())
     grads = []
+    camids = torch.from_numpy(cams).to(device)
     for m in (model, plain, f32):
         m.requires_grad_(False)
         x = torch.from_numpy(images).to(device).requires_grad_(True)
         if m is model:
             reset_counts()
-        emb = m(x, torch.from_numpy(cams).to(device), train=False)["embedding"]
-        emb.norm(dim=-1).sum().backward()
+        chunk = len(x) if m is model or ref_chunk is None else ref_chunk
+        for i in range(0, len(x), chunk):
+            emb = m(x[i:i + chunk], camids[i:i + chunk], train=False)["embedding"]
+            emb.norm(dim=-1).sum().backward()
+        del emb
         sync()
         if m is model:
             launches = counts()
         grads.append(x.grad.float())
         m.requires_grad_(True)
     del f32
-    suffix = "_wide" if wide else ""
-    want = launch_dict(**{f"fused_attention_block_train{suffix}": layers,
-                          f"attention_bwd_saved{suffix}": layers},
+    want = launch_dict(**{f"fused_attention_block_train{form}": layers,
+                          f"attention_bwd_saved{form}": layers},
                        fused_mlp_block_train=layers)
     ref = grads[2]
     err = [((g - ref).norm() / ref.norm()).item() for g in grads[:2]]
@@ -1898,17 +1936,50 @@ def compare_cases(device, block_shape=FLAGSHIP, packed_shape=PACKED_SHAPES[0],
     for shape in wide_shapes or WIDE_SHAPES + WIDE_LONG_SHAPES:
         for name, case in wide_attention_cases(device, shape, seed).items():
             cases[f"{name} {shape[1]}x{shape[2] // 3 // shape[3]}"] = case[0]
-    b, s, c = long_shape or LONG_SHAPE
-    xl, attnl, _ = block_inputs((b, s, c), device, seed)
-    saved = saved_probs_inputs((b, s, 3 * c), device, seed)
-    kwl = dict(num_heads=c // 64, scale=64 ** -0.5)
-    cases.update({
-        f"fused_attention_block block {s}": lambda: fb.fused_attention_block(xl, **attnl, **kwl),
-        f"fused_attention_block_train block {s}":
-            lambda: fb.fused_attention_block_train(xl, **attnl, **kwl),
-        f"attention_bwd_saved_db block {s}": lambda: pa.attention_bwd_saved_db(*saved, **kwl),
-        f"attention_bwd_saved block {s}": lambda: pa.attention_bwd_saved(*saved, **kwl)})
+    cases.update(block_cases(device, long_shape or LONG_SHAPE, seed))
     return cases
+
+
+def block_cases(device, shape, seed=7) -> dict:
+    """Kernels 1, 3, 4 and 7 at x `shape` (B, S, C), each named "block S",
+    through the wrappers that route by S."""
+    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+
+    b, s, c = shape
+    x, attn, _ = block_inputs(shape, device, seed)
+    saved = saved_probs_inputs((b, s, 3 * c), device, seed)
+    kw = dict(num_heads=c // 64, scale=64 ** -0.5)
+    return {f"fused_attention_block block {s}": lambda: fb.fused_attention_block(x, **attn, **kw),
+            f"fused_attention_block_train block {s}":
+                lambda: fb.fused_attention_block_train(x, **attn, **kw),
+            f"attention_bwd_saved_db block {s}": lambda: pa.attention_bwd_saved_db(*saved, **kw),
+            f"attention_bwd_saved block {s}": lambda: pa.attention_bwd_saved(*saved, **kw)}
+
+
+# The block kernels' long forms in tools/compare_trees.py: the 256x256 and
+# 384x128 crops at stride 12, batch 64 ("block 442", "block 311").
+LONGER_COMPARE_SHAPES = ((192, 442, 768), (64, 311, 768))
+
+
+def longer_compare_cases(device, shapes=LONGER_COMPARE_SHAPES, seed=7) -> dict:
+    """block_cases at `shapes`: kernels 1, 3, 4 and 7 past 256 tokens, which
+    tools/compare_trees.py times beside compare_cases (a checkout whose
+    kernels stop at 256 tokens refuses them)."""
+    cases = {}
+    for shape in shapes:
+        cases.update(block_cases(device, shape, seed))
+    return cases
+
+
+def digest(y) -> str:
+    """The first 12 hex digits of the SHA-1 of a call's output tensors'
+    bytes: two checkouts whose digests agree gave the same bits."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in as_tuple(y):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def _bf16(t):
@@ -5265,33 +5336,41 @@ LONG_CROP = (384, 128)  # a taller crop at stride 16: 24 x 8 patches + 1 = 193 t
 LONG_PHASE_BUDGET_S = 60.0
 
 
-def long_shape_launches(fused_dw: bool) -> dict:
-    """The launches of one pass of phase 36 (a)'s checks at a shape past 144
-    tokens: every one on the wide forms, none on the register forms."""
-    return launch_dict(fused_attention_block_wide=1, fused_attention_block_train_wide=2,
-                       attention_bwd_saved_db_wide=2, attention_bwd_saved_wide=1,
+def form_names(form: str) -> tuple:
+    """The wrappers of kernels 1, 3, 4 and 7 in `form` ("_wide", "_long")."""
+    return tuple(name + form for name in ("fused_attention_block", "fused_attention_block_train",
+                                          "attention_bwd_saved_db", "attention_bwd_saved"))
+
+
+def long_shape_launches(fused_dw: bool, form: str = "_wide") -> dict:
+    """The launches of one pass of phase 36 (a)'s (or 37 (a)'s) checks at a
+    shape of `form`: every one on that form, none on the others."""
+    k1, k3, k4, k7 = form_names(form)
+    return launch_dict(**{k1: 1, k3: 2, k4: 2, k7: 1},
                        attention_bwd_fused_dw=2 if fused_dw else 0)
 
 
 def phase_long_block_kernels(device, card, shapes=LONG_BLOCK_SHAPES,
-                             edges=LONG_SAVED_EDGES) -> tuple:
-    """Phase 36 (a): kernels 1, 3, 4, 7 and 8 past the register tiles, at
-    `shapes` (x (B, S, C)): kernel 1 against its plain bf16 version (phase
-    2's bounds) and bitwise equal to kernel 3's out; kernel 3 with its
-    residuals and probs (phase 5's bounds, within BLOCK_ROUNDING_REL of the
-    plain version, which its misrounded control, p rounded before it is
-    normalised, fails); kernels 4 and 7 on kernel 3's qkv and probs (phase
-    5's bounds, the dS-in-f32 control failing ROUNDING_MEAN_TOL, bit-identical
-    reruns, 7 bitwise 4's dqkv); kernel 8 (phase 18's bounds, its first stage
-    the wide form of 4); the training Function's grads at the first shape;
-    4 and 7 also at `edges` (packed qkv).  Each wrapper's launches show that
-    the wide forms ran and the register forms did not.  On the card, the
-    four wide forms timed at the first shape beside their bounds (and kernel
-    8 there, printed).  Returns (name -> max abs error, name -> times) for
-    the wide forms at the first shape."""
-    from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
+                             edges=LONG_SAVED_EDGES, form: str = "_wide") -> tuple:
+    """Phase 36 (a) (and, with `form` "_long", 37 (a)): kernels 1, 3, 4, 7
+    and 8 past the register tiles, at `shapes` (x (B, S, C)): kernel 1
+    against its plain bf16 version (phase 2's bounds) and bitwise equal to
+    kernel 3's out; kernel 3 with its residuals and probs (phase 5's bounds,
+    within BLOCK_ROUNDING_REL of the plain version, which its misrounded
+    control, p rounded before it is normalised, fails); kernels 4 and 7 on
+    kernel 3's qkv and probs (phase 5's bounds, the dS-in-f32 control
+    failing ROUNDING_MEAN_TOL, bit-identical reruns, 7 bitwise 4's dqkv);
+    kernel 8 (phase 18's bounds, its first stage the `form` of 4); the
+    training Function's grads at the first shape; 4 and 7 also at `edges`
+    (packed qkv).  Each wrapper's launches show that the `form` ran and no
+    other.  On the card, the four timed at the first shape beside their
+    bounds (and kernel 8 there, printed).  Returns (name -> max abs error,
+    name -> times) for the four at the first shape."""
+    from demo2_tpu_torch.ops import fused_block as fb
 
     exact_products()
+    tag = "[long]" if form == "_wide" else "[longer]"
+    k1, k3, k4, k7 = form_names(form)
     errors = {}
     for shape in shapes:
         b, s, c = shape
@@ -5307,62 +5386,58 @@ def phase_long_block_kernels(device, card, shapes=LONG_BLOCK_SHAPES,
         else:
             require(torch.equal(eval_out, train["residuals"][0]),
                     f"kernel 1 {shape}: output not bitwise equal to kernel 3's")
-            log(f"[long] kernel 1 {shape}: output bitwise equal to kernel 3's")
+            log(f"{tag} kernel 1 {shape}: output bitwise equal to kernel 3's")
         _, qkv, _, probs = train["residuals"]
         do = torch.randn(shape, generator=torch.Generator().manual_seed(b + s)).to(
             device, torch.bfloat16)
         bwd = check_train_backward(qkv, probs, do, kw)
         check_fused_dw(device, (b, s, 3 * c))
-        require_launches(counts(), long_shape_launches(True), f"[long] checks at {shape}")
+        require_launches(counts(), long_shape_launches(True, form), f"{tag} checks at {shape}")
         if shape == shapes[0]:
             check_train_function(x, {k: v.float() for k, v in attn.items()}, do, shape, kw)
-            errors.update({"fused_attention_block_wide": eval_err,
-                           "fused_attention_block_train_wide": train["max_abs"],
-                           "attention_bwd_saved_db_wide": bwd["max_abs"],
-                           "attention_bwd_saved_wide": bwd["max_abs"]})
+            errors.update({k1: eval_err, k3: train["max_abs"], k4: bwd["max_abs"],
+                           k7: bwd["max_abs"]})
     for shape in edges:
         kw = dict(num_heads=shape[-1] // 3 // 64, scale=64 ** -0.5)
         reset_counts()
         check_train_backward(*saved_probs_inputs(shape, device, seed=9), kw)
-        require_launches(counts(), launch_dict(attention_bwd_saved_db_wide=2,
-                                               attention_bwd_saved_wide=1),
-                         f"[long] kernels 4 and 7 at {shape}")
-    log(f"[long] tolerances as phases 2, 5 and 18 (the misrounded controls beyond them) at "
-        f"{len(shapes)} shapes past 144 tokens and {len(edges)} edges of kernel 4's wide form; "
-        f"every launch on the wide forms: ok")
-    times = time_long_block_kernels(device, card, shapes[0]) if device.type == "cuda" else {}
+        require_launches(counts(), launch_dict(**{k4: 2, k7: 1}),
+                         f"{tag} kernels 4 and 7 at {shape}")
+    log(f"{tag} tolerances as phases 2, 5 and 18 (the misrounded controls beyond them) at "
+        f"{len(shapes)} shapes and {len(edges)} edges of kernel 4's {form[1:]} form; every "
+        f"launch on the {form[1:]} forms: ok")
+    times = (time_long_block_kernels(device, card, shapes[0], form) if device.type == "cuda"
+             else {})
     return errors, times
 
 
-def time_long_block_kernels(device, card, shape) -> dict:
-    """The wide forms of kernels 1, 3, 4 and 7 timed at `shape` beside their
-    bounds and plain versions; kernel 8 there too (printed)."""
+def time_long_block_kernels(device, card, shape, form: str = "_wide") -> dict:
+    """Kernels 1, 3, 4 and 7 in `form` timed at `shape` beside their bounds
+    and plain versions; kernel 8 there too (printed)."""
     from demo2_tpu_torch.ops import fused_block as fb, packed_attention as pa
 
     b, s, c = shape
+    k1, k3, k4, k7 = form_names(form)
     x, attn, _ = block_inputs(shape, device, seed=1)
     xt, p, grad_out = train_kernel_inputs(shape, device, seed=5)
     w = {k: (v.to(torch.bfloat16) if k in ("wqkv", "wout") else v) for k, v in p.items()}
     kw = dict(num_heads=c // 64, scale=64 ** -0.5)
-    _, qkv, _, probs = fb.fused_attention_block_train_wide(xt, **w, **kw)
+    _, qkv, _, probs = getattr(fb, k3)(xt, **w, **kw)
     saved = [qkv, probs, grad_out]
     times = time_kernels({
-        "fused_attention_block_wide": timed(
-            lambda: fb.fused_attention_block_wide(x, **attn, **kw),
-            lambda: fb.attention_block_plain(x, **attn, **kw),
-            block_flops("fused_attention_block", shape), shape, [x, *attn.values()]),
-        "fused_attention_block_train_wide": timed(
-            lambda: fb.fused_attention_block_train_wide(xt, **w, **kw),
-            lambda: fb.attention_block_train_plain(xt, **w, **kw),
-            train_kernel_flops("fused_attention_block_train", shape), shape, [xt, *w.values()]),
-        "attention_bwd_saved_db_wide": timed(
-            lambda: pa.attention_bwd_saved_db_wide(qkv, probs, grad_out, **kw),
-            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw),
-            train_kernel_flops("attention_bwd_saved_db", shape), shape, saved),
-        "attention_bwd_saved_wide": timed(
-            lambda: pa.attention_bwd_saved_wide(qkv, probs, grad_out, **kw),
-            lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw),
-            train_kernel_flops("attention_bwd_saved", shape), shape, saved),
+        k1: timed(lambda: getattr(fb, k1)(x, **attn, **kw),
+                  lambda: fb.attention_block_plain(x, **attn, **kw),
+                  block_flops("fused_attention_block", shape), shape, [x, *attn.values()]),
+        k3: timed(lambda: getattr(fb, k3)(xt, **w, **kw),
+                  lambda: fb.attention_block_train_plain(xt, **w, **kw),
+                  train_kernel_flops("fused_attention_block_train", shape), shape,
+                  [xt, *w.values()]),
+        k4: timed(lambda: getattr(pa, k4)(qkv, probs, grad_out, **kw),
+                  lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=True, **kw),
+                  train_kernel_flops("attention_bwd_saved_db", shape), shape, saved),
+        k7: timed(lambda: getattr(pa, k7)(qkv, probs, grad_out, **kw),
+                  lambda: pa.attention_bwd_saved_plain(qkv, probs, grad_out, with_db=False, **kw),
+                  train_kernel_flops("attention_bwd_saved", shape), shape, saved),
     }, card)
     inputs, kw8 = fused_dw_inputs((b, s, 3 * c), device, seed=19)
     time_kernels({"attention_bwd_fused_dw": timed(
@@ -5393,12 +5468,11 @@ def phase_long_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> d
     a step) with the backbone's step-1 gradient held from one upstream
     gradient (SDTPS's input gradient is ill-conditioned) and the losses held,
     the input-gradient pass (3 and 7 wide, 12 times); on the card its step and
-    request beside the flagship's.  (c) At 384x128, stride 16, 193 tokens: one
-    batch-64 request against the plain path and one step (the backbone's
-    gradient held as in (b), the step's launches, a finite loss).  Returns
+    request beside the flagship's.  (c) At 384x128, stride 16, 193 tokens, at
+    CUT_DEPTH blocks (its kernels' checks are phase 36 (a)'s): one batch-64
+    request against the plain path and one step (the backbone's gradient
+    held as in (b), the step's launches, a finite loss).  Returns
     the launches of (b)'s requests, steps and input-gradient pass."""
-    from demo2_tpu_torch.serving import FeatureExtractor
-
     t0 = time.perf_counter()
     make_cfg = long_cfg()
     cfg, model, plain_cfg, plain = build_models(device, make_cfg)
@@ -5413,7 +5487,7 @@ def phase_long_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> d
                                       attention_bwd_saved_db_wide=layers),
                           label="s12-train", whole_model=False, hold_losses=True,
                           steps=BACKBONE_STEPS)
-    frozen = phase_input_grad(device, cfg, model, plain, make_cfg, wide=True)
+    frozen = phase_input_grad(device, cfg, model, plain, make_cfg, form="_wide")
     launches = {"fused_attention_block_wide": served["fused_attention_block_wide"],
                 "fused_attention_block_train_wide": trained["fused_attention_block_train_wide"],
                 "attention_bwd_saved_db_wide": trained["attention_bwd_saved_db_wide"],
@@ -5422,44 +5496,189 @@ def phase_long_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> d
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # (c) the 384x128 crop: a cache of its own, 16 ids x 8
-    make_cfg = long_cfg((16, 16), LONG_CROP)
-    ccfg, cmodel, cplain_cfg, cplain = build_models(device, make_cfg)
-    log(f"[crop] the flagship at {tuple(ccfg.INPUT.SIZE_TRAIN)}, stride (16, 16): "
-        f"{math.prod(cmodel.grid) + 1} tokens")
-    images, cams = request_images(64, ccfg, seed=6)
-    reset_counts()
-    emb = FeatureExtractor(ccfg, cmodel, device=device, batch_size=64).extract(images, cams)
-    sync()
-    require_launches(counts(), launch_dict(fused_attention_block_wide=layers,
-                                           fused_mlp_block=layers), "[crop] request")
-    ref = FeatureExtractor(cplain_cfg, cplain, device=device, batch_size=64).extract(images, cams)
-    cos = np.sum(emb * ref, axis=1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
-    log(f"[crop] batch-64 request: shape {emb.shape}, cosine to the plain path min "
-        f"{cos.min():.6f}")
-    require(emb.shape == (64, cmodel.embed_dim) and bool(np.isfinite(emb).all()),
-            "[crop] request: shape or non-finite")
-    require(float(cos.min()) >= COSINE_MIN, f"[crop] cosine to the plain path {cos.min()}")
-    ccache, csampler = build_train_data(ccfg, device, num_pids=16)
-    idx = torch.from_numpy(csampler.epoch_indices(1)[:ccfg.SOLVER.IMS_PER_BATCH]).to(device)
-    init = {k: v.detach().clone() for k, v in cmodel.state_dict().items()}
-    check_backbone_grads(ccfg, cmodel, cplain_cfg, cplain, ccache, idx, "crop")
-    cmodel.load_state_dict(init)
-
-    def per_step(i, rose):
-        require_launches(rose, launch_dict(fused_attention_block_train_wide=layers,
-                                           attention_bwd_saved_db_wide=layers),
-                         f"[crop] train step {i}")
-
-    losses = train_steps(ccfg, cmodel, ccache, csampler.epoch_indices(1), 1, per_step)
-    require(math.isfinite(losses[0]), "[crop] a non-finite loss")
-    log(f"[crop] one train step of {ccfg.SOLVER.IMS_PER_BATCH}: loss {losses[0]:.4f}")
-    del cplain, cmodel, ccache
+    # (c) the 384x128 crop at stride 16, at CUT_DEPTH blocks
+    check_crop(device, cut_depth(long_cfg((16, 16), LONG_CROP)), "_wide", "crop")
     log(f"[long] phase 36 (b, c) in {time.perf_counter() - t0:.1f} s")
     if device.type == "cuda":
         torch.cuda.empty_cache()
         time_beside_flagship(device, card, "flagship s12", cfg, model, flag_cfg, flag_model,
                              cache, sampler)
+    return launches
+
+
+def check_requests(device, cfg, model, plain_cfg, plain, per_forward: dict, label: str,
+                   ns=(1, 64)) -> dict:
+    """Requests of `ns` images through FeatureExtractor, each forward
+    launching `per_forward` (all twenty-four kernels' counts), the embeddings
+    of unit norm and within COSINE_MIN of the plain path's.  Returns the
+    launches of the requests."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    images, cams = request_images(max(ns), cfg, seed=6)
+    fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
+    fx_plain = FeatureExtractor(plain_cfg, plain, device=device, batch_size=64)
+    total = launch_dict()
+    for n in ns:
+        reset_counts()
+        emb = fx.extract(images[:n], cams[:n])
+        sync()
+        forwards = math.ceil(n / fx.batch_size)
+        require_launches(counts(), {k: v * forwards for k, v in per_forward.items()},
+                         f"[{label}] N={n} request")
+        total = {k: v + counts()[k] for k, v in total.items()}
+        ref = fx_plain.extract(images[:n], cams[:n])
+        norms = np.linalg.norm(emb, axis=1)
+        cos = np.sum(emb * ref, axis=1) / (norms * np.linalg.norm(ref, axis=1))
+        log(f"[{label}] N={n} request: shape {emb.shape}, cosine to the plain path min "
+            f"{cos.min():.6f} mean {cos.mean():.6f}")
+        require(emb.shape == (n, model.embed_dim) and bool(np.isfinite(emb).all()),
+                f"[{label}] N={n} request: shape or non-finite")
+        require(bool(np.all(np.abs(norms - 1.0) < 1e-4)), f"[{label}] N={n}: not unit norm")
+        require(float(cos.min()) >= COSINE_MIN,
+                f"[{label}] N={n}: cosine to the plain path {cos.min()} < {COSINE_MIN}")
+    return total
+
+
+def check_crop(device, make_cfg, form: str, label: str) -> None:
+    """The flagship at another crop on both paths: one batch-64 request (the
+    block kernels in `form`) and one train step of a cache of its own, 16 ids
+    x 8 (its launches, a finite loss), the backbone's step-1 gradient held
+    from one upstream gradient."""
+    cfg, model, plain_cfg, plain = build_models(device, make_cfg)
+    layers = num_blocks(model)
+    log(f"[{label}] the flagship at {tuple(cfg.INPUT.SIZE_TRAIN)}, stride "
+        f"{tuple(cfg.MODEL.STRIDE_SIZE)}: {layers} blocks, {math.prod(model.grid) + 1} tokens")
+    k1, k3, k4, _ = form_names(form)
+    check_requests(device, cfg, model, plain_cfg, plain,
+                   launch_dict(**{k1: layers}, fused_mlp_block=layers), label, ns=(64,))
+    cache, sampler = build_train_data(cfg, device, num_pids=16)
+    idx = torch.from_numpy(sampler.epoch_indices(1)[:cfg.SOLVER.IMS_PER_BATCH]).to(device)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    check_backbone_grads(cfg, model, plain_cfg, plain, cache, idx, label)
+    model.load_state_dict(init)
+
+    def per_step(i, rose):
+        require_launches(rose, launch_dict(**{k3: layers, k4: layers}),
+                         f"[{label}] train step {i}")
+
+    losses = train_steps(cfg, model, cache, sampler.epoch_indices(1), 1, per_step)
+    require(math.isfinite(losses[0]), f"[{label}] a non-finite loss")
+    log(f"[{label}] one train step of {cfg.SOLVER.IMS_PER_BATCH}: loss {losses[0]:.4f}")
+    del plain, model, cache
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 37
+
+
+LONGER_SHAPE = (192, 442, 768)  # the flagship's x at 256x256, stride 12, batch 64
+# The block kernels' long forms (heads of 64, 257 <= S <= 512): the 256x256
+# crop at stride 12, one token past the wide forms (17 tiles: the backward's
+# two blocks of a cluster take 9 and 8 key tiles), the 384x128 crop's 311 and
+# the longest the forms take, each at a batch that gives a block (and a
+# cluster) of the persistent grid many (sample, head) items, the
+# mbarrier-parity trap of attention_regs_fwd.cuh's wait_started.  S16 = 272,
+# 320 and 448 end in a part 64-column probs box.
+LONGER_BLOCK_SHAPES = (LONGER_SHAPE, (192, 257, 768), (64, 311, 768), (48, 512, 768))
+# Kernels 4 and 7 alone: a batch of 3 (36 items, one a cluster) and 256 at
+# S16 = 272 (3,072 items, ~47 a cluster).
+LONGER_SAVED_EDGES = ((3, 442, 2304), (256, 272, 2304))
+# TransReID's stride-12 crops: 256x256 (its VeRi config; 21 x 21 patches + 1
+# = 442 tokens) and 384x128 (its person configs; 31 x 10 + 1 = 311).
+LONGER_CROPS = ((256, 256), (384, 128))
+LONGER_PIDS = 80  # 80 ids x 8: BACKBONE_STEPS PK batches of 64 at 256x256
+
+
+def time_step_request(device, card, label, cfg, model, cache, sampler, reps=3) -> None:
+    """One model's train step and batch-64 request: host wall (the mean of
+    `reps` calls after one), the profiler's device busy of one call each, and
+    the peak device memory of a step."""
+    from demo2_tpu_torch.serving import FeatureExtractor
+
+    step = build_timed_step(cfg, model, cache, sampler)
+    images, cams = request_images(64, cfg, seed=3)
+    fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
+
+    def request():
+        fx.extract(images, cams)
+
+    def wall_ms(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    step_ms, request_ms = wall_ms(step), wall_ms(request)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    _, step_busy = profile(f"{label}, one train step of {bs}", step, card, top=8)
+    _, request_busy = profile(f"{label}, one batch-64 request", request, card, top=8)
+    log(f"[time] {label}: train step of {bs} {step_ms:.2f} ms (device busy {step_busy:.2f}), "
+        f"batch-64 request {request_ms:.2f} ms (device busy {request_busy:.2f}); peak device "
+        f"memory of a step {peak:.2f} GiB ({card})")
+
+
+def phase_longer_flagship(device, card, flag_cfg, flag_model, cache, sampler) -> dict:
+    """Phase 37 (b) and (c): the flagship on TransReID's stride-12 crops, at
+    full width and all 12 blocks, on both paths.  (b) 256x256 (442 tokens):
+    requests of 1 and 64 images against the plain path (kernels 1 and 2 12
+    times a forward, 1 in its long form), phase 6 over BACKBONE_STEPS steps
+    on a cache of LONGER_PIDS ids (3 and 4 in their long forms 12 times a
+    step) with the backbone's step-1 gradient held from one upstream gradient
+    and each step's loss held to the plain path's (their fall is printed
+    only: at 442 tokens the random-init model starts on the ~2.57 plateau
+    that the 129- and 211-token models reach after their first step, so ten
+    steps need not fall on either path), the input-gradient pass (3 and 7
+    long, 12 times; its references 16 images at a time), the peak memory
+    over phase 6 (both paths); on the card its step and batch-64
+    request timed beside the 129-token flagship's.  (c) 384x128 (311
+    tokens): one batch-64 request against the plain path and one step (the
+    backbone's gradient held, the step's launches, a finite loss).  Returns
+    the launches of (b)'s requests, steps and input-gradient pass."""
+    t0 = time.perf_counter()
+    make_cfg = long_cfg((12, 12), LONGER_CROPS[0])
+    cfg, model, plain_cfg, plain = build_models(device, make_cfg)
+    layers = num_blocks(model)
+    log(f"[s12-256] the flagship at {tuple(cfg.INPUT.SIZE_TRAIN)}, stride (12, 12): {layers} "
+        f"blocks, {math.prod(model.grid) + 1} tokens")
+    served = check_requests(device, cfg, model, plain_cfg, plain,
+                            launch_dict(fused_attention_block_long=layers,
+                                        fused_mlp_block=layers), "s12-256")
+    lcache, lsampler = build_train_data(cfg, device, num_pids=LONGER_PIDS)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trained = phase_train(device, cfg, model, plain_cfg, plain, lcache, lsampler,
+                          launch_dict(fused_attention_block_train_long=layers,
+                                      attention_bwd_saved_db_long=layers),
+                          label="s12-256-train", whole_model=False, hold_losses=True,
+                          steps=BACKBONE_STEPS, hold_fall=False)
+    if device.type == "cuda":
+        log(f"[s12-256] peak device memory over phase 6's checks and both paths' steps: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    frozen = phase_input_grad(device, cfg, model, plain, make_cfg, form="_long", ref_chunk=16)
+    launches = {"fused_attention_block_long": served["fused_attention_block_long"],
+                "fused_attention_block_train_long": trained["fused_attention_block_train_long"],
+                "attention_bwd_saved_db_long": trained["attention_bwd_saved_db_long"],
+                "attention_bwd_saved_long": frozen["attention_bwd_saved_long"]}
+    del plain
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        time_step_request(device, card, "flagship s12 256x256", cfg, model, lcache, lsampler)
+        time_step_request(device, card, "flagship 256x128", flag_cfg, flag_model, cache, sampler)
+    del model, lcache
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) 384x128 at stride 12
+    check_crop(device, long_cfg((12, 12), LONGER_CROPS[1]), "_long", "s12-384")
+    log(f"[longer] phase 37 (b, c) in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5586,6 +5805,14 @@ KERNEL_SOURCES = {  # name: (source, the Pallas kernel it replaces)
                                     "demo2_tpu/ops/packed_attention.py:264"),
     "attention_bwd_saved_wide": ("demo2_tpu_torch/csrc/attention_wide_block.cuh",
                                  "demo2_tpu/ops/packed_attention.py:231"),
+    "fused_attention_block_long": ("demo2_tpu_torch/csrc/attention_long_block.cuh",
+                                   "demo2_tpu/ops/fused_block.py:128"),
+    "fused_attention_block_train_long": ("demo2_tpu_torch/csrc/attention_long_block.cuh",
+                                         "demo2_tpu/ops/fused_block.py:118"),
+    "attention_bwd_saved_db_long": ("demo2_tpu_torch/csrc/attention_long_block.cuh",
+                                    "demo2_tpu/ops/packed_attention.py:264"),
+    "attention_bwd_saved_long": ("demo2_tpu_torch/csrc/attention_long_block.cuh",
+                                 "demo2_tpu/ops/packed_attention.py:231"),
 }
 
 
@@ -5613,7 +5840,13 @@ def main() -> None:
     long_errors, long_times = phase_long_block_kernels(device, card)
     errors.update(long_errors)
     phase36_s = time.perf_counter() - t36
-    clock(t0, "the kernel phases (1, 2, 5, 9, 14, 18, 36 (a))")
+    # Past 256 tokens (phase 37 (a)): the long forms of kernels 1, 3, 4, 7 and 8.
+    t37 = time.perf_counter()
+    longer_errors, longer_times = phase_long_block_kernels(
+        device, card, LONGER_BLOCK_SHAPES, LONGER_SAVED_EDGES, form="_long")
+    errors.update(longer_errors)
+    phase37_s = time.perf_counter() - t37
+    clock(t0, "the kernel phases (1, 2, 5, 9, 14, 18, 36 (a), 37 (a))")
 
     # The CLIP flagship: serving (kernels 1, 2), training (3, 4), the input
     # gradient (7), do_train, timing.
@@ -5669,6 +5902,14 @@ def main() -> None:
     log(f"[long] phase 36 in {phase36_s + time.perf_counter() - t36:.1f} s, its timing "
         f"included (budget {LONG_PHASE_BUDGET_S:.0f} s)")
     clock(t0, "phases 34 (parts 1, 2) and 36 (b, c)")
+    # The flagship on TransReID's stride-12 crops, 256x256 (442 tokens) and
+    # 384x128 (311), through the block kernels' long forms (phase 37 (b, c)).
+    t37 = time.perf_counter()
+    launches.update(phase_longer_flagship(device, card, cfg, model, cache, sampler))
+    times.update(longer_times)
+    log(f"[longer] phase 37 in {phase37_s + time.perf_counter() - t37:.1f} s, its timing "
+        f"included")
+    clock(t0, "phase 37 (b, c)")
 
     # DeMo's own model, configs/RGBNT201/DeMo.yml (HDM + ATMoE; kernels 1-4),
     # at full width and CUT_DEPTH blocks, timed beside the flagship; the

@@ -13,13 +13,17 @@
 // kernel 4's bit for bit.  Past the register tiles' 144 tokens (up to 256:
 // the CLIP flagship at stride 12, 211 tokens) the _wide entries run the same
 // arithmetic as block_wide_bwd_kernel<kDb> (attention_wide_block.cuh), with P
-// read from device memory by 16-row and 16-column strips, and kernel 8 routes
-// its first stage there.
+// read from device memory by 16-row and 16-column strips, and past 256 (up to
+// 512: the flagship on TransReID's stride-12 crops, 311 and 442 tokens) the
+// _long entries as block_long_bwd_kernel<kDb> (attention_long_block.cuh), an
+// item's keys split over a cluster of two blocks; kernel 8 routes its first
+// stage by S among the three.
 // With db (kernel 4), db_qkv = the f32 column sums of the bf16-rounded dq,
 // dk and dv, as _bwd_saved_db_kernel sums them.  The sums are deterministic:
 // inside the kernel the tasks of a (sample, head) add their column sums in
-// task order into a (B, 3C) f32 buffer, and a second small kernel adds the B
-// partials in a fixed order.  No atomics, so db does not vary from run to run.
+// task order into a (B, 3C) f32 buffer ((2B, 3C) for the long form: one row
+// a block of its cluster), and a second small kernel adds the partials in a
+// fixed order.  No atomics, so db does not vary from run to run.
 //
 // Layouts: qkv (B*S, 3C) bf16, q | k | v, each head-major (H, 64) inside its
 // C slice; dO (B*S, C) bf16; probs (B, H, S, S16) bf16 with S16 = S rounded up
@@ -64,6 +68,7 @@
 // 87.7 GFLOP each) = 0.28 ms, plus the slice sum's bytes.
 
 #include "attention_regs_bwd.cuh"
+#include "attention_long_block.cuh"
 #include "attention_wide_block.cuh"
 #include "gemm_sm90.cuh"
 
@@ -102,16 +107,34 @@ cudaError_t reduce_db(const void* db_partial, void* db, int batch, int width, cu
   return cudaGetLastError();
 }
 
-// Kernels 4 and 7 on the packed qkv (B*S, 3C) and dO (B*S, C): `wide`, the
-// form past the register tiles (block_wide_bwd_kernel, attention_wide_block.cuh:
-// heads of 64, 1 <= S <= 256), else the register tiles (S <= kMaxSeq).
+// The forms of kernels 4 and 7: the register tiles (S <= kMaxSeq), the wide
+// form (block_wide_bwd_kernel, attention_wide_block.cuh: heads of 64,
+// 1 <= S <= 256), the long form (block_long_bwd_kernel,
+// attention_long_block.cuh: 256 < S <= 512).
+enum class SavedForm { kRegs, kWide, kLong };
+
+SavedForm saved_form(int seq) {
+  return seq <= kMaxSeq ? SavedForm::kRegs : seq <= kWideMaxSeq ? SavedForm::kWide
+                                                                : SavedForm::kLong;
+}
+
+// The rows of db's partial sums: one a sample, two in the long form.
+int db_rows(int batch, SavedForm form) { return form == SavedForm::kLong ? 2 * batch : batch; }
+
+// Kernels 4 and 7 on the packed qkv (B*S, 3C) and dO (B*S, C) in `form`.
 template <bool kDb>
 cudaError_t launch_saved(const void* qkv, const void* probs, const void* dout, void* dqkv,
                          void* db_partial, int batch, int seq, int width, int heads,
-                         float scale, bool wide, cudaStream_t st) {
+                         float scale, SavedForm form, cudaStream_t st) {
   const bf16* x = static_cast<const bf16*>(qkv);
   bf16* dx = static_cast<bf16*>(dqkv);
-  if (wide) {
+  if (form == SavedForm::kLong) {
+    return launch_block_long_bwd<kDb>(x, static_cast<const bf16*>(probs),
+                                      static_cast<const bf16*>(dout), dx,
+                                      static_cast<float*>(db_partial), batch, seq, width, heads,
+                                      scale, st);
+  }
+  if (form == SavedForm::kWide) {
     return launch_block_wide_bwd<kDb>(x, static_cast<const bf16*>(probs),
                                       static_cast<const bf16*>(dout), dx,
                                       static_cast<float*>(db_partial), batch, seq, width, heads,
@@ -149,10 +172,11 @@ cudaError_t fused_dw(const void* qkv, const void* probs, const void* dout, const
   if (slice_rows <= 0 || slice_rows % kGemmBK != 0 || width % 8 != 0) {
     return cudaErrorInvalidValue;
   }
+  const SavedForm form = saved_form(seq);
   cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
-                                       heads, scale, seq > kMaxSeq, st);
+                                       heads, scale, form, st);
   if (err != cudaSuccess) return err;
-  err = reduce_db(db_partial, dbqkv, batch, width, st);
+  err = reduce_db(db_partial, dbqkv, db_rows(batch, form), width, st);
   if (err != cudaSuccess) return err;
 
   const int rows = batch * seq;
@@ -181,17 +205,19 @@ cudaError_t fused_dw(const void* qkv, const void* probs, const void* dout, const
 // and dout (B*S, C) are bf16 device pointers, dqkv (B*S, 3C) bf16 output.
 // Each returns the first non-zero cudaGetLastError() of its launches, else 0.
 //
-// Kernel 4: also db (3C,) f32, through db_partial (B, 3C) f32 scratch.  The
-// _wide entries take heads of 64 over 1 <= S <= 256, the others S <= 144.
+// Kernel 4: also db (3C,) f32, through db_partial (2B, 3C) f32 scratch (the
+// register and wide forms use its first B rows).  The _wide entries take
+// heads of 64 over 1 <= S <= 256, the _long entries 256 < S <= 512, the
+// others S <= 144.
 static int saved_db(const void* qkv, const void* probs, const void* dout, void* dqkv,
                     void* db_partial, void* db, int batch, int seq, int width, int heads,
-                    float scale, bool wide, void* stream) {
+                    float scale, demo2::SavedForm form, void* stream) {
   using namespace demo2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_saved<true>(qkv, probs, dout, dqkv, db_partial, batch, seq, width,
-                                       heads, scale, wide, st);
+                                       heads, scale, form, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_db(db_partial, db, batch, width, st));
+  return static_cast<int>(reduce_db(db_partial, db, db_rows(batch, form), width, st));
 }
 
 extern "C" int demo2_attention_bwd_saved_db(const void* qkv, const void* probs,
@@ -199,7 +225,7 @@ extern "C" int demo2_attention_bwd_saved_db(const void* qkv, const void* probs,
                                             void* db, int batch, int seq, int width, int heads,
                                             float scale, void* stream) {
   return saved_db(qkv, probs, dout, dqkv, db_partial, db, batch, seq, width, heads, scale,
-                  false, stream);
+                  demo2::SavedForm::kRegs, stream);
 }
 
 extern "C" int demo2_attention_bwd_saved_db_wide(const void* qkv, const void* probs,
@@ -207,7 +233,15 @@ extern "C" int demo2_attention_bwd_saved_db_wide(const void* qkv, const void* pr
                                                  void* db, int batch, int seq, int width,
                                                  int heads, float scale, void* stream) {
   return saved_db(qkv, probs, dout, dqkv, db_partial, db, batch, seq, width, heads, scale,
-                  true, stream);
+                  demo2::SavedForm::kWide, stream);
+}
+
+extern "C" int demo2_attention_bwd_saved_db_long(const void* qkv, const void* probs,
+                                                 const void* dout, void* dqkv, void* db_partial,
+                                                 void* db, int batch, int seq, int width,
+                                                 int heads, float scale, void* stream) {
+  return saved_db(qkv, probs, dout, dqkv, db_partial, db, batch, seq, width, heads, scale,
+                  demo2::SavedForm::kLong, stream);
 }
 
 // Kernel 7: dqkv only.
@@ -216,7 +250,7 @@ extern "C" int demo2_attention_bwd_saved(const void* qkv, const void* probs, con
                                          float scale, void* stream) {
   using namespace demo2;
   return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
-                                              width, heads, scale, false,
+                                              width, heads, scale, SavedForm::kRegs,
                                               static_cast<cudaStream_t>(stream)));
 }
 
@@ -225,14 +259,24 @@ extern "C" int demo2_attention_bwd_saved_wide(const void* qkv, const void* probs
                                               int width, int heads, float scale, void* stream) {
   using namespace demo2;
   return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
-                                              width, heads, scale, true,
+                                              width, heads, scale, SavedForm::kWide,
+                                              static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int demo2_attention_bwd_saved_long(const void* qkv, const void* probs,
+                                              const void* dout, void* dqkv, int batch, int seq,
+                                              int width, int heads, float scale, void* stream) {
+  using namespace demo2;
+  return static_cast<int>(launch_saved<false>(qkv, probs, dout, dqkv, nullptr, batch, seq,
+                                              width, heads, scale, SavedForm::kLong,
                                               static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel 8 (its first stage kernel 4's register form at S <= 144, its wide
-// form up to 256): t (B*S, C) and wqkv (3C, C) bf16 inputs besides; dt (B*S, C) bf16,
-// dwqkv (3C, C) and dbqkv (3C,) f32 outputs; dqkv (B*S, 3C) bf16, db_partial
-// (B, 3C) f32 and, where B*S > slice_rows (a multiple of 64), dw_partial
+// form up to 256, its long form up to 512): t (B*S, C) and wqkv (3C, C) bf16
+// inputs besides; dt (B*S, C) bf16, dwqkv (3C, C) and dbqkv (3C,) f32 outputs;
+// dqkv (B*S, 3C) bf16, db_partial (2B, 3C) f32 and, where B*S > slice_rows (a
+// multiple of 64), dw_partial
 // (ceil(B*S / slice_rows), 3C, C) f32 scratch.
 extern "C" int demo2_attention_bwd_fused_dw(const void* qkv, const void* probs,
                                             const void* dout, const void* t, const void* wqkv,

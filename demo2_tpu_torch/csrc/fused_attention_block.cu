@@ -25,7 +25,9 @@
 //      the register tiles' 144 tokens (up to 256: the flagship at stride 12,
 //      211 tokens) the _wide entries run block_wide_fwd_kernel
 //      (attention_wide_block.cuh) in its place, the same arithmetic on the
-//      wide pair's operand ring;
+//      wide pair's operand ring, and past 256 (up to 512: the flagship on
+//      TransReID's stride-12 crops, 311 and 442 tokens) the _long entries
+//      run block_long_fwd_kernel (attention_long_block.cuh);
 //   4. gemm_sm90_kernel with a bias + bf16-residual epilogue -> out.
 //
 // What bounds it on an H100: at the flagship shape (M = 192 x 129 rows,
@@ -39,23 +41,27 @@
 // rather than one.
 
 #include "attention_regs_fwd.cuh"
+#include "attention_long_block.cuh"
 #include "attention_wide_block.cuh"
 #include "gemm_sm90.cuh"
 
 namespace demo2 {
 namespace {
 
+// The forms of launch 3: the register tiles (S <= kMaxSeq), block_wide_fwd_
+// kernel (1 <= S <= 256), block_long_fwd_kernel (256 < S <= 512).
+enum class BlockForm { kRegs, kWide, kLong };
+
 // The four launches; probs == nullptr is the eval path (no probs store).
-// `wide`: launch 3 on block_wide_fwd_kernel (1 <= S <= 256), else on the
-// register tiles (S <= kMaxSeq).
 cudaError_t attention_block(const bf16* x, const float* ln_scale, const float* ln_bias,
                             const bf16* wqkv, const float* bqkv, const bf16* wout,
                             const float* bout, bf16* out, bf16* t, bf16* qkv, bf16* attn,
                             bf16* probs, int batch, int seq, int width, int heads, float scale,
-                            bool wide, cudaStream_t st) {
-  if (width != heads * kHeadDim || seq > (wide ? kWideMaxSeq : kMaxSeq)) {
-    return cudaErrorInvalidValue;
-  }
+                            BlockForm form, cudaStream_t st) {
+  const int max_seq = form == BlockForm::kLong   ? kLongMaxSeq
+                      : form == BlockForm::kWide ? kWideMaxSeq
+                                                 : kMaxSeq;
+  if (width != heads * kHeadDim || seq > max_seq) return cudaErrorInvalidValue;
   const int rows = batch * seq;
   cudaError_t err = launch_layernorm(x, ln_scale, ln_bias, t, rows, width, st);
   if (err != cudaSuccess) return err;
@@ -64,7 +70,12 @@ cudaError_t attention_block(const bf16* x, const float* ln_scale, const float* l
   if (err != cudaSuccess) return err;
 
   const HeadLayout in = packed_layout(seq, width), ol = rows_layout(seq, width);
-  if (wide) {
+  if (form == BlockForm::kLong) {
+    err = probs != nullptr ? launch_block_long_fwd<true>(qkv, attn, probs, batch, seq, width,
+                                                         heads, scale, st)
+                           : launch_block_long_fwd<false>(qkv, attn, nullptr, batch, seq,
+                                                          width, heads, scale, st);
+  } else if (form == BlockForm::kWide) {
     err = probs != nullptr ? launch_block_wide_fwd<true>(qkv, attn, probs, batch, seq, width,
                                                          heads, scale, st)
                            : launch_block_wide_fwd<false>(qkv, attn, nullptr, batch, seq,
@@ -92,14 +103,15 @@ cudaError_t attention_block(const bf16* x, const float* ln_scale, const float* l
 // weights bf16 in torch's Linear layout (out, in).  t and attn are (B*S, C)
 // and qkv (B*S, 3C) bf16.  Each returns the first non-zero cudaGetLastError()
 // of its launches, else 0.  The _wide entries take heads of 64 over
-// 1 <= S <= 256 (demo2_block_attention_max_seq), the others S <= 144.
-#define DEMO2_BLOCK_ARGS(probs, wide)                                                         \
+// 1 <= S <= 256 (demo2_block_attention_wide_max_seq), the _long entries over
+// 256 < S <= 512 (demo2_block_attention_max_seq), the others S <= 144.
+#define DEMO2_BLOCK_ARGS(probs, form)                                                         \
   static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),                           \
       static_cast<const float*>(ln_bias), static_cast<const bf16*>(wqkv),                     \
       static_cast<const float*>(bqkv), static_cast<const bf16*>(wout),                        \
       static_cast<const float*>(bout), static_cast<bf16*>(out), static_cast<bf16*>(t),        \
       static_cast<bf16*>(qkv), static_cast<bf16*>(attn), probs, batch, seq, width, heads,     \
-      scale, wide, static_cast<cudaStream_t>(stream)
+      scale, form, static_cast<cudaStream_t>(stream)
 
 // Eval (kernel 1): t, qkv and attn are scratch.
 extern "C" int demo2_fused_attention_block(const void* x, const void* ln_scale,
@@ -109,7 +121,7 @@ extern "C" int demo2_fused_attention_block(const void* x, const void* ln_scale,
                                            void* attn, int batch, int seq, int width, int heads,
                                            float scale, void* stream) {
   using namespace demo2;
-  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(nullptr, false)));
+  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(nullptr, BlockForm::kRegs)));
 }
 
 extern "C" int demo2_fused_attention_block_wide(const void* x, const void* ln_scale,
@@ -119,7 +131,17 @@ extern "C" int demo2_fused_attention_block_wide(const void* x, const void* ln_sc
                                                 void* attn, int batch, int seq, int width,
                                                 int heads, float scale, void* stream) {
   using namespace demo2;
-  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(nullptr, true)));
+  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(nullptr, BlockForm::kWide)));
+}
+
+extern "C" int demo2_fused_attention_block_long(const void* x, const void* ln_scale,
+                                                const void* ln_bias, const void* wqkv,
+                                                const void* bqkv, const void* wout,
+                                                const void* bout, void* out, void* t, void* qkv,
+                                                void* attn, int batch, int seq, int width,
+                                                int heads, float scale, void* stream) {
+  using namespace demo2;
+  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(nullptr, BlockForm::kLong)));
 }
 
 // Training (kernel 3): qkv and attn are the residuals the backward reads, and
@@ -132,7 +154,7 @@ extern "C" int demo2_fused_attention_block_train(const void* x, const void* ln_s
                                                  int seq, int width, int heads, float scale,
                                                  void* stream) {
   using namespace demo2;
-  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(static_cast<bf16*>(probs), false)));
+  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(static_cast<bf16*>(probs), BlockForm::kRegs)));
 }
 
 extern "C" int demo2_fused_attention_block_train_wide(const void* x, const void* ln_scale,
@@ -143,15 +165,29 @@ extern "C" int demo2_fused_attention_block_train_wide(const void* x, const void*
                                                       int batch, int seq, int width, int heads,
                                                       float scale, void* stream) {
   using namespace demo2;
-  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(static_cast<bf16*>(probs), true)));
+  return static_cast<int>(attention_block(DEMO2_BLOCK_ARGS(static_cast<bf16*>(probs), BlockForm::kWide)));
+}
+
+extern "C" int demo2_fused_attention_block_train_long(const void* x, const void* ln_scale,
+                                                      const void* ln_bias, const void* wqkv,
+                                                      const void* bqkv, const void* wout,
+                                                      const void* bout, void* out, void* t,
+                                                      void* qkv, void* attn, void* probs,
+                                                      int batch, int seq, int width, int heads,
+                                                      float scale, void* stream) {
+  using namespace demo2;
+  return static_cast<int>(
+      attention_block(DEMO2_BLOCK_ARGS(static_cast<bf16*>(probs), BlockForm::kLong)));
 }
 
 // Compile-time limits of every attention tile (kernels 1, 3-10, 13),
 // which the Python wrappers check before launching, and the longest sequence
-// of the block kernels' wide forms (kernels 1, 3, 4, 7 and 8).
+// the block kernels (1, 3, 4, 7 and 8) take in any form (their long forms'),
+// and the longest of their wide forms.
 extern "C" int demo2_attention_head_dim() { return demo2::kHeadDim; }
 extern "C" int demo2_attention_max_seq() { return demo2::kMaxSeq; }
-extern "C" int demo2_block_attention_max_seq() { return demo2::kWideMaxSeq; }
+extern "C" int demo2_block_attention_max_seq() { return demo2::kLongMaxSeq; }
+extern "C" int demo2_block_attention_wide_max_seq() { return demo2::kWideMaxSeq; }
 
 extern "C" const char* demo2_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -14,6 +14,11 @@ PyTorch version (demo2_tpu/ops/fused_block.py).
       over at most 256 tokens, where the two above send the sequences past
       144 (demo2_fused_attention_block_wide and _train_wide; the CLIP
       flagship at MODEL.STRIDE_SIZE (12, 12), 211 tokens at 256x128);
+  fused_attention_block_long / fused_attention_block_train_long: the same
+      two with their attention on csrc/attention_long_block.cuh, heads of 64
+      over 257-512 tokens, where the two above send the sequences past 256
+      (demo2_fused_attention_block_long and _train_long; the flagship on
+      TransReID's stride-12 crops, 311 tokens at 384x128, 442 at 256x256);
   fused_mlp_block:             x + fc2(QuickGELU(fc1(LN2(x)))) at eval
       replaces the Pallas kernel fused_block.py::_mlp_kernel
       (csrc/fused_mlp_block.cu, demo2_fused_mlp_block);
@@ -55,7 +60,7 @@ from .attention import attention_core
 from .kernel_lib import check, expect, kernel_library
 from .packed_attention import (attention_bwd_fused_dw, attention_bwd_saved,
                                attention_bwd_saved_db, check_head_limits, check_input_dtype,
-                               merge_heads, needs_grad, probs_cols, probs_shape, regs_take,
+                               block_form, merge_heads, needs_grad, probs_cols, probs_shape,
                                split_heads)
 
 
@@ -120,7 +125,7 @@ def _check_attention_inputs(what, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
 
 def _launch_attention(wrapper, entry, kl, x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
                       num_heads, scale, train: bool):
-    """Launch `entry` (kernel 1 or 3, either form) on checked inputs and
+    """Launch `entry` (kernel 1 or 3, any form) on checked inputs and
     count it on `wrapper`: out at eval, (out, qkv, attn, probs) in
     training."""
     what = wrapper.__name__
@@ -149,15 +154,16 @@ def _launch_attention(wrapper, entry, kl, x, ln_weight, ln_bias, wqkv, bqkv, wou
 def fused_attention_block(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
                           num_heads: int, scale: float) -> torch.Tensor:
     """x (B, S, C) -> x + out_proj(MHA(LN(x))): the kernel on CUDA tensors
-    (its wide form past the register tiles' 144 tokens), the plain version on
-    CPU tensors."""
+    (its wide form past the register tiles' 144 tokens, its long form past
+    256), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
                                      num_heads=num_heads, scale=scale)
     args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
     kl = _check_attention_inputs("fused_attention_block", *args, num_heads)
-    wrapper = fused_attention_block if regs_take(kl, x.shape[-1], num_heads, x.shape[1]) \
-        else fused_attention_block_wide
+    wrapper = {"": fused_attention_block, "_wide": fused_attention_block_wide,
+               "_long": fused_attention_block_long}[block_form(kl, x.shape[-1], num_heads,
+                                                               x.shape[1])]
     return _launch_attention(wrapper, f"demo2_{wrapper.__name__}", kl, *args, num_heads, scale,
                              train=False)
 
@@ -179,6 +185,22 @@ def fused_attention_block_wide(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
 
 
 fused_attention_block_wide.launches = 0
+
+
+def fused_attention_block_long(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
+                               num_heads: int, scale: float) -> torch.Tensor:
+    """fused_attention_block on its long form: heads of 64, 256 < S <= 512;
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return attention_block_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                                     num_heads=num_heads, scale=scale)
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block_long", *args, num_heads)
+    return _launch_attention(fused_attention_block_long, "demo2_fused_attention_block_long", kl,
+                             *args, num_heads, scale, train=False)
+
+
+fused_attention_block_long.launches = 0
 
 
 def _launch_mlp(wrapper, x, ln_weight, ln_bias, w1, b1, w2, b2, with_hidden: bool):
@@ -272,15 +294,16 @@ def fused_attention_block_train(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *
                                 num_heads: int, scale: float):
     """The training forward: (out, qkv, attn, probs) as
     attention_block_train_plain returns them; the kernel on CUDA tensors (its
-    wide form past the register tiles' 144 tokens), the plain version on CPU
-    tensors."""
+    wide form past the register tiles' 144 tokens, its long form past 256),
+    the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return attention_block_train_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
                                            num_heads=num_heads, scale=scale)
     args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
     kl = _check_attention_inputs("fused_attention_block_train", *args, num_heads)
-    wrapper = fused_attention_block_train if regs_take(kl, x.shape[-1], num_heads, x.shape[1]) \
-        else fused_attention_block_train_wide
+    wrapper = {"": fused_attention_block_train, "_wide": fused_attention_block_train_wide,
+               "_long": fused_attention_block_train_long}[block_form(kl, x.shape[-1],
+                                                                     num_heads, x.shape[1])]
     return _launch_attention(wrapper, f"demo2_{wrapper.__name__}", kl, *args, num_heads, scale,
                              train=True)
 
@@ -303,6 +326,23 @@ def fused_attention_block_train_wide(x, ln_weight, ln_bias, wqkv, bqkv, wout, bo
 
 
 fused_attention_block_train_wide.launches = 0
+
+
+def fused_attention_block_train_long(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout, *,
+                                     num_heads: int, scale: float):
+    """fused_attention_block_train on its long form: heads of 64, 256 < S <=
+    512; the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return attention_block_train_plain(x, ln_weight, ln_bias, wqkv, bqkv, wout, bout,
+                                           num_heads=num_heads, scale=scale)
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wout, bout)
+    kl = _check_attention_inputs("fused_attention_block_train_long", *args, num_heads)
+    return _launch_attention(fused_attention_block_train_long,
+                             "demo2_fused_attention_block_train_long", kl, *args, num_heads,
+                             scale, train=True)
+
+
+fused_attention_block_train_long.launches = 0
 
 
 class FusedAttentionBlockFn(torch.autograd.Function):

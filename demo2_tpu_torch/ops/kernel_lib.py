@@ -28,7 +28,8 @@ SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
            "packed_attention.cu", "packed_attention_wide.cu", "flash_attention.cu",
            "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
 HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_regs_fwd.cuh",
-           "attention_regs_bwd.cuh", "attention_wide.cuh", "attention_wide_block.cuh")
+           "attention_regs_bwd.cuh", "attention_wide.cuh", "attention_wide_block.cuh",
+           "attention_long_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "demo2_attention_bwd_saved": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_db_wide": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_saved_wide": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_fused_attention_block_long": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_fused_attention_block_train_long": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_db_long": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "demo2_attention_bwd_saved_long": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
     "demo2_attention_bwd_fused_dw": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "demo2_fused_mlp_block": [_P] * 10 + [_I] * 3 + [_P],
     "demo2_fused_mlp_block_train": [_P] * 11 + [_I] * 3 + [_P],
@@ -64,6 +69,7 @@ _SIGNATURES = {
     "demo2_attention_head_dim": [],
     "demo2_attention_max_seq": [],
     "demo2_block_attention_max_seq": [],
+    "demo2_block_attention_wide_max_seq": [],
 }
 
 

@@ -30,11 +30,16 @@ saved-probs layout.
       sequences past 144 (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db_wide
       and _saved_wide, on csrc/attention_wide_block.cuh; the CLIP flagship at
       stride 12, 211 tokens);
+  attention_bwd_saved_db_long / attention_bwd_saved_long: the same two over
+      heads of 64 and 257-512 tokens, where the two above send the sequences
+      past 256 (csrc/attention_bwd.cu, demo2_attention_bwd_saved_db_long and
+      _saved_long, on csrc/attention_long_block.cuh; the CLIP flagship on
+      TransReID's stride-12 crops, 311 tokens at 384x128, 442 at 256x256);
   attention_bwd_fused_dw: the saved-probs backward with dqkv contracted at
       once into dt, the f32 dW_qkv and the f32 db_qkv
       replaces the Pallas kernel packed_attention.py::_bwd_fused_dw_kernel
       (csrc/attention_bwd.cu, demo2_attention_bwd_fused_dw): kernel 4's
-      backward (either form, by S) into a bf16 dqkv scratch, then dt and dW
+      backward (any of its forms, by S) into a bf16 dqkv scratch, then dt and dW
       on the wgmma GEMM of csrc/gemm_sm90.cuh.
 
 `packed_self_attention` is the entry of the ImageNet ViT's blocks and of
@@ -132,7 +137,8 @@ def check_head_limits(what: str, width: int, num_heads: int, seq: int,
     take heads of 64 over at most 144 tokens.  `wide`: the limits of kernels
     5 and 6, which also take the wide pair's shapes (heads of 64 or 96 over
     at most 256 tokens); `block`: those of the block kernels 1, 3, 4, 7 and
-    8, whose wide forms take heads of 64 over at most 256 tokens.  The Pallas
+    8, whose wide forms take heads of 64 over at most 256 tokens and their
+    long forms over at most 512.  The Pallas
     kernels take any head width and length, and f32 inputs too; the CUDA
     tiles read bf16."""
     item = "wider heads, longer sequences and f32 inputs in the attention kernels"
@@ -164,6 +170,15 @@ def regs_take(kl, width: int, num_heads: int, seq: int) -> bool:
             and seq <= kl.lib.demo2_attention_max_seq())
 
 
+def block_form(kl, width: int, num_heads: int, seq: int) -> str:
+    """The form of kernels 1, 3, 4 and 7 that takes this shape, as the suffix
+    of its wrapper's name: "" the register tiles (S <= 144), "_wide" (S <=
+    256), "_long" (past 256; check_head_limits refuses past 512)."""
+    if regs_take(kl, width, num_heads, seq):
+        return ""
+    return "_wide" if seq <= kl.lib.demo2_block_attention_wide_max_seq() else "_long"
+
+
 def _expect_cuda(t: torch.Tensor, what: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {t.device}")
@@ -183,14 +198,15 @@ def _check_inputs(qkv, probs, do, num_heads, what):
 
 
 def _launch_saved_db(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
-    """Launch `entry` (kernel 4, either form) on checked inputs and count it
-    on `wrapper`.  The (B, 3C) f32 partial sums of db, one row a sample, are
-    scratch allocated here."""
+    """Launch `entry` (kernel 4, any form) on checked inputs and count it on
+    `wrapper`.  The (2B, 3C) f32 partial sums of db are scratch allocated
+    here: one row a sample (two in the long form, one a block of its
+    cluster)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dqkv = torch.empty_like(qkv)
     db = torch.empty((3 * c,), device=qkv.device, dtype=torch.float32)
-    partial = torch.empty((b, 3 * c), device=qkv.device, dtype=torch.float32)
+    partial = torch.empty((2 * b, 3 * c), device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, db.zero_()
     with torch.cuda.device(qkv.device):
@@ -205,8 +221,8 @@ def _launch_saved_db(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
 
 
 def _launch_saved(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
-    """Launch `entry` (kernel 7, either form) on checked inputs and count it
-    on `wrapper`."""
+    """Launch `entry` (kernel 7, any form) on checked inputs and count it on
+    `wrapper`."""
     b, s, c3 = qkv.shape
     dqkv = torch.empty_like(qkv)
     if qkv.numel() == 0:
@@ -223,14 +239,14 @@ def _launch_saved(wrapper, entry, kl, qkv, probs, do, num_heads, scale):
 
 def attention_bwd_saved_db(qkv, probs, do, *, num_heads: int, scale: float):
     """(dqkv (B, S, 3C), db (3C,) f32): the kernel on CUDA tensors (its wide
-    form past the register tiles' 144 tokens), the plain version on CPU
-    tensors."""
+    form past the register tiles' 144 tokens, its long form past 256), the
+    plain version on CPU tensors."""
     if qkv.device.type == "cpu":
         return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
                                          with_db=True)
     kl, _, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_db")
-    wrapper = attention_bwd_saved_db if regs_take(kl, c, num_heads, s) \
-        else attention_bwd_saved_db_wide
+    wrapper = {"": attention_bwd_saved_db, "_wide": attention_bwd_saved_db_wide,
+               "_long": attention_bwd_saved_db_long}[block_form(kl, c, num_heads, s)]
     return _launch_saved_db(wrapper, f"demo2_{wrapper.__name__}", kl, qkv, probs, do,
                             num_heads, scale)
 
@@ -240,12 +256,14 @@ attention_bwd_saved_db.launches = 0
 
 def attention_bwd_saved(qkv, probs, do, *, num_heads: int, scale: float):
     """dqkv (B, S, 3C): the kernel on CUDA tensors (its wide form past the
-    register tiles' 144 tokens), the plain version on CPU tensors."""
+    register tiles' 144 tokens, its long form past 256), the plain version
+    on CPU tensors."""
     if qkv.device.type == "cpu":
         return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
                                          with_db=False)
     kl, _, s, c = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved")
-    wrapper = attention_bwd_saved if regs_take(kl, c, num_heads, s) else attention_bwd_saved_wide
+    wrapper = {"": attention_bwd_saved, "_wide": attention_bwd_saved_wide,
+               "_long": attention_bwd_saved_long}[block_form(kl, c, num_heads, s)]
     return _launch_saved(wrapper, f"demo2_{wrapper.__name__}", kl, qkv, probs, do, num_heads,
                          scale)
 
@@ -281,6 +299,34 @@ def attention_bwd_saved_wide(qkv, probs, do, *, num_heads: int, scale: float):
 attention_bwd_saved_wide.launches = 0
 
 
+def attention_bwd_saved_db_long(qkv, probs, do, *, num_heads: int, scale: float):
+    """attention_bwd_saved_db on its long form: heads of 64, 256 < S <= 512;
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                         with_db=True)
+    kl = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_db_long")[0]
+    return _launch_saved_db(attention_bwd_saved_db_long, "demo2_attention_bwd_saved_db_long", kl,
+                            qkv, probs, do, num_heads, scale)
+
+
+attention_bwd_saved_db_long.launches = 0
+
+
+def attention_bwd_saved_long(qkv, probs, do, *, num_heads: int, scale: float):
+    """attention_bwd_saved on its long form: heads of 64, 256 < S <= 512; the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_saved_plain(qkv, probs, do, num_heads=num_heads, scale=scale,
+                                         with_db=False)
+    kl = _check_inputs(qkv, probs, do, num_heads, "attention_bwd_saved_long")[0]
+    return _launch_saved(attention_bwd_saved_long, "demo2_attention_bwd_saved_long", kl, qkv,
+                         probs, do, num_heads, scale)
+
+
+attention_bwd_saved_long.launches = 0
+
+
 def attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, *, num_heads: int, scale: float):
     """_bwd_fused_dw_kernel's arithmetic in the dtype of qkv:
     attention_bwd_saved_plain's dqkv, rounded to that dtype, and only then
@@ -307,7 +353,7 @@ def attention_bwd_fused_dw(qkv, probs, do, t, wqkv, *, num_heads: int, scale: fl
     """(dt (B, S, C), dwqkv (3C, C) f32, dbqkv (3C,) f32) as
     attention_bwd_fused_dw_plain returns them: the kernel on CUDA tensors, the
     plain version on CPU tensors.  The kernel's scratch is allocated here:
-    dqkv (B*S, 3C) bf16, kernel 4's per-sample db partials (B, 3C) f32 and,
+    dqkv (B*S, 3C) bf16, kernel 4's db partials (2B, 3C) f32 and,
     where B*S > DW_SLICE_ROWS, the f32 dW partials of the row slices."""
     if qkv.device.type == "cpu":
         return attention_bwd_fused_dw_plain(qkv, probs, do, t, wqkv, num_heads=num_heads,
@@ -323,7 +369,7 @@ def attention_bwd_fused_dw(qkv, probs, do, t, wqkv, *, num_heads: int, scale: fl
         return dt, dw.zero_(), db.zero_()
     slices = -(-(b * s) // DW_SLICE_ROWS)
     dqkv = torch.empty_like(qkv)
-    db_partial = torch.empty((b, 3 * c), device=dev, dtype=f32)
+    db_partial = torch.empty((2 * b, 3 * c), device=dev, dtype=f32)
     dw_partial = torch.empty((slices, 3 * c, c), device=dev, dtype=f32) if slices > 1 else dw
     with torch.cuda.device(dev):
         err = kl.lib.demo2_attention_bwd_fused_dw(

@@ -9,19 +9,24 @@ demo2_tpu_torch/).  One process per argument, in the order given, each in its
 own checkout, so each builds and loads its own kernels: two commits are read
 on the same card within one call, as parent, change, change, parent.  The
 cases are the same in every process: this checkout's
-chip_smoke.py::compare_cases, which calls only the kernels' public wrappers,
-run against the package of the checkout under test.  Every process prints
+chip_smoke.py::compare_cases and ::longer_compare_cases, which call only the
+kernels' public wrappers, run against the package of the checkout under
+test.  Every process prints
 one line: for the block kernels 1, 2, 2's training form and 3 at x (192, 129,
 768), the attention kernels 5, 6, 9 and 10 at qkv (192, 129, 2304) and
 (192, 129, 12, 64), the re-ranking min-sum 12 on the weights of 1,600
 queries among 4,800 clustered features and the saved-probs backwards 8, 4
 and 7 at qkv (192, 129, 2304), and the wide pair of 5 and 6 at S = 211, 129
 and 256 with heads of 64 and 96, and kernels 1, 3, 4 and 7 past the
-register tiles at x (192, 211, 768) ("block 211": their wide forms), the
-median [min .. max] in ms of six rounds of 20 launches by CUDA events, taken
-kernel by kernel in turns, with the card's name and power limit.  `--cases
-TEXT` keeps the cases whose name holds TEXT (`wide`: the wide pair alone;
-`block 211`: the block kernels' wide forms alone).  `--steps` times instead the
+register tiles at x (192, 211, 768) ("block 211": their wide forms), (192,
+442, 768) and (64, 311, 768) ("block 442", "block 311": their long forms),
+the median [min .. max] in ms of six rounds of 20 launches by CUDA events,
+taken kernel by kernel in turns, and a digest of each case's output bits
+(chip_smoke.py::digest: equal digests, equal bits), with the card's name and
+power limit; a case the checkout refuses (NotImplementedError: a shape its
+kernels do not take) is named as refused.  `--cases TEXT` keeps the cases
+whose name holds TEXT (`wide`: the wide pair alone; `block 211`: the block
+kernels' wide forms alone).  `--steps` times instead the
 stride-12 flagship's train step and batch-64 request (chip_smoke.py::
 time_long_step: host wall, six rounds, and the profiler's device busy with
 its largest items).  Two readings of one checkout say how far two processes
@@ -53,13 +58,22 @@ keep = sys.argv[1]  # the --cases filter ("" keeps every case), or --steps
 if keep == {STEPS!r}:
     print(f"{{os.getcwd()}}: {{cs.time_long_step(device, cs.card_line())}}", flush=True)
     raise SystemExit(0)
-cases = {{name: call for name, call in cs.compare_cases(device).items() if keep in name}}
+cases = {{**cs.compare_cases(device), **cs.longer_compare_cases(device)}}
+cases = {{name: call for name, call in cases.items() if keep in name}}
+bits, refused = {{}}, []
+for name, call in list(cases.items()):
+    try:
+        bits[name] = cs.digest(call())
+    except NotImplementedError:
+        refused.append(name)
+        del cases[name]
 got = {{name: [] for name in cases}}
 for _ in range({ROUNDS}):
     for name, call in cases.items():
         got[name].append(cs.cuda_ms(call, 20))
-times = ", ".join(f"{{name}} {{cs.spread(ms)}}" for name, ms in got.items())
-print(f"{{os.getcwd()}}: {{times}} ms ({{cs.card_line()}})", flush=True)
+times = ", ".join(f"{{name}} {{cs.spread(ms)}} #{{bits[name]}}" for name, ms in got.items())
+refused = f"; refused: {{', '.join(refused)}}" if refused else ""
+print(f"{{os.getcwd()}}: {{times}} ms{{refused}} ({{cs.card_line()}})", flush=True)
 """
 
 

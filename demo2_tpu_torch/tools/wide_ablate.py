@@ -36,6 +36,21 @@ BLOCK_ABLATIONS below), timing kernels 1, 3, 4 and 7 at x (192, 211, 768)
   fwd_nopv     the forward without the PV product;
   fwd_nostore  kernel 3 without its probs (no staging, no store).
 
+    python3 -m demo2_tpu_torch.tools.wide_ablate --long OUT_DIR
+
+does the same for the block kernels' long forms (csrc/attention_long_block.cuh,
+LONG_ABLATIONS below), timing kernels 1, 3, 4 and 7 at x (192, 442, 768)
+(the "block 442" cases of chip_smoke.py::longer_compare_cases):
+
+  bwd_pconst   kernels 4 and 7 without the copies of P (Q's and dO's rows
+               alone come into the strip slots);
+  bwd_noko     the backward's key warps compute nothing (dK, dV zero);
+  bwd_nodq     the backward's query warps skip the dQ product (the halves of
+               dQ's partial are still traded);
+  fwd_noexp    the forward with e = s * scale - m in place of expf;
+  fwd_nopv     the forward without the PV product;
+  fwd_nostore  kernel 3 without the copy of its P tiles to probs.
+
 OUT_DIR should be a directory that .gitignore lists; it is emptied first.
 """
 
@@ -52,6 +67,8 @@ SOURCE = ROOT / "demo2_tpu_torch" / "csrc" / "packed_attention_wide.cu"
 CASES = "211x"  # the wide pair's cases of compare_cases at S = 211
 BLOCK_SOURCE = ROOT / "demo2_tpu_torch" / "csrc" / "attention_wide_block.cuh"
 BLOCK_CASES = "block 211"  # kernels 1, 3, 4 and 7's cases of compare_cases at S = 211
+LONG_SOURCE = ROOT / "demo2_tpu_torch" / "csrc" / "attention_long_block.cuh"
+LONG_CASES = "block 442"  # their long forms' cases of longer_compare_cases at S = 442
 
 _FWD_BODY = ("    uint32_t qa[D / 16][4];\n", "    const float d0 = quad_sum(sum0)")
 _BWD_BODY = ("    if (!key_owner) {  // query rows r0 .. r0 + 15\n", "\n  }\n}\n\n// ---- launches")
@@ -124,6 +141,29 @@ BLOCK_ABLATIONS = {
 }
 
 
+LONG_ABLATIONS = {
+    "bwd_pconst": [
+        ("    mbar_arrive_expect(bar, static_cast<uint32_t>((boxes * kProbsBoxElems + 2 * "
+         "kLongRowTileElems) *\n"
+         "                                                  sizeof(bf16)));\n"
+         "    for (int c = 0; c < boxes; ++c)\n"
+         "      tma_load_probs(dst + c * kProbsBoxElems, &probs_map, 16 * kj0 + 64 * c, r0, item, "
+         "bar);",
+         "    mbar_arrive_expect(bar, static_cast<uint32_t>(2 * kLongRowTileElems * "
+         "sizeof(bf16)));")],
+    "bwd_noko": [("          if (lk < kcnt) {\n            const int c = 2 * lk",
+                  "          if (lk < 0) {\n            const int c = 2 * lk")],
+    "bwd_nodq": [("        for (int j = 0; j < kcnt; ++j) {\n          uint32_t dsa[4];",
+                  "        for (int j = 0; j < 0; ++j) {\n          uint32_t dsa[4];")],
+    "fwd_noexp": [("const float x = expf(s[nt][e] - (e < 2 ? m0 : m1));",
+                   "const float x = s[nt][e] - (e < 2 ? m0 : m1);")],
+    "fwd_nopv": [("    for (int j = 0; j < pairs; ++j) {\n      uint32_t a[4], fb[4];",
+                  "    for (int j = 0; j < 0; ++j) {\n      uint32_t a[4], fb[4];")],
+    "fwd_nostore": [("    if constexpr (kSaveProbs) {\n      // The team's P rows",
+                     "    if constexpr (false) {\n      // The team's P rows")],
+}
+
+
 def ablated(source: str, name: str, ablations: dict | None = None) -> str:
     """The kernel source with ablation `name` of `ablations` (ABLATIONS by
     default) applied; raises if a piece of text it changes is not found
@@ -162,17 +202,21 @@ def write_trees(out_dir: Path, source_path: Path = SOURCE,
     return trees
 
 
+# The runs: the option, its source, its ablations and its cases.
+RUNS = {None: (SOURCE, ABLATIONS, CASES),
+        "--block": (BLOCK_SOURCE, BLOCK_ABLATIONS, BLOCK_CASES),
+        "--long": (LONG_SOURCE, LONG_ABLATIONS, LONG_CASES)}
+
+
 def main(args: list[str]) -> None:
-    block = args[:1] == ["--block"]
-    args = args[1:] if block else args
+    option = args[0] if args[:1] in (["--block"], ["--long"]) else None
+    args = args[1:] if option else args
     if len(args) != 1:
-        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.wide_ablate [--block] OUT_DIR")
-    if block:
-        trees = write_trees(Path(args[0]).resolve(), BLOCK_SOURCE, BLOCK_ABLATIONS)
-    else:
-        trees = write_trees(Path(args[0]).resolve())
-    compare_trees.main(["--cases", BLOCK_CASES if block else CASES, str(ROOT),
-                        *map(str, trees), str(ROOT)])
+        raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.wide_ablate "
+                         "[--block | --long] OUT_DIR")
+    source, ablations, cases = RUNS[option]
+    trees = write_trees(Path(args[0]).resolve(), source, ablations)
+    compare_trees.main(["--cases", cases, str(ROOT), *map(str, trees), str(ROOT)])
 
 
 if __name__ == "__main__":

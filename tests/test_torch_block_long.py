@@ -132,10 +132,11 @@ def test_saved_probs_backward_rounds_where_the_pallas_kernel_rounds_bf16():
 
 class _Lib:
     """The built library's limits: the register tiles, the block kernels'
-    wide forms, the wide pair of kernels 5 and 6."""
+    wide and long forms, the wide pair of kernels 5 and 6."""
     demo2_attention_head_dim = staticmethod(lambda: 64)
     demo2_attention_max_seq = staticmethod(lambda: 144)
-    demo2_block_attention_max_seq = staticmethod(lambda: 256)
+    demo2_block_attention_max_seq = staticmethod(lambda: 512)
+    demo2_block_attention_wide_max_seq = staticmethod(lambda: 256)
     demo2_packed_attention_wide_max_seq = staticmethod(lambda: 256)
     demo2_packed_attention_wide_takes_head = staticmethod(lambda d: int(d in (64, 96)))
 
@@ -174,14 +175,17 @@ class _Checked(Exception):
 @pytest.mark.parametrize("s,heads,route", [
     (129, 12, "regs"), (144, 12, "regs"),  # the register tiles
     (145, 12, "wide"), (193, 12, "wide"), (211, 12, "wide"), (256, 12, "wide"),
-    (257, 12, None),                        # one token past the wide forms
+    (257, 12, "long"),                      # one token past the wide forms
+    (311, 12, "long"), (442, 12, "long"), (512, 12, "long"),
+    (513, 12, None),                        # one token past the long forms
     (211, 8, None), (129, 6, None),         # heads of 96 and of 128
 ])
 def test_block_kernels_route_by_sequence_length(monkeypatch, s, heads, route):
-    """Kernels 1, 3, 4 and 7 launch their register form at S <= 144 and their
-    wide form at 145-256; kernel 8 takes both lengths (its C entry routes its
-    first stage); past 256 tokens or at other heads each refuses, naming the
-    ROADMAP item.  The launches are recorded, not made."""
+    """Kernels 1, 3, 4 and 7 launch their register form at S <= 144, their
+    wide form at 145-256 and their long form at 257-512; kernel 8 takes
+    every length (its C entry routes its first stage); past 512 tokens or at
+    other heads each refuses, naming the ROADMAP item.  The launches are
+    recorded, not made."""
     launched = []
     monkeypatch.setattr(pa, "kernel_library", lambda: _Library)
     for module in (pa, fb):
@@ -197,7 +201,7 @@ def test_block_kernels_route_by_sequence_length(monkeypatch, s, heads, route):
                 call()
         else:
             call()
-            wrapper = name if route == "regs" else f"{name}_wide"
+            wrapper = name if route == "regs" else f"{name}_{route}"
             assert launched.pop() == (wrapper, f"demo2_{wrapper}")
     assert not launched
     checked = pa._check_inputs
