@@ -352,9 +352,11 @@ Phases:
   37. the block kernels past 256 tokens (heads of 64, up to 512:
      csrc/attention_long_block.cuh): (a) after phase 36 (a), phase 36
      (a)'s checks of the long forms of kernels 1, 3, 4, 7 (and 8's first
-     stage) at x (192, 442, 768), (192, 257, 768), (64, 311, 768) and (48,
-     512, 768), kernels 4 and 7 also at qkv (3, 442, 2304) and (256, 272,
-     2304), every launch on the long forms; the four timed at (192, 442,
+     stage) at x (192, 442, 768), (192, 257, 768), (64, 311, 768), (48,
+     512, 768), (8, 300, 768) and (8, 340, 768), kernels 4 and 7 also at
+     qkv (3, 442, 2304), (256, 272, 2304), (16, 384, 2304) and (4, 449,
+     2304) (the edges of the forward's 64-row tiling and of its four
+     builds), every launch on the long forms; the four timed at (192, 442,
      768) beside their bounds (kernel 8 there too); (b) after phase 36 (b,
      c), the flagship at 256x256, MODEL.STRIDE_SIZE (12, 12) (442 tokens),
      full width and all 12 blocks, on both paths: requests of 1 and 64
@@ -1969,6 +1971,37 @@ def longer_compare_cases(device, shapes=LONGER_COMPARE_SHAPES, seed=7) -> dict:
     for shape in shapes:
         cases.update(block_cases(device, shape, seed))
     return cases
+
+
+def long_yardstick(device, card, shape=LONGER_COMPARE_SHAPES[0], calls=10, seed=7) -> str:
+    """The yardstick of a well-made attention at the long forms' shape, as
+    tools/compare_trees.py --yardstick reads it in each checkout:
+    scaled_dot_product_attention's forward on q, k, v (B, H, S, 64) bf16 and
+    the autograd backward of one kept forward (CUDA events; the port never
+    calls it), and the profiler's rows of `calls` calls each of kernels 1, 3,
+    4 and 7 at x `shape`, whose attention launch (launch 3 of kernels 1 and
+    3) stands beside it.  Returns the summary line."""
+    import torch.nn.functional as F
+
+    b, s, c = shape
+    h = c // 64
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, 64, generator=g).to(device, torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=64 ** -0.5)
+    out = fwd()
+    bwd = lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    fwd_ms = [cuda_ms(fwd), cuda_ms(fwd)]
+    bwd_ms = [cuda_ms(bwd), cuda_ms(bwd)]
+    flops = 4 * b * h * s * s * 64
+    line = (f"sdpa at q, k, v {(b, h, s, 64)}: forward {spread(fwd_ms)} ms "
+            f"({flops / min(fwd_ms) / 1e9:.1f} TFLOP/s), backward {spread(bwd_ms)} ms "
+            f"({2.5 * flops / min(bwd_ms) / 1e9:.1f} TFLOP/s)")
+    for name, call in block_cases(device, shape, seed).items():
+        call()
+        profile(f"{name}, {calls} calls", lambda: [call() for _ in range(calls)], card, top=6)
+    return f"{line} ({card})"
 
 
 def digest(y) -> str:
@@ -5574,16 +5607,21 @@ def check_crop(device, make_cfg, form: str, label: str) -> None:
 
 LONGER_SHAPE = (192, 442, 768)  # the flagship's x at 256x256, stride 12, batch 64
 # The block kernels' long forms (heads of 64, 257 <= S <= 512): the 256x256
-# crop at stride 12, one token past the wide forms (17 tiles: the backward's
-# two blocks of a cluster take 9 and 8 key tiles), the 384x128 crop's 311 and
-# the longest the forms take, each at a batch that gives a block (and a
-# cluster) of the persistent grid many (sample, head) items, the
-# mbarrier-parity trap of attention_regs_fwd.cuh's wait_started.  S16 = 272,
-# 320 and 448 end in a part 64-column probs box.
-LONGER_BLOCK_SHAPES = (LONGER_SHAPE, (192, 257, 768), (64, 311, 768), (48, 512, 768))
-# Kernels 4 and 7 alone: a batch of 3 (36 items, one a cluster) and 256 at
-# S16 = 272 (3,072 items, ~47 a cluster).
-LONGER_SAVED_EDGES = ((3, 442, 2304), (256, 272, 2304))
+# crop at stride 12, one token past the wide forms (17 key tiles: the
+# backward's two blocks of a cluster take 9 and 8; the forward's last 64-row
+# query tile holds one row), the 384x128 crop's 311, a last query tile of a
+# few rows (300: 44; 340: 20) and the longest the forms take, each at a batch that
+# gives a block (and a cluster) of the persistent grid many (sample, head)
+# items, the mbarrier-parity trap of attention_regs_fwd.cuh's wait_started.
+# S16 = 272, 304, 320, 352 and 448 are not multiples of 64 (a part 64-column
+# probs box, a part 64-row tile), and each of the forward's four builds (5-8
+# chunks of 32 keys a warpgroup) runs.
+LONGER_BLOCK_SHAPES = (LONGER_SHAPE, (192, 257, 768), (64, 311, 768), (48, 512, 768),
+                       (8, 300, 768), (8, 340, 768))
+# Kernels 4 and 7 alone: a batch of 3 (36 items, one a cluster), 256 at
+# S16 = 272 (3,072 items, ~47 a cluster), 24 key tiles (12 a block) and 29
+# (15 and 14) with a last 16-row tile of one row.
+LONGER_SAVED_EDGES = ((3, 442, 2304), (256, 272, 2304), (16, 384, 2304), (4, 449, 2304))
 # TransReID's stride-12 crops: 256x256 (its VeRi config; 21 x 21 patches + 1
 # = 442 tokens) and 384x128 (its person configs; 31 x 10 + 1 = 311).
 LONGER_CROPS = ((256, 256), (384, 128))
@@ -5682,16 +5720,24 @@ def phase_longer_flagship(device, card, flag_cfg, flag_model, cache, sampler) ->
     return launches
 
 
-def time_long_step(device, card, rounds=6, reps=3, warmup=2) -> str:
-    """The stride-12 flagship's train step (batch 64) and batch-64 request,
-    as tools/compare_trees.py --steps times them in each checkout: host wall
-    per call, the mean of `reps` calls after `warmup`, `rounds` times each,
-    and on the card the profiler's device busy of one step and one request
-    with their largest items.  Returns the summary line."""
+# The stride-12 flagship's crops that tools/compare_trees.py --steps times, by
+# their tokens: (the crop, None for the config's 256x128; the ids of its
+# cache, as phase 37 cuts the 256x256 cache).
+STEP_CROPS = {211: (None, NUM_CLASSES), 442: (LONGER_CROPS[0], LONGER_PIDS)}
+
+
+def time_long_step(device, card, rounds=6, reps=3, warmup=2, tokens=211) -> str:
+    """The stride-12 flagship's train step (batch 64) and batch-64 request at
+    the crop of `tokens` (STEP_CROPS), as tools/compare_trees.py --steps
+    times them in each checkout: host wall per call, the mean of `reps`
+    calls after `warmup`, `rounds` times each, and on the card the
+    profiler's device busy of one step and one request with their largest
+    items.  Returns the summary line."""
     from demo2_tpu_torch.serving import FeatureExtractor
 
-    cfg, model, _, _ = build_models(device, long_cfg())
-    cache, sampler = build_train_data(cfg, device)
+    size, pids = STEP_CROPS[tokens]
+    cfg, model, _, _ = build_models(device, long_cfg((12, 12), size))
+    cache, sampler = build_train_data(cfg, device, num_pids=pids)
     step = build_timed_step(cfg, model, cache, sampler)
     images, cams = request_images(64, cfg, seed=3)
     fx = FeatureExtractor(cfg, model, device=device, batch_size=64)
@@ -5713,12 +5759,13 @@ def time_long_step(device, card, rounds=6, reps=3, warmup=2) -> str:
     for _ in range(rounds):
         step_ms.append(wall_ms(step))
         request_ms.append(wall_ms(request))
-    line = (f"s12 step {spread(step_ms)} ms, batch-64 request {spread(request_ms)} ms "
+    label = "s12" if tokens == 211 else f"s12-{tokens}"
+    line = (f"{label} step {spread(step_ms)} ms, batch-64 request {spread(request_ms)} ms "
             f"(host wall)")
     if device.type == "cuda":
         bs = cfg.SOLVER.IMS_PER_BATCH
-        _, step_busy = profile(f"s12, one train step of {bs}", step, card, top=8)
-        _, request_busy = profile("s12, one batch-64 request", request, card, top=12)
+        _, step_busy = profile(f"{label}, one train step of {bs}", step, card, top=8)
+        _, request_busy = profile(f"{label}, one batch-64 request", request, card, top=12)
         line += f", device busy step {step_busy:.2f} ms, request {request_busy:.2f} ms ({card})"
     return line
 

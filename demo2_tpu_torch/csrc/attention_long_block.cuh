@@ -35,25 +35,39 @@
 // and 3 as a whole (LN, the two projections on gemm_sm90.cuh, this attention)
 // count 515.6 GFLOP, 0.5214 ms at 989 TFLOP/s: operations (kernel 3's bytes
 // alone, x, out, qkv, attn and the 912.5 MB of probs, 1.70 GB: 0.506 ms);
-// kernels 4 and 7 move qkv, probs, dO and dqkv (1.83 GB, 0.5448 ms at 3.35
-// TB/s) for 230.5 GFLOP: bytes.  Times: PERF.md §6.
+// this launch alone counts 230.5 GFLOP (0.233 ms) against the 1.37 GB it
+// must move in kernel 3 (0.41 ms).  Kernels 4 and 7 move qkv, probs, dO and
+// dqkv (1.83 GB, 0.5448 ms at 3.35 TB/s) for 230.5 GFLOP: bytes.  Times:
+// PERF.md §6.
 //
-// The design (the first long form; simple before fast):
-//   * Forward (sixteen warps, four teams of four): a persistent block streams
-//     16-row tasks, a task to a team.  K and V of an item come by TMA into a
-//     ring of whole-head operand slots (two boxes of S16 / 2 rows each: a TMA
-//     box holds at most 256 rows); Q's sixteen rows come from device memory
-//     straight into each warp's A fragments.  Warp w of a team runs QK^T once
-//     over its quarter of the key tiles (at most 8 of 32, 64 f32 a thread),
-//     masks keys >= S by -inf, and the four quarters trade their row maxima
-//     and sums through shared memory behind a named barrier a team; the sum is
-//     ((s0 + s1) + s2) + s3 in every warp, so every rerun and both kernels add
-//     alike.  expf once a score, the quotient, p rounded to bf16 once into the
-//     team's P tile in shared memory (16 x S16, 64-column boxes under the
-//     128-byte swizzle).  Then each warp computes 16 of O's 64 columns over
-//     every key, P's A fragments back by ldmatrix: no partial O to add across
-//     warps.  Kernel 3 copies the team's P tile to probs with 16-byte stores,
-//     rows >= S left out.  Every element takes the same straight-line code.
+// The design.  The forward is the second long form; the first held
+// 16-row tasks on mma.sync, four warps a task, and ran at ~12 µs a task.  Its
+// queries come in 64-row tiles and its products are wgmma of a warpgroup
+// (wgmma_shapes.cuh): K and V leave shared memory once per 64 query rows, and
+// a task's softmax exchange runs once per 64 rows.  The backward is the
+// first long form: a 64-row, wgmma design over a cluster of four blocks
+// passed every check but read slower in turns (PERF.md §6).
+//   * Forward (two warpgroups, 256 threads, one block an SM, persistent over
+//     items): task u is 64-row tile u % tiles of the block's item u / tiles.
+//     K and V of an item come by TMA into a ring of operand slots (S64 rows
+//     in two boxes; the next item's K lands while this item runs),
+//     Q's 64 rows into a ring of two Q slots, each released by the warps
+//     that read it; the warp whose release completes a slot asks for the
+//     slot's next operand (attention_wide.cuh::WideRing).  Warpgroup w holds
+//     half of the task's keys, kC = S64 / 64 chunks of 32 (a template
+//     parameter, 5-8, so that every loop over them is straight-line code):
+//     its QK^T is one wgmma m64n32k16 a chunk and 16 keys of depth, A (Q)
+//     from registers, and the f32 scores stay in registers (16 kC a thread).
+//     keys >= S become -inf, the two warpgroups trade their row maxima and
+//     then their row sums through shared memory (the sum is
+//     warpgroup 0's plus warpgroup 1's in both), expf runs once a score, the
+//     quotient by the correctly rounded reciprocal and one fma
+//     (wide_quotient), and p is rounded to bf16 once into the A fragments of
+//     PV: a wgmma m64n64k16 a 16 keys, B (V) MN-major from its slot.  O =
+//     warpgroup 0's partial plus warpgroup 1's, each warpgroup ending 32 of
+//     the 64 columns.  Kernel 3 writes its bf16 p a warp's 16 x 64 block at
+//     a time into a staging tile and copies it to probs with 16-byte stores
+//     (rows >= S and columns >= S16 left out).
 //   * Backward (a cluster of two blocks an item, twelve warps each): an
 //     item's dK and dV accumulators over 512 keys (256 KB of f32) would fill
 //     the whole register file of an SM, so the keys are split, not walked:
@@ -86,25 +100,39 @@
 //     db_partial.  A block never leaves while the other may still address its
 //     shared memory (a cluster barrier at the end).
 //
-// Measured: PERF.md §6.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/compare_trees.py in turns
+// against the first long forward, PERF.md §6): at x (192, 442, 768) kernels
+// 1 / 3 1.6159, 1.6127 / 1.7361, 1.7308 ms against 2.0322, 2.0354 / 2.2212,
+// 2.2284, their launch 3 alone (the profiler) 0.833 / 0.947 against 1.250 /
+// 1.422 (scaled_dot_product_attention's forward there: 0.437); at (64, 311,
+// 768) 0.3857, 0.3838 / 0.4114, 0.4094 against 0.4608, 0.4703 / 0.4934,
+// 0.5044.  With the chunk loops bounded at run time (no kC) ptxas serialized
+// every wgmma (its C7520 note) and the same forward read 2.64 / 3.35 ms.
+// Resources (nvcc -Xptxas -v, sm_90a; phase 1 prints them): the forward
+// 187 / 213 / 242 / 254 registers at kC = 5-8 (kernel 1; kernel 3 168 /
+// 224 / 255 / 255), no spills; the backward 168, 32 / 64 bytes of spill
+// stores (kernels 7 / 4).
 
 #pragma once
 
 #include "attention_wide_block.cuh"
+#include "wgmma_shapes.cuh"
 
 namespace demo2 {
 namespace {
 
 constexpr int kLongMaxSeq = 512;
+constexpr int kLongTileBytes = 64 * 64 * static_cast<int>(sizeof(bf16));  // 64 rows of a head
+// The forward: two warpgroups, each half of a task's 32-key chunks (at most
+// 8), two Q slots, kernel 3's staging tile a warp (16 x 64 bf16), and the
+// exchange: the row maxima and sums of both warpgroups (64 each) and the
+// half of O that the other warpgroup ends (16 x 128 f32 each).
+constexpr int kLongFwdThreads = 256;
+constexpr int kLongChunk = 32;
+constexpr int kLongQSlots = 2;
+constexpr int kLongStageBytes = 8 * 16 * 64 * static_cast<int>(sizeof(bf16));
+constexpr int kLongFwdXBytes = (2 * 2 * 64 + 2 * 16 * 128) * 4;
 constexpr int kLongMaxPairs = kLongMaxSeq / 16;  // 16-row tiles of the longest sequence: 32
-// The forward: sixteen warps (128 registers a thread), four to a task, each
-// holding a quarter of the task's 16 x S16 scores: at most 8 key tiles.
-constexpr int kLongFwdWarps = 16;
-constexpr int kLongFwdTeams = kLongFwdWarps / 4;
-constexpr int kLongQuarter = kLongMaxPairs / 4;
-// A team's exchange: each quarter's row maxima and sums (16 rows each).
-constexpr int kLongFwdXFloats = 2 * 4 * 16;
-constexpr int kLongFwdXBytes = kLongFwdTeams * kLongFwdXFloats * 4;
 // The backward: a block's key tiles (at most half of 32), its query warps
 // (the wide backward's four) and key warps (eight, 32 keys each).
 constexpr int kLongHalfPairs = kLongMaxPairs / 2;
@@ -140,10 +168,10 @@ static_assert(kLongStripBytes % 1024 == 0 && (kLongStripQ * 2) % 1024 == 0 &&
 static_assert(kWideSmemLimit - kLongBwdFixedBytes - 4 * kLongHalfPairs * 16 * 64 * 2 >=
                   kLongQueryWarps * kLongStripCost,
               "two items' V and K of a block and a strip slot a query warp fit at the longest S");
-static_assert(kWideSmemLimit - kWideSlotWords - kLongFwdXBytes -
-                      kLongFwdTeams * 16 * kLongMaxSeq * 2 >=
+static_assert(kWideSmemLimit - kLongQSlots * kLongTileBytes - kLongStageBytes -
+                      2 * kWideSlotWords - kLongFwdXBytes >=
                   2 * kLongMaxSeq * 64 * 2,
-              "the forward's ring holds one item's K and V beside the teams' P tiles");
+              "the forward's ring holds one item's K and V at the longest S");
 
 // ---- cluster-scope primitives (sm_90) -------------------------------------------
 
@@ -207,221 +235,272 @@ __device__ __forceinline__ void long_copy(bf16* dst, const CUtensorMap* map, int
       : "memory");
 }
 
-// Rows r0 .. r0 + 15 of one head's 64 columns, row stride `row`, as the A
-// fragments of four 16-wide slices of d (rows >= S zero), read from device
-// memory: a[kk] = {(g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8)} of
-// columns 16 kk ..
-__device__ __forceinline__ void long_rows_a(uint32_t (&a)[4][4], const bf16* head, size_t row,
-                                            int r0, int S, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bool top = r0 + g < S, bottom = r0 + g + 8 < S;
-  const bf16* p0 = head + static_cast<size_t>(r0 + g) * row + 2 * t;
-  const bf16* p1 = p0 + 8 * row;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = top ? *reinterpret_cast<const uint32_t*>(p0 + 16 * kk) : 0u;
-    a[kk][1] = bottom ? *reinterpret_cast<const uint32_t*>(p1 + 16 * kk) : 0u;
-    a[kk][2] = top ? *reinterpret_cast<const uint32_t*>(p0 + 16 * kk + 8) : 0u;
-    a[kk][3] = bottom ? *reinterpret_cast<const uint32_t*>(p1 + 16 * kk + 8) : 0u;
-  }
+// Element (r, c) of a warp's staging tile (16 rows of 64 bf16 under the
+// 128-byte swizzle, as attention_regs_fwd.cuh::swizzled).
+__device__ __forceinline__ bf16* staged(bf16* tile, int r, int c) {
+  return swizzled(tile, r, c >> 3) + (c & 7);
 }
 
-// s (16 x 16 tiles, s[2 j + {0, 1}] the keys 16 j ..) = A B^T over the first
-// `tiles` 16-row blocks of the operand tile B; A from registers (block_scores'
-// products in its order).
-template <int kTiles>
-__device__ __forceinline__ void long_scores(float (&s)[2 * kTiles][4], const uint32_t (&a)[4][4],
-                                            const bf16* b, int tiles, int lane) {
-  const int x = lane & 7;
-  const bf16* b_row = b + (((lane >> 4) << 3) + x) * 64;
+// A WideRing whose words lie apart from its tiles (so that the tiles of the
+// ring after it still start on 1,024 bytes).
+__device__ __forceinline__ void place_ring(WideRing& ring, unsigned char* tiles,
+                                           unsigned char* words) {
+  ring.tiles = reinterpret_cast<bf16*>(tiles);
+  ring.full = reinterpret_cast<uint64_t*>(words);
+  ring.empty = ring.full + kWideMaxSlots;
+  ring.started = reinterpret_cast<volatile int*>(ring.empty + kWideMaxSlots);
+  ring.released = const_cast<int*>(ring.started + kWideMaxSlots);
+}
+
+// This thread's warpgroup, as a value the compiler knows to be the same in
+// every lane (a broadcast from lane 0), so that what depends on it never puts
+// a wgmma on a divergent path, which ptxas would serialize.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+}
+
+// The A fragments of rows 16 w .. 16 w + 15 of a 64 x 64 swizzled tile (Q's
+// rows) over its four 16-column slices: warp w's part of a wgmma's A.
+__device__ __forceinline__ void long_rows_a(uint32_t (&a)[4][4], const bf16* tile, int warp,
+                                            int lane) {
 #pragma unroll
-  for (int nt = 0; nt < 2 * kTiles; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* bk = b_row + (((2 * kk + ((lane >> 3) & 1)) ^ x) << 3);
-#pragma unroll
-    for (int np = 0; np < kTiles; ++np) {
-      if (np < tiles) {
-        uint32_t fb[4];
-        ldmatrix_x4(fb, bk + np * 16 * 64);
-        mma_bf16(s[2 * np], a[kk], fb[0], fb[1]);
-        mma_bf16(s[2 * np + 1], a[kk], fb[2], fb[3]);
-      }
-    }
-  }
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], swizzled(tile, 16 * warp + (lane & 15), 2 * kk + (lane >> 4)));
 }
 
 // ---- the forward --------------------------------------------------------------------
 
-// The four warps of team `team` (named barrier 1 + team).
-__device__ __forceinline__ void long_team_sync(int team) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + team) : "memory");
-}
-
-// Persistent; task u is 16-row tile u % pairs of the block's item u / pairs;
-// team m (warps 4 m .. 4 m + 3) takes tasks m, m + 4, ...; its quarter q
-// (warp % 4) takes key tiles [j0, j0 + cnt), the tiles dealt out in order, the
-// first pairs % 4 quarters one more.  Operand 2 i + {0, 1} is K, V of the
-// block's item i.  `probs` (B, H, S, S16): kSaveProbs only.
-template <bool kSaveProbs>
-__global__ void __launch_bounds__(kLongFwdWarps * 32, 1)
-block_long_fwd_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restrict__ qkv,
-                      bf16* __restrict__ out, bf16* __restrict__ probs, int S, int C, int heads,
-                      int items, int slots, float scale) {
+// Persistent; task u is 64-row tile u % tiles of the block's item u / tiles,
+// both warpgroups on every task, warpgroup w on the kC 32-key chunks from c0 =
+// w kC (keys [32 c0, 32 (c0 + kC)): S64 = 64 kC keys in all, those >= S left
+// out).  Operand 2 i + {0, 1} of the ring is K, V (S64 rows) of the block's
+// item i; Q slot u % 2 holds task u's rows.  `probs` (B, H, S, S16):
+// kSaveProbs only.
+template <bool kSaveProbs, int kC>
+__global__ void __launch_bounds__(kLongFwdThreads, 1)
+block_long_fwd_kernel(const __grid_constant__ CUtensorMap kv_map,
+                      const __grid_constant__ CUtensorMap q_map, bf16* __restrict__ out,
+                      bf16* __restrict__ probs, int S, int C, int heads, int items, int slots,
+                      float scale) {
   extern __shared__ __align__(1024) unsigned char block_long_fwd_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warpgroup_index(), warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x & 127;
   const int g = lane >> 2, t = lane & 3;
-  const int team = warp >> 2, quarter = warp & 3;
   const int s_pad = (S + 15) & ~15;
-  const int pairs = s_pad / 16;
-  const int j0 = quarter * (pairs / 4) + min(quarter, pairs % 4);
-  const int cnt = pairs / 4 + (quarter < pairs % 4 ? 1 : 0);
+  constexpr int kS64 = 2 * kC * kLongChunk;
+  const int c0 = wg * kC;
+  const int tiles = (S + 63) / 64;
   const int mine = block_items(items);
-  const int box_rows = s_pad / 2;
-  // The team's P tile: 16 rows of S16 columns in 64-column boxes.
-  const int p_elems = (s_pad + 63) / 64 * kProbsBoxElems;
-  bf16* p_tile = reinterpret_cast<bf16*>(block_long_fwd_smem) + team * p_elems;
-  float* xm = reinterpret_cast<float*>(block_long_fwd_smem + kLongFwdTeams * p_elems * 2) +
-              team * kLongFwdXFloats;
-  float* xs = xm + 4 * 16;
-  WideRing ring{nullptr, nullptr, nullptr, nullptr, nullptr, slots, s_pad * 64, 4 * pairs,
-                2 * mine};
-  ring.init(block_long_fwd_smem + kLongFwdTeams * p_elems * 2 + kLongFwdXBytes);
+  constexpr int kv_bytes = kS64 * 64 * static_cast<int>(sizeof(bf16));
+  constexpr int kStage = kSaveProbs ? kLongStageBytes : 0;
+  unsigned char* q_tiles = block_long_fwd_smem + slots * kv_bytes;
+  unsigned char* words = q_tiles + kLongQSlots * kLongTileBytes + kStage;
+  bf16* stage = reinterpret_cast<bf16*>(q_tiles + kLongQSlots * kLongTileBytes) +
+                (4 * wg + warp) * 16 * 64;
+  float* xm = reinterpret_cast<float*>(words + 2 * kWideSlotWords);  // [warpgroup][row]
+  float* xs = xm + 2 * 64;
+  float* xo = xs + 2 * 64;  // [the warpgroup that ends them][element][thread]
+  WideRing ring{nullptr, nullptr, nullptr, nullptr, nullptr, slots, kS64 * 64, 8, 2 * mine};
+  WideRing qring{nullptr, nullptr, nullptr, nullptr, nullptr, kLongQSlots, 64 * 64, 8,
+                 mine * tiles};
+  place_ring(ring, block_long_fwd_smem, words);
+  place_ring(qring, q_tiles, words + kWideSlotWords);
+  constexpr int box_rows = kS64 / 2;
   auto load = [&](int n, bf16* dst, uint64_t* bar) {
     const int item = blockIdx.x + (n >> 1) * gridDim.x;
     const int which = 1 + (n & 1);
-    mbar_arrive_expect(bar, static_cast<uint32_t>(s_pad * 64 * sizeof(bf16)));
-    long_copy(dst, &map, item % heads, which, 0, item / heads, bar);
-    long_copy(dst + box_rows * 64, &map, item % heads, which, box_rows, item / heads, bar);
+    mbar_arrive_expect(bar, static_cast<uint32_t>(kv_bytes));
+    long_copy(dst, &kv_map, item % heads, which, 0, item / heads, bar);
+    long_copy(dst + box_rows * 64, &kv_map, item % heads, which, box_rows, item / heads, bar);
   };
-  if (threadIdx.x == 0) ring.reset();
+  auto load_q = [&](int u, bf16* dst, uint64_t* bar) {
+    const int i = u / tiles;
+    const int item = blockIdx.x + i * gridDim.x;
+    mbar_arrive_expect(bar, static_cast<uint32_t>(kLongTileBytes));
+    long_copy(dst, &q_map, item % heads, 0, (u - i * tiles) * 64, item / heads, bar);
+  };
+  if (threadIdx.x == 0) {
+    ring.reset();
+    qring.reset();
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int n = 0; n < slots && n < ring.ops; ++n) {
       load(n, ring.tiles + n * ring.slot_elems, ring.full + n);
       ring.started[n] = n;
     }
+    for (int n = 0; n < kLongQSlots && n < qring.ops; ++n) {
+      load_q(n, qring.tiles + n * qring.slot_elems, qring.full + n);
+      qring.started[n] = n;
+    }
   }
 
-  const size_t row3 = static_cast<size_t>(3) * C;
-  for (int u = team; u < mine * pairs; u += kLongFwdTeams) {
-    const int i = u / pairs;
-    const int r0 = (u - i * pairs) * 16;
+  for (int u = 0; u < mine * tiles; ++u) {
+    const int i = u / tiles;
+    const int r0 = (u - i * tiles) * 64;
+    const bool last = r0 + 64 >= S;  // the item's last task
     const int item = blockIdx.x + i * gridDim.x;
     const int b = item / heads, h = item % heads;
     uint32_t qa[4][4];
-    long_rows_a(qa, qkv + static_cast<size_t>(b) * S * row3 + h * 64, row3, r0, S, lane);
-    // The one QK^T pass: this quarter's 16 x 16 cnt scores, held.
+    long_rows_a(qa, qring.acquire(u), warp, lane);
+    qring.release(u, lane, load_q);
+    // The one QK^T pass: this warpgroup's 64 x 32 kC scores, held.
     const bf16* k_s = ring.acquire(2 * i);
-    float s[2 * kLongQuarter][4];
-    long_scores<kLongQuarter>(s, qa, k_s + j0 * 16 * 64, cnt, lane);
-    ring.release(2 * i, lane, load);
+    float s[kC][16];
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const uint64_t desc = wgmma_desc(k_s + (c0 + c) * kLongChunk * 64);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) LongMma<32>::rs<0>(s[c], qa[kk], desc + 2 * kk, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) fence_regs(s[c]);
+    if (last) ring.release(2 * i, lane, load);
 
     // s * scale (-inf at keys >= S: every element takes the same code), and
-    // m = its maximum over the four quarters.
+    // m = its maximum over both warpgroups.
     float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < 2 * kLongQuarter; ++nt) {
-      if (nt < 2 * cnt) {
+    for (int c = 0; c < kC; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[nt][e] = 16 * j0 + 8 * nt + 2 * t + (e & 1) < S ? __fmul_rn(s[nt][e], scale)
-                                                             : -INFINITY;
+          float& v = s[c][4 * j + e];
+          v = (c0 + c) * kLongChunk + 8 * j + 2 * t + (e & 1) < S ? __fmul_rn(v, scale)
+                                                                   : -INFINITY;
         }
-        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+        m0 = fmaxf(m0, fmaxf(s[c][4 * j], s[c][4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(s[c][4 * j + 2], s[c][4 * j + 3]));
       }
     }
     m0 = quad_max(m0);
     m1 = quad_max(m1);
+    const int row = 16 * warp + g;
     if (t == 0) {
-      xm[16 * quarter + g] = m0;
-      xm[16 * quarter + g + 8] = m1;
+      xm[64 * wg + row] = m0;
+      xm[64 * wg + row + 8] = m1;
     }
-    long_team_sync(team);
-    m0 = fmaxf(fmaxf(xm[g], xm[16 + g]), fmaxf(xm[32 + g], xm[48 + g]));
-    m1 = fmaxf(fmaxf(xm[g + 8], xm[24 + g]), fmaxf(xm[40 + g], xm[56 + g]));
+    __syncthreads();
+    m0 = fmaxf(xm[row], xm[64 + row]);
+    m1 = fmaxf(xm[row + 8], xm[64 + row + 8]);
     // e = expf(s * scale - m) in place, once a score; the row sum is
-    // ((quarter 0's + 1's) + 2's) + 3's.
+    // warpgroup 0's plus warpgroup 1's.
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 2 * kLongQuarter; ++nt) {
-      if (nt < 2 * cnt) {
+    for (int c = 0; c < kC; ++c) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = expf(s[nt][e] - (e < 2 ? m0 : m1));
-          s[nt][e] = x;
-          if (e < 2) sum0 += x; else sum1 += x;
-        }
+      for (int e = 0; e < 16; ++e) {
+        const float x = expf(s[c][e] - ((e & 2) ? m1 : m0));
+        s[c][e] = x;
+        if (e & 2) sum1 += x; else sum0 += x;
       }
     }
     sum0 = quad_sum(sum0);
     sum1 = quad_sum(sum1);
     if (t == 0) {
-      xs[16 * quarter + g] = sum0;
-      xs[16 * quarter + g + 8] = sum1;
+      xs[64 * wg + row] = sum0;
+      xs[64 * wg + row + 8] = sum1;
     }
-    long_team_sync(team);
-    const float d0 = (((xs[g] + xs[16 + g]) + xs[32 + g]) + xs[48 + g]) + 1e-30f;
-    const float d1 = (((xs[g + 8] + xs[24 + g]) + xs[40 + g]) + xs[56 + g]) + 1e-30f;
+    __syncthreads();
+    const float d0 = (xs[row] + xs[64 + row]) + 1e-30f;
+    const float d1 = (xs[row + 8] + xs[64 + row + 8]) + 1e-30f;
     const float rd0 = 1.f / d0, rd1 = 1.f / d1;
 
-    // p = e / (sum + 1e-30), rounded to bf16 once, into the team's P tile.
+    // p = e / (sum + 1e-30), rounded to bf16 once: the A fragments of PV,
+    // pa[c][hh] for keys 32 (c0 + c) + 16 hh ..
+    uint32_t pa[kC][2][4];
 #pragma unroll
-    for (int j = 0; j < kLongQuarter; ++j) {
-      if (j < cnt) {
+    for (int c = 0; c < kC; ++c) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int nt = 2 * j + hh;
-          const int c = 2 * (j0 + j) + hh;
-          *reinterpret_cast<uint32_t*>(probs_at(p_tile, g, c) + 2 * t) =
-              pack_bf16x2(wide_quotient(s[nt][0], d0, rd0), wide_quotient(s[nt][1], d0, rd0));
-          *reinterpret_cast<uint32_t*>(probs_at(p_tile, g + 8, c) + 2 * t) =
-              pack_bf16x2(wide_quotient(s[nt][2], d1, rd1), wide_quotient(s[nt][3], d1, rd1));
-        }
+      for (int e = 0; e < 16; ++e)
+        s[c][e] = wide_quotient(s[c][e], (e & 2) ? d1 : d0, (e & 2) ? rd1 : rd0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        pa[c][hh][0] = pack_bf16x2(s[c][8 * hh], s[c][8 * hh + 1]);
+        pa[c][hh][1] = pack_bf16x2(s[c][8 * hh + 2], s[c][8 * hh + 3]);
+        pa[c][hh][2] = pack_bf16x2(s[c][8 * hh + 4], s[c][8 * hh + 5]);
+        pa[c][hh][3] = pack_bf16x2(s[c][8 * hh + 6], s[c][8 * hh + 7]);
       }
     }
-    long_team_sync(team);
     if constexpr (kSaveProbs) {
-      // The team's P rows r0 .. r0 + 15 (those < S) to probs, 16 bytes a
-      // thread a step.
-      const int chunks = s_pad >> 3;
-      bf16* dst = probs + (static_cast<size_t>(item) * S + r0) * s_pad;
-      for (int k = quarter * 32 + lane; k < 16 * chunks; k += 128) {
-        const int row = k / chunks;
-        const int c = k - row * chunks;
-        if (r0 + row < S)
-          *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row) * s_pad + 8 * c) =
-              *reinterpret_cast<const uint4*>(probs_at(p_tile, row, c));
+      // The warp's 16 rows of p to probs, 64 keys at a time through its
+      // staging tile: 16-byte stores, rows >= S and columns >= S16 left out.
+      bf16* prow = probs + (static_cast<size_t>(item) * S + r0 + 16 * warp) * s_pad;
+#pragma unroll
+      for (int bb = 0; bb < (kC + 1) / 2; ++bb) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          if (2 * bb + cc < kC) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int col = 32 * cc + 16 * hh + 2 * t;
+              const uint32_t(&w)[4] = pa[2 * bb + cc][hh];
+              *reinterpret_cast<uint32_t*>(staged(stage, g, col)) = w[0];
+              *reinterpret_cast<uint32_t*>(staged(stage, g + 8, col)) = w[1];
+              *reinterpret_cast<uint32_t*>(staged(stage, g, col + 8)) = w[2];
+              *reinterpret_cast<uint32_t*>(staged(stage, g + 8, col + 8)) = w[3];
+            }
+          }
+        }
+        __syncwarp();
+        const int col0 = (c0 + 2 * bb) * kLongChunk;
+        const int cols = 2 * bb + 1 < kC ? 64 : kLongChunk;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = (lane >> 3) + 4 * k;
+          const int col = 8 * (lane & 7);
+          if (col < cols && col0 + col < s_pad && r0 + 16 * warp + r < S)
+            *reinterpret_cast<uint4*>(prow + static_cast<size_t>(r) * s_pad + col0 + col) =
+                *reinterpret_cast<const uint4*>(staged(stage, r, col));
+        }
+        __syncwarp();
       }
     }
 
-    // O's columns 16 quarter .. + 15 = P V over every key, P's A fragments
-    // back from the team's tile.
+    // This warpgroup's PV over its keys, B (V) MN-major from its slot.
     const bf16* v_s = ring.acquire(2 * i + 1);
-    float o[2][4] = {};
-    const int x = lane & 7;
-    const bf16* v_row = v_s + (x + ((lane >> 3) & 1) * 8) * 64 +
-                        (((2 * quarter + (lane >> 4)) ^ x) << 3);
-    for (int j = 0; j < pairs; ++j) {
-      uint32_t a[4], fb[4];
-      ldmatrix_x4(a, probs_at(p_tile, lane & 15, 2 * j + (lane >> 4)));
-      ldmatrix_x4_trans(fb, v_row + j * 16 * 64);
-      mma_bf16(o[0], a, fb[0], fb[1]);
-      mma_bf16(o[1], a, fb[2], fb[3]);
-    }
-    ring.release(2 * i + 1, lane, load);
-    bf16* dst = out + static_cast<size_t>(b) * S * C + h * 64 + 16 * quarter + 2 * t;
+    float o[32];
+    __syncwarp();
+    wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (r0 + g < S)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r0 + g) * C + 8 * q) =
-            pack_bf16x2(o[q][0], o[q][1]);
-      if (r0 + g + 8 < S)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r0 + g + 8) * C + 8 * q) =
-            pack_bf16x2(o[q][2], o[q][3]);
+    for (int c = 0; c < kC; ++c) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        LongMma<64>::rs<1>(o, pa[c][hh],
+                           wgmma_desc_mn(v_s + ((c0 + c) * kLongChunk + 16 * hh) * 64),
+                           c > 0 || hh > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (last) ring.release(2 * i + 1, lane, load);
+    // O = warpgroup 0's + warpgroup 1's; warpgroup w ends columns 32 w ..
+    // 32 w + 31 (groups 4 w .. 4 w + 3), the other's half through xo.
+    float* to = xo + (1 - wg) * 16 * 128;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) to[(4 * q + e) * 128 + tid] = o[4 * (4 * (1 - wg) + q) + e];
+    __syncthreads();
+    const float* from = xo + wg * 16 * 128;
+    bf16* dst = out + (static_cast<size_t>(b) * S + r0 + row) * C + h * 64 + 32 * wg + 2 * t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mine_o = o[4 * (4 * wg + q) + e], other = from[(4 * q + e) * 128 + tid];
+        v[e] = wg == 0 ? mine_o + other : other + mine_o;
+      }
+      if (r0 + row < S) *reinterpret_cast<uint32_t*>(dst + 8 * q) = pack_bf16x2(v[0], v[1]);
+      if (r0 + row + 8 < S)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(8) * C + 8 * q) =
+            pack_bf16x2(v[2], v[3]);
     }
   }
 }
@@ -751,31 +830,56 @@ inline bool long_takes(int seq, int width, int heads) {
 
 // Launch 3 of kernels 1 and 3 past the wide forms: qkv (B*S, 3C) -> out
 // (B*S, C), heads of 64, 256 < S <= 512; probs (B, H, S, S16) with kSaveProbs.
-template <bool kSaveProbs>
-cudaError_t launch_block_long_fwd(const bf16* qkv, bf16* out, bf16* probs, int batch, int seq,
-                                  int width, int heads, float scale, cudaStream_t st) {
-  if (!long_takes(seq, width, heads)) return cudaErrorInvalidValue;
-  const int s_pad = (seq + 15) & ~15;
-  const int tile = s_pad * 64 * static_cast<int>(sizeof(bf16));
-  const int p_bytes = (s_pad + 63) / 64 * kProbsBoxElems * static_cast<int>(sizeof(bf16));
-  const int fixed = kLongFwdTeams * p_bytes + kLongFwdXBytes;
-  const int fit = (kWideSmemLimit - kWideSlotWords - fixed) / tile;
+// As many K / V slots as fit beside the Q slots, staging and exchange.
+template <bool kSaveProbs, int kC>
+cudaError_t launch_block_long_fwd_at(const bf16* qkv, bf16* out, bf16* probs, int batch,
+                                     int seq, int width, int heads, float scale,
+                                     cudaStream_t st) {
+  const int s64 = 64 * kC;
+  const int kv_bytes = s64 * 64 * static_cast<int>(sizeof(bf16));
+  const int fixed = kLongQSlots * kLongTileBytes + (kSaveProbs ? kLongStageBytes : 0) +
+                    2 * kWideSlotWords + kLongFwdXBytes;
+  const int fit = (kWideSmemLimit - fixed) / kv_bytes;
   const int slots = fit < kWideMaxSlots ? fit : kWideMaxSlots;
   if (slots < 2) return cudaErrorInvalidValue;
-  const int smem = fixed + slots * tile + kWideSlotWords;
-  auto kernel = block_long_fwd_kernel<kSaveProbs>;
+  const int smem = fixed + slots * kv_bytes;
+  auto kernel = block_long_fwd_kernel<kSaveProbs, kC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(batch * heads, &grid);
   if (err != cudaSuccess) return err;
-  CUtensorMap map;
-  err = long_tensor_map(&map, qkv, 3, 3 * width, batch, seq, heads, s_pad / 2);
+  CUtensorMap kv_map, q_map;
+  err = long_tensor_map(&kv_map, qkv, 3, 3 * width, batch, seq, heads, s64 / 2);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kLongFwdWarps * 32, smem, st>>>(map, qkv, out, probs, seq, width, heads,
-                                                 batch * heads, slots, scale);
+  err = long_tensor_map(&q_map, qkv, 3, 3 * width, batch, seq, heads, 64);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kLongFwdThreads, smem, st>>>(kv_map, q_map, out, probs, seq, width, heads,
+                                              batch * heads, slots, scale);
   return cudaGetLastError();
+}
+
+template <bool kSaveProbs>
+cudaError_t launch_block_long_fwd(const bf16* qkv, bf16* out, bf16* probs, int batch, int seq,
+                                  int width, int heads, float scale, cudaStream_t st) {
+  if (!long_takes(seq, width, heads)) return cudaErrorInvalidValue;
+  switch ((seq + 63) / 64) {
+    case 5:
+      return launch_block_long_fwd_at<kSaveProbs, 5>(qkv, out, probs, batch, seq, width, heads,
+                                                     scale, st);
+    case 6:
+      return launch_block_long_fwd_at<kSaveProbs, 6>(qkv, out, probs, batch, seq, width, heads,
+                                                     scale, st);
+    case 7:
+      return launch_block_long_fwd_at<kSaveProbs, 7>(qkv, out, probs, batch, seq, width, heads,
+                                                     scale, st);
+    case 8:
+      return launch_block_long_fwd_at<kSaveProbs, 8>(qkv, out, probs, batch, seq, width, heads,
+                                                     scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Kernels 4 (kDb) and 7 past the wide forms: qkv (B*S, 3C), probs (B, H, S,

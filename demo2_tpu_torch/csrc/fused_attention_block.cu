@@ -27,7 +27,8 @@
 //      (attention_wide_block.cuh) in its place, the same arithmetic on the
 //      wide pair's operand ring, and past 256 (up to 512: the flagship on
 //      TransReID's stride-12 crops, 311 and 442 tokens) the _long entries
-//      run block_long_fwd_kernel (attention_long_block.cuh);
+//      run block_long_fwd_kernel (attention_long_block.cuh: 64-row tasks,
+//      QK^T and PV on wgmma, the keys split over two warpgroups);
 //   4. gemm_sm90_kernel with a bias + bf16-residual epilogue -> out.
 //
 // What bounds it on an H100: at the flagship shape (M = 192 x 129 rows,

@@ -29,7 +29,7 @@ SOURCES = ("fused_attention_block.cu", "fused_mlp_block.cu", "attention_bwd.cu",
            "layernorm_bwd.cu", "jaccard_min_sum.cu", "attention_ablate.cu")
 HEADERS = ("gemm.cuh", "gemm_sm90.cuh", "attention_fwd.cuh", "attention_regs_fwd.cuh",
            "attention_regs_bwd.cuh", "attention_wide.cuh", "attention_wide_block.cuh",
-           "attention_long_block.cuh")
+           "attention_long_block.cuh", "wgmma_shapes.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,6 +3,8 @@
     python3 -m demo2_tpu_torch.tools.compare_trees parent/ . . parent/
     python3 -m demo2_tpu_torch.tools.compare_trees --cases wide parent/ . . parent/
     python3 -m demo2_tpu_torch.tools.compare_trees --steps parent/ . . parent/
+    python3 -m demo2_tpu_torch.tools.compare_trees --steps 442 parent/ . . parent/
+    python3 -m demo2_tpu_torch.tools.compare_trees --yardstick parent/ .
 
 Each argument is the root of a checkout (one that holds chip_smoke.py and
 demo2_tpu_torch/).  One process per argument, in the order given, each in its
@@ -29,8 +31,13 @@ whose name holds TEXT (`wide`: the wide pair alone; `block 211`: the block
 kernels' wide forms alone).  `--steps` times instead the
 stride-12 flagship's train step and batch-64 request (chip_smoke.py::
 time_long_step: host wall, six rounds, and the profiler's device busy with
-its largest items).  Two readings of one checkout say how far two processes
-differ before two checkouts are compared.
+its largest items), at 211 tokens (256x128) or at the crop of the tokens
+given after it (442: 256x256; chip_smoke.py::STEP_CROPS).
+`--yardstick` prints scaled_dot_product_attention's forward and backward at
+the long forms' shape and the profiler's rows of kernels 1, 3, 4 and 7
+there (chip_smoke.py::long_yardstick), so that their attention launch
+stands beside a well-made attention.  Two readings of one checkout say how
+far two processes differ before two checkouts are compared.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from pathlib import Path
 
 ROUNDS = 6
 STEPS = "--steps"  # the stride-12 flagship's step and request in place of the kernel cases
+YARDSTICK = "--yardstick"  # the long forms beside scaled_dot_product_attention
 TREE_SECONDS = 900  # one checkout's build and turns; a hung process fails the comparison
 CHIP_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"  # the cases' source
 CHILD = f"""
@@ -54,9 +62,13 @@ if not torch.cuda.is_available():
     raise SystemExit("compare_trees needs a CUDA device")
 device = torch.device("cuda", 0)
 cs.exact_products()
-keep = sys.argv[1]  # the --cases filter ("" keeps every case), or --steps
+keep = sys.argv[1]  # the --cases filter ("" keeps every case), --steps or --yardstick
 if keep == {STEPS!r}:
-    print(f"{{os.getcwd()}}: {{cs.time_long_step(device, cs.card_line())}}", flush=True)
+    line = cs.time_long_step(device, cs.card_line(), tokens=int(sys.argv[2]))
+    print(f"{{os.getcwd()}}: {{line}}", flush=True)
+    raise SystemExit(0)
+if keep == {YARDSTICK!r}:
+    print(f"{{os.getcwd()}}: {{cs.long_yardstick(device, cs.card_line())}}", flush=True)
     raise SystemExit(0)
 cases = {{**cs.compare_cases(device), **cs.longer_compare_cases(device)}}
 cases = {{name: call for name, call in cases.items() if keep in name}}
@@ -77,26 +89,36 @@ print(f"{{os.getcwd()}}: {{times}} ms{{refused}} ({{cs.card_line()}})", flush=Tr
 """
 
 
-def main(args: list[str]) -> None:
-    keep, trees = "", args
+def parse(args: list[str]) -> tuple:
+    """(the child's arguments, the trees) of a command line."""
+    keep, trees = [""], args
     if args[:1] == ["--cases"] and len(args) > 1:
-        keep, trees = args[1], args[2:]
+        keep, trees = args[1:2], args[2:]
     elif args[:1] == [STEPS]:
-        keep, trees = STEPS, args[1:]
+        tokens = args[1] if args[1:2] and args[1].isdigit() else "211"
+        keep, trees = [STEPS, tokens], args[1 + (args[1:2] == [tokens]):]
+    elif args[:1] == [YARDSTICK]:
+        keep, trees = [YARDSTICK], args[1:]
     if not trees:
         raise SystemExit("usage: python3 -m demo2_tpu_torch.tools.compare_trees "
-                         "[--cases TEXT | --steps] TREE [TREE ...]")
+                         "[--cases TEXT | --steps [TOKENS] | --yardstick] TREE [TREE ...]")
+    return keep, trees
+
+
+def main(args: list[str]) -> None:
+    keep, trees = parse(args)
     for tree in trees:
         if not (Path(tree) / "chip_smoke.py").is_file():
             raise SystemExit(f"compare_trees: {tree} holds no chip_smoke.py")
     for tree in trees:
-        done = subprocess.run([sys.executable, "-c", CHILD, keep], cwd=tree, capture_output=True,
-                              text=True, timeout=TREE_SECONDS)
+        done = subprocess.run([sys.executable, "-c", CHILD, *keep], cwd=tree,
+                              capture_output=True, text=True, timeout=TREE_SECONDS)
         if done.returncode != 0:
             raise SystemExit(f"compare_trees: {tree} failed:\n{done.stdout}{done.stderr}")
         lines = done.stdout.strip().splitlines()
-        # --steps: the profiles' lines too, where the step's and request's time goes
-        shown = [x for x in lines if x.startswith("[profile]")] if keep == STEPS else []
+        # --steps, --yardstick: the profiles' lines too, where the time goes
+        shown = [x for x in lines if x.startswith("[profile]")] if keep[0] in (STEPS, YARDSTICK) \
+            else []
         print("\n".join(shown + lines[-1:]), flush=True)
 
 

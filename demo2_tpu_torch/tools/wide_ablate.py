@@ -48,8 +48,8 @@ LONG_ABLATIONS below), timing kernels 1, 3, 4 and 7 at x (192, 442, 768)
   bwd_nodq     the backward's query warps skip the dQ product (the halves of
                dQ's partial are still traded);
   fwd_noexp    the forward with e = s * scale - m in place of expf;
-  fwd_nopv     the forward without the PV product;
-  fwd_nostore  kernel 3 without the copy of its P tiles to probs.
+  fwd_nopv     the forward without the PV products;
+  fwd_nostore  kernel 3 without the copy of its p to probs.
 
 OUT_DIR should be a directory that .gitignore lists; it is emptied first.
 """
@@ -155,12 +155,12 @@ LONG_ABLATIONS = {
                   "          if (lk < 0) {\n            const int c = 2 * lk")],
     "bwd_nodq": [("        for (int j = 0; j < kcnt; ++j) {\n          uint32_t dsa[4];",
                   "        for (int j = 0; j < 0; ++j) {\n          uint32_t dsa[4];")],
-    "fwd_noexp": [("const float x = expf(s[nt][e] - (e < 2 ? m0 : m1));",
-                   "const float x = s[nt][e] - (e < 2 ? m0 : m1);")],
-    "fwd_nopv": [("    for (int j = 0; j < pairs; ++j) {\n      uint32_t a[4], fb[4];",
-                  "    for (int j = 0; j < 0; ++j) {\n      uint32_t a[4], fb[4];")],
-    "fwd_nostore": [("    if constexpr (kSaveProbs) {\n      // The team's P rows",
-                     "    if constexpr (false) {\n      // The team's P rows")],
+    "fwd_noexp": [("const float x = expf(s[c][e] - ((e & 2) ? m1 : m0));",
+                   "const float x = s[c][e] - ((e & 2) ? m1 : m0);")],
+    "fwd_nopv": [("      for (int hh = 0; hh < 2; ++hh)\n        LongMma<64>::rs<1>(o,",
+                  "      for (int hh = 0; hh < 0; ++hh)\n        LongMma<64>::rs<1>(o,")],
+    "fwd_nostore": [("    if constexpr (kSaveProbs) {\n      // The warp's 16 rows of p to probs",
+                     "    if constexpr (false) {\n      // The warp's 16 rows of p to probs")],
 }
 
 

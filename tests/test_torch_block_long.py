@@ -309,6 +309,6 @@ def test_long_step_timing_rehearses_on_the_plain_versions(monkeypatch):
     line = cs.time_long_step(CPU, None, rounds=1, reps=1, warmup=0)
     assert line.startswith("s12 step ") and "batch-64 request" in line
     assert "device busy" not in line
-    assert "cs.time_long_step(device, cs.card_line())" in compare_trees.CHILD
+    assert "cs.time_long_step(device, cs.card_line(), tokens=int(sys.argv[2]))" in compare_trees.CHILD
     with pytest.raises(SystemExit, match="usage"):
         compare_trees.main([compare_trees.STEPS])

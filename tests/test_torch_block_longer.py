@@ -109,14 +109,15 @@ def test_tiny_flagship_at_384x128_stride_12_matches_jax(no_flax_dropout):
 
 def test_chip_smoke_longer_phase_rehearses_on_the_plain_versions(monkeypatch, capsys):
     """Phase 37 (a) of chip_smoke.py on the CPU at small stand-ins past 256
-    tokens, where each wrapper is its plain version: every check runs (the
-    controls beyond their bounds), the launch checks only log, nothing is
-    timed."""
+    tokens and at the edges of the 64-row tiling, where each wrapper is its
+    plain version: every check runs (the controls beyond their bounds), the
+    launch checks only log, nothing is timed."""
     import chip_smoke as cs
 
     monkeypatch.setattr(cs, "REHEARSAL", True)
-    errors, times = cs.phase_long_block_kernels(CPU, None, shapes=((1, 257, 128),),
-                                                edges=((1, 272, 384),), form="_long")
+    errors, times = cs.phase_long_block_kernels(
+        CPU, None, shapes=((1, 257, 128), (1, 300, 128)), edges=((1, 272, 384), (1, 449, 384)),
+        form="_long")
     assert errors == {name: 0.0 for name in cs.form_names("_long")}
     assert times == {}
     out = capsys.readouterr().out
@@ -124,6 +125,10 @@ def test_chip_smoke_longer_phase_rehearses_on_the_plain_versions(monkeypatch, ca
     assert "misrounded control" in out
     assert "kernel 4 dqkv (1, 272, 384): control with dS left in f32" in out
     assert "kernel 8 (1, 257, 384)" in out
+    # the forward's 64-row tiling's edges: a last query tile of a few rows;
+    # 29 key tiles in the backward
+    assert "kernel 3 attn (1, 300, 128): vs the plain version rounding alike" in out
+    assert "kernel 4 dqkv (1, 449, 384): control with dS left in f32" in out
     assert "every launch on the long forms: ok" in out
     assert "attention_bwd_saved_db_long" in out  # the launches the card must show
 
@@ -165,3 +170,23 @@ def test_every_long_ablation_applies_to_the_long_source(name):
     assert changed != source
     for _, new in wide_ablate.LONG_ABLATIONS[name]:
         assert new in changed
+
+
+def test_steps_option_times_the_442_token_flagship(monkeypatch):
+    """tools/compare_trees.py --steps 442 hands the crop's tokens to each
+    checkout's process, and chip_smoke.py::time_long_step rehearses the
+    256x256 crop (its cache cut to LONGER_PIDS ids, as phase 37 cuts it) on
+    the plain versions: one timed call of its step and request, their line."""
+    import chip_smoke as cs
+    from demo2_tpu_torch.tools import compare_trees
+
+    assert compare_trees.parse(["--steps", "442", "a", "b"]) == (["--steps", "442"], ["a", "b"])
+    assert compare_trees.parse(["--steps", "a"]) == (["--steps", "211"], ["a"])
+    assert compare_trees.parse(["--yardstick", "a"]) == (["--yardstick"], ["a"])
+    with pytest.raises(SystemExit, match="usage"):
+        compare_trees.parse(["--steps", "442"])
+    assert cs.STEP_CROPS[442] == (cs.LONGER_CROPS[0], cs.LONGER_PIDS)
+    monkeypatch.setattr(cs, "REHEARSAL", True)
+    line = cs.time_long_step(CPU, None, rounds=1, reps=1, warmup=0, tokens=442)
+    assert line.startswith("s12-442 step ") and "batch-64 request" in line
+    assert "device busy" not in line
